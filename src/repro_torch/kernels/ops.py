@@ -1,0 +1,74 @@
+"""Stacked-worker and chunk-window wrappers around the codec kernels.
+
+The reference's ``kernels/ops.py`` pads every array to a 256x1024 tile grid
+and vmaps that layout over the worker axis.  The grid only ever appends
+padding that is sliced off again before the payload is rolled, so the port
+has no grid: one launch covers the whole ``[n, ...]`` leaf or ``[n, D]``
+bucket.  Two things of the reference layout fix the payload bits and are
+kept:
+
+* each leaf's last dim is zero-padded to values-per-byte (the kernels do it
+  in place: columns past the end encode as zeros);
+* the counter index is ``idx_base`` plus the position in the worker's padded
+  row and restarts at 0 for every worker (Supp. C shared randomness).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantizers import QuantSpec
+from repro_torch.kernels import moniqua_decode_reduce as _dr
+from repro_torch.kernels import moniqua_encode as _enc
+
+# Hash seed of a round without one: only nearest rounding may omit the seed
+# (it never draws a uniform); the engine rejects a missing seed otherwise.
+NO_KEY_SEED = 0
+
+
+def _rows_view(x: torch.Tensor) -> torch.Tensor:
+    """``[n, ..., last]`` as a contiguous ``[n, rows, last]``."""
+    if x.dim() < 2:
+        raise ValueError(f"stacked leaves are [n, ...] with ndim >= 2, "
+                         f"got {tuple(x.shape)}")
+    return x.contiguous().reshape(x.shape[0], -1, x.shape[-1])
+
+
+def moniqua_encode_stacked(x: torch.Tensor, B, spec: QuantSpec, seed: int, *,
+                           idx_base: int = 0) -> torch.Tensor:
+    """Encode a stacked ``[n, ...]`` leaf in one launch -> packed uint8
+    ``[n, ..., ceil(last / vpb)]``.  ``idx_base`` is shared by every worker."""
+    p = _enc.encode(_rows_view(x), B, seed, bits=spec.bits,
+                    stochastic=spec.stochastic, idx_base=idx_base)
+    return p.reshape(*x.shape[:-1], p.shape[-1])
+
+
+def moniqua_decode_reduce_stacked(p_self: torch.Tensor, p_nbrs: torch.Tensor,
+                                  y: torch.Tensor, B, weights,
+                                  spec: QuantSpec) -> torch.Tensor:
+    """Fused decode-reduce over a stacked leaf in one launch.  ``p_self`` and
+    ``y`` carry the worker axis at 0; ``p_nbrs`` stacks the neighbor payloads
+    at axis 0 with the worker axis at 1 (one roll per offset)."""
+    y3 = _rows_view(y)
+    ps = p_self.contiguous().reshape(*y3.shape[:2], -1)
+    pn = p_nbrs.contiguous().reshape(p_nbrs.shape[0], *y3.shape[:2], -1)
+    out = _dr.decode_reduce(ps, pn, y3, B, bits=spec.bits,
+                            weights=tuple(weights))
+    return out.reshape(y.shape)
+
+
+def moniqua_encode_chunk(flat: torch.Tensor, offset: int, size: int, B,
+                         spec: QuantSpec, seed: int) -> torch.Tensor:
+    """Encode the window ``flat[:, offset:offset+size]`` of a stacked flat
+    buffer with globally indexed uniforms (``idx_base = offset``)."""
+    return moniqua_encode_stacked(flat[:, offset:offset + size], B, spec,
+                                  seed, idx_base=offset)
+
+
+def moniqua_decode_reduce_chunk(p_self: torch.Tensor, p_nbrs: torch.Tensor,
+                                flat: torch.Tensor, offset: int, size: int, B,
+                                weights, spec: QuantSpec) -> torch.Tensor:
+    """Fused decode-reduce of one chunk's payloads against the matching
+    window of the local flat buffer."""
+    return moniqua_decode_reduce_stacked(p_self, p_nbrs,
+                                         flat[:, offset:offset + size], B,
+                                         weights, spec)

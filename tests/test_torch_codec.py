@@ -1,0 +1,207 @@
+"""The port's codec against the JAX package, bit for bit, on the CPU.
+
+Same numpy inputs from a seed go through the reference function (its jnp
+path, as the reference engine runs it off-TPU, eagerly) and the port's
+counterpart; every comparison is exact equality.  On the CPU the port's
+kernel wrappers take their plain PyTorch versions, so this pins the
+semantics the CUDA kernels are held to on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import modulo as jmod
+from repro.core import quantizers as jq
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import modulo as tmod
+from repro_torch.core import quantizers as tq
+from repro_torch.kernels import moniqua_decode_reduce as tdr
+from repro_torch.kernels import moniqua_encode as tenc
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+BITS = [1, 2, 4, 8]
+
+
+def _eq(a, b):
+    np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def _spec(bits, stochastic):
+    return tq.QuantSpec(bits=bits, stochastic=stochastic), \
+        jq.QuantSpec(bits=bits, stochastic=stochastic)
+
+
+def _B(bits, stochastic):
+    """B for the spec (1-bit stochastic has delta = 1/2: no B, use 0.7)."""
+    if bits == 1 and stochastic:
+        return np.float32(0.7), torch.tensor(0.7)
+    delta = jq.delta_for_bits(bits, stochastic)
+    return jmod.b_theta(2.0, delta), tmod.b_theta(2.0, delta, "cpu")
+
+
+@pytest.mark.parametrize("a", [1.0, 0.37, 3.7])
+def test_cmod_bitwise(a):
+    rng = np.random.default_rng(0)
+    z = (rng.standard_normal(4096) * 5 * a).astype(np.float32)
+    edges = np.float32(a) * np.array([0.5, -0.5, 1.5, -1.5, 0, 2, -2],
+                                     np.float32)
+    z = np.concatenate([z, edges])
+    out = tmod.cmod(torch.from_numpy(z), a)
+    _eq(jmod.cmod(jnp.asarray(z), a), out)
+    _eq(jref.cmod(jnp.asarray(z), a), tref.cmod(torch.from_numpy(z), a))
+    # the half-open edge: a/2 maps to -a/2
+    half = np.float32(a) / np.float32(2)
+    assert tmod.cmod(torch.tensor([half]), a).item() == -half
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stochastic", [True, False])
+def test_b_theta_and_recover_bitwise(bits, stochastic):
+    delta = jq.delta_for_bits(bits, stochastic)
+    if delta >= 0.5:
+        with pytest.raises(ValueError):
+            tmod.b_theta(2.0, delta, "cpu")
+        return
+    for theta in (2.0, 0.3, 1e-3):
+        _eq(jmod.b_theta(theta, delta), tmod.b_theta(theta, delta, "cpu"))
+    rng = np.random.default_rng(bits)
+    q, y = (rng.standard_normal((2, 999)) * 3).astype(np.float32)
+    B = 2.0 / (1 - 2 * delta)
+    _eq(jmod.recover(jnp.asarray(q), jnp.asarray(y), B),
+        tmod.recover(torch.from_numpy(q), torch.from_numpy(y), B))
+    _eq(jmod.local_bias(jnp.asarray(q), jnp.asarray(y), B),
+        tmod.local_bias(torch.from_numpy(q), torch.from_numpy(y), B))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 0xDEADBEEF, 0xFFFFFFFF])
+def test_counter_hash_bitwise(seed):
+    idx = np.concatenate([np.arange(70000, dtype=np.uint64),
+                          np.arange(2 ** 32 - 5000, 2 ** 32, dtype=np.uint64),
+                          np.array([2 ** 31, 2 ** 31 - 1], np.uint64)])
+    ref = jq._counter_uniform(jnp.uint32(seed),
+                              jnp.asarray(idx.astype(np.uint32)))
+    out = tq._counter_uniform(seed, torch.from_numpy(idx.astype(np.int64)))
+    _eq(ref, out)
+    assert float(out.min()) >= 0.0 and float(out.max()) < 1.0
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_pack_unpack_bitwise(bits):
+    rng = np.random.default_rng(bits)
+    codes = rng.integers(0, 2 ** bits, size=(3, 37)).astype(np.uint8)
+    packed = tq.pack_codes(torch.from_numpy(codes), bits)
+    _eq(jq.pack_codes(jnp.asarray(codes), bits), packed)
+    _eq(jq.unpack_codes(jnp.asarray(np.asarray(packed)), bits, 37),
+        tq.unpack_codes(packed, bits, 37))
+    assert packed.shape[-1] == tq.packed_last_dim(37, bits)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stochastic", [True, False])
+def test_encode_ref_bitwise(bits, stochastic):
+    """ref.encode_ref on a byte-aligned array, idx_base != 0."""
+    rng = np.random.default_rng(10 + bits)
+    x = (rng.standard_normal((6, 64)) * 2).astype(np.float32)
+    jB, tB = _B(bits, stochastic)
+    ref = jref.encode_ref(jnp.asarray(x), jB, bits, stochastic, 1234,
+                          idx_base=777)
+    out = tref.encode_ref(torch.from_numpy(x), tB, bits, stochastic, 1234,
+                          idx_base=777)
+    _eq(ref, out)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encode_stacked_payload_bitwise(bits, stochastic, dtype):
+    """The encode wrapper on [n, rows, ragged cols] (idx_base != 0) against
+    ops.moniqua_encode_jnp, per worker, as the reference engine calls it."""
+    rng = np.random.default_rng(20 + bits)
+    x32 = (rng.standard_normal((3, 5, 29)) * 3).astype(np.float32)
+    tspec, jspec = _spec(bits, stochastic)
+    jB, tB = _B(bits, stochastic)
+    seed, base = 0x9E37, 5003
+    xt = torch.from_numpy(x32).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.float().numpy()).astype(getattr(jnp, dtype))
+    out = tenc.encode(xt, tB, seed, bits=bits, stochastic=stochastic,
+                      idx_base=base)
+    assert out.shape == (3, 5, tq.packed_last_dim(29, bits))
+    for w in range(3):
+        ref = jops.moniqua_encode_jnp(xj[w], jB, jspec, jnp.uint32(seed),
+                                      idx_base=base)
+        _eq(ref, out[w])
+    stacked = tops.moniqua_encode_stacked(xt, tB, tspec, seed, idx_base=base)
+    _eq(jops.moniqua_encode_stacked(xj, jB, jspec, jnp.uint32(seed),
+                                    backend="jnp", idx_base=base), stacked)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_reduce_bitwise(bits, m, dtype):
+    """The decode-reduce wrapper against ops.moniqua_decode_reduce_jnp on
+    random payloads, a ragged last dim and values that wrap mod B."""
+    rng = np.random.default_rng(30 + bits + m)
+    n, rows, cols = 4, 3, 21
+    pc = tq.packed_last_dim(cols, bits)
+    ps = rng.integers(0, 256, (n, rows, pc)).astype(np.uint8)
+    pn = rng.integers(0, 256, (m, n, rows, pc)).astype(np.uint8)
+    y = (rng.standard_normal((n, rows, cols)) * 4).astype(np.float32)
+    weights = tuple(rng.uniform(0.05, 0.3, m))
+    tspec, jspec = _spec(bits, bits > 1)
+    jB, tB = _B(bits, bits > 1)
+    yt = torch.from_numpy(y).to(getattr(torch, dtype))
+    yj = jnp.asarray(yt.float().numpy()).astype(getattr(jnp, dtype))
+    out = tdr.decode_reduce(torch.from_numpy(ps), torch.from_numpy(pn), yt,
+                            tB, bits=bits, weights=weights)
+    assert out.dtype == yt.dtype and out.shape == yt.shape
+    ref = jops.moniqua_decode_reduce_stacked(
+        jnp.asarray(ps), jnp.asarray(pn), yj, jB, weights, jspec,
+        backend="jnp")
+    _eq(ref.astype(jnp.float32), out.float())
+
+
+def test_wrappers_reject_bad_input():
+    x = torch.zeros(2, 3, 8)
+    with pytest.raises(ValueError):
+        tenc.encode(x, torch.tensor(1.0), 0, bits=3, stochastic=False)
+    with pytest.raises(ValueError):
+        tenc.encode(x[0], torch.tensor(1.0), 0, bits=8, stochastic=False)
+    with pytest.raises(TypeError):
+        tenc.encode(x.double(), torch.tensor(1.0), 0, bits=8,
+                    stochastic=False)
+    p = torch.zeros(2, 3, 8, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        tdr.decode_reduce(p, p[None, :, :, :4], x, torch.tensor(1.0),
+                          bits=8, weights=(0.5,))
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_point_decode_ref_bitwise(bits):
+    """ref.decode_ref (line 5) and ref.decode_self_ref (line 4)."""
+    rng = np.random.default_rng(40 + bits)
+    packed = rng.integers(0, 256, (4, 16)).astype(np.uint8)
+    y = (rng.standard_normal((4, 16 * 8 // bits)) * 3).astype(np.float32)
+    jB, tB = _B(bits, bits > 1)
+    pt, yt = torch.from_numpy(packed), torch.from_numpy(y)
+    _eq(jref.decode_ref(jnp.asarray(packed), jnp.asarray(y), jB, bits),
+        tref.decode_ref(pt, yt, tB, bits))
+    _eq(jref.decode_self_ref(jnp.asarray(packed), jnp.asarray(y), jB, bits),
+        tref.decode_self_ref(pt, yt, tB, bits))
+
+
+@pytest.mark.parametrize("mode", ["constant", "theory"])
+def test_theta_schedule_matches_reference(mode):
+    from repro.core.theta import ThetaSchedule as JTheta
+    from repro.core.theta import theta_dpsgd as j_theta_dpsgd
+    from repro_torch.core.theta import ThetaSchedule as TTheta
+    from repro_torch.core.theta import theta_dpsgd as t_theta_dpsgd
+    kw = dict(mode=mode, value=1.5, n=8, rho=0.8)
+    for g_inf in (0.0, 0.37, 4.0):
+        ref = float(JTheta(**kw)(0.1, jnp.float32(g_inf)))
+        out = float(TTheta(**kw)(0.1, torch.tensor(g_inf)))
+        assert out == pytest.approx(ref, rel=1e-6)
+    assert t_theta_dpsgd(0.1, 2.0, 8, 0.5) == j_theta_dpsgd(0.1, 2.0, 8, 0.5)

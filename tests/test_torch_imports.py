@@ -1,0 +1,33 @@
+"""The port stands alone: importing every ``repro_torch`` module loads
+neither JAX nor any module of the JAX package ``repro``."""
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro")
+             or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.kernels.moniqua_encode" in res["modules"]
+    assert "repro_torch.train.trainer" in res["modules"]
+    assert len(res["modules"]) >= 25
+    assert res["bad"] == [], f"repro_torch pulled in: {res['bad']}"
