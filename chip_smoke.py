@@ -26,12 +26,35 @@ Phases (any failure exits non-zero, and the result line is not printed):
    could take; the step time of each run.
 6. A torch.profiler trace of three 8-bit main-path steps: device busy share,
    launches, and device time by kernel group and by kernel.
+7. The flash-attention kernel against its plain version in float32 on the
+   same inputs, on the card: the reference tests' sweep (S 256/384/128/130
+   with windows 0/100/32/0), non-causal Sq=130/Sk=256, head dims 64 and 128
+   (and 96, 256 once), and the serving shape [48, 4096, 128] causal, each
+   in float32 (rtol = atol = 2e-5, the reference tests' numbers) and
+   bfloat16 (within the reference tests' atol 0.03, and element by element
+   within one bfloat16 ulp of the plain value plus the float32 tolerance).
+8. The single-payload decode kernel against its plain version, bitwise
+   (bits 1/2/4/8 x remote/self x float32/bfloat16 x a ragged row), then its
+   path: the ResNet-20 bucket encoded and decoded through
+   ``ops.moniqua_decode_remote`` / ``_self`` within Lemma 2's delta * B.
+9. Serving llama3.2-3b at full width and depth in float32 (TF32 off),
+   batch 2, a 256-token prompt: prefill through the flash kernel against
+   the plain masked-softmax path, and the prompt fed token by token through
+   ``serve_step`` against prefill, both within 1e-3 x max|logit|; then 16
+   greedy tokens.
+10. The published bfloat16 llama3.2-3b, its config as registered (which
+   serves through the flash kernel by default): prefill of 2 x 4096 tokens
+   (the flash kernel launched once per layer, 28 times), its gap to the
+   plain path, 32 greedy decode tokens against a 4096-slot cache; prefill and
+   decode times and profiles of one prefill and of 4 decode tokens.
+11. Times of the two new kernels at their serving / main-path shapes.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -121,6 +144,377 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+# -- serving slice: flash attention, point decode, llama3.2-3b -------------
+
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense (data sheet)
+SERVE_ARCH = "llama3.2-3b"
+SERVE_BATCH = 2
+F32_PROMPT, F32_GREEDY = 256, 16          # phase 9
+BF16_PROMPT, BF16_GREEDY = 4096, 32       # phase 10
+FLASH_MAIN = (48, 4096, 128)              # [B*H, S, D] of phase 10's prefill
+# float32 serving checks (phase 9): the flash path and the token-by-token
+# decode against prefill, each within this share of max|logit|
+F32_LOGIT_TOL = 1e-3
+# Bound on phase 10's bfloat16 gap between the flash and the plain prefill,
+# as a share of max|logit|.  Phase 9 holds the kernel path to the plain one
+# within 1e-3 in float32, so in bfloat16 the gap is rounding: the plain path
+# rounds the scores and the softmax weights to bfloat16, the kernel keeps
+# them in float32, and each path's activations are rounded to bfloat16 in
+# all 28 layers.  bfloat16 keeps 8 bits (relative step 2^-8 = 0.4%); over
+# 28 layers such gaps grow to a few percent of the largest logit.  The
+# bound allows 0.1.
+BF16_GAP_BOUND = 0.1
+DECODE_OPS = 11                # value (4) + sub + cmod (5) + add
+
+
+def serve_config(**over):
+    """The published config as registered, with ``over`` replaced: it
+    serves through the flash kernel unless ``flash_attention=False`` asks
+    for the plain masked-softmax path."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SERVE_ARCH), **over)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at |x| (8 significant bits): 2^(e - 8) for
+    |x| = m 2^e, m in [0.5, 1); 0 at x = 0."""
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def flash_close(got: torch.Tensor, want: torch.Tensor):
+    """The flash kernel's output against its plain version in float32 on
+    the same inputs -> (ok, max abs error, worst error / tolerance).
+    float32: within rtol = atol = 2e-5 (the two sum in other orders).
+    bfloat16: within the reference tests' atol 0.03 and, element by
+    element, within one bfloat16 ulp of |want| plus the float32 tolerance,
+    since the kernel's output is one rounding of a float32 result."""
+    err = (got.float() - want).abs()
+    tol = 2e-5 * (1 + want.abs())
+    if got.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(want)
+    max_err = float(err.max())
+    ok = bool((err <= tol).all())
+    if got.dtype == torch.bfloat16:
+        ok = ok and max_err <= 0.03
+    return ok, max_err, float((err / tol).max())
+
+
+def causal_pairs(s: int) -> int:
+    """(query, key) pairs that s causal query rows attend."""
+    return s * (s + 1) // 2
+
+
+def profile_serving(fn, what, card):
+    """Device busy share, launches and device time by kernel group of one
+    call of ``fn`` under torch.profiler (its ``serve.*`` ranges are host
+    annotations and are left out of the device sums)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("serve.")]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    if busy_us == 0:
+        print(f"profile: {what}: no device time recorded (not measured)")
+        return
+    groups = {"flash kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in kern:
+        nm = e.key.lower()
+        g = ("flash kernel" if "fa_kernel" in nm else "gemm"
+             if any(t in nm for t in ("gemm", "xmma", "sm90", "cutlass",
+                                      "nvjet", "gemv", "matmul"))
+             else "other")
+        groups[g] += e.self_device_time_total
+    print(f"profile: {what}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), "
+          f"{sum(e.count for e in kern)} kernel launches | " + " | ".join(
+              f"{g} {v / 1e3:.3f} ms" for g, v in groups.items())
+          + f" {card}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def serving_phases(dev, timer, card, flat, B8):
+    """Phases 7-11; returns the kernels-line entries of the two new
+    kernels."""
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import QuantSpec, delta_for_bits
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import moniqua_decode as kdec
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train.serve_step import make_prefill_step, make_serve_step
+
+    gen = torch.Generator().manual_seed(12)
+
+    # -- 7. flash kernel against its plain version -------------------------
+    cases = [(True, 256, 256, 0), (True, 384, 384, 100), (True, 128, 128, 32),
+             (True, 130, 130, 0), (False, 130, 256, 0)]
+    n = 0
+    for causal, sq, sk, window in cases:
+        for d in (64, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.randn((4, s, d), generator=gen).to(dtype)
+                           .to(dev) for s in (sq, sk, sk))
+                kw = dict(scale=1.0 / math.sqrt(d), causal=causal,
+                          window=window)
+                got = kfa.flash_attention(q, k, v, **kw)
+                want = kfa.flash_attention_plain(q.float(), k.float(),
+                                                 v.float(), **kw)
+                what = (f"flash {dtype} causal={causal} sq={sq} sk={sk} "
+                        f"window={window} d={d}")
+                check(got.dtype == dtype and got.shape == q.shape,
+                      what + ": dtype/shape")
+                ok, err, ratio = flash_close(got, want)
+                check(ok, what + f" != plain (max abs {err:.3g}, "
+                      f"{ratio:.3g} x tolerance)")
+                n += 1
+    for d in (96, 256):                       # padded and widest head dims
+        q, k, v = (torch.randn((4, 384, d), generator=gen).to(dev)
+                   for _ in range(3))
+        kw = dict(scale=1.0 / math.sqrt(d), causal=True, window=100)
+        ok, err, _ = flash_close(kfa.flash_attention(q, k, v, **kw),
+                                 kfa.flash_attention_plain(q, k, v, **kw))
+        check(ok, f"flash d={d} != plain (max abs {err:.3g})")
+        n += 1
+    bh, s_main, d_main = FLASH_MAIN
+    fa_kw = dict(scale=1.0 / math.sqrt(d_main), causal=True, window=0)
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qm, km, vm = (torch.randn(FLASH_MAIN, generator=gen).to(dtype)
+                      .to(dev) for _ in range(3))
+        want = kfa.flash_attention_plain(qm.float(), km.float(), vm.float(),
+                                         **fa_kw)
+        ok, err, ratio = flash_close(kfa.flash_attention(qm, km, vm,
+                                                         **fa_kw), want)
+        check(ok, f"flash {list(FLASH_MAIN)} {dtype} != plain (max abs "
+              f"{err:.3g}, {ratio:.3g} x tolerance)")
+        main[dtype] = (err, ratio, float(want.abs().median()))
+        del want
+    fa_err = main[torch.bfloat16][0]       # qm, km, vm: the bfloat16 inputs
+    torch.cuda.synchronize()
+    print(f"phase 7: flash kernel == plain version in {n} sweep cases "
+          f"(float32 rtol=atol=2e-5; bfloat16 atol 0.03 and one bfloat16 "
+          f"ulp + the float32 tolerance) and at {list(FLASH_MAIN)} causal: "
+          + ", ".join(f"{str(dt)[6:]} max abs {e:.4g} ({r:.3g} x tolerance,"
+                      f" median |plain| {m:.4g})"
+                      for dt, (e, r, m) in main.items()), flush=True)
+
+    # -- 8. decode kernel: bitwise sweep, then its path --------------------
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        y_cpu = (torch.randn((3, 5, 1003), generator=gen) * 4).to(dtype)
+        y = y_cpu.to(dev)
+        for bits in (1, 2, 4, 8):
+            spec = QuantSpec(bits, bits > 1)
+            B_cpu = modulo.b_theta(2.0, delta_for_bits(bits, bits > 1), "cpu")
+            p_cpu = torch.randint(0, 256, (3, 5, -(-1003 // (8 // bits))),
+                                  generator=gen, dtype=torch.uint8)
+            for mode in kdec.MODES:
+                fn = getattr(ops, f"moniqua_decode_{mode}")
+                got = fn(p_cpu.to(dev), y, B_cpu.to(dev), spec)
+                plain = kdec.decode_plain(
+                    p_cpu.to(dev).reshape(15, -1), y.reshape(15, -1),
+                    B_cpu.to(dev), bits=bits, mode=mode).reshape(y.shape)
+                cpu = fn(p_cpu, y_cpu, B_cpu, spec)
+                what = f"decode {mode} {dtype} bits={bits}"
+                check(torch.equal(got, plain), what + " != plain (card)")
+                check(torch.equal(got.cpu(), cpu), what + " != plain (CPU)")
+                n += 1
+    # the path: each worker encodes, receives its left neighbor's payload
+    # and decodes it (line 5) and its own (line 4)
+    spec8 = QuantSpec(8)
+    torch.cuda.synchronize()
+    kenc.encode.launches = kdec.decode.launches = 0
+    kfa.flash_attention.launches = 0
+    p_self = ops.moniqua_encode_stacked(flat, B8, spec8, 7)
+    p_nbr = torch.roll(p_self, 1, 0)
+    x_remote = ops.moniqua_decode_remote(p_nbr, flat, B8, spec8)
+    x_self = ops.moniqua_decode_self(p_self, flat, B8, spec8)
+    torch.cuda.synchronize()
+    dec_launches = kdec.decode.launches
+    check(dec_launches == 2 and kenc.encode.launches == 1,
+          f"decode path launches: decode {dec_launches} (want 2), encode "
+          f"{kenc.encode.launches} (want 1)")
+    lemma2 = float(delta_for_bits(8, True) * B8) * (1 + 1e-3)
+    e_remote = float((x_remote - torch.roll(flat, 1, 0)).abs().max())
+    e_self = float((x_self - flat).abs().max())
+    check(e_remote <= lemma2 and e_self <= lemma2,
+          f"decode path errors {e_remote}, {e_self} > delta*B {lemma2}")
+    plain8 = kdec.decode_plain(p_nbr, flat, B8, bits=8)
+    dec_err = float((kdec.decode(p_nbr, flat, B8, bits=8) - plain8
+                     ).abs().max())
+    check(dec_err == 0, f"decode at {list(flat.shape)} != plain")
+    print(f"phase 8: decode kernel == plain version bitwise in {n} sweep "
+          f"cases (card and CPU); its path on the ResNet-20 bucket "
+          f"{list(flat.shape)}: {dec_launches} launches, |x_hat - x| "
+          f"remote {e_remote:.4g}, self {e_self:.4g} <= delta*B "
+          f"{lemma2:.4g}", flush=True)
+
+    # -- 9. float32 llama3.2-3b, full width and depth ----------------------
+    m32 = Model(serve_config(dtype="float32"), "cuda")
+    m32_plain = Model(serve_config(dtype="float32", flash_attention=False),
+                      "cuda")
+    check(m32.cfg.flash_attention, "the config's default is not the kernel")
+    cfg = m32.cfg
+    t0 = time.perf_counter()
+    params = m32.init(m32.generator(0))
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in tree.leaves(params))
+    print(f"serve f32: {SERVE_ARCH} {n_params / 1e9:.3f} B params drawn on "
+          f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch = SyntheticLMPipeline(m32, InputShape("smoke_f32", F32_PROMPT,
+                                                SERVE_BATCH, "prefill"),
+                                seed=0).global_batch(0)
+    tokens = batch["tokens"]
+    lf = make_prefill_step(m32)(params, batch)
+    lp = make_prefill_step(m32_plain)(params, batch)
+    scale32 = float(lp.abs().max())
+    gap_i = float((lf - lp).abs().max()) / scale32
+    check(bool(torch.isfinite(lf).all()), "f32 prefill logits not finite")
+    check(gap_i <= F32_LOGIT_TOL, f"f32 flash vs plain prefill {gap_i:.3g} "
+          f"x max|logit| > {F32_LOGIT_TOL}")
+    serve = make_serve_step(m32)
+    cache = m32.init_cache(SERVE_BATCH, InputShape(
+        "smoke_f32_decode", F32_PROMPT + F32_GREEDY, SERVE_BATCH, "decode"))
+    for t in range(F32_PROMPT):
+        logits, cache = serve(params, cache, tokens[:, t:t + 1])
+    gap_ii = float((logits - lf).abs().max()) / scale32
+    check(gap_ii <= F32_LOGIT_TOL, f"f32 token-by-token decode vs prefill "
+          f"{gap_ii:.3g} x max|logit| > {F32_LOGIT_TOL}")
+    greedy = []
+    for _ in range(F32_GREEDY):
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+        greedy.append(tok)
+        logits, cache = serve(params, cache, tok.int())
+        check(bool(torch.isfinite(logits).all()), "f32 decode not finite")
+    check(int(cache["pos"]) == F32_PROMPT + F32_GREEDY, "f32 cache pos")
+    print(f"phase 9: {SERVE_ARCH} float32 (TF32 off), batch {SERVE_BATCH}, "
+          f"{F32_PROMPT}-token prompt: last-position logits flash vs plain "
+          f"prefill {gap_i:.3g} x max|logit| ({scale32:.4g}), token-by-token "
+          f"serve_step vs prefill {gap_ii:.3g}; greedy "
+          f"{torch.cat(greedy, 1).tolist()}", flush=True)
+    del params, cache, lf, lp, logits
+    torch.cuda.empty_cache()
+
+    # -- 10. the published bfloat16 model ----------------------------------
+    mbf = Model(serve_config(), "cuda")          # the published config
+    mbf_plain = Model(serve_config(flash_attention=False), "cuda")
+    cfg = mbf.cfg
+    check(cfg.dtype == "bfloat16", f"published dtype {cfg.dtype}")
+    params = mbf.init(mbf.generator(0))
+    shape = InputShape("smoke_prefill_4k", BF16_PROMPT, SERVE_BATCH,
+                       "prefill")
+    batch = SyntheticLMPipeline(mbf, shape, seed=1).global_batch(0)
+    prefill = make_prefill_step(mbf)
+    torch.cuda.synchronize()
+    kfa.flash_attention.launches = 0
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    fa_launches = kfa.flash_attention.launches
+    check(fa_launches == cfg.num_layers, f"bf16 prefill launched flash "
+          f"{fa_launches} times, want {cfg.num_layers}")
+    check(bool(torch.isfinite(logits).all()), "bf16 prefill not finite")
+    plain = make_prefill_step(mbf_plain)(params, batch)
+    gap = float((logits - plain).abs().max()) / float(plain.abs().max())
+    check(gap <= BF16_GAP_BOUND, f"bf16 flash vs plain prefill {gap:.4g} "
+          f"x max|logit| > {BF16_GAP_BOUND}")
+    del plain
+    prefill_ms = host_ms(lambda: prefill(params, batch), reps=3)
+    serve = make_serve_step(mbf)
+    cache = mbf.init_cache(SERVE_BATCH, InputShape(
+        "smoke_decode_4k", BF16_PROMPT, SERVE_BATCH, "decode"))
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True).int()
+    out, cache = serve(params, cache, tok)          # warm-up: first token
+    torch.cuda.synchronize()
+    greedy = [tok]
+    t0 = time.perf_counter()
+    for _ in range(BF16_GREEDY - 1):
+        tok = out[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True).int()
+        greedy.append(tok)
+        out, cache = serve(params, cache, tok)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / (BF16_GREEDY - 1)
+    check(bool(torch.isfinite(out).all()), "bf16 decode not finite")
+    print(f"phase 10: {SERVE_ARCH} bfloat16, {SERVE_BATCH} x {BF16_PROMPT} "
+          f"prompt: flash launched {fa_launches} times in one prefill; "
+          f"flash vs plain prefill {gap:.4g} x max|logit| (bound "
+          f"{BF16_GAP_BOUND}); {BF16_GREEDY} greedy tokens against a "
+          f"{cache['layers']['k'].shape[2]}-slot cache: "
+          f"{torch.cat(greedy, 1)[:, :8].tolist()}...", flush=True)
+    print(f"time: serve prefill {SERVE_BATCH} x {BF16_PROMPT} tokens "
+          f"{prefill_ms:.2f} ms ({SERVE_BATCH * BF16_PROMPT / prefill_ms * 1e3:.0f}"
+          f" tokens/s); decode {decode_ms:.3f} ms per token (batch "
+          f"{SERVE_BATCH}, host clock, mean of {BF16_GREEDY - 1}) {card}",
+          flush=True)
+    profile_serving(lambda: prefill(params, batch), "one bf16 prefill",
+                    card)
+
+    def decode4():
+        nonlocal out, cache
+        for _ in range(4):
+            tok = out[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True).int()
+            out, cache = serve(params, cache, tok)
+    profile_serving(decode4, "4 bf16 decode tokens", card)
+    del params, cache, logits, out
+    torch.cuda.empty_cache()
+
+    # -- 11. times of the new kernels at their main-path shapes -------------
+    fa_ms = timer(lambda: kfa.flash_attention(qm, km, vm, **fa_kw), reps=20,
+                  warmup=2)
+    fa_plain_ms = timer(lambda: kfa.flash_attention_plain(qm, km, vm,
+                                                          **fa_kw),
+                        reps=10, warmup=2)
+    q4, k4, v4 = qm[None], km[None], vm[None]
+    sdpa_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), reps=20, warmup=2)
+    fa_flops = 4 * d_main * bh * causal_pairs(s_main)
+    fa_bytes = 4 * bh * s_main * d_main * 2
+    fa_bound = 1e3 * max(fa_bytes / HBM_BYTES_PER_S,
+                         fa_flops / BF16_OPS_PER_S)
+    elems = flat.numel()
+    dec_ms = timer(lambda: kdec.decode(p_nbr, flat, B8, bits=8))
+    dec_plain_ms = timer(lambda: kdec.decode_plain(p_nbr, flat, B8, bits=8))
+    dec_bound = bound_ms(elems * 1 + elems * 4 + elems * 4,
+                         elems * DECODE_OPS)
+    print(f"time: flash_attention {list(FLASH_MAIN)} bfloat16 causal: kernel "
+          f"{fa_ms:.4f} ms | plain {fa_plain_ms:.4f} ms | "
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms | bound "
+          f"{fa_bound:.4f} ms (operations, {fa_flops / 1e9:.1f} GFLOP at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; bytes {fa_bytes / 1e6:.0f} MB "
+          f"take {1e3 * fa_bytes / HBM_BYTES_PER_S:.4f} ms) {card}",
+          flush=True)
+    print(f"time: moniqua_decode 8-bit remote {list(flat.shape)} float32: "
+          f"kernel {dec_ms:.5f} ms | plain {dec_plain_ms:.5f} ms | bound "
+          f"{dec_bound:.5f} ms (bytes) | library: no single PyTorch call "
+          f"{card}", flush=True)
+    return [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:130",
+             launches=fa_launches, max_abs_err=fa_err, ms=fa_ms,
+             plain_ms=fa_plain_ms, bound_ms=fa_bound, bound_by="operations",
+             library_ms=sdpa_ms),
+        dict(name="moniqua_decode", route="cuda",
+             source="src/repro_torch/kernels/csrc/moniqua_decode.cu",
+             replaces="src/repro/kernels/moniqua_decode.py:68",
+             launches=dec_launches, max_abs_err=dec_err, ms=dec_ms,
+             plain_ms=dec_plain_ms, bound_ms=dec_bound, bound_by="bytes",
+             library_ms=None),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -153,6 +547,7 @@ def main() -> int:
     # -- 2. build, then each kernel against its plain version --------------
     t0 = time.perf_counter()
     libs = build.build_all(force=True)
+    check(len(libs) == 4, f"built {sorted(libs)}, want 4 kernels")
     print(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR}", flush=True)
     for name, path in libs.items():
@@ -390,6 +785,10 @@ def main() -> int:
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
                   f"{e.count:6d}x  {e.key[:90]}")
+
+    torch.cuda.synchronize()
+    kernels += serving_phases(dev, timer, card, flat.reshape(N_WORKERS, D),
+                              B8)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

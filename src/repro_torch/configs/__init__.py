@@ -1,0 +1,45 @@
+"""Architecture registry of the port.  ``get_config(name)``.
+
+It holds only what the port runs.  Every other architecture of the
+reference's registry (``repro.configs``) raises with the ROADMAP item that
+ports it.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (ArchConfig, InputShape, INPUT_SHAPES,
+                                      get_input_shape)
+
+ARCH_MODULES = {
+    "llama3.2-3b": "llama3_2_3b",
+}
+
+# architectures of the reference not ported yet -> the ROADMAP item
+UNPORTED = {
+    "dbrx-132b": "ROADMAP Queue 1 #12 (MoE)",
+    "grok-1-314b": "ROADMAP Queue 1 #12 (MoE)",
+    "chatglm3-6b": "ROADMAP Queue 1 #12 (dense, partial RoPE)",
+    "internlm2-20b": "ROADMAP Queue 1 #12 (dense)",
+    "qwen2-72b": "ROADMAP Queue 1 #12 (dense, qkv bias)",
+    "xlstm-125m": "ROADMAP Queue 1 #12 (xlstm)",
+    "zamba2-1.2b": "ROADMAP Queue 1 #12 (zamba / mamba2)",
+    "whisper-base": "ROADMAP Queue 1 #12 (whisper)",
+    "phi-3-vision-4.2b": "ROADMAP Queue 1 #12 (vlm)",
+    "resnet20": "repro_torch.models.resnet (not a registry entry yet)",
+}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name in UNPORTED:
+        raise NotImplementedError(f"arch {name!r} is not ported yet: "
+                                  f"{UNPORTED[name]}")
+    if name not in ARCH_MODULES:
+        raise ValueError(f"unknown arch {name!r}; available: "
+                         f"{sorted(ARCH_MODULES)}")
+    return importlib.import_module(
+        f"repro_torch.configs.{ARCH_MODULES[name]}").CONFIG
+
+
+__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "get_input_shape",
+           "get_config"]

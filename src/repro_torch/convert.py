@@ -4,6 +4,13 @@ The two packages use the same tree: the same dict keys and nesting, conv
 weights in HWIO, the same leaf shapes.  So a conversion is a leaf-wise copy
 through numpy; nothing is transposed.  The JAX side is taken as numpy arrays
 (``jax.tree.map(np.asarray, params)``), which keeps this module free of JAX.
+
+bfloat16 leaves: numpy has no bfloat16, and JAX hands them over as
+``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` rejects.  They
+cross as their raw 16-bit words (a ``uint16`` view), so the bits are kept.
+The way back gives float32 numpy arrays for bfloat16 tensors (exact: every
+bfloat16 is a float32); the JAX side casts them back with
+``.astype(jnp.bfloat16)``, again exactly.
 """
 from __future__ import annotations
 
@@ -22,10 +29,19 @@ def to_torch(params: PyTree, device="cuda") -> PyTree:
     """A tree of numpy arrays (or array-likes) -> the port's tree of tensors
     on ``device`` (the card unless the caller asks for the CPU)."""
     dev = resolve_device(device)
-    return tree.map(lambda a: torch.from_numpy(np.array(a)).to(dev), params)
+    return tree.map(lambda a: _from_numpy(np.array(a)).to(dev), params)
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def to_numpy(params: PyTree) -> PyTree:
     """The port's tree of tensors -> a tree of numpy arrays (for
     ``jax.tree.map(jnp.asarray, ...)`` on the JAX side)."""
-    return tree.map(lambda t: t.detach().cpu().numpy(), params)
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree.map(leaf, params)

@@ -7,9 +7,13 @@ root, named by a hash of their source and flags, and are built at first use:
 the first call of any kernel wrapper starts one ``nvcc`` per source, all at
 once, and waits for them.  Only the sources in this checkout are used.
 
-``-fmad=false`` keeps every float multiply and add separately rounded, as
-the plain PyTorch versions compute them (the kernels also spell the
-arithmetic out with ``_rn`` intrinsics); ``--use_fast_math`` is never used.
+Flags are per source.  The codec kernels build with ``-fmad=false``, which
+keeps every float multiply and add separately rounded, as the plain PyTorch
+versions compute them (the kernels also spell the arithmetic out with
+``_rn`` intrinsics), so they equal their plain versions bit for bit.  The
+flash-attention kernel is held to its plain version within a tolerance
+(it sums in another order) and may contract multiply-adds.
+``--use_fast_math`` is never used.
 """
 from __future__ import annotations
 
@@ -24,8 +28,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+CODEC_FLAGS = NVCC_FLAGS + ("-fmad=false",)
 
 _P, _I, _I64, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                       ctypes.c_uint32)
@@ -35,7 +39,13 @@ SIGNATURES = {
                        _P),
     "moniqua_decode_reduce": (_P, _P, _P, _I, _P, _I64, _I64, _I, _P, _P, _I,
                               _P),
+    "moniqua_decode": (_P, _P, _I, _P, _I64, _I64, _P, _I, _I, _P),
+    "flash_attention": (_P, _P, _P, _P, _I, _I64, _I64, _I64, _I,
+                        ctypes.c_float, _I, _I64, _P),
 }
+# nvcc flags of each source
+FLAGS = {"moniqua_encode": CODEC_FLAGS, "moniqua_decode_reduce": CODEC_FLAGS,
+         "moniqua_decode": CODEC_FLAGS, "flash_attention": NVCC_FLAGS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -51,9 +61,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: keyed by a hash of
-    the source and the flags, so an edited source is rebuilt."""
+    the source and its flags, so an edited source is rebuilt."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(FLAGS[name]).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -71,7 +81,8 @@ def build_all(force: bool = False) -> Dict[str, Path]:
         procs = {}
         for name, path in todo.items():
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *FLAGS[name], "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp, path)

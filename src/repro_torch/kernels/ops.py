@@ -1,4 +1,5 @@
-"""Stacked-worker and chunk-window wrappers around the codec kernels.
+"""Wrappers around the kernels: stacked-worker and chunk-window codec calls,
+point decodes of any shape, and differentiable flash attention.
 
 The reference's ``kernels/ops.py`` pads every array to a 256x1024 tile grid
 and vmaps that layout over the worker axis.  The grid only ever appends
@@ -16,7 +17,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.modulo import _scalar
 from repro_torch.core.quantizers import QuantSpec
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moniqua_decode as _dec
 from repro_torch.kernels import moniqua_decode_reduce as _dr
 from repro_torch.kernels import moniqua_encode as _enc
 
@@ -72,3 +76,69 @@ def moniqua_decode_reduce_chunk(p_self: torch.Tensor, p_nbrs: torch.Tensor,
     return moniqua_decode_reduce_stacked(p_self, p_nbrs,
                                          flat[:, offset:offset + size], B,
                                          weights, spec)
+
+
+# ---------------------------------------------------------------------------
+# Point decode of one payload (the reference's moniqua_decode_remote/_self)
+# ---------------------------------------------------------------------------
+
+def _decode_common(packed: torch.Tensor, y: torch.Tensor, B,
+                   spec: QuantSpec, mode: str) -> torch.Tensor:
+    """``y [..., last]`` against ``packed [..., ceil(last / vpb)]`` in one
+    launch over ``[prod(...), last]`` rows."""
+    cols = y.shape[-1]
+    y2 = y.contiguous().reshape(-1, cols)
+    p2 = packed.contiguous().reshape(y2.shape[0], -1)
+    out = _dec.decode(p2, y2, _scalar(B, y), bits=spec.bits, mode=mode)
+    return out.reshape(y.shape)
+
+
+def moniqua_decode_remote(packed, y, B, spec: QuantSpec) -> torch.Tensor:
+    """Algorithm 1 line 5: ``cmod(q*B - y, B) + y``, in ``y``'s dtype."""
+    return _decode_common(packed, y, B, spec, "remote")
+
+
+def moniqua_decode_self(packed, x, B, spec: QuantSpec) -> torch.Tensor:
+    """Algorithm 1 line 4: ``q*B - cmod(x, B) + x``, in ``x``'s dtype."""
+    return _decode_common(packed, x, B, spec, "self")
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: kernel forward + plain recompute backward
+# ---------------------------------------------------------------------------
+
+class _FlashSDPA(torch.autograd.Function):
+    """Forward through the flash kernel (scores never leave the chip);
+    backward recomputes through the masked-softmax oracle, as the
+    reference's ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (scale, causal, window)
+        return _fa.flash_attention(q, k, v, scale=scale, causal=causal,
+                                   window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = _fa.sdpa_ref(*qkv, *ctx.cfg)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_sdpa(q, k, v, *, scale: float, causal: bool = True,
+               window: int = 0) -> torch.Tensor:
+    """Differentiable flash attention on ``[..., S, H, D]`` tensors: heads
+    are folded into ``[BH, S, D]`` for the kernel and unfolded after."""
+    *lead, S, H, D = q.shape
+    Sk = k.shape[-3]
+
+    def fold(t, s):
+        return t.movedim(-2, -3).reshape(-1, s, D).contiguous()
+
+    o = _FlashSDPA.apply(fold(q, S), fold(k, Sk), fold(v, Sk), scale,
+                         causal, window)
+    return o.reshape(*lead, H, S, D).movedim(-3, -2)

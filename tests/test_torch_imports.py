@@ -29,5 +29,10 @@ def test_port_imports_without_jax_or_repro():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.kernels.moniqua_encode" in res["modules"]
     assert "repro_torch.train.trainer" in res["modules"]
-    assert len(res["modules"]) >= 25
+    for name in ("configs", "configs.base", "configs.llama3_2_3b",
+                 "models.layers", "models.transformer",
+                 "models.model_factory", "train.serve_step", "data.pipeline",
+                 "kernels.flash_attention", "kernels.moniqua_decode"):
+        assert f"repro_torch.{name}" in res["modules"], name
+    assert len(res["modules"]) >= 35
     assert res["bad"] == [], f"repro_torch pulled in: {res['bad']}"
