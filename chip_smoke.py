@@ -7,12 +7,14 @@ Phases (any failure exits non-zero, and the result line is not printed):
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no card -> exit 2.  TF32 is off for matmul and cuDNN.
-2. Build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a, in parallel), then hold each kernel against its plain PyTorch
-   version with ``torch.equal``: encode over bits 1/2/4/8 x stochastic and
-   nearest x idx_base != 0 x a ragged row x float32 and bfloat16;
-   decode-reduce over ring(8), exponential(8) and torus(3, 3) x 1/2/4/8 bits
-   x float32 and bfloat16; both at the main path's shapes too.
+2. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (nvcc, sm_90a, in parallel; the tensor-core flash kernel's SASS, read
+   with cuobjdump, must hold ``HGMMA`` and ``UTMALDG``), then hold each
+   codec kernel against its plain PyTorch version with ``torch.equal``:
+   encode over bits 1/2/4/8 x stochastic and nearest x idx_base != 0 x a
+   ragged row x float32 and bfloat16; decode-reduce over ring(8),
+   exponential(8) and torus(3, 3) x 1/2/4/8 bits x float32 and bfloat16;
+   both at the main path's shapes too.
 3. One gossip round on the full ResNet-20 bucket (n=8, 272,282 elements per
    worker): the mix on the card equals the CPU plain-version mix bit for bit.
 4. The main path through ``Trainer.run``: ResNet-20 at width 16, 8 workers
@@ -26,28 +28,37 @@ Phases (any failure exits non-zero, and the result line is not printed):
    could take; the step time of each run.
 6. A torch.profiler trace of three 8-bit main-path steps: device busy share,
    launches, and device time by kernel group and by kernel.
-7. The flash-attention kernel against its plain version in float32 on the
-   same inputs, on the card: the reference tests' sweep (S 256/384/128/130
-   with windows 0/100/32/0), non-causal Sq=130/Sk=256, head dims 64 and 128
-   (and 96, 256 once), and the serving shape [48, 4096, 128] causal, each
-   in float32 (rtol = atol = 2e-5, the reference tests' numbers) and
-   bfloat16 (within the reference tests' atol 0.03, and element by element
-   within one bfloat16 ulp of the plain value plus the float32 tolerance).
+7. The flash-attention kernels against their plain version in float32 on
+   the same inputs, on the card, each case through the route its dtype and
+   head dim select (bfloat16 at head dims 64 and 128: the tensor-core
+   kernel; the rest: the CUDA-core kernel): the reference tests' sweep (S
+   256/384/128/130 with windows 0/100/32/0), non-causal Sq=130/Sk=256, head
+   dims 64 and 128 (and 96, 256 once), grouped-query cases (K/V at 1/3 and
+   1/2 of the query heads), and the serving shape [48, 4096, 128] causal
+   (with 48 and with 16 KV heads), each in float32 (rtol = atol = 2e-5,
+   the reference tests' numbers) and bfloat16 (within the reference tests'
+   atol 0.03, and element by element within one bfloat16 ulp of the plain
+   value plus the float32 tolerance).
 8. The single-payload decode kernel against its plain version, bitwise
    (bits 1/2/4/8 x remote/self x float32/bfloat16 x a ragged row), then its
    path: the ResNet-20 bucket encoded and decoded through
    ``ops.moniqua_decode_remote`` / ``_self`` within Lemma 2's delta * B.
 9. Serving llama3.2-3b at full width and depth in float32 (TF32 off),
-   batch 2, a 256-token prompt: prefill through the flash kernel against
-   the plain masked-softmax path, and the prompt fed token by token through
+   batch 2, a 256-token prompt: prefill through the CUDA-core flash kernel
+   (28 launches, none of the tensor-core one) against the plain
+   masked-softmax path, and the prompt fed token by token through
    ``serve_step`` against prefill, both within 1e-3 x max|logit|; then 16
    greedy tokens.
 10. The published bfloat16 llama3.2-3b, its config as registered (which
    serves through the flash kernel by default): prefill of 2 x 4096 tokens
-   (the flash kernel launched once per layer, 28 times), its gap to the
-   plain path, 32 greedy decode tokens against a 4096-slot cache; prefill and
-   decode times and profiles of one prefill and of 4 decode tokens.
-11. Times of the two new kernels at their serving / main-path shapes.
+   (the tensor-core flash kernel launched once per layer, 28 times, the
+   CUDA-core one never), its gap to the plain path, 32 greedy decode tokens
+   against a 4096-slot cache; prefill and decode times and profiles of one
+   prefill and of 4 decode tokens.
+11. Times of the serving slice's kernels: both flash routes at [48, 4096,
+   128] causal (tensor cores in bfloat16 with the prefill's 16 KV heads,
+   CUDA cores in float32) beside scaled_dot_product_attention and the
+   bound, and the point decode at its path's shape.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -92,6 +103,18 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_counts(lib, ops):
+    """How many instructions of each name in ``ops`` the library's SASS
+    holds (cuobjdump -sass), or None without cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {op: text.count(op) for op in ops}
 
 
 def bound_ms(nbytes: int, ops: int) -> float:
@@ -152,6 +175,7 @@ SERVE_BATCH = 2
 F32_PROMPT, F32_GREEDY = 256, 16          # phase 9
 BF16_PROMPT, BF16_GREEDY = 4096, 32       # phase 10
 FLASH_MAIN = (48, 4096, 128)              # [B*H, S, D] of phase 10's prefill
+GQA_MAIN = 3                               # its query heads per KV head (24/8)
 # float32 serving checks (phase 9): the flash path and the token-by-token
 # decode against prefill, each within this share of max|logit|
 F32_LOGIT_TOL = 1e-3
@@ -242,8 +266,8 @@ def profile_serving(fn, what, card):
 
 
 def serving_phases(dev, timer, card, flat, B8):
-    """Phases 7-11; returns the kernels-line entries of the two new
-    kernels."""
+    """Phases 7-11; returns the kernels-line entries of the serving
+    slice's kernels."""
     from repro_torch import tree
     from repro_torch.configs.base import InputShape
     from repro_torch.core import modulo
@@ -258,58 +282,65 @@ def serving_phases(dev, timer, card, flat, B8):
 
     gen = torch.Generator().manual_seed(12)
 
-    # -- 7. flash kernel against its plain version -------------------------
+    # -- 7. flash kernels against their plain version --------------------
+    def flash_case(what, q, k, v, **kw):
+        """Hold ``kfa.flash_attention`` (the route dtype and head dim pick)
+        to the plain version in float32 on the same inputs -> max abs err,
+        worst error / tolerance, median |plain|."""
+        got = kfa.flash_attention(q, k, v, **kw)
+        want = kfa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                         **kw)
+        check(got.dtype == q.dtype and got.shape == q.shape,
+              what + ": dtype/shape")
+        ok, err, ratio = flash_close(got, want)
+        check(ok, what + f" != plain (max abs {err:.3g}, {ratio:.3g} x "
+              f"tolerance)")
+        return err, ratio, float(want.abs().median())
+
     cases = [(True, 256, 256, 0), (True, 384, 384, 100), (True, 128, 128, 32),
              (True, 130, 130, 0), (False, 130, 256, 0)]
     n = 0
     for causal, sq, sk, window in cases:
-        for d in (64, 128):
+        # (query blocks, KV blocks): MHA at head dims 64 and 128, then
+        # grouped-query attention with g = 3 (llama3.2-3b's 24 / 8) and 2
+        for (bh, bh_kv), d in [((4, 4), 64), ((4, 4), 128), ((6, 2), 128),
+                               ((4, 2), 128), ((6, 2), 64)]:
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = (torch.randn((4, s, d), generator=gen).to(dtype)
-                           .to(dev) for s in (sq, sk, sk))
-                kw = dict(scale=1.0 / math.sqrt(d), causal=causal,
-                          window=window)
-                got = kfa.flash_attention(q, k, v, **kw)
-                want = kfa.flash_attention_plain(q.float(), k.float(),
-                                                 v.float(), **kw)
-                what = (f"flash {dtype} causal={causal} sq={sq} sk={sk} "
-                        f"window={window} d={d}")
-                check(got.dtype == dtype and got.shape == q.shape,
-                      what + ": dtype/shape")
-                ok, err, ratio = flash_close(got, want)
-                check(ok, what + f" != plain (max abs {err:.3g}, "
-                      f"{ratio:.3g} x tolerance)")
+                q = torch.randn((bh, sq, d), generator=gen).to(dtype).to(dev)
+                k, v = (torch.randn((bh_kv, sk, d), generator=gen).to(dtype)
+                        .to(dev) for _ in range(2))
+                flash_case(f"flash {dtype} causal={causal} sq={sq} sk={sk} "
+                           f"window={window} d={d} g={bh // bh_kv}", q, k, v,
+                           scale=1.0 / math.sqrt(d), causal=causal,
+                           window=window)
                 n += 1
-    for d in (96, 256):                       # padded and widest head dims
-        q, k, v = (torch.randn((4, 384, d), generator=gen).to(dev)
-                   for _ in range(3))
-        kw = dict(scale=1.0 / math.sqrt(d), causal=True, window=100)
-        ok, err, _ = flash_close(kfa.flash_attention(q, k, v, **kw),
-                                 kfa.flash_attention_plain(q, k, v, **kw))
-        check(ok, f"flash d={d} != plain (max abs {err:.3g})")
-        n += 1
+    for d in (96, 256):                # padded and widest head dims
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((4, 384, d), generator=gen).to(dtype)
+                       .to(dev) for _ in range(3))
+            flash_case(f"flash {dtype} d={d}", q, k, v,
+                       scale=1.0 / math.sqrt(d), causal=True, window=100)
+            n += 1
     bh, s_main, d_main = FLASH_MAIN
+    kv_main = bh // GQA_MAIN            # the prefill's KV blocks
     fa_kw = dict(scale=1.0 / math.sqrt(d_main), causal=True, window=0)
     main = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        qm, km, vm = (torch.randn(FLASH_MAIN, generator=gen).to(dtype)
-                      .to(dev) for _ in range(3))
-        want = kfa.flash_attention_plain(qm.float(), km.float(), vm.float(),
-                                         **fa_kw)
-        ok, err, ratio = flash_close(kfa.flash_attention(qm, km, vm,
-                                                         **fa_kw), want)
-        check(ok, f"flash {list(FLASH_MAIN)} {dtype} != plain (max abs "
-              f"{err:.3g}, {ratio:.3g} x tolerance)")
-        main[dtype] = (err, ratio, float(want.abs().median()))
-        del want
-    fa_err = main[torch.bfloat16][0]       # qm, km, vm: the bfloat16 inputs
+    for dtype, n_kv in ((torch.float32, bh), (torch.bfloat16, bh),
+                        (torch.bfloat16, kv_main)):
+        qm, km, vm = (torch.randn((rows, s_main, d_main), generator=gen)
+                      .to(dtype).to(dev) for rows in (bh, n_kv, n_kv))
+        main[str(dtype)[6:], n_kv] = flash_case(
+            f"flash {list(FLASH_MAIN)} {dtype} kv={n_kv}", qm, km, vm,
+            **fa_kw)
+        if dtype == torch.float32:
+            f32_main = (qm, km, vm)
     torch.cuda.synchronize()
-    print(f"phase 7: flash kernel == plain version in {n} sweep cases "
+    print(f"phase 7: flash kernels == plain version in {n} sweep cases "
           f"(float32 rtol=atol=2e-5; bfloat16 atol 0.03 and one bfloat16 "
           f"ulp + the float32 tolerance) and at {list(FLASH_MAIN)} causal: "
-          + ", ".join(f"{str(dt)[6:]} max abs {e:.4g} ({r:.3g} x tolerance,"
-                      f" median |plain| {m:.4g})"
-                      for dt, (e, r, m) in main.items()), flush=True)
+          + ", ".join(f"{dt} with {kv} KV blocks max abs {e:.4g} ({r:.3g} x "
+                      f"tolerance, median |plain| {m:.4g})"
+                      for (dt, kv), (e, r, m) in main.items()), flush=True)
 
     # -- 8. decode kernel: bitwise sweep, then its path --------------------
     n = 0
@@ -337,7 +368,6 @@ def serving_phases(dev, timer, card, flat, B8):
     spec8 = QuantSpec(8)
     torch.cuda.synchronize()
     kenc.encode.launches = kdec.decode.launches = 0
-    kfa.flash_attention.launches = 0
     p_self = ops.moniqua_encode_stacked(flat, B8, spec8, 7)
     p_nbr = torch.roll(p_self, 1, 0)
     x_remote = ops.moniqua_decode_remote(p_nbr, flat, B8, spec8)
@@ -378,7 +408,16 @@ def serving_phases(dev, timer, card, flat, B8):
                                                 SERVE_BATCH, "prefill"),
                                 seed=0).global_batch(0)
     tokens = batch["tokens"]
+    torch.cuda.synchronize()
+    kfa.flash_attention_tc.launches = kfa.flash_attention_simt.launches = 0
     lf = make_prefill_step(m32)(params, batch)
+    torch.cuda.synchronize()
+    simt_launches = kfa.flash_attention_simt.launches
+    check(simt_launches == cfg.num_layers
+          and kfa.flash_attention_tc.launches == 0,
+          f"f32 prefill launched the CUDA-core flash kernel {simt_launches} "
+          f"times (want {cfg.num_layers}) and the tensor-core one "
+          f"{kfa.flash_attention_tc.launches} times (want 0)")
     lp = make_prefill_step(m32_plain)(params, batch)
     scale32 = float(lp.abs().max())
     gap_i = float((lf - lp).abs().max()) / scale32
@@ -401,8 +440,9 @@ def serving_phases(dev, timer, card, flat, B8):
         check(bool(torch.isfinite(logits).all()), "f32 decode not finite")
     check(int(cache["pos"]) == F32_PROMPT + F32_GREEDY, "f32 cache pos")
     print(f"phase 9: {SERVE_ARCH} float32 (TF32 off), batch {SERVE_BATCH}, "
-          f"{F32_PROMPT}-token prompt: last-position logits flash vs plain "
-          f"prefill {gap_i:.3g} x max|logit| ({scale32:.4g}), token-by-token "
+          f"{F32_PROMPT}-token prompt: CUDA-core flash launched "
+          f"{simt_launches} times in one prefill; last-position logits flash "
+          f"vs plain prefill {gap_i:.3g} x max|logit| ({scale32:.4g}), token-by-token "
           f"serve_step vs prefill {gap_ii:.3g}; greedy "
           f"{torch.cat(greedy, 1).tolist()}", flush=True)
     del params, cache, lf, lp, logits
@@ -419,12 +459,15 @@ def serving_phases(dev, timer, card, flat, B8):
     batch = SyntheticLMPipeline(mbf, shape, seed=1).global_batch(0)
     prefill = make_prefill_step(mbf)
     torch.cuda.synchronize()
-    kfa.flash_attention.launches = 0
+    kfa.flash_attention_tc.launches = kfa.flash_attention_simt.launches = 0
     logits = prefill(params, batch)
     torch.cuda.synchronize()
-    fa_launches = kfa.flash_attention.launches
-    check(fa_launches == cfg.num_layers, f"bf16 prefill launched flash "
-          f"{fa_launches} times, want {cfg.num_layers}")
+    fa_launches = kfa.flash_attention_tc.launches
+    check(fa_launches == cfg.num_layers
+          and kfa.flash_attention_simt.launches == 0,
+          f"bf16 prefill launched the tensor-core flash kernel {fa_launches} "
+          f"times (want {cfg.num_layers}) and the CUDA-core one "
+          f"{kfa.flash_attention_simt.launches} times (want 0)")
     check(bool(torch.isfinite(logits).all()), "bf16 prefill not finite")
     plain = make_prefill_step(mbf_plain)(params, batch)
     gap = float((logits - plain).abs().max()) / float(plain.abs().max())
@@ -448,7 +491,8 @@ def serving_phases(dev, timer, card, flat, B8):
     decode_ms = 1e3 * (time.perf_counter() - t0) / (BF16_GREEDY - 1)
     check(bool(torch.isfinite(out).all()), "bf16 decode not finite")
     print(f"phase 10: {SERVE_ARCH} bfloat16, {SERVE_BATCH} x {BF16_PROMPT} "
-          f"prompt: flash launched {fa_launches} times in one prefill; "
+          f"prompt: tensor-core flash launched {fa_launches} times in one "
+          f"prefill; "
           f"flash vs plain prefill {gap:.4g} x max|logit| (bound "
           f"{BF16_GAP_BOUND}); {BF16_GREEDY} greedy tokens against a "
           f"{cache['layers']['k'].shape[2]}-slot cache: "
@@ -470,42 +514,85 @@ def serving_phases(dev, timer, card, flat, B8):
     del params, cache, logits, out
     torch.cuda.empty_cache()
 
-    # -- 11. times of the new kernels at their main-path shapes -------------
-    fa_ms = timer(lambda: kfa.flash_attention(qm, km, vm, **fa_kw), reps=20,
-                  warmup=2)
+    # -- 11. times of the serving slice's kernels at their path's shapes --
+    # qm, km, vm: the bfloat16 inputs at the prefill's shape (16 KV blocks)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fa_ms = timer(lambda: kfa.flash_attention_tc(qm, km, vm, **fa_kw),
+                  reps=20, warmup=2)
     fa_plain_ms = timer(lambda: kfa.flash_attention_plain(qm, km, vm,
                                                           **fa_kw),
                         reps=10, warmup=2)
-    q4, k4, v4 = qm[None], km[None], vm[None]
-    sdpa_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), reps=20, warmup=2)
+    sdpa_ms = timer(lambda: sdpa(qm[None], km[None], vm[None], is_causal=True,
+                                 enable_gqa=True), reps=20, warmup=2)
+    # the same function with the KV blocks expanded to 48, the shape of
+    # the earlier timings, where both routes and the library call are timed
+    # side by side
+    km1, vm1 = (kfa.expand_kv(t, GQA_MAIN) for t in (km, vm))
+    tc48_ms = timer(lambda: kfa.flash_attention_tc(qm, km1, vm1, **fa_kw),
+                    reps=20, warmup=2)
+    simt_bf16_ms = timer(lambda: kfa.flash_attention_simt(qm, km1, vm1,
+                                                          **fa_kw),
+                         reps=10, warmup=2)
+    sdpa48_ms = timer(lambda: sdpa(qm[None], km1[None], vm1[None],
+                                   is_causal=True), reps=20, warmup=2)
+    del km1, vm1
     fa_flops = 4 * d_main * bh * causal_pairs(s_main)
-    fa_bytes = 4 * bh * s_main * d_main * 2
+    fa_bytes = 2 * (2 * bh + 2 * kv_main) * s_main * d_main
     fa_bound = 1e3 * max(fa_bytes / HBM_BYTES_PER_S,
                          fa_flops / BF16_OPS_PER_S)
+    q32, k32, v32 = f32_main
+    simt_ms = timer(lambda: kfa.flash_attention_simt(q32, k32, v32, **fa_kw),
+                    reps=10, warmup=2)
+    simt_plain_ms = timer(lambda: kfa.flash_attention_plain(q32, k32, v32,
+                                                            **fa_kw),
+                          reps=5, warmup=1)
+    sdpa32_ms = timer(lambda: sdpa(q32[None], k32[None], v32[None],
+                                   is_causal=True), reps=10, warmup=2)
+    simt_bytes = 4 * 4 * bh * s_main * d_main
+    simt_bound = 1e3 * max(simt_bytes / HBM_BYTES_PER_S,
+                           fa_flops / F32_OPS_PER_S)
+    del q32, k32, v32, f32_main
     elems = flat.numel()
     dec_ms = timer(lambda: kdec.decode(p_nbr, flat, B8, bits=8))
     dec_plain_ms = timer(lambda: kdec.decode_plain(p_nbr, flat, B8, bits=8))
     dec_bound = bound_ms(elems * 1 + elems * 4 + elems * 4,
                          elems * DECODE_OPS)
-    print(f"time: flash_attention {list(FLASH_MAIN)} bfloat16 causal: kernel "
-          f"{fa_ms:.4f} ms | plain {fa_plain_ms:.4f} ms | "
-          f"scaled_dot_product_attention {sdpa_ms:.4f} ms | bound "
-          f"{fa_bound:.4f} ms (operations, {fa_flops / 1e9:.1f} GFLOP at "
-          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; bytes {fa_bytes / 1e6:.0f} MB "
-          f"take {1e3 * fa_bytes / HBM_BYTES_PER_S:.4f} ms) {card}",
+    print(f"time: flash_attention_tc {list(FLASH_MAIN)} bfloat16 causal, "
+          f"{kv_main} KV blocks: kernel {fa_ms:.4f} ms "
+          f"({fa_flops / fa_ms / 1e9:.1f} TFLOP/s of the algorithm's "
+          f"{fa_flops / 1e9:.1f} GFLOP) | plain {fa_plain_ms:.4f} ms | "
+          f"scaled_dot_product_attention (enable_gqa) {sdpa_ms:.4f} ms | "
+          f"bound {fa_bound:.4f} ms (operations at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s; bytes {fa_bytes / 1e6:.0f} "
+          f"MB take {1e3 * fa_bytes / HBM_BYTES_PER_S:.4f} ms) {card}",
           flush=True)
+    print(f"time: flash {list(FLASH_MAIN)} bfloat16 causal, {bh} KV blocks: "
+          f"tensor-core kernel {tc48_ms:.4f} ms | CUDA-core kernel "
+          f"{simt_bf16_ms:.4f} ms | scaled_dot_product_attention "
+          f"{sdpa48_ms:.4f} ms {card}", flush=True)
+    print(f"time: flash_attention (CUDA cores) {list(FLASH_MAIN)} float32 "
+          f"causal: kernel {simt_ms:.4f} ms | plain {simt_plain_ms:.4f} ms | "
+          f"scaled_dot_product_attention {sdpa32_ms:.4f} ms | bound "
+          f"{simt_bound:.4f} ms (operations at {F32_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s float32) {card}", flush=True)
     print(f"time: moniqua_decode 8-bit remote {list(flat.shape)} float32: "
           f"kernel {dec_ms:.5f} ms | plain {dec_plain_ms:.5f} ms | bound "
           f"{dec_bound:.5f} ms (bytes) | library: no single PyTorch call "
           f"{card}", flush=True)
     return [
+        dict(name="flash_attention_tc", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+             replaces="src/repro/kernels/flash_attention.py:130",
+             launches=fa_launches,
+             max_abs_err=main["bfloat16", kv_main][0], ms=fa_ms,
+             plain_ms=fa_plain_ms, bound_ms=fa_bound, bound_by="operations",
+             library_ms=sdpa_ms),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:130",
-             launches=fa_launches, max_abs_err=fa_err, ms=fa_ms,
-             plain_ms=fa_plain_ms, bound_ms=fa_bound, bound_by="operations",
-             library_ms=sdpa_ms),
+             launches=simt_launches, max_abs_err=main["float32", bh][0],
+             ms=simt_ms, plain_ms=simt_plain_ms, bound_ms=simt_bound,
+             bound_by="operations", library_ms=sdpa32_ms),
         dict(name="moniqua_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/moniqua_decode.cu",
              replaces="src/repro/kernels/moniqua_decode.py:68",
@@ -547,13 +634,22 @@ def main() -> int:
     # -- 2. build, then each kernel against its plain version --------------
     t0 = time.perf_counter()
     libs = build.build_all(force=True)
-    check(len(libs) == 4, f"built {sorted(libs)}, want 4 kernels")
+    check(len(libs) == 5, f"built {sorted(libs)}, want 5 kernels")
     print(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR}", flush=True)
     for name, path in libs.items():
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    sass = sass_counts(libs["flash_attention_tc"], ("HGMMA", "UTMALDG"))
+    if sass is None:
+        print("sass: flash_attention_tc HGMMA and UTMALDG counts not measured "
+              "(no cuobjdump in the toolkit)")
+    else:
+        check(all(sass.values()), f"flash_attention_tc SASS {sass}: want "
+              f"wgmma (HGMMA) and TMA loads (UTMALDG)")
+        print(f"sass: flash_attention_tc " + ", ".join(
+            f"{op} {n}" for op, n in sass.items()), flush=True)
 
     gen = torch.Generator().manual_seed(0)
 

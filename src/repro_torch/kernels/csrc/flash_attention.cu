@@ -1,9 +1,15 @@
-// Flash-attention forward (online softmax) for Hopper, sm_90a.
+// Flash-attention forward (online softmax) on CUDA cores, sm_90a: the
+// float32 route, and the bfloat16 route at head dims that the tensor-core
+// kernel (flash_attention_tc.cu) does not instantiate.
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel).
-// q [BH, Sq, D], k/v [BH, Sk, D], row-major, float32 or bfloat16 (all
-// three the same), out [BH, Sq, D] in q's type.  Per query row i and key j:
+// src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel) where
+// the tensor-core kernel does not: TF32 tensor cores keep about three
+// decimal digits, which cannot meet float32's rtol = atol = 2e-5, so
+// float32 stays on CUDA cores.  q [BH, Sq, D], k/v [BH/g, Sk, D],
+// row-major, float32 or bfloat16 (all three the same), out [BH, Sq, D] in
+// q's type; query row block bh reads KV block bh / g (grouped-query
+// attention without a copy).  Per query row i and key j:
 //   s_ij = (q_i . k_j) * scale in float32 from inputs upcast to float32,
 //   valid: i < Sq, j < Sk and, when causal, j <= i and (window == 0 or
 //   j > i - window); masked scores are the finite sentinel -1e30;
@@ -16,8 +22,9 @@
 // give NaN there.
 //
 // Bound: operations.  Causal attention at BH = 48, S = 4096, D = 128 does
-// 4 * D flops for each of the ~403 M causal (i, j) pairs, 206 GFLOP, and
-// moves only Q + K + V + O (201 MB in bfloat16).
+// 4 * D flops for each of the ~403 M causal (i, j) pairs, 206 GFLOP: 3.1 ms
+// at the float32 peak outside the tensor cores, and moves Q + K + V + O
+// (402 MB in float32).
 //
 // Design (simple and right first): one CTA of 256 threads takes 64 query
 // rows of one bh and walks the key tiles of 64 rows.  Q, K and V tiles are
@@ -33,8 +40,7 @@
 // frontier or wholly before the window are skipped, as the reference skips
 // its blocks; ragged edges are masked in the kernel with no padded copies,
 // and query rows past Sq are never written.  The CTAs with the most live
-// tiles (the last query tiles) are launched first.  CUDA cores in float32:
-// tensor cores, wgmma and TMA are later work.
+// tiles (the last query tiles) are launched first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,8 +75,8 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads, DP <= 128 ? 2 : 1)
     fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int64_t bh_count,
-              int64_t sq, int64_t sk, int d, float scale, int causal,
-              int64_t window, int64_t nq_blocks) {
+              int64_t group, int64_t sq, int64_t sk, int d, float scale,
+              int causal, int64_t window, int64_t nq_blocks) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [64][DP]
   float* sK = sQ + kBlockM * DP;                // [64][DP], chunks swizzled
@@ -86,8 +92,8 @@ __global__ void __launch_bounds__(kThreads, DP <= 128 ? 2 : 1)
   const int64_t bh = (int64_t)blockIdx.x % bh_count;
   const int64_t q0 = qblk * kBlockM;
   const T* qg = q + bh * sq * d;
-  const T* kg = k + bh * sk * d;
-  const T* vg = v + bh * sk * d;
+  const T* kg = k + (bh / group) * sk * d;  // GQA: this head's KV head
+  const T* vg = v + (bh / group) * sk * d;
 
   for (int e = tid; e < kBlockM * DP; e += kThreads) {
     const int r = e / DP, c = e % DP;
@@ -233,9 +239,9 @@ __global__ void __launch_bounds__(kThreads, DP <= 128 ? 2 : 1)
 }
 
 template <typename T, int DP>
-int launch(const T* q, const T* k, const T* v, T* o, int64_t bh, int64_t sq,
-           int64_t sk, int d, float scale, int causal, int64_t window,
-           cudaStream_t stream) {
+int launch(const T* q, const T* k, const T* v, T* o, int64_t bh,
+           int64_t group, int64_t sq, int64_t sk, int d, float scale,
+           int causal, int64_t window, cudaStream_t stream) {
   const size_t smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       fa_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -249,43 +255,47 @@ int launch(const T* q, const T* k, const T* v, T* o, int64_t bh, int64_t sq,
   const int64_t blocks = nq * bh;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   fa_kernel<T, DP><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      q, k, v, o, bh, sq, sk, d, scale, causal, window, nq);
+      q, k, v, o, bh, group, sq, sk, d, scale, causal, window, nq);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int64_t bh,
-             int64_t sq, int64_t sk, int d, float scale, int causal,
-             int64_t window, cudaStream_t s) {
+             int64_t group, int64_t sq, int64_t sk, int d, float scale,
+             int causal, int64_t window, cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
   if (d <= 64)
-    return launch<T, 64>(qt, kt, vt, ot, bh, sq, sk, d, scale, causal, window,
-                         s);
+    return launch<T, 64>(qt, kt, vt, ot, bh, group, sq, sk, d, scale, causal,
+                         window, s);
   if (d <= 128)
-    return launch<T, 128>(qt, kt, vt, ot, bh, sq, sk, d, scale, causal,
+    return launch<T, 128>(qt, kt, vt, ot, bh, group, sq, sk, d, scale, causal,
                           window, s);
-  return launch<T, 256>(qt, kt, vt, ot, bh, sq, sk, d, scale, causal, window,
-                        s);
+  return launch<T, 256>(qt, kt, vt, ot, bh, group, sq, sk, d, scale, causal,
+                        window, s);
 }
 
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success).  q, k, v, o are float32
-// or, with is_bf16, bfloat16; 1 <= d <= 256.  `window` is read only when
-// `causal` is set.
+// or, with is_bf16, bfloat16; q, o [bh, sq, d], k, v [bh_kv, sk, d] with
+// bh_kv dividing bh; 1 <= d <= 256.  `window` is read only when `causal`
+// is set.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int is_bf16, int64_t bh, int64_t sq,
-                               int64_t sk, int d, float scale, int causal,
-                               int64_t window, void* stream) {
-  if (d < 1 || d > 256 || bh < 0 || sq < 0 || sk < 0)
+                               void* o, int is_bf16, int64_t bh,
+                               int64_t bh_kv, int64_t sq, int64_t sk, int d,
+                               float scale, int causal, int64_t window,
+                               void* stream) {
+  if (d < 1 || d > 256 || bh < 0 || sq < 0 || sk < 0 || bh_kv < 1 ||
+      bh % bh_kv)
     return (int)cudaErrorInvalidValue;
   if (bh == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, scale, causal,
-                                   window, s);
-  return dispatch<float>(q, k, v, o, bh, sq, sk, d, scale, causal, window, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, bh, bh / bh_kv, sq, sk, d,
+                                   scale, causal, window, s);
+  return dispatch<float>(q, k, v, o, bh, bh / bh_kv, sq, sk, d, scale, causal,
+                         window, s);
 }

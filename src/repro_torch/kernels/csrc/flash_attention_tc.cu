@@ -1,0 +1,569 @@
+// Flash-attention forward on Hopper's tensor cores (wgmma, TMA), sm_90a:
+// the bfloat16 route at head dims 64 and 128.
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel) where
+// the inputs are bfloat16; float32 inputs and other head dims take the
+// CUDA-core route (flash_attention.cu).  q [BH, Sq, D], k/v [BH/g, Sk, D],
+// row-major bfloat16, out [BH, Sq, D] bfloat16.  Query row block bh reads
+// KV block bh / g: with heads folded (lead..., H) that is the reference's
+// jnp.repeat of the KV heads, done here without a copy.  Per query row i
+// and key j, as the reference computes:
+//   s_ij = (q_i . k_j) * scale in float32 (exact bf16 products, float32
+//   sums); valid: j < Sk and, when causal, j <= i and (window == 0 or
+//   j > i - window); masked scores are the finite sentinel -1e30; running
+//   max m, denominator l and numerator acc, rescaled by
+//   alpha = exp(m_old - m_new) at each key tile; out = acc / max(l, 1e-30).
+//
+// Bound: operations.  Causal attention at BH = 48, S = 4096, D = 128 does
+// 4 * D flops for each of the ~403 M causal (i, j) pairs: 206 GFLOP, 0.21 ms
+// at the bf16 tensor-core peak; Q + K + V + O are 134 MB with 16 KV heads
+// (0.04 ms).
+//
+// Design.  A CTA takes 128 query rows of one bh (the reference's block) and
+// walks the live key tiles of 128 rows, heaviest query blocks first.
+// The CTA is two warpgroups, 64 query rows each.  Thread 0 starts every
+// load with TMA (3-D tensor maps over [heads, rows, D], 128-byte swizzle,
+// rows past Sq or Sk zero-filled): Q once, then K and V into a ring of
+// STAGES stages with full/empty mbarriers, STAGES - 1 tiles ahead; it
+// refills a stage at the end of a tile, once both warpgroups have released
+// the stage's previous tile, so one warpgroup may trail the other by a
+// tile.  There is no producer warp: with one (384 threads, setmaxnreg 24 /
+// 240) ptxas still compiles the whole kernel to 168 registers a thread,
+// spills and serialises the wgmmas; 256 threads leave each up to 255.
+// Each warpgroup computes, per key tile,
+//   S = Q K^T    wgmma m64n128k16, Q and K from shared memory, K-major;
+//   softmax      in registers on S's accumulator fragment, float32, with
+//                the mask computed only on ragged, diagonal and window-edge
+//                tiles; l sums the float32 P;
+//   O += P V     wgmma m64nDk16 with P as the A operand from registers (S's
+//                fragment is already the A fragment's layout) and V from
+//                shared memory, MN-major (transposed).
+// P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and both go
+// through the tensor cores into O: one bf16 rounding of P would err by up
+// to 2^-9 per weight, which over a 4096-key row adds a large share of an
+// output ulp; the split leaves ~2^-17, at 1.5x the algorithm's flops.
+// The output is written from registers, rows past Sq skipped.
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
+                   // fetched at run time through the runtime, so no -lcuda
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockM = 128;               // query rows of a CTA
+constexpr int kBlockN = 128;               // key rows of a tile
+constexpr int kPanel = 64;                 // bf16 columns of a 128-byte row
+constexpr int kThreads = 256;              // two warpgroups
+constexpr float kNegInf = -1e30f;
+
+template <int D, int STAGES>
+struct Smem {
+  // each [rows][64] panel is 128-byte swizzled by TMA; panels of 16 KB
+  // keep every panel 1024-byte aligned, as the swizzle needs
+  __nv_bfloat16 q[D / kPanel][kBlockM * kPanel];
+  __nv_bfloat16 k[STAGES][D / kPanel][kBlockN * kPanel];
+  __nv_bfloat16 v[STAGES][D / kPanel][kBlockN * kPanel];
+  uint64_t full[STAGES];
+  uint64_t empty[STAGES];
+  uint64_t q_full;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.  The wait
+// is bounded (2^34 cycles, ~9 s, where a real wait takes microseconds): a
+// barrier that never completes traps, so the launch fails with an error
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    if (clock64() - start > (1ll << 34)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T with A and B K-major in
+// shared memory (128-byte swizzle); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128] with A in registers (bf16 pairs
+// in the accumulator's layout) and B MN-major in shared memory (128-byte
+// swizzle, transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64] with A in registers (bf16 pairs
+// in the accumulator's layout) and B MN-major in shared memory (128-byte
+// swizzle, transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+      "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// O += P V over one 16-key step: D = 128 or 64 output columns.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
+                                         const uint32_t* a, uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(acc, a, db);
+  } else {
+    wgmma_rs_n64(acc, a, db);
+  }
+}
+
+// Thread 0 loads key tile j, the CTA's t-th, into stage t % STAGES once
+// both warpgroups have released the stage's previous tile.
+template <int D, int STAGES>
+__device__ __forceinline__ void load_kv(Smem<D, STAGES>& sm,
+                                        const CUtensorMap* k_map,
+                                        const CUtensorMap* v_map, int t,
+                                        int j, int kvh) {
+  const int st = t % STAGES;
+  if (t >= STAGES) mbar_wait(&sm.empty[st], ((t / STAGES) - 1) & 1);
+  mbar_expect_tx(&sm.full[st], 2 * kBlockN * D * 2);
+#pragma unroll
+  for (int p = 0; p < D / kPanel; ++p) {
+    tma_load(sm.k[st][p], k_map, &sm.full[st], p * kPanel, j * kBlockN, kvh);
+    tma_load(sm.v[st][p], v_map, &sm.full[st], p * kPanel, j * kBlockN, kvh);
+  }
+}
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+    fa_kernel_tc(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 __nv_bfloat16* __restrict__ out, int bh_count, int group,
+                 int sq, int sk, float scale, int causal, int window,
+                 int nq_blocks) {
+  constexpr int P = D / kPanel;  // panels of a row
+  extern __shared__ uint8_t smem_raw[];
+  Smem<D, STAGES>& sm = *reinterpret_cast<Smem<D, STAGES>*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+
+  // heaviest query blocks (most live key tiles under causal) first
+  const int qblk = nq_blocks - 1 - (int)(blockIdx.x / bh_count);
+  const int bh = (int)(blockIdx.x % bh_count);
+  const int q0 = qblk * kBlockM;
+  // the CTA's live key tiles [j_begin, j_end), as the reference skips its
+  // blocks: past the causal frontier, or wholly before the window
+  const int nk = (sk + kBlockN - 1) / kBlockN;
+  int j_begin = 0, j_end = nk;
+  if (causal) {
+    j_end = min(nk, (q0 + kBlockM - 1) / kBlockN + 1);
+    if (window) j_begin = max(0, q0 - window + 1) / kBlockN;
+  }
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kThreads);
+    }
+    mbar_init(&sm.q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int kvh = bh / group;  // GQA: the KV head of this query head
+  const int n_tiles = j_end - j_begin;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&sm.q_full, kBlockM * D * 2);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      tma_load(sm.q[p], &q_map, &sm.q_full, p * kPanel, q0, bh);
+    for (int t = 0; t < STAGES - 1 && t < n_tiles; ++t)
+      load_kv(sm, &k_map, &v_map, t, j_begin + t, kvh);
+  }
+
+  // warpgroup wg owns query rows qa..qa+63; this thread owns
+  // rows row_a and row_a + 8 and, of each 8-column chunk i of S and O,
+  // columns 8 i + col0 and + 1 (the wgmma accumulator's layout)
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int qa = q0 + wg * 64, qb = qa + 63;
+  const int row_a = qa + warp * 16 + lane / 4, row_b = row_a + 8;
+  const int col0 = 2 * (lane % 4);
+  const __nv_bfloat16* q_wg = &sm.q[0][wg * 64 * kPanel];
+
+  float acc[D / 2], s[64];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.0f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
+  const float scale2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  uint32_t p_hi[32], p_lo[32];
+
+  mbar_wait(&sm.q_full, 0);
+  for (int j = j_begin, t = 0; j < j_end; ++j, ++t) {
+    const int st = t % STAGES;
+    mbar_wait(&sm.full[st], (t / STAGES) & 1);
+    const int k_lo = j * kBlockN, k_hi = k_lo + kBlockN - 1;
+    const bool live =
+        !causal || (k_lo <= qb && (!window || k_hi > qa - window));
+    if (live) {
+      // S = Q K^T over D in steps of 16
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int p = ks / 4, c = (ks % 4) * 16;
+        wgmma_ss_n128(s,
+                      sw128_desc(q_wg + p * kBlockM * kPanel + c, 16, 1024),
+                      sw128_desc(&sm.k[st][p][c], 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // scale, mask where some key of the tile is invalid for some row,
+      // online softmax in float32, in base 2: scores times scale * log2(e),
+      // so exp(s - m) is one exp2 (the sentinel is still -1e30)
+      const bool edge =
+          k_hi >= sk ||
+          (causal && (k_hi > qa || (window && k_lo <= qb - window)));
+      float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float va = s[4 * i + e] * scale2, vb = s[4 * i + 2 + e] * scale2;
+          if (edge) {
+            const int jk = k_lo + 8 * i + col0 + e;
+            bool ok_a = jk < sk, ok_b = jk < sk;
+            if (causal) {
+              ok_a = ok_a && jk <= row_a && (!window || jk > row_a - window);
+              ok_b = ok_b && jk <= row_b && (!window || jk > row_b - window);
+            }
+            va = ok_a ? va : kNegInf;
+            vb = ok_b ? vb : kNegInf;
+          }
+          s[4 * i + e] = va;
+          s[4 * i + 2 + e] = vb;
+          mx_a = fmaxf(mx_a, va);
+          mx_b = fmaxf(mx_b, vb);
+        }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
+      float rs_a = 0.0f, rs_b = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[4 * i + e] = exp2f(s[4 * i + e] - mn_a);
+          s[4 * i + 2 + e] = exp2f(s[4 * i + 2 + e] - mn_b);
+          rs_a += s[4 * i + e];
+          rs_b += s[4 * i + 2 + e];
+        }
+      // l_a, l_b are this thread's share of the row's denominator; the
+      // four lanes of a row are summed once, at the end
+      l_a = l_a * alpha_a + rs_a;
+      l_b = l_b * alpha_b + rs_b;
+      m_a = mn_a;
+      m_b = mn_b;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[4 * i] *= alpha_a;
+        acc[4 * i + 1] *= alpha_a;
+        acc[4 * i + 2] *= alpha_b;
+        acc[4 * i + 3] *= alpha_b;
+      }
+      // P = P_hi + P_lo in bf16, in the A fragment's layout: for key step
+      // kk, registers 4 kk .. 4 kk + 3 hold S chunks 2 kk and 2 kk + 1
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float x0 = s[2 * i], x1 = s[2 * i + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const float2 h = __bfloat1622float2(hi);
+        p_hi[i] = bf16x2_bits(hi);
+        p_lo[i] = bf16x2_bits(__floats2bfloat162_rn(x0 - h.x, x1 - h.y));
+      }
+
+      // O += P_hi V + P_lo V over the tile's keys in steps of 16; V is
+      // MN-major: the 64-column panels lie 16 KB apart (leading offset),
+      // groups of 8 keys 1 KB apart (stride offset)
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        const uint64_t db = sw128_desc(&sm.v[st][0][kk * 16 * kPanel],
+                                       kBlockN * kPanel * 2, 1024);
+        wgmma_pv<D>(acc, &p_hi[4 * kk], db);
+        wgmma_pv<D>(acc, &p_lo[4 * kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    if (threadIdx.x == 0 && t + STAGES - 1 < n_tiles)
+      load_kv(sm, &k_map, &v_map, t + STAGES - 1, j + STAGES - 1, kvh);
+    __syncwarp();
+    mbar_arrive(&sm.empty[st]);
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? row_b : row_a;
+    const float den = h ? den_b : den_a;
+    if (row >= sq) continue;
+    __nv_bfloat16* orow = out + ((int64_t)bh * sq + row) * D + col0;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * h] / den,
+                                acc[4 * i + 2 * h + 1] / den);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, fetched through the runtime (no
+// -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over [heads, rows, d] bf16 (dims listed innermost first)
+// whose box is one 128-byte-swizzled [128 rows][64 columns] panel.
+bool make_map(CUtensorMap* map, const void* base, int64_t heads,
+              int64_t rows, int d) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {kPanel, kBlockN, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int STAGES>
+int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
+           int64_t bh_kv, int64_t sq, int64_t sk, float scale, int causal,
+           int window, cudaStream_t stream) {
+  static_assert(kBlockM == kBlockN, "one box shape serves Q, K and V");
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map(&q_map, q, bh, sq, D) || !make_map(&k_map, k, bh_kv, sk, D) ||
+      !make_map(&v_map, v, bh_kv, sk, D))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(Smem<D, STAGES>) + 1024;  // + alignment slack
+  const cudaError_t err = cudaFuncSetAttribute(
+      fa_kernel_tc<D, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t nq = (sq + kBlockM - 1) / kBlockM;
+  if (nq * bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fa_kernel_tc<D, STAGES><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), (int)bh,
+      (int)(bh / bh_kv), (int)sq, (int)sk, scale, causal, window, (int)nq);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns the launch's cudaError_t (0 on success).  q, o [bh, sq, d] and
+// k, v [bh_kv, sk, d] bfloat16, contiguous, 16-byte aligned; bh_kv divides
+// bh; d is 64 or 128; sk >= 1.  `window` is read only when `causal` is set.
+extern "C" int flash_attention_tc(const void* q, const void* k,
+                                  const void* v, void* o, int64_t bh,
+                                  int64_t bh_kv, int64_t sq, int64_t sk,
+                                  int d, float scale, int causal,
+                                  int64_t window, void* stream) {
+  constexpr int64_t kMaxRows = 0x7fffffffLL - 2 * kBlockM;
+  if (bh < 0 || bh > 0x7fffffffLL || bh_kv < 1 || bh % bh_kv || sq < 0 ||
+      sk < 1 || sq > kMaxRows || sk > kMaxRows || window < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
+      15)
+    return (int)cudaErrorInvalidValue;
+  if (bh == 0 || sq == 0) return 0;
+  // a window wider than every query row's reach masks nothing more
+  const int w = causal && window ? (int)(window < sq + 1 ? window : sq + 1)
+                                 : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch<64, 4>(q, k, v, o, bh, bh_kv, sq, sk, scale, causal, w, s);
+  if (d == 128)
+    return launch<128, 3>(q, k, v, o, bh, bh_kv, sq, sk, scale, causal, w,
+                          s);
+  return (int)cudaErrorInvalidValue;
+}

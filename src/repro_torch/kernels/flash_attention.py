@@ -1,12 +1,20 @@
 """Flash-attention forward: online softmax over K/V tiles, scores on chip.
 
-The counterpart of the reference's Pallas ``kernels/flash_attention.py``:
-:func:`flash_attention` launches the CUDA kernel
-``csrc/flash_attention.cu`` for CUDA tensors and runs
-:func:`flash_attention_plain` for CPU tensors.  On ``[BH, S, D]`` inputs it
-computes causal (optionally sliding-window) or non-causal attention with
-float32 scores from inputs upcast to float32, times ``scale``, and returns
-q's dtype.  The window applies only when ``causal``; ``Sq != Sk`` is allowed.
+The counterpart of the reference's Pallas ``kernels/flash_attention.py``.
+On ``q [BH, Sq, D]`` and ``k, v [BH/g, Sk, D]`` it computes causal
+(optionally sliding-window) or non-causal attention with float32 scores,
+times ``scale``, and returns q's dtype; query row block ``bh`` reads KV
+block ``bh // g``, which is the reference's ``jnp.repeat`` of the KV heads
+when heads are folded ``(lead..., H)``.  The window applies only when
+``causal``; ``Sq != Sk`` is allowed.
+
+:func:`flash_attention` picks one of two CUDA kernels by dtype and head dim,
+never by trying: bfloat16 at a head dim in :data:`TC_HEAD_DIMS` goes to
+:func:`flash_attention_tc` (``csrc/flash_attention_tc.cu``: tensor cores,
+``wgmma`` and TMA); everything else to :func:`flash_attention_simt`
+(``csrc/flash_attention.cu``: CUDA cores in float32, since TF32 tensor cores
+cannot meet float32's tolerance).  Each keeps its own count of launches.
+CPU tensors take :func:`flash_attention_plain`.
 
 :func:`sdpa` with :func:`causal_mask` is the one masked-softmax oracle of
 the port: ``models.layers`` runs it as the plain attention path and for
@@ -25,6 +33,8 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
+# bfloat16 head dims that the tensor-core kernel instantiates
+TC_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -60,11 +70,20 @@ def sdpa_ref(q, k, v, scale: float, causal: bool, window: int):
                 scale)[:, :, 0]
 
 
+def expand_kv(t: torch.Tensor, group: int) -> torch.Tensor:
+    """``[BH/g, S, D]`` KV blocks -> ``[BH, S, D]``: block ``bh`` is KV
+    block ``bh // g`` (``jnp.repeat`` on the folded head axis)."""
+    return t if group == 1 else torch.repeat_interleave(t, group, dim=0)
+
+
 def flash_attention_plain(q, k, v, *, scale: float, causal: bool = True,
                           window: int = 0) -> torch.Tensor:
-    """What the kernel computes, up to float32 summation order: the oracle
-    on the inputs upcast to float32, cast to q's dtype."""
-    return sdpa_ref(q.float(), k.float(), v.float(), scale, causal,
+    """What the kernels compute, up to float32 summation order: the oracle
+    on the inputs upcast to float32, the KV blocks expanded to q's, cast
+    to q's dtype."""
+    g = q.shape[0] // k.shape[0] if k.shape[0] else 1
+    return sdpa_ref(q.float(), expand_kv(k.float(), g),
+                    expand_kv(v.float(), g), scale, causal,
                     window).to(q.dtype)
 
 
@@ -73,9 +92,12 @@ def _check(q, k, v):
         raise ValueError(f"q, k, v must be [BH, S, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     bh, _, d = q.shape
-    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
+    bh_kv = k.shape[0]
+    if (k.shape != v.shape or k.shape[2] != d
+            or (bh_kv == 0 and bh != 0) or (bh_kv and bh % bh_kv)):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not match")
+                         f"v {tuple(v.shape)} do not match: k and v must be "
+                         f"[BH/g, Sk, D] with g dividing BH")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -83,40 +105,99 @@ def _check(q, k, v):
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """q: [BH, Sq, D]; k, v: [BH, Sk, D] -> o [BH, Sq, D] in q's dtype.
-
-    A CUDA tensor launches the kernel (one launch, counted in
-    ``flash_attention.launches``); CPU tensors take
-    :func:`flash_attention_plain`."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     window=window)
+def _check_cuda(q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
-    bh, sq, d = q.shape
-    sk = k.shape[1]
+
+
+def _launch(name, q, k, v, args):
+    """Run kernel ``name`` on q's stream -> o; ``args`` follow the four
+    pointers and precede the stream."""
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = build.load("flash_attention")
+    lib = build.load(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention(
+        err = getattr(lib, name)(
             ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
             ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            int(q.dtype == torch.bfloat16), bh, sq, sk, d,
-            ctypes.c_float(scale), int(bool(causal)), int(window),
-            ctypes.c_void_p(stream))
-    build.check(err, "flash_attention")
-    flash_attention.launches += 1
+            *args, ctypes.c_void_p(stream))
+    build.check(err, name)
     return out
 
 
-flash_attention.launches = 0
+def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       scale: float, causal: bool = True,
+                       window: int = 0) -> torch.Tensor:
+    """The tensor-core route: bfloat16, head dim in :data:`TC_HEAD_DIMS`,
+    every base 16-byte aligned (TMA).  A CUDA tensor launches
+    ``csrc/flash_attention_tc.cu`` (counted in
+    ``flash_attention_tc.launches``) or raises; CPU tensors take
+    :func:`flash_attention_plain`."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
+                                     window=window)
+    _check_cuda(q, k, v)
+    bh, sq, d = q.shape
+    if q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
+        raise ValueError(f"the tensor-core route takes bfloat16 at head dims "
+                         f"{TC_HEAD_DIMS}, got {q.dtype}, d={d}")
+    if k.shape[1] == 0:
+        raise ValueError("the tensor-core route needs Sk >= 1")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("TMA needs 16-byte aligned q, k, v")
+    out = _launch("flash_attention_tc", q, k, v,
+                  (bh, k.shape[0], sq, k.shape[1], d, ctypes.c_float(scale),
+                   int(bool(causal)), int(window)))
+    if out.numel():
+        flash_attention_tc.launches += 1
+    return out
+
+
+def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, scale: float, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """The CUDA-core route: float32 or bfloat16, any head dim up to
+    :data:`MAX_HEAD_DIM`.  A CUDA tensor launches ``csrc/flash_attention.cu``
+    (counted in ``flash_attention_simt.launches``); CPU tensors take
+    :func:`flash_attention_plain`."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
+                                     window=window)
+    _check_cuda(q, k, v)
+    bh, sq, d = q.shape
+    out = _launch("flash_attention", q, k, v,
+                  (int(q.dtype == torch.bfloat16), bh, k.shape[0], sq,
+                   k.shape[1], d, ctypes.c_float(scale), int(bool(causal)),
+                   int(window)))
+    if out.numel():
+        flash_attention_simt.launches += 1
+    return out
+
+
+def uses_tensor_cores(q: torch.Tensor) -> bool:
+    """The route of :func:`flash_attention`, fixed by dtype and head dim."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """q: [BH, Sq, D]; k, v: [BH/g, Sk, D] -> o [BH, Sq, D] in q's dtype.
+
+    CUDA tensors launch :func:`flash_attention_tc` when
+    :func:`uses_tensor_cores`, else :func:`flash_attention_simt`; CPU
+    tensors take :func:`flash_attention_plain`."""
+    route = (flash_attention_tc if uses_tensor_cores(q)
+             else flash_attention_simt)
+    return route(q, k, v, scale=scale, causal=causal, window=window)
+
+
+flash_attention_tc.launches = 0
+flash_attention_simt.launches = 0

@@ -108,9 +108,11 @@ def moniqua_decode_self(packed, x, B, spec: QuantSpec) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class _FlashSDPA(torch.autograd.Function):
-    """Forward through the flash kernel (scores never leave the chip);
-    backward recomputes through the masked-softmax oracle, as the
-    reference's ``custom_vjp`` does."""
+    """Forward through the flash kernel (scores never leave the chip; K/V
+    at KV-head count); backward recomputes through the masked-softmax
+    oracle, as the reference's ``custom_vjp`` does, with the KV expansion
+    inside autograd, so dK and dV come back summed over each group at
+    KV-head shape."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window):
@@ -122,17 +124,22 @@ class _FlashSDPA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
+        group = q.shape[0] // k.shape[0] if k.shape[0] else 1
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = _fa.sdpa_ref(*qkv, *ctx.cfg)
+            out = _fa.sdpa_ref(qkv[0], _fa.expand_kv(qkv[1], group),
+                               _fa.expand_kv(qkv[2], group), *ctx.cfg)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
         return dq, dk, dv, None, None, None
 
 
 def flash_sdpa(q, k, v, *, scale: float, causal: bool = True,
                window: int = 0) -> torch.Tensor:
-    """Differentiable flash attention on ``[..., S, H, D]`` tensors: heads
-    are folded into ``[BH, S, D]`` for the kernel and unfolded after."""
+    """Differentiable flash attention on ``q [..., S, H, D]`` and
+    ``k, v [..., Sk, Hkv, D]`` with ``Hkv`` dividing ``H`` (grouped-query
+    attention: query head ``h`` reads KV head ``h // (H / Hkv)``, with no
+    copy): heads are folded into ``[B*H, S, D]`` and ``[B*Hkv, Sk, D]`` for
+    the kernel and unfolded after."""
     *lead, S, H, D = q.shape
     Sk = k.shape[-3]
 

@@ -158,16 +158,14 @@ def attention(p, cfg, x, positions, *, window=0):
                                      cfg.rope_fraction)
         q = apply_rope(q, cos, sin, rot)
         k = apply_rope(k, cos, sin, rot)
-    k = _gqa_expand(k, nh)
-    v = _gqa_expand(v, nh)
     sq, sk = q.shape[-3], k.shape[-3]
     scale = 1.0 / math.sqrt(hd)
-    if cfg.flash_attention:
+    if cfg.flash_attention:            # the kernel reads the KV heads itself
         out = kops.flash_sdpa(q, k, v, scale=scale, causal=True,
                               window=window)
     else:
-        out = _sdpa(q, k, v, causal_mask(sq, sk, window, device=x.device),
-                    scale)
+        out = _sdpa(q, _gqa_expand(k, nh), _gqa_expand(v, nh),
+                    causal_mask(sq, sk, window, device=x.device), scale)
     return _out_proj(out, p["wo"])
 
 

@@ -152,9 +152,15 @@ def test_model_attention_flash_flag():
 
 def test_flash_counts_no_cpu_launch_and_rejects_bad_input():
     q = torch.zeros(2, 16, 64)
-    tfa.flash_attention.launches = 0
-    tfa.flash_attention(q, q, q, scale=0.125)
-    assert tfa.flash_attention.launches == 0      # plain version on the CPU
+    routes = (tfa.flash_attention_tc, tfa.flash_attention_simt)
+    for route in routes:
+        route.launches = 0
+    for x in (q, q.bfloat16()):                   # one per route
+        tfa.flash_attention(x, x, x, scale=0.125)
+        for route in routes:
+            route(x, x, x, scale=0.125)
+    # plain version on the CPU: no route counts a launch
+    assert [r.launches for r in routes] == [0, 0]
     with pytest.raises(ValueError):
         tfa.flash_attention(torch.zeros(2, 16, 300), torch.zeros(2, 16, 300),
                             torch.zeros(2, 16, 300), scale=0.1)
@@ -166,3 +172,109 @@ def test_flash_counts_no_cpu_launch_and_rejects_bad_input():
         tfa.flash_attention(q.double(), q.double(), q.double(), scale=0.1)
     with pytest.raises(TypeError):
         tfa.flash_attention(q, q.bfloat16(), q, scale=0.1)
+
+
+def test_flash_route_is_fixed_by_dtype_and_head_dim():
+    """bfloat16 at head dims 64 and 128 is the tensor-core route; float32
+    and every other head dim the CUDA-core route."""
+    def q(dtype, d):
+        return torch.zeros(1, 4, d, dtype=dtype)
+    assert tfa.uses_tensor_cores(q(torch.bfloat16, 64))
+    assert tfa.uses_tensor_cores(q(torch.bfloat16, 128))
+    for dtype, d in ((torch.float32, 64), (torch.float32, 128),
+                     (torch.bfloat16, 96), (torch.bfloat16, 256)):
+        assert not tfa.uses_tensor_cores(q(dtype, d))
+
+
+def test_flash_rejects_bad_gqa_and_dtype():
+    q = torch.zeros(6, 16, 64)
+    with pytest.raises(ValueError):                # 4 KV blocks do not divide 6
+        tfa.flash_attention(q, q[:4], q[:4], scale=0.1)
+    with pytest.raises(ValueError):                # k and v head counts differ
+        tfa.flash_attention(q, q[:3], q[:2], scale=0.1)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q[:0], q[:0], scale=0.1)
+    with pytest.raises(TypeError):                 # mismatched dtype, GQA
+        tfa.flash_attention(q, q[:3].bfloat16(), q[:3].bfloat16(), scale=0.1)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.bfloat16(), q[:2].bfloat16(), q[:2], scale=0.1)
+
+
+def _expand_heads(a, g):
+    """numpy [..., S, Hkv, D] -> [..., S, Hkv * g, D]: ``jnp.repeat`` on the
+    head axis, as the reference's attention expands KV heads."""
+    return np.repeat(a, g, axis=-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [3, 2])
+@pytest.mark.parametrize("causal,sq,sk,window", [
+    (True, 256, 256, 0), (True, 384, 384, 100), (True, 130, 130, 0),
+    (False, 130, 256, 0)])
+def test_flash_attention_gqa_matches_reference_kernel(dtype, g, causal, sq,
+                                                      sk, window):
+    """k, v at KV-head count [BH/g, Sk, D] through the port's plain version
+    against the reference's interpret-mode kernel on the repeated K/V."""
+    rng = np.random.default_rng(g + sq)
+    B, hkv, D = 2, 2, 64
+    q = rng.standard_normal((B * hkv * g, sq, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B * hkv, sk, D)).astype(np.float32)
+            for _ in range(2))
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], dtype)
+    scale = 1.0 / math.sqrt(D)
+    kw = dict(scale=scale, causal=causal, window=window)
+    out = tfa.flash_attention(tq, tk, tv, **kw)
+    assert out.shape == tq.shape and out.dtype == tq.dtype
+    ref = jflash(jq, jnp.repeat(jk, g, axis=0), jnp.repeat(jv, g, axis=0),
+                 interpret=True, **kw)
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == "float32" else dict(
+        rtol=0, atol=0.03)
+    np.testing.assert_allclose(_np(out), _np(ref), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,window", [(3, 0), (2, 100)])
+def test_flash_sdpa_gqa_matches_reference(dtype, g, window):
+    """ops.flash_sdpa on [B, S, H, D] q and [B, S, H/g, D] k, v against the
+    reference's ops.flash_sdpa on K/V repeated to H heads."""
+    B, S, hkv, D = 2, 192, 2, 64
+    rng = np.random.default_rng(g)
+    q = rng.standard_normal((B, S, hkv * g, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, hkv, D)).astype(np.float32)
+            for _ in range(2))
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], dtype)
+    scale = 1.0 / math.sqrt(D)
+    out = tops.flash_sdpa(tq, tk, tv, scale=scale, window=window)
+    ref = jops.flash_sdpa(jq, jnp.repeat(jk, g, axis=-2),
+                          jnp.repeat(jv, g, axis=-2), scale=scale,
+                          window=window, interpret=True)
+    assert out.shape == tq.shape and out.dtype == tq.dtype
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == "float32" else dict(
+        rtol=0, atol=0.03)
+    np.testing.assert_allclose(_np(out), _np(ref), **tol)
+
+
+@pytest.mark.parametrize("g", [3, 2])
+def test_flash_sdpa_gqa_gradient_matches_reference(g):
+    """dK and dV come back at KV-head shape: the reference's VJP on the
+    repeated K/V, summed over each group of g query heads, within 1e-4."""
+    B, S, hkv, D = 1, 160, 2, 64
+    rng = np.random.default_rng(10 + g)
+    q = rng.standard_normal((B, S, hkv * g, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, hkv, D)).astype(np.float32)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(D)
+
+    def jloss(q, k, v):
+        return jnp.sum(jops.flash_sdpa(q, k, v, scale=scale, window=64,
+                                       interpret=True) ** 2)
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, _expand_heads(k, g), _expand_heads(v, g))))
+    tqkv = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    (tops.flash_sdpa(*tqkv, scale=scale, window=64) ** 2).sum().backward()
+    assert tqkv[1].grad.shape == k.shape and tqkv[2].grad.shape == v.shape
+    want = [np.asarray(jg[0])] + [
+        np.asarray(a).reshape(B, S, hkv, g, D).sum(3) for a in jg[1:]]
+    for a, b in zip(want, tqkv):
+        np.testing.assert_allclose(b.grad.numpy(), a, rtol=1e-4, atol=1e-4)
