@@ -9,12 +9,18 @@ Phases (any failure exits non-zero, and the result line is not printed):
    versions; no card -> exit 2.  TF32 is off for matmul and cuDNN.
 2. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
    (nvcc, sm_90a, in parallel; the tensor-core flash kernel's SASS, read
-   with cuobjdump, must hold ``HGMMA`` and ``UTMALDG``), then hold each
-   codec kernel against its plain PyTorch version with ``torch.equal``:
-   encode over bits 1/2/4/8 x stochastic and nearest x idx_base != 0 x a
-   ragged row x float32 and bfloat16; decode-reduce over ring(8),
-   exponential(8) and torus(3, 3) x 1/2/4/8 bits x float32 and bfloat16;
-   both at the main path's shapes too.
+   with cuobjdump, must hold ``HGMMA`` and ``UTMALDG``; registers and
+   spills from ptxas), then hold each codec kernel against its plain
+   PyTorch version with ``torch.equal``, on the card and against the CPU:
+   encode over bits 1/2/4/8 x stochastic and nearest x idx_base != 0 x
+   float32 and bfloat16, decode-reduce over ring(8), exponential(8) and
+   torus(3, 3) x 1/2/4/8 bits x float32 and bfloat16, each at rows of 1003
+   (no vpb divides it), 4096 (aligned, a multiple of 128), 17 (shorter than
+   a vector), 1 and 4104 (1- and 2-bit payload rows not 4-byte aligned),
+   and at 4096 one element off alignment; decode-reduce also at every
+   neighbor count m = 1..8 (rows of 4096, off alignment too and with
+   payloads one to three bytes in, and of 1003); then ResNet-110's bucket
+   at 8 and 1 bit (encoded, and its rolled payloads mixed).
 3. One gossip round on the full ResNet-20 bucket (n=8, 272,282 elements per
    worker): the mix on the card equals the CPU plain-version mix bit for bit.
 4. The main path through ``Trainer.run``: ResNet-20 at width 16, 8 workers
@@ -25,7 +31,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
 5. Times on the card (CUDA events, 100 reps after warm-up, L2 flushed and
    the card held by a spin kernel before each rep): each kernel and its
    plain version at the main path's shapes, beside the least time the card
-   could take; the step time of each run.
+   could take; both codec kernels at 1 bit, and at 8 and 1 bit on
+   ResNet-110's bucket (1,730,522 parameters a worker); the step time of
+   each run.
 6. A torch.profiler trace of three 8-bit main-path steps: device busy share,
    launches, and device time by kernel group and by kernel.
 7. The flash-attention kernels against their plain version in float32 on
@@ -117,8 +125,71 @@ def sass_counts(lib, ops):
     return {op: text.count(op) for op in ops}
 
 
+# the codec kernels the main path launches: float32 at 8 and 1 bit, and
+# decode-reduce with a ring's m = 2 (mangled template arguments)
+MAIN_PATH_KERNELS = ("encode_kernelIfLi8E", "encode_kernelIfLi1E",
+                     "decode_reduce_kernelIfLi8ELi2E",
+                     "decode_reduce_kernelIfLi1ELi2E")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Each kernel's registers and spill-store bytes from ``-Xptxas -v``."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and name:
+            out[name] = (int(line.split("Used")[1].split()[0]), spill)
+            name, spill = None, 0
+    return out
+
+
 def bound_ms(nbytes: int, ops: int) -> float:
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+
+
+def encode_bound_ms(elems: int, bits: int) -> float:
+    """Encode of ``elems`` float32 values: each read once, its code written."""
+    return bound_ms(elems * 4 + elems * bits // 8, elems * ENCODE_OPS)
+
+
+def decode_reduce_bound_ms(elems: int, bits: int, m: int) -> float:
+    """Decode-reduce of ``elems`` float32 values with ``m`` neighbors: y read
+    and out written once, the own and m neighbor payloads read once."""
+    return bound_ms(elems * 8 + (m + 1) * elems * bits // 8,
+                    elems * decode_reduce_ops(m))
+
+
+def codec_times(timer, dev, card, flat, bits, stochastic, what, offsets):
+    """Time both codec kernels on ``flat [workers, 1, D]`` float32 at theta
+    2.0, decode-reduce mixing the payload rolled by each of ``offsets``
+    (the neighbors' gossip weights 1 / (m + 1)); print each beside its byte
+    bound and return ``{name: (ms, bound_ms)}``."""
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import delta_for_bits
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    m = len(offsets)
+    w = (1.0 / (m + 1),) * m
+    B = modulo.b_theta(2.0, delta_for_bits(bits, stochastic), dev)
+    p = kenc.encode(flat, B, 7, bits=bits, stochastic=stochastic)
+    pn = torch.stack([torch.roll(p, -o, 0) for o in offsets])
+    e = flat.numel()
+    times = {"moniqua_encode": (
+                 timer(lambda: kenc.encode(flat, B, 7, bits=bits,
+                                           stochastic=stochastic)),
+                 encode_bound_ms(e, bits)),
+             "moniqua_decode_reduce": (
+                 timer(lambda: kdr.decode_reduce(p, pn, flat, B, bits=bits,
+                                                 weights=w)),
+                 decode_reduce_bound_ms(e, bits, m))}
+    for name, (ms, bound) in times.items():
+        print(f"time: {name} {bits}-bit, {what} {list(flat.shape)} float32 "
+              f"(m={m}): kernel {ms:.5f} ms | bound {bound:.5f} ms (bytes) "
+              f"| {100 * bound / ms:.1f}% of the bound {card}", flush=True)
+    return times
 
 
 class Timer:
@@ -638,8 +709,21 @@ def main() -> int:
     print(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR}", flush=True)
     for name, path in libs.items():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "C75" in line:
+        log = path.with_suffix(".log").read_text()
+        kern = ptxas_kernels(log)
+        if kern:
+            regs = [r for r, _ in kern.values()]
+            spilled = {k: s for k, (_, s) in kern.items() if s}
+            print(f"  ptxas {name}: {len(kern)} kernels, {min(regs)}-"
+                  f"{max(regs)} registers, {len(spilled)} spilling "
+                  f"({sum(spilled.values())} bytes of stores)")
+        else:
+            print(f"  ptxas {name}: registers not measured (no ptxas lines)")
+        for k, (r, s) in kern.items():
+            if any(t in k for t in MAIN_PATH_KERNELS):
+                print(f"    {k}: {r} registers, {s} bytes spilled")
+        for line in log.splitlines():
+            if "C75" in line:                    # ptxas performance warnings
                 print(f"  ptxas {name}: {line.strip()}")
     sass = sass_counts(libs["flash_attention_tc"], ("HGMMA", "UTMALDG"))
     if sass is None:
@@ -661,52 +745,131 @@ def main() -> int:
             return torch.tensor(0.7, device=device)
         return modulo.b_theta(2.0, delta_for_bits(bits, stochastic), device)
 
+    def check_encode(x_cpu, x, bits, stochastic, what):
+        kw = dict(bits=bits, stochastic=stochastic, idx_base=12345)
+        B = B_for(bits, stochastic, dev)
+        got = kenc.encode(x, B, 0xC0FFEE, **kw)
+        plain = kenc.encode_plain(x, B, 0xC0FFEE, **kw)
+        cpu = kenc.encode_plain(x_cpu, B_for(bits, stochastic, "cpu"),
+                                0xC0FFEE, **kw)
+        what = f"encode {what} {x.dtype} bits={bits} stochastic={stochastic}"
+        check(torch.equal(got, plain), what + " != plain (card)")
+        check(torch.equal(got.cpu(), cpu), what + " != plain (CPU)")
+        return cpu
+
+    def check_decode_reduce(ps_cpu, pn_cpu, y_cpu, y, bits, weights, what,
+                            pay_off=(0, 0)):
+        ps = offset_view(ps_cpu.to(dev), pay_off[0])
+        pn = offset_view(pn_cpu.to(dev), pay_off[1])
+        B = B_for(bits, bits > 1, dev)
+        got = kdr.decode_reduce(ps, pn, y, B, bits=bits, weights=weights)
+        plain = kdr.decode_reduce_plain(ps, pn, y, B, bits=bits,
+                                        weights=weights)
+        cpu = kdr.decode_reduce_plain(ps_cpu, pn_cpu, y_cpu,
+                                      B_for(bits, bits > 1, "cpu"),
+                                      bits=bits, weights=weights)
+        what = (f"decode_reduce {what} m={len(weights)} {y.dtype} "
+                f"bits={bits}")
+        check(torch.equal(got, plain), what + " != plain (card)")
+        check(torch.equal(got.cpu(), cpu), what + " != plain (CPU)")
+
+    def offset_view(t, k=1):
+        """``t`` in a buffer ``k`` elements in: for k = 1, no row of y starts
+        16-byte aligned and the wrapper's output does not share its
+        alignment; a payload k bytes in starts inside a 4-byte word."""
+        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+        buf[k:] = t.reshape(-1)
+        return buf[k:].view(t.shape)
+
+    # [workers, rows, cols]: 1003, no vpb divides the row; 4096, rows
+    # 16-byte aligned and a multiple of 128; 17, shorter than one vector;
+    # 1, a single value; 4104, x rows aligned but 1- and 2-bit payload rows
+    # not 4-byte aligned
+    shapes = [(3, 5, 1003), (2, 3, 4096), (1, 1, 17), (1, 1, 1),
+              (1, 3, 4104)]
     n_checks = 0
-    shape = (3, 5, 1003)                     # 1003: no vpb divides the row
-    for dtype in (torch.float32, torch.bfloat16):
-        x_cpu = rand(*shape, scale=3.0).to(dtype)
-        x = x_cpu.to(dev)
-        for bits in (1, 2, 4, 8):
-            for stochastic in (True, False):
-                kw = dict(bits=bits, stochastic=stochastic, idx_base=12345)
-                got = kenc.encode(x, B_for(bits, stochastic, dev), 0xC0FFEE,
-                                  **kw)
-                plain = kenc.encode_plain(x, B_for(bits, stochastic, dev),
-                                          0xC0FFEE, **kw)
-                cpu = kenc.encode_plain(x_cpu, B_for(bits, stochastic, "cpu"),
-                                        0xC0FFEE, **kw)
-                what = f"encode {dtype} bits={bits} stochastic={stochastic}"
-                check(torch.equal(got, plain), what + " != plain (card)")
-                check(torch.equal(got.cpu(), cpu), what + " != plain (CPU)")
-                n_checks += 1
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x_cpu = rand(*shape, scale=3.0).to(dtype)
+            cases = [("", x_cpu.to(dev))]
+            if shape == (2, 3, 4096):
+                cases.append(("offset", offset_view(x_cpu.to(dev))))
+            for tag, x in cases:
+                for bits in (1, 2, 4, 8):
+                    for stochastic in (True, False):
+                        check_encode(x_cpu, x, bits, stochastic,
+                                     f"{list(shape)} {tag}")
+                        n_checks += 1
     topos = [ring(8), exponential(8), torus(3, 3)]
     for topo in topos:
         weights = tuple(w for o, w in zip(topo.offsets, topo.weights)
                         if o % topo.n)
         m = len(weights)
+        for shape in [(topo.n, 3, 1003)] + shapes[1:]:
+            for dtype in (torch.float32, torch.bfloat16):
+                y_cpu = rand(*shape, scale=4.0).to(dtype)
+                cases = [("", y_cpu.to(dev))]
+                if shape == (2, 3, 4096):
+                    cases.append(("offset", offset_view(y_cpu.to(dev))))
+                for bits in (1, 2, 4, 8):
+                    pshape = shape[:2] + (-(-shape[2] // (8 // bits)),)
+                    ps_cpu = torch.randint(0, 256, pshape, generator=gen,
+                                           dtype=torch.uint8)
+                    pn_cpu = torch.randint(0, 256, (m,) + pshape,
+                                           generator=gen, dtype=torch.uint8)
+                    for tag, y in cases:
+                        check_decode_reduce(ps_cpu, pn_cpu, y_cpu, y, bits,
+                                            weights, f"{topo.name}({topo.n}) "
+                                            f"{list(shape)} {tag}")
+                        n_checks += 1
+    # every neighbor count the kernel is built for (m = 1..8, each its own
+    # instantiation), at rows in the vector body (also one element off
+    # alignment, and with the own and the neighbor payloads one to three
+    # bytes in) and at ragged rows
+    for m in range(1, 9):
+        weights = tuple(float(v) for v in torch.rand(m, generator=gen) / m)
+        for shape in ((2, 3, 4096), (3, 5, 1003)):
+            for dtype in (torch.float32, torch.bfloat16):
+                y_cpu = rand(*shape, scale=4.0).to(dtype)
+                y = y_cpu.to(dev)
+                cases = [("", y, (0, 0))]
+                if shape == (2, 3, 4096):
+                    cases.append(("offset", offset_view(y), (0, 0)))
+                    cases += [(f"payloads +{k}/+{k % 3 + 1} bytes", y,
+                               (k, k % 3 + 1)) for k in (1, 2, 3)]
+                for bits in (1, 2, 4, 8):
+                    pshape = shape[:2] + (-(-shape[2] // (8 // bits)),)
+                    ps_cpu = torch.randint(0, 256, pshape, generator=gen,
+                                           dtype=torch.uint8)
+                    pn_cpu = torch.randint(0, 256, (m,) + pshape,
+                                           generator=gen, dtype=torch.uint8)
+                    for tag, yv, off in cases:
+                        check_decode_reduce(ps_cpu, pn_cpu, y_cpu, yv, bits,
+                                            weights, f"{list(shape)} {tag}",
+                                            pay_off=off)
+                        n_checks += 1
+    # ResNet-110's bucket (the paper's other model), 8 workers on a ring:
+    # encode it, roll the payload to each neighbor, mix; at the main path's
+    # 8-bit (stochastic) and 1-bit (nearest) specs
+    p110 = init_resnet(torch.Generator().manual_seed(2), depth=110, width=16)
+    X110 = tree.map(lambda a: a[None] + 0.02 * torch.randn(
+        (N_WORKERS,) + a.shape, generator=gen), p110)
+    w_ring = (1.0 / 3.0, 1.0 / 3.0)
+    flat110 = {}
+    for bits, stochastic in ((8, True), (1, False)):
+        lay = CommEngine(ring(N_WORKERS), MoniquaWire(
+            QuantSpec(bits, stochastic))).layout(X110)
+        f32 = lay.flatten(X110).reshape(N_WORKERS, 1, lay.padded_elems)
+        flat110[bits] = f32.to(dev)
         for dtype in (torch.float32, torch.bfloat16):
-            y_cpu = rand(topo.n, 3, 1003, scale=4.0).to(dtype)
-            y = y_cpu.to(dev)
-            for bits in (1, 2, 4, 8):
-                pc = -(-1003 // (8 // bits))
-                ps_cpu = torch.randint(0, 256, (topo.n, 3, pc), generator=gen,
-                                       dtype=torch.uint8)
-                pn_cpu = torch.randint(0, 256, (m, topo.n, 3, pc),
-                                       generator=gen, dtype=torch.uint8)
-                ps, pn = ps_cpu.to(dev), pn_cpu.to(dev)
-                B = B_for(bits, bits > 1, dev)
-                got = kdr.decode_reduce(ps, pn, y, B, bits=bits,
-                                        weights=weights)
-                plain = kdr.decode_reduce_plain(ps, pn, y, B, bits=bits,
-                                                weights=weights)
-                cpu = kdr.decode_reduce_plain(
-                    ps_cpu, pn_cpu, y_cpu, B_for(bits, bits > 1, "cpu"),
-                    bits=bits, weights=weights)
-                what = (f"decode_reduce {topo.name}({topo.n}) m={m} {dtype} "
-                        f"bits={bits}")
-                check(torch.equal(got, plain), what + " != plain (card)")
-                check(torch.equal(got.cpu(), cpu), what + " != plain (CPU)")
-                n_checks += 1
+            x_cpu = f32.to(dtype)
+            x = x_cpu.to(dev)
+            p_cpu = check_encode(x_cpu, x, bits, stochastic,
+                                 f"ResNet-110 {list(x.shape)}")
+            pn_cpu = torch.stack([torch.roll(p_cpu, -o, 0) for o in (-1, 1)])
+            check_decode_reduce(p_cpu, pn_cpu, x_cpu, x, bits, w_ring,
+                                f"ResNet-110 {list(x.shape)}")
+            n_checks += 2
     torch.cuda.synchronize()
     print(f"phase 2: {n_checks} kernel sweeps equal their plain versions "
           f"(card and CPU), torch.equal", flush=True)
@@ -784,7 +947,6 @@ def main() -> int:
     D = layout.padded_elems                 # 272,282 at 8 bits
     flat = layout.flatten(X).reshape(N_WORKERS, 1, D)
     B8 = modulo.b_theta(2.0, delta_for_bits(8, True), dev)
-    w_ring = (1.0 / 3.0, 1.0 / 3.0)
     p_self = kenc.encode(flat, B8, 7, bits=8, stochastic=True)
     p_nbrs = torch.stack([torch.roll(p_self, -o, 0) for o in (-1, 1)])
     enc_plain = kenc.encode_plain(flat, B8, 7, bits=8, stochastic=True)
@@ -804,7 +966,7 @@ def main() -> int:
                                           stochastic=True)),
              plain_ms=timer(lambda: kenc.encode_plain(flat, B8, 7, bits=8,
                                                       stochastic=True)),
-             bound_ms=bound_ms(elems * 4 + elems * 1, elems * ENCODE_OPS),
+             bound_ms=encode_bound_ms(elems, 8),
              bound_by="bytes", library_ms=None),
         dict(name="moniqua_decode_reduce", route="cuda",
              source="src/repro_torch/kernels/csrc/moniqua_decode_reduce.cu",
@@ -815,8 +977,7 @@ def main() -> int:
                                                 bits=8, weights=w_ring)),
              plain_ms=timer(lambda: kdr.decode_reduce_plain(
                  p_self, p_nbrs, flat, B8, bits=8, weights=w_ring)),
-             bound_ms=bound_ms(elems * (3 * 1 + 4 + 4),
-                               elems * decode_reduce_ops(2)),
+             bound_ms=decode_reduce_bound_ms(elems, 8, 2),
              bound_by="bytes", library_ms=None),
     ]
     for k in kernels:
@@ -825,23 +986,15 @@ def main() -> int:
               f"{k['plain_ms']:.5f} ms | bound {k['bound_ms']:.5f} ms "
               f"({k['bound_by']}) | library: no single PyTorch call {card}",
               flush=True)
-    # the 1-bit main path's shapes (row padded to 272,288 elements)
+    # the 1-bit main path's shapes (each of the 61 leaves padded to 8
+    # values: 272,672 a worker), then ResNet-110's bucket (1,730,522
+    # parameters a worker; 55 MB of float32 at 8 bits, more than the L2)
     layout1 = CommEngine(topo, MoniquaWire(QuantSpec(1, False))).layout(X)
-    D1 = layout1.padded_elems
-    flat1 = layout1.flatten(X).reshape(N_WORKERS, 1, D1)
-    B1 = modulo.b_theta(2.0, delta_for_bits(1, False), dev)
-    p1 = kenc.encode(flat1, B1, 7, bits=1, stochastic=False)
-    pn1 = torch.stack([torch.roll(p1, -o, 0) for o in (-1, 1)])
-    e1 = N_WORKERS * D1
-    t_enc1 = timer(lambda: kenc.encode(flat1, B1, 7, bits=1, stochastic=False))
-    t_dr1 = timer(lambda: kdr.decode_reduce(p1, pn1, flat1, B1, bits=1,
-                                            weights=w_ring))
-    print(f"time: moniqua_encode 1-bit, [{N_WORKERS}, {D1}] float32: kernel "
-          f"{t_enc1:.5f} ms | bound "
-          f"{bound_ms(e1 * 4 + e1 // 8, e1 * ENCODE_OPS):.5f} ms {card}")
-    print(f"time: moniqua_decode_reduce 1-bit ring: kernel {t_dr1:.5f} ms | "
-          f"bound {bound_ms(e1 * 8 + 3 * e1 // 8, e1 * decode_reduce_ops(2)):.5f}"
-          f" ms {card}")
+    flat1 = layout1.flatten(X).reshape(N_WORKERS, 1, layout1.padded_elems)
+    codec_times(timer, dev, card, flat1, 1, False, "ResNet-20", (-1, 1))
+    for bits, stochastic in ((8, True), (1, False)):
+        codec_times(timer, dev, card, flat110[bits], bits, stochastic,
+                    "ResNet-110", (-1, 1))
     for name, ms in step_ms.items():
         print(f"time: step {name} (ResNet-20 w16, n={N_WORKERS}, {IMAGES} "
               f"images/worker, mean of steps 1-{STEPS - 1}) {ms:.3f} ms "
