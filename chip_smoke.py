@@ -67,6 +67,29 @@ Phases (any failure exits non-zero, and the result line is not printed):
    128] causal (tensor cores in bfloat16 with the prefill's 16 KV heads,
    CUDA cores in float32) beside scaled_dot_product_attention and the
    bound, and the point decode at its path's shape.
+12. The paper's other update rules on the main path's model (ResNet-20,
+   8 workers, 128 images each, 8 bits, 10 steps through ``Trainer.run``):
+   naive, choco and deepsqueeze (gamma 0.3), dcd, ecd on a ring; d2 and
+   moniqua_d2 on ``ring(8).slack(0.75)``.  Finite losses, bytes per step and
+   extra memory equal to the CPU's for the same tree, Moniqua-D^2 through
+   one encode and one decode-reduce launch a step (the others through
+   none), and one ``algo.step`` on the card against the CPU on the same
+   state, directions and handed-in uniforms: Moniqua-D^2 bitwise, the
+   rest within ``RULE_ULPS``.  Step time of each rule.
+13. Moniqua on AD-PSGD (Algorithm 3) on the ResNet-20 bucket ``[8,
+   272282]``: ring(8), max delay 4, 8 bits, theta 2.0, 200 iterations, each
+   worker's gradient the ResNet-20 loss gradient of its (stale) model on its
+   batch through the bucket layout.  One encode and two point-decode
+   launches an exchange; the first exchanges bitwise card against CPU (a
+   quadratic gradient with handed-in noise, so the whole run is
+   elementwise); the full-wire AD-PSGD on the same schedule beside it;
+   time per iteration of each, and the point decode's time at the
+   exchange's shape ``[2, 272282]``.
+14. Rows too long for one launch: encode and decode-reduce of a ``[1, 2^31
+   + 4100]`` float32 row at 8 and 1 bit, the counter base set so the
+   counter crosses 2^32, two launches each (the row split), held bitwise
+   against the plain version on windows of 2^20 columns at the start,
+   across the split, across the wrap and at the end.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -96,6 +119,16 @@ N_WORKERS, IMAGES, STEPS = 8, 128, 10
 # test_one_bit_without_slack_diverges_like_the_reference).  The slack damps
 # each such move by s.
 SLACK_1BIT = 0.02
+# phase 12: the elementwise rules, card against CPU after one step.  Every
+# operation they run is one IEEE-rounded float32 operation on both, and the
+# per-worker scale is a max (exact): the bits should agree.  Nothing in
+# PyTorch promises its CPU and CUDA elementwise kernels the same bits,
+# though, so they are held within this many float32 ulp of each leaf's
+# largest value, and the measured error is printed.
+RULE_ULPS = 2
+ADPSGD_ITERS, ADPSGD_DELAY, ADPSGD_CHECK = 200, 4, 8
+SPLIT_COLS = 2 ** 31 + 4100    # phase 14's row
+SPLIT_WIN = 2 ** 20            # the columns of each window it is checked on
 # float32 operations per element, counted from the kernels' code
 ENCODE_OPS = 11                # div add floor sub add mul sub add floor max min
 
@@ -300,10 +333,10 @@ def causal_pairs(s: int) -> int:
     return s * (s + 1) // 2
 
 
-def profile_serving(fn, what, card):
+def profile_device(fn, what, card):
     """Device busy share, launches and device time by kernel group of one
-    call of ``fn`` under torch.profiler (its ``serve.*`` ranges are host
-    annotations and are left out of the device sums)."""
+    call of ``fn`` under torch.profiler (the serve steps' ``serve.*``
+    ranges are host annotations and are left out of the device sums)."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -573,7 +606,7 @@ def serving_phases(dev, timer, card, flat, B8):
           f" tokens/s); decode {decode_ms:.3f} ms per token (batch "
           f"{SERVE_BATCH}, host clock, mean of {BF16_GREEDY - 1}) {card}",
           flush=True)
-    profile_serving(lambda: prefill(params, batch), "one bf16 prefill",
+    profile_device(lambda: prefill(params, batch), "one bf16 prefill",
                     card)
 
     def decode4():
@@ -581,7 +614,7 @@ def serving_phases(dev, timer, card, flat, B8):
         for _ in range(4):
             tok = out[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True).int()
             out, cache = serve(params, cache, tok)
-    profile_serving(decode4, "4 bf16 decode tokens", card)
+    profile_device(decode4, "4 bf16 decode tokens", card)
     del params, cache, logits, out
     torch.cuda.empty_cache()
 
@@ -671,6 +704,282 @@ def serving_phases(dev, timer, card, flat, B8):
              plain_ms=dec_plain_ms, bound_ms=dec_bound, bound_by="bytes",
              library_ms=None),
     ]
+
+# -- the other update rules, AD-PSGD, long rows -------------------------------
+
+def rules_phase(dev, card, model, batches):
+    """Phase 12: the paper's other update rules on the main path's model."""
+    from repro_torch import tree
+    from repro_torch.core import algorithms as talg
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    runs = [("naive", {}), ("choco", dict(gamma=0.3)),
+            ("deepsqueeze", dict(gamma=0.3)), ("dcd", {}), ("ecd", {}),
+            ("d2", dict(slack=0.75)), ("moniqua_d2", dict(slack=0.75))]
+    eps = torch.finfo(torch.float32).eps
+    for name, kw in runs:
+        tc = TrainerConfig(algo=name, topology="ring", n_workers=N_WORKERS,
+                           bits=8, theta=2.0, lr=0.1, momentum=0.9,
+                           weight_decay=5e-4, steps=STEPS, log_every=1,
+                           seed=0, **kw)
+        trainer = Trainer(model, tc, lambda k: batches[k])
+        algo, hp = trainer.algo, trainer.hp
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdr.decode_reduce.launches = 0
+        out = trainer.run()
+        torch.cuda.synchronize()
+        launches = (kenc.encode.launches, kdr.decode_reduce.launches)
+        losses = [h["loss"] for h in out["history"]]
+        walls = [h["wall"] for h in out["history"]]
+        step_ms = 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1)
+        check(all(map(math.isfinite, losses)), f"{name}: non-finite loss")
+        want = (STEPS, STEPS) if name == "moniqua_d2" else (0, 0)
+        check(launches == want, f"{name}: encode / decode-reduce launches "
+              f"{launches}, want {want}")
+        state = out["state"]
+        X = state["params"]
+        Xc = tree.map(lambda a: a.cpu(), X)
+        mem = algo.extra_memory_bytes(X, hp)
+        check(out["bytes_per_step"] == algo.bytes_per_step(Xc, hp)
+              and mem == algo.extra_memory_bytes(Xc, hp),
+              f"{name}: byte accounting differs between card and CPU")
+        # one step on the card and on the CPU from the same state
+        gen = torch.Generator().manual_seed(21)
+        g_cpu = tree.map(lambda a: 0.01 * torch.randn(a.shape, generator=gen),
+                         Xc)
+        u_cpu = talg.draw_uniforms(Xc, 5)
+        extra_cpu = tree.map(lambda a: a.cpu(), state["extra"])
+        got = algo.step(X, state["extra"], tree.map(lambda a: a.to(dev), g_cpu),
+                        0.1, STEPS, 12345, hp,
+                        uniforms=tree.map(lambda a: a.to(dev), u_cpu))
+        ref = algo.step(Xc, extra_cpu, g_cpu, 0.1, STEPS, 12345, hp,
+                        uniforms=u_cpu)
+        err = 0.0
+        for a, b in zip(tree.leaves(got), tree.leaves(ref)):
+            a = a.cpu()
+            if name == "moniqua_d2":
+                check(torch.equal(a, b), f"{name}: card step != CPU step")
+            d = float((a.float() - b.float()).abs().max()) if a.numel() else 0
+            err = max(err, d)
+            tol = RULE_ULPS * eps * max(1.0, float(b.abs().max()))
+            check(d <= tol, f"{name}: card step vs CPU {d:.3g} > {tol:.3g}")
+        print(f"run {name} (ResNet-20 w16, n={N_WORKERS}, {tc.topology}"
+              f"{'-slack' + str(tc.slack) if tc.slack < 1 else ''}, 8 bits"
+              f"{', gamma ' + str(tc.gamma) if 'gamma' in kw else ''}): "
+              f"losses {[round(v, 4) for v in losses]} | encode / "
+              f"decode-reduce launches {launches} | bytes/step "
+              f"{out['bytes_per_step']} | extra memory {mem} bytes/worker | "
+              f"one step card vs CPU max abs {err:.3g}"
+              f"{' (bitwise)' if name == 'moniqua_d2' else ''}", flush=True)
+        print(f"time: step {name} (ResNet-20 w16, n={N_WORKERS}, {IMAGES} "
+              f"images/worker, mean of steps 1-{STEPS - 1}) {step_ms:.3f} ms "
+              f"{card}", flush=True)
+        if name == "dcd":       # the slowest rule: host launches or device?
+            profile_device(lambda: trainer.step_fn(state, batches[0]),
+                           "one dcd step", card)
+        del trainer, out, state, X, got, ref
+        torch.cuda.empty_cache()
+    print(f"phase 12: {len(runs)} update rules ran {STEPS} steps each on the "
+          f"main path's model; moniqua_d2 one encode and one decode-reduce a "
+          f"step, its step bitwise card vs CPU; the rest within {RULE_ULPS} "
+          f"ulp", flush=True)
+
+
+def adpsgd_phase(dev, timer, card, model, batches, X_cpu):
+    """Phase 13: Moniqua on AD-PSGD on the ResNet-20 bucket; returns the
+    point decode's kernels-line entry on this path."""
+    from repro_torch import tree
+    from repro_torch.comm.engine import CommEngine, MoniquaWire
+    from repro_torch.core import adpsgd, modulo
+    from repro_torch.core.moniqua import MoniquaCodec
+    from repro_torch.core.quantizers import QuantSpec, delta_for_bits
+    from repro_torch.core.topology import ring
+    from repro_torch.data.synthetic import quadratic_grad
+    from repro_torch.kernels import moniqua_decode as kdec
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.kernels import ops
+
+    spec8 = QuantSpec(8)
+    eng = CommEngine(ring(N_WORKERS), MoniquaWire(spec8))
+    p0 = model.init(torch.Generator().manual_seed(0))
+    X0 = tree.map(lambda a: a[None].expand((N_WORKERS,) + a.shape), p0)
+    lay = eng.layout(X0)
+    lay1 = eng.layout(tree.map(lambda a: a[:1], X0))
+    x0 = lay.flatten(X0)                          # [8, 272282], identical rows
+    D = x0.shape[1]
+    loss_grad = torch.func.grad_and_value(model.loss)
+    calls = [0]
+
+    def worker_batch(k, i):
+        b = batches[k % len(batches)]
+        return {key: v[i] for key, v in b.items()}
+
+    def resnet_grad(x, i, noise):
+        """Worker i's ResNet-20 loss gradient at its (stale) model ``x``."""
+        params = tree.map(lambda a: a[0], lay1.unflatten(x[None]))
+        g, _ = loss_grad(params, worker_batch(calls[0], i))
+        calls[0] += 1
+        return lay1.flatten(tree.map(lambda a: a[None], g))[0]
+
+    def mean_loss(X):
+        params = tree.map(lambda a: a[0], lay1.unflatten(X.mean(0)[None]))
+        return float(model.loss(params, worker_batch(0, 0)))
+
+    cfg = adpsgd.ADPSGDConfig(topo=ring(N_WORKERS), codec=MoniquaCodec(spec8),
+                              theta=2.0, max_delay=ADPSGD_DELAY,
+                              quantized=True)
+    sched = adpsgd.make_schedule(N_WORKERS, ADPSGD_ITERS, cfg, seed=0)
+    res = {}
+    for wire, c in (("moniqua", cfg),
+                    ("full", dataclasses.replace(cfg, quantized=False))):
+        calls[0] = 0
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdec.decode.launches = 0
+        kdr.decode_reduce.launches = 0
+        t0 = time.perf_counter()
+        Xf, trace = adpsgd.run(x0, resnet_grad, 0.1, ADPSGD_ITERS, c,
+                               schedule=sched)
+        torch.cuda.synchronize()
+        it_ms = 1e3 * (time.perf_counter() - t0) / ADPSGD_ITERS
+        launches = (kenc.encode.launches, kdec.decode.launches,
+                    kdr.decode_reduce.launches)
+        want = ((ADPSGD_ITERS, 2 * ADPSGD_ITERS, 0) if wire == "moniqua"
+                else (0, 0, 0))
+        check(launches == want, f"AD-PSGD {wire}: encode / point decode / "
+              f"decode-reduce launches {launches}, want {want}")
+        check(bool(torch.isfinite(Xf).all()), f"AD-PSGD {wire}: not finite")
+        check(calls[0] == ADPSGD_ITERS, f"AD-PSGD {wire}: {calls[0]} grads")
+        res[wire] = (Xf, it_ms, launches, mean_loss(Xf))
+        print(f"run adpsgd-{wire} ({list(x0.shape)}, ring({N_WORKERS}), max "
+              f"delay {ADPSGD_DELAY}, {ADPSGD_ITERS} iterations): launches "
+              f"encode / point decode / decode-reduce {launches}; mean-model "
+              f"loss {mean_loss(x0):.4f} -> {res[wire][3]:.4f}", flush=True)
+        print(f"time: AD-PSGD {wire} wire, ResNet-20 gradient an "
+              f"iteration, host clock {it_ms:.3f} ms per iteration (mean of "
+              f"{ADPSGD_ITERS}) {card}", flush=True)
+    gap = float((res["moniqua"][0] - res["full"][0]).abs().max())
+    five = {k: v[:5] for k, v in sched.items()}
+    profile_device(lambda: adpsgd.run(x0, resnet_grad, 0.1, 5, cfg,
+                                      schedule=five),
+                   "5 AD-PSGD moniqua iterations", card)
+    # the first exchanges, card against CPU: perturbed ResNet-20 models, a
+    # quadratic gradient with handed-in noise (elementwise), the same
+    # schedule's first entries
+    lay_c = eng.layout(X_cpu)
+    xp_cpu = lay_c.flatten(X_cpu)
+    gen = torch.Generator().manual_seed(13)
+    first = {k: v[:ADPSGD_CHECK] for k, v in sched.items()}
+    noise_cpu = torch.randn((ADPSGD_CHECK, D), generator=gen)
+
+    def quad(x, i, noise):
+        return quadratic_grad(x, 0.2, noise, 0.05)
+    x_card, _ = adpsgd.run(xp_cpu.to(dev), quad, 0.1, ADPSGD_CHECK, cfg,
+                           schedule=dict(first, noise=noise_cpu.to(dev)))
+    x_host, _ = adpsgd.run(xp_cpu, quad, 0.1, ADPSGD_CHECK, cfg,
+                           schedule=dict(first, noise=noise_cpu))
+    check(torch.equal(x_card.cpu(), x_host),
+          f"AD-PSGD first {ADPSGD_CHECK} exchanges card != CPU")
+    # the point decode at the exchange's shape [2, 272282]
+    B8 = modulo.b_theta(2.0, delta_for_bits(8, True), dev)
+    pair = x_card[:2].contiguous()
+    p2 = ops.moniqua_encode_stacked(pair, B8, spec8, 7)
+    p2f = p2.flip(0).contiguous()
+    got = kdec.decode(p2f, pair, B8, bits=8)
+    plain = kdec.decode_plain(p2f, pair, B8, bits=8)
+    dec_err = float((got - plain).abs().max())
+    check(dec_err == 0, "point decode at the exchange's shape != plain")
+    dec_ms = timer(lambda: kdec.decode(p2f, pair, B8, bits=8))
+    dec_plain_ms = timer(lambda: kdec.decode_plain(p2f, pair, B8, bits=8))
+    elems = pair.numel()
+    dec_bound = bound_ms(elems * 1 + elems * 4 + elems * 4,
+                         elems * DECODE_OPS)
+    print(f"time: moniqua_decode 8-bit remote {list(pair.shape)} float32 (an "
+          f"AD-PSGD exchange): kernel {dec_ms:.5f} ms | plain "
+          f"{dec_plain_ms:.5f} ms | bound {dec_bound:.5f} ms (bytes) | "
+          f"library: no single PyTorch call {card}", flush=True)
+    print(f"phase 13: Moniqua on AD-PSGD, {ADPSGD_ITERS} exchanges: "
+          f"{res['moniqua'][2][0]} encode and {res['moniqua'][2][1]} point "
+          f"decode launches (1 and 2 an exchange); the full wire on the same "
+          f"schedule: none; max |X_moniqua - X_full| {gap:.4g}; the first "
+          f"{ADPSGD_CHECK} exchanges card == CPU bitwise", flush=True)
+    return dict(name="moniqua_decode", route="cuda",
+                source="src/repro_torch/kernels/csrc/moniqua_decode.cu",
+                replaces="src/repro/kernels/moniqua_decode.py:68",
+                launches=res["moniqua"][2][1], max_abs_err=dec_err,
+                ms=dec_ms, plain_ms=dec_plain_ms, bound_ms=dec_bound,
+                bound_by="bytes", library_ms=None)
+
+
+def split_phase(dev, card):
+    """Phase 14: a row of 2^31 + 4100 columns through both codec kernels."""
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import QuantSpec, delta_for_bits
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.kernels import ops
+
+    cols = SPLIT_COLS
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((1, cols), generator=gen, device=dev) * 3.0
+    base = 2 ** 32 - cols // 2        # the counter wraps mid-row
+    win = SPLIT_WIN
+    weights = (1.0 / 3.0, 1.0 / 3.0)
+    t0 = time.perf_counter()
+    for bits in (8, 1):
+        spec = QuantSpec(bits, True)
+        vpb = spec.values_per_byte
+        B = (torch.tensor(0.7, device=dev) if bits == 1 else
+             modulo.b_theta(2.0, delta_for_bits(bits, True), dev))
+        n_win = len(ops._windows(cols, vpb))
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdr.decode_reduce.launches = 0
+        p = ops.moniqua_encode_stacked(x, B, spec, 99, idx_base=base)
+        pn = torch.randint(0, 256, (2,) + tuple(p.shape), generator=gen,
+                           device=dev, dtype=torch.uint8)
+        out = ops.moniqua_decode_reduce_stacked(p, pn, x, B, weights, spec)
+        torch.cuda.synchronize()
+        launches = (kenc.encode.launches, kdr.decode_reduce.launches)
+        check(launches == (n_win, n_win) and n_win > 1,
+              f"split row {bits}-bit: launches {launches}, want {n_win} "
+              f"each (> 1)")
+        split = ops._windows(cols, vpb)[1][0]
+        wrap = 2 ** 32 - base
+
+        def around(c):
+            """``win`` columns (fewer at the row's end) from a multiple of
+            vpb at or before ``c - win / 2``."""
+            a = max(0, (c - win // 2) // vpb * vpb)
+            return a, min(a + win, cols)
+        spots = {"start": (0, win), "split": around(split),
+                 "wrap": around(wrap), "end": around(cols)}
+        for where, (a, b) in spots.items():
+            pw = slice(a // vpb, -(-b // vpb))
+            xa = x[:, a:b].reshape(1, 1, b - a).contiguous()
+            want_p = kenc.encode_plain(xa, B, 99, bits=bits, stochastic=True,
+                                       idx_base=(base + a) % 2 ** 32)
+            check(torch.equal(p[:, pw].reshape(want_p.shape), want_p),
+                  f"split row {bits}-bit encode != plain at the {where}")
+            want_o = kdr.decode_reduce_plain(
+                p[:, pw].reshape(1, 1, -1).contiguous(),
+                pn[:, :, pw].reshape(2, 1, 1, -1).contiguous(), xa, B,
+                bits=bits, weights=weights)
+            check(torch.equal(out[:, a:b].reshape(want_o.shape), want_o),
+                  f"split row {bits}-bit decode-reduce != plain at the "
+                  f"{where}")
+        del p, pn, out
+        torch.cuda.empty_cache()
+    print(f"phase 14: a [1, {cols}] float32 row ("
+          f"{x.numel() * 4 / 1e9:.2f} GB), counter base {base} (wraps at "
+          f"column {2 ** 32 - base}): encode and decode-reduce in {n_win} "
+          f"launches each at 8 and 1 bit, bitwise equal to the plain version on "
+          f"{win}-column windows at the start, across the split, across the "
+          f"wrap and at the end ({time.perf_counter() - t0:.1f} s) {card}",
+          flush=True)
+    del x
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1038,6 +1347,13 @@ def main() -> int:
     torch.cuda.synchronize()
     kernels += serving_phases(dev, timer, card, flat.reshape(N_WORKERS, D),
                               B8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rules_phase(dev, card, model, batches)
+    dec_entry = adpsgd_phase(dev, timer, card, model, batches, X_cpu)
+    kernels = [dec_entry if k["name"] == "moniqua_decode" else k
+               for k in kernels]
+    split_phase(dev, card)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,7 +7,7 @@ local reference and accumulate the weighted consensus step
 
     X_{k+1/2}[i] = x_i + sum_{o != 0} w_o * (xhat_{i+o} - xhat_self)     (*)
 
-This first slice of the port carries two wires:
+The port carries two wires:
 
 * ``full`` (D-PSGD baseline): the raw model rides the wire and (*) collapses
   to the circulant ``X W`` of ``gossip.mix``;
@@ -21,6 +21,9 @@ encode launch, one packed roll per neighbor offset, one fused decode-reduce
 and one scatter back to the leaves; ``"per_leaf"`` gossips leaf by leaf and
 is the parity reference.  Both draw the same stochastic-rounding uniforms per
 element (global counter indices), so they are bit-exact against each other.
+
+AD-PSGD's primitive is one edge exchange, :meth:`CommEngine.pair_average`
+(Algorithm 3 lines 4-7), on the same two wires.
 
 Randomness: the reference takes a JAX key; the port takes the uint32 hash
 ``seed`` the reference derives from it (``kops._key_to_seed``).
@@ -45,6 +48,8 @@ PyTree = Any
 
 WIRES = ("full", "moniqua")
 PATHS = ("bucketed", "per_leaf")
+# wires of the reference that the port has not taken over yet
+_LATER_WIRES = ("qsgd", "ef_qsgd", "onebit")
 
 
 class MixResult(NamedTuple):
@@ -53,6 +58,12 @@ class MixResult(NamedTuple):
     stateless ``full`` and ``moniqua`` wires)."""
     x: Any
     state: dict = {}
+
+
+class PairResult(NamedTuple):
+    """Both endpoints of one :meth:`CommEngine.pair_average` exchange."""
+    xi: torch.Tensor
+    xj: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +93,9 @@ def make_wire(name: str, spec: Optional[QuantSpec] = None):
         return FullPrecisionWire()
     if name == "moniqua":
         return MoniquaWire(spec or QuantSpec())
+    if name in _LATER_WIRES:
+        raise NotImplementedError(
+            f"the {name} wire is not ported yet (ROADMAP.md, Queue 1 #8)")
     raise ValueError(f"unknown wire codec {name!r}; one of {WIRES}")
 
 
@@ -231,6 +245,48 @@ class CommEngine:
         out = [self._mix_leaf(l, theta, seed, idx_base=layout.offsets[i])
                for i, l in enumerate(leaves)]
         return MixResult(tree.unflatten(td, out))
+
+    def pair_average(self, xi: torch.Tensor, xj: torch.Tensor, theta=None,
+                     seed: Optional[int] = None, presence=None) -> PairResult:
+        """One gossip on edge (i, j) with the pair-averaging ``W_k``.
+
+        ``full``: both endpoints take ``(x_i + x_j) / 2``.  ``moniqua``
+        (Algorithm 3 lines 4-7): both payloads come from one encode launch
+        of the stacked pair under the shared ``seed`` (the counter restarts
+        per endpoint), and each endpoint decodes the other's payload
+        against its own model (one remote point decode of the swapped
+        payloads) and its own payload (one self point decode):
+        ``x_i + (xhat_j - xhat_ii) / 2``.  The decodes run in float32, so
+        a bfloat16 pair comes back in float32, as the reference promotes.
+        """
+        if presence is not None:
+            raise NotImplementedError(
+                "pair_average(presence=...) is not ported yet (ROADMAP.md, "
+                "Queue 1 #9)")
+        if self.codec.name == "full":
+            avg = 0.5 * (xi + xj)
+            return PairResult(avg, avg)
+        if theta is None:
+            raise ValueError("MoniquaWire needs the a-priori bound theta")
+        self._require_seed(seed)
+        spec = self.codec.spec
+        x2 = torch.stack([xi, xj])
+        B = modulo.b_theta(theta, spec.delta, x2.device)
+        p2 = kops.moniqua_encode_stacked(
+            x2, B, spec, kops.NO_KEY_SEED if seed is None else int(seed))
+        y2 = x2.float()
+        remote = kops.moniqua_decode_remote(p2.flip(0), y2, B, spec)
+        own = kops.moniqua_decode_self(p2, y2, B, spec)
+        out = x2 + 0.5 * (remote - own)
+        return PairResult(out[0], out[1])
+
+    # -- gossip building blocks of the replica-mixing baselines -------------
+    def neighbor_sum(self, X: PyTree, transform) -> PyTree:
+        """``sum_{o != 0} w_o * transform(roll(X, -o), o)`` leaf-wise."""
+        return gossip.neighbor_sum(X, self.topo, transform)
+
+    def self_weight(self) -> float:
+        return gossip.self_weight(self.topo)
 
     def _mix_leaf(self, x: torch.Tensor, theta, seed: int,
                   idx_base: int = 0) -> torch.Tensor:

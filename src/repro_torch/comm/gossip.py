@@ -78,3 +78,7 @@ def neighbor_sum(X: PyTree, topo: Topology,
             out = t if out is None else out + t
         return out
     return tree.map(f, X)
+
+
+def self_weight(topo: Topology) -> float:
+    return sum(w for o, w in zip(topo.offsets, topo.weights) if o % topo.n == 0)

@@ -1,5 +1,10 @@
 """Carry parameter trees between the JAX package and the port.
 
+Any tree of arrays crosses the same way: parameters, and an update rule's
+state ``extra`` (replicas ``x_hat``, error buffers, D^2's ``x_prev`` /
+``g_prev`` and its 0-d ``alpha_prev``), so both packages can start from one
+state.
+
 The two packages use the same tree: the same dict keys and nesting, conv
 weights in HWIO, the same leaf shapes.  So a conversion is a leaf-wise copy
 through numpy; nothing is transposed.  The JAX side is taken as numpy arrays

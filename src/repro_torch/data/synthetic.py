@@ -1,11 +1,12 @@
-"""Synthetic CIFAR-like data (no datasets ship with the repo).
+"""Synthetic data and objectives (no datasets ship with the repo).
 
 ``cifar_like`` draws class-conditional Gaussian "images" (32x32x3 NHWC, 10
 classes), the stand-in for CIFAR10 in the paper-faithful ResNet runs.  It is
 a pure function of ``(seed, step, worker)``: each call seeds its own
 ``torch.Generator``, so batches are deterministic and resumable.  The draws
 differ from the reference's ``jax.random`` streams; tests that compare the
-two frameworks hand both the same numpy batches.
+two frameworks hand both the same numpy batches.  ``quadratic_grad`` is the
+stochastic gradient of Theorem 1's quadratic, with its noise handed in.
 """
 from __future__ import annotations
 
@@ -46,3 +47,11 @@ def stacked_cifar_like(step: int, batch: int, n_workers: int, *,
     per = [cifar_like(step, batch, worker=w, seed=seed, device=device)
            for w in range(n_workers)]
     return {k: torch.stack([b[k] for b in per]) for k in per[0]}
+
+
+def quadratic_grad(x: torch.Tensor, delta: float, noise: torch.Tensor,
+                   sigma: float = 0.1) -> torch.Tensor:
+    """Stochastic gradient of the Theorem-1 quadratic at ``x``, with the
+    standard normal ``noise`` (shaped like ``x``) handed in."""
+    opt = delta / 2.0
+    return x - opt + sigma * noise

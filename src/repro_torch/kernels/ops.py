@@ -5,8 +5,9 @@ The reference's ``kernels/ops.py`` pads every array to a 256x1024 tile grid
 and vmaps that layout over the worker axis.  The grid only ever appends
 padding that is sliced off again before the payload is rolled, so the port
 has no grid: one launch covers the whole ``[n, ...]`` leaf or ``[n, D]``
-bucket.  Two things of the reference layout fix the payload bits and are
-kept:
+bucket.  Only a row of ``_MAX_COLS`` (2^31) columns or more, which the
+kernels refuse, goes in column windows, one launch each.  Two things of the
+reference layout fix the payload bits and are kept:
 
 * each leaf's last dim is zero-padded to values-per-byte (the kernels do it
   in place: columns past the end encode as zeros);
@@ -37,26 +38,76 @@ def _rows_view(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().reshape(x.shape[0], -1, x.shape[-1])
 
 
+# A launch takes rows of fewer than this many columns (the kernels keep
+# offsets inside a row in 32 bits).  A longer row goes in column windows.
+_MAX_COLS = 2 ** 31
+
+
+def _windows(cols: int, vpb: int):
+    """Column windows ``[a, b)`` of a row, each below ``_MAX_COLS`` and
+    starting on a multiple of values-per-byte, so that its payload starts
+    on a whole byte: payload columns ``[a // vpb, ceil(b / vpb))``."""
+    step = (_MAX_COLS - 1) // vpb * vpb
+    return [(a, min(a + step, cols)) for a in range(0, cols, step)]
+
+
+def _pwin(a: int, b: int, vpb: int) -> slice:
+    return slice(a // vpb, -(-b // vpb))
+
+
 def moniqua_encode_stacked(x: torch.Tensor, B, spec: QuantSpec, seed: int, *,
                            idx_base: int = 0) -> torch.Tensor:
-    """Encode a stacked ``[n, ...]`` leaf in one launch -> packed uint8
-    ``[n, ..., ceil(last / vpb)]``.  ``idx_base`` is shared by every worker."""
-    p = _enc.encode(_rows_view(x), B, seed, bits=spec.bits,
-                    stochastic=spec.stochastic, idx_base=idx_base)
+    """Encode a stacked ``[n, ...]`` leaf -> packed uint8
+    ``[n, ..., ceil(last / vpb)]``, in one launch unless a row is too long.
+    ``idx_base`` is shared by every worker.  Each window of a long row is
+    launched with the counter base its first column has in the whole row,
+    ``idx_base + r * cols_padded + a`` (the kernel takes it mod 2^32), so
+    the payload bits are those of one launch over the row."""
+    x3 = _rows_view(x)
+    n, rows, cols = x3.shape
+    vpb = spec.values_per_byte
+    kw = dict(bits=spec.bits, stochastic=spec.stochastic)
+    if cols < _MAX_COLS:
+        p = _enc.encode(x3, B, seed, idx_base=idx_base, **kw)
+    else:
+        p = torch.empty((n, rows, -(-cols // vpb)), dtype=torch.uint8,
+                        device=x.device)
+        cols_padded = -(-cols // vpb) * vpb
+        for w in range(n):
+            for r in range(rows):
+                for a, b in _windows(cols, vpb):
+                    p[w, r, _pwin(a, b, vpb)] = _enc.encode(
+                        x3[w:w + 1, r:r + 1, a:b], B, seed,
+                        idx_base=int(idx_base) + r * cols_padded + a,
+                        **kw)[0, 0]
     return p.reshape(*x.shape[:-1], p.shape[-1])
 
 
 def moniqua_decode_reduce_stacked(p_self: torch.Tensor, p_nbrs: torch.Tensor,
                                   y: torch.Tensor, B, weights,
                                   spec: QuantSpec) -> torch.Tensor:
-    """Fused decode-reduce over a stacked leaf in one launch.  ``p_self`` and
-    ``y`` carry the worker axis at 0; ``p_nbrs`` stacks the neighbor payloads
-    at axis 0 with the worker axis at 1 (one roll per offset)."""
+    """Fused decode-reduce over a stacked leaf, in one launch unless a row
+    is too long (then one launch a column window).  ``p_self`` and ``y``
+    carry the worker axis at 0; ``p_nbrs`` stacks the neighbor payloads at
+    axis 0 with the worker axis at 1 (one roll per offset)."""
     y3 = _rows_view(y)
-    ps = p_self.contiguous().reshape(*y3.shape[:2], -1)
-    pn = p_nbrs.contiguous().reshape(p_nbrs.shape[0], *y3.shape[:2], -1)
-    out = _dr.decode_reduce(ps, pn, y3, B, bits=spec.bits,
-                            weights=tuple(weights))
+    n, rows, cols = y3.shape
+    ps = p_self.contiguous().reshape(n, rows, -1)
+    pn = p_nbrs.contiguous().reshape(p_nbrs.shape[0], n, rows, -1)
+    kw = dict(bits=spec.bits, weights=tuple(weights))
+    if cols < _MAX_COLS:
+        out = _dr.decode_reduce(ps, pn, y3, B, **kw)
+    else:
+        vpb = spec.values_per_byte
+        out = torch.empty_like(y3)
+        for w in range(n):
+            for r in range(rows):
+                for a, b in _windows(cols, vpb):
+                    pw = _pwin(a, b, vpb)
+                    out[w, r, a:b] = _dr.decode_reduce(
+                        ps[w:w + 1, r:r + 1, pw],
+                        pn[:, w:w + 1, r:r + 1, pw].contiguous(),
+                        y3[w:w + 1, r:r + 1, a:b], B, **kw)[0, 0]
     return out.reshape(y.shape)
 
 
@@ -85,11 +136,22 @@ def moniqua_decode_reduce_chunk(p_self: torch.Tensor, p_nbrs: torch.Tensor,
 def _decode_common(packed: torch.Tensor, y: torch.Tensor, B,
                    spec: QuantSpec, mode: str) -> torch.Tensor:
     """``y [..., last]`` against ``packed [..., ceil(last / vpb)]`` in one
-    launch over ``[prod(...), last]`` rows."""
+    launch over ``[prod(...), last]`` rows, unless a row is too long (then
+    one launch a column window)."""
     cols = y.shape[-1]
     y2 = y.contiguous().reshape(-1, cols)
     p2 = packed.contiguous().reshape(y2.shape[0], -1)
-    out = _dec.decode(p2, y2, _scalar(B, y), bits=spec.bits, mode=mode)
+    Bt = _scalar(B, y)
+    if cols < _MAX_COLS:
+        out = _dec.decode(p2, y2, Bt, bits=spec.bits, mode=mode)
+    else:
+        vpb = spec.values_per_byte
+        out = torch.empty_like(y2)
+        for r in range(y2.shape[0]):
+            for a, b in _windows(cols, vpb):
+                out[r, a:b] = _dec.decode(p2[r:r + 1, _pwin(a, b, vpb)],
+                                          y2[r:r + 1, a:b], Bt,
+                                          bits=spec.bits, mode=mode)[0]
     return out.reshape(y.shape)
 
 

@@ -28,6 +28,7 @@ class TrainerConfig:
     n_workers: int = 8
     bits: int = 8
     theta: float = 2.0
+    gamma: float = 1.0          # Choco/DeepSqueeze consensus step size
     slack: float = 1.0          # Theorem 3 slack matrix W_bar = s W + (1-s) I
     lr: float = 0.1
     momentum: float = 0.9
@@ -46,7 +47,8 @@ def build_hyper(tc: TrainerConfig) -> AlgoHyper:
     if tc.slack < 1.0:
         topo = topo.slack(tc.slack)
     spec = QuantSpec(bits=tc.bits, stochastic=tc.bits > 1)
-    return AlgoHyper(topo=topo, codec=MoniquaCodec(spec), theta=tc.theta)
+    return AlgoHyper(topo=topo, codec=MoniquaCodec(spec), theta=tc.theta,
+                     gamma=tc.gamma)
 
 
 class Trainer:

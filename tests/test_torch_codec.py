@@ -205,3 +205,104 @@ def test_theta_schedule_matches_reference(mode):
         out = float(TTheta(**kw)(0.1, torch.tensor(g_inf)))
         assert out == pytest.approx(ref, rel=1e-6)
     assert t_theta_dpsgd(0.1, 2.0, 8, 0.5) == j_theta_dpsgd(0.1, 2.0, 8, 0.5)
+
+
+# ---------------------------------------------------------------------------
+# Rows too long for one launch: column windows (ops._MAX_COLS lowered)
+# ---------------------------------------------------------------------------
+
+SPLIT_COLS = 300            # the lowered limit: rows of 700 take 3 windows
+SPLIT_BASE = 2 ** 32 - 1500  # the counter wraps inside the first row
+
+
+def _split_case(bits, seed):
+    rng = np.random.default_rng(seed)
+    n, rows, cols = 2, 3, 700
+    x = (rng.standard_normal((n, rows, cols)) * 3).astype(np.float32)
+    pc = tq.packed_last_dim(cols, bits)
+    pn = rng.integers(0, 256, (2, n, rows, pc)).astype(np.uint8)
+    return x, pn
+
+
+class _Count:
+    """Wraps a kernel wrapper and counts its calls (launches on the card)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *a, **kw):
+        self.calls += 1
+        return self.fn(*a, **kw)
+
+
+@pytest.mark.parametrize("bits", [1, 8])
+def test_row_split_encode_and_decode_reduce_bitwise(bits, monkeypatch):
+    """With the limit lowered, a row of 700 columns goes in windows cut at
+    multiples of values-per-byte, each launched at its own counter base;
+    the payload and the mix equal one launch over the row and the
+    reference's kernels in interpret mode, bit for bit, with the counter
+    wrapping past 2^32 inside the row."""
+    x, pn_np = _split_case(bits, 50 + bits)
+    tspec, jspec = _spec(bits, True)
+    jB, tB = _B(bits, True)
+    seed = 0x5EED
+    xt = torch.from_numpy(x)
+    whole = tenc.encode(xt, tB, seed, bits=bits, stochastic=True,
+                        idx_base=SPLIT_BASE)
+    weights = (0.25, 0.3)
+    pn = torch.from_numpy(pn_np)
+    mixed = tdr.decode_reduce(whole, pn, xt, tB, bits=bits, weights=weights)
+
+    enc, dr = _Count(tenc.encode), _Count(tdr.decode_reduce)
+    monkeypatch.setattr(tops, "_MAX_COLS", SPLIT_COLS)
+    monkeypatch.setattr(tops._enc, "encode", enc)
+    monkeypatch.setattr(tops._dr, "decode_reduce", dr)
+    split = tops.moniqua_encode_stacked(xt, tB, tspec, seed,
+                                        idx_base=SPLIT_BASE)
+    split_mix = tops.moniqua_decode_reduce_stacked(whole, pn, xt, tB,
+                                                   weights, tspec)
+    windows = len(tops._windows(700, tspec.values_per_byte))
+    assert windows == 3
+    assert enc.calls == dr.calls == 2 * 3 * windows
+    assert torch.equal(split, whole)
+    assert torch.equal(split_mix, mixed)
+
+    ref = jops.moniqua_encode_stacked(jnp.asarray(x), jB, jspec,
+                                      jnp.uint32(seed), backend="pallas",
+                                      idx_base=jnp.uint32(SPLIT_BASE))
+    _eq(ref, split)
+    ref_mix = jops.moniqua_decode_reduce_stacked(
+        jnp.asarray(np.asarray(split)), jnp.asarray(pn_np), jnp.asarray(x),
+        jB, weights, jspec, backend="pallas")
+    _eq(ref_mix, split_mix)
+    # rows below the limit keep one launch
+    tops.moniqua_encode_stacked(xt[..., :SPLIT_COLS - 1], tB, tspec, seed)
+    assert enc.calls == 2 * 3 * windows + 1
+
+
+@pytest.mark.parametrize("bits", [1, 8])
+@pytest.mark.parametrize("mode", ["remote", "self"])
+def test_row_split_point_decode_bitwise(bits, mode, monkeypatch):
+    """The point decode through the same windows equals one launch over
+    the rows and the reference's eager ``ref.py`` decode, bit for bit, and
+    its interpret-mode kernel within the 2 ulp of ``|y| + B`` that its
+    contracted multiply-adds cost (``tests/test_torch_decode.py``)."""
+    x, pn_np = _split_case(bits, 60 + bits)
+    tspec, _ = _spec(bits, bits > 1)
+    jB, tB = _B(bits, bits > 1)
+    packed = torch.from_numpy(pn_np[0])
+    fn = getattr(tops, f"moniqua_decode_{mode}")
+    whole = fn(packed, torch.from_numpy(x), tB, tspec)
+    monkeypatch.setattr(tops, "_MAX_COLS", SPLIT_COLS)
+    split = fn(packed, torch.from_numpy(x), tB, tspec)
+    assert torch.equal(split, whole)
+    ref_fn = jref.decode_ref if mode == "remote" else jref.decode_self_ref
+    pad = pn_np.shape[-1] * (8 // bits) - x.shape[-1]
+    y = np.pad(x, ((0, 0), (0, 0), (0, pad)))
+    ref = ref_fn(jnp.asarray(pn_np[0]), jnp.asarray(y), jB, bits)
+    _eq(np.asarray(ref)[..., :x.shape[-1]], split)
+    _, jspec = _spec(bits, bits > 1)
+    kern = np.asarray(getattr(jops, f"moniqua_decode_{mode}")(
+        jnp.asarray(pn_np[0]), jnp.asarray(x), jB, jspec, interpret=True))
+    tol = 2 * np.spacing(np.abs(x) + np.float32(jB))
+    assert np.all(np.abs(split.numpy() - kern) <= tol)

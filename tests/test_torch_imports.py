@@ -32,7 +32,9 @@ def test_port_imports_without_jax_or_repro():
     for name in ("configs", "configs.base", "configs.llama3_2_3b",
                  "models.layers", "models.transformer",
                  "models.model_factory", "train.serve_step", "data.pipeline",
-                 "kernels.flash_attention", "kernels.moniqua_decode"):
+                 "kernels.flash_attention", "kernels.moniqua_decode",
+                 "core.adpsgd", "core.algorithms", "core.theta",
+                 "data.synthetic"):
         assert f"repro_torch.{name}" in res["modules"], name
-    assert len(res["modules"]) >= 35
+    assert len(res["modules"]) >= 36
     assert res["bad"] == [], f"repro_torch pulled in: {res['bad']}"
