@@ -7,10 +7,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no card -> exit 2.  TF32 is off for matmul and cuDNN.
-2. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (nvcc, sm_90a, in parallel; the tensor-core flash kernel's SASS, read
-   with cuobjdump, must hold ``HGMMA`` and ``UTMALDG``; registers and
-   spills from ptxas), then hold each codec kernel against its plain
+2. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (nvcc, sm_90a, in parallel; read with cuobjdump, the bfloat16
+   tensor-core flash kernel's SASS must hold ``HGMMA`` and ``UTMALDG``, the
+   float32 one's TF32 ``HMMA.1688.F32.TF32``; registers and spills from
+   ptxas), then hold each codec kernel against its plain
    PyTorch version with ``torch.equal``, on the card and against the CPU:
    encode over bits 1/2/4/8 x stochastic and nearest x idx_base != 0 x
    float32 and bfloat16, decode-reduce over ring(8), exponential(8) and
@@ -38,35 +39,48 @@ Phases (any failure exits non-zero, and the result line is not printed):
    launches, and device time by kernel group and by kernel.
 7. The flash-attention kernels against their plain version in float32 on
    the same inputs, on the card, each case through the route its dtype and
-   head dim select (bfloat16 at head dims 64 and 128: the tensor-core
-   kernel; the rest: the CUDA-core kernel): the reference tests' sweep (S
-   256/384/128/130 with windows 0/100/32/0), non-causal Sq=130/Sk=256, head
-   dims 64 and 128 (and 96, 256 once), grouped-query cases (K/V at 1/3 and
-   1/2 of the query heads), and the serving shape [48, 4096, 128] causal
-   (with 48 and with 16 KV heads), each in float32 (rtol = atol = 2e-5,
-   the reference tests' numbers) and bfloat16 (within the reference tests'
-   atol 0.03, and element by element within one bfloat16 ulp of the plain
-   value plus the float32 tolerance).
-8. The single-payload decode kernel against its plain version, bitwise
-   (bits 1/2/4/8 x remote/self x float32/bfloat16 x a ragged row), then its
-   path: the ResNet-20 bucket encoded and decoded through
-   ``ops.moniqua_decode_remote`` / ``_self`` within Lemma 2's delta * B.
-9. Serving llama3.2-3b at full width and depth in float32 (TF32 off),
-   batch 2, a 256-token prompt: prefill through the CUDA-core flash kernel
-   (28 launches, none of the tensor-core one) against the plain
-   masked-softmax path, and the prompt fed token by token through
-   ``serve_step`` against prefill, both within 1e-3 x max|logit|; then 16
-   greedy tokens.
+   head dim select (at head dims 64 and 128 the tensor cores: bfloat16 the
+   ``wgmma`` kernel, float32 the 3xTF32 ``mma.sync`` kernel; the rest: the
+   CUDA-core kernel), each route's launches counted: the reference tests'
+   sweep (S 256/384/128/130 with windows 0/100/32/0), non-causal
+   Sq=130/Sk=256, head dims 64 and 128 (and 96, 256 once), grouped-query
+   cases (K/V at 1/3 and 1/2 of the query heads), and the serving shape
+   [48, 4096, 128] causal (with 48 and with 16 KV heads), each in float32
+   (rtol = atol = 2e-5, the reference tests' numbers) and bfloat16 (within
+   the reference tests' atol 0.03, and element by element within one
+   bfloat16 ulp of the plain value plus the float32 tolerance).  Then the
+   CUDA-core route's path: ``ops.flash_sdpa`` at phi-3-vision-4.2b's
+   attention (32 heads of 96, bfloat16 as published), one 4096-token causal
+   prompt.
+8. The single-payload decode kernel against its plain version, bitwise on
+   the card and against the CPU: phase 2's rows (1003, 4096, 17, 1, 4104,
+   4096 one element off alignment, payloads one to three bytes into their
+   buffer) x bits 1/2/4/8 x remote/self x float32/bfloat16, and ResNet-110's
+   bucket at 8 and 1 bit; then its path: the ResNet-20 bucket encoded and
+   decoded through ``ops.moniqua_decode_remote`` / ``_self`` within Lemma
+   2's delta * B.
+9. Serving llama3.2-3b at full width and depth in float32 (torch's TF32
+   off: its matmuls run in full float32, while the flash kernel takes its
+   products as 3xTF32), batch 2, a 256-token prompt: prefill through the
+   float32 tensor-core flash kernel (28 launches, none of the other two
+   routes) against the plain masked-softmax path, and the prompt fed token
+   by token through ``serve_step`` against prefill, both within 1e-3 x
+   max|logit|; then 16 greedy tokens.
 10. The published bfloat16 llama3.2-3b, its config as registered (which
    serves through the flash kernel by default): prefill of 2 x 4096 tokens
-   (the tensor-core flash kernel launched once per layer, 28 times, the
-   CUDA-core one never), its gap to the plain path, 32 greedy decode tokens
-   against a 4096-slot cache; prefill and decode times and profiles of one
-   prefill and of 4 decode tokens.
-11. Times of the serving slice's kernels: both flash routes at [48, 4096,
-   128] causal (tensor cores in bfloat16 with the prefill's 16 KV heads,
-   CUDA cores in float32) beside scaled_dot_product_attention and the
-   bound, and the point decode at its path's shape.
+   (the bfloat16 tensor-core flash kernel launched once per layer, 28
+   times, the other two never), its gap to the plain path, 32 greedy
+   decode tokens against a 4096-slot cache; prefill and decode times and
+   profiles of one prefill and of 4 decode tokens.
+11. Times of the serving slice's kernels at [48, 4096, 128] causal: the
+   bfloat16 tensor-core kernel with the prefill's 16 KV heads, the float32
+   tensor-core kernel and the CUDA-core kernel on the same float32 inputs,
+   each beside scaled_dot_product_attention and its bound (float32: the
+   3xTF32 bound at the TF32 tensor-core peak, and the CUDA-core one at the
+   float32 peak); the two float32 kernels and the library call at head dim
+   64; the CUDA-core kernel at its path's shape (phase 7's [32, 4096, 96]
+   bfloat16), which its kernels-line entry reports, its float32 reading
+   kept beside as the earlier record; the point decode at its path's shape.
 12. The paper's other update rules on the main path's model (ResNet-20,
    8 workers, 128 images each, 8 bits, 10 steps through ``Trainer.run``):
    naive, choco and deepsqueeze (gamma 0.3), dcd, ecd on a ring; d2 and
@@ -85,9 +99,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
    elementwise); the full-wire AD-PSGD on the same schedule beside it;
    time per iteration of each, and the point decode's time at the
    exchange's shape ``[2, 272282]``.
-14. Rows too long for one launch: encode and decode-reduce of a ``[1, 2^31
-   + 4100]`` float32 row at 8 and 1 bit, the counter base set so the
-   counter crosses 2^32, two launches each (the row split), held bitwise
+14. Rows too long for one launch: encode, decode-reduce and the point
+   decode (remote) of a ``[1, 2^31 + 4100]`` float32 row at 8 and 1 bit,
+   the counter base set so the counter crosses 2^32, two launches each
+   (the row split), held bitwise
    against the plain version on windows of 2^20 columns at the start,
    across the split, across the wrap and at the end.
 
@@ -110,6 +125,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 N_WORKERS, IMAGES, STEPS = 8, 128, 10
 # Theorem 3's slack matrix for the 1-bit run: W_bar = s W + (1 - s) I.  At
 # theta 2.0 one 1-bit lattice cell is B/2 = 4 wide and has an edge at 0,
@@ -183,6 +199,21 @@ def bound_ms(nbytes: int, ops: int) -> float:
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
 
 
+def decode_bound_ms(elems: int, bits: int) -> float:
+    """Point decode of ``elems`` float32 values: y read and out written
+    once, the payload read once."""
+    return bound_ms(elems * 8 + elems * bits // 8, elems * DECODE_OPS)
+
+
+def offset_view(t, k=1):
+    """``t`` in a buffer ``k`` elements in: for k = 1, no row of y starts
+    16-byte aligned and the wrapper's output does not share its
+    alignment; a payload k bytes in starts inside a 4-byte word."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    buf[k:] = t.reshape(-1)
+    return buf[k:].view(t.shape)
+
+
 def encode_bound_ms(elems: int, bits: int) -> float:
     """Encode of ``elems`` float32 values: each read once, its code written."""
     return bound_ms(elems * 4 + elems * bits // 8, elems * ENCODE_OPS)
@@ -223,6 +254,26 @@ def codec_times(timer, dev, card, flat, bits, stochastic, what, offsets):
               f"(m={m}): kernel {ms:.5f} ms | bound {bound:.5f} ms (bytes) "
               f"| {100 * bound / ms:.1f}% of the bound {card}", flush=True)
     return times
+
+
+def decode_times(timer, dev, card, y, bits, what):
+    """Time the point decode (remote, line 5) of ``y [rows, D]`` float32
+    against its left neighbor's payload, encoded at ``bits`` (8 stochastic,
+    else nearest) and theta 2.0; print it beside its byte bound and return
+    ``(ms, bound_ms)``."""
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import delta_for_bits
+    from repro_torch.kernels import moniqua_decode as kdec
+    from repro_torch.kernels import moniqua_encode as kenc
+    B = modulo.b_theta(2.0, delta_for_bits(bits, bits == 8), dev)
+    p = torch.roll(kenc.encode(y[:, None], B, 7, bits=bits,
+                               stochastic=bits == 8)[:, 0], 1, 0)
+    ms = timer(lambda: kdec.decode(p, y, B, bits=bits))
+    bound = decode_bound_ms(y.numel(), bits)
+    print(f"time: moniqua_decode {bits}-bit remote, {what} {list(y.shape)} "
+          f"float32: kernel {ms:.5f} ms | bound {bound:.5f} ms (bytes) | "
+          f"{100 * bound / ms:.1f}% of the bound {card}", flush=True)
+    return ms, bound
 
 
 class Timer:
@@ -369,9 +420,10 @@ def profile_device(fn, what, card):
               f"{e.count:6d}x  {e.key[:90]}")
 
 
-def serving_phases(dev, timer, card, flat, B8):
-    """Phases 7-11; returns the kernels-line entries of the serving
-    slice's kernels."""
+def serving_phases(dev, timer, card, flat, B8, flat110):
+    """Phases 7-11 (``flat110``: phase 2's ResNet-110 buckets by bit
+    width); returns the kernels-line entries of the serving slice's
+    kernels."""
     from repro_torch import tree
     from repro_torch.configs.base import InputShape
     from repro_torch.core import modulo
@@ -385,12 +437,26 @@ def serving_phases(dev, timer, card, flat, B8):
     from repro_torch.train.serve_step import make_prefill_step, make_serve_step
 
     gen = torch.Generator().manual_seed(12)
+    routes = (kfa.flash_attention_tc, kfa.flash_attention_f32tc,
+              kfa.flash_attention_simt)
+
+    def launches():
+        return {r.__name__: r.launches for r in routes}
+
+    def zero_launches():
+        for r in routes:
+            r.launches = 0
 
     # -- 7. flash kernels against their plain version --------------------
+    torch.cuda.synchronize()
+    zero_launches()
+    routed = {r.__name__: 0 for r in routes}
+
     def flash_case(what, q, k, v, **kw):
         """Hold ``kfa.flash_attention`` (the route dtype and head dim pick)
         to the plain version in float32 on the same inputs -> max abs err,
         worst error / tolerance, median |plain|."""
+        routed[kfa.route(q).__name__] += 1
         got = kfa.flash_attention(q, k, v, **kw)
         want = kfa.flash_attention_plain(q.float(), k.float(), v.float(),
                                          **kw)
@@ -439,33 +505,105 @@ def serving_phases(dev, timer, card, flat, B8):
         if dtype == torch.float32:
             f32_main = (qm, km, vm)
     torch.cuda.synchronize()
+    check(launches() == routed, f"flash sweep launches {launches()}, want "
+          f"{routed} (one per case on the route its dtype and head dim pick)")
     print(f"phase 7: flash kernels == plain version in {n} sweep cases "
           f"(float32 rtol=atol=2e-5; bfloat16 atol 0.03 and one bfloat16 "
           f"ulp + the float32 tolerance) and at {list(FLASH_MAIN)} causal: "
           + ", ".join(f"{dt} with {kv} KV blocks max abs {e:.4g} ({r:.3g} x "
                       f"tolerance, median |plain| {m:.4g})"
-                      for (dt, kv), (e, r, m) in main.items()), flush=True)
+                      for (dt, kv), (e, r, m) in main.items())
+          + f"; launches by route {launches()}", flush=True)
+    # the CUDA-core route's path: attention at a head dim of 96, that of
+    # phi-3-vision-4.2b (32 query and 32 KV heads, bfloat16 as published),
+    # through the differentiable entry point, one causal 4096-token prompt
+    ph_s, ph_h, ph_d = 4096, 32, 96
+    qp, kp, vp = (torch.randn((1, ph_s, ph_h, ph_d), generator=gen)
+                  .to(torch.bfloat16).to(dev) for _ in range(3))
+    ph_kw = dict(scale=1.0 / math.sqrt(ph_d), causal=True, window=0)
+    torch.cuda.synchronize()
+    zero_launches()
+    op = ops.flash_sdpa(qp, kp, vp, **ph_kw)
+    torch.cuda.synchronize()
+    simt_path = launches()
+    check(simt_path == {"flash_attention_tc": 0, "flash_attention_f32tc": 0,
+                        "flash_attention_simt": 1},
+          f"head dim 96 attention launches {simt_path}, want the CUDA-core "
+          f"kernel once")
+
+    def fold(t):                        # [1, S, H, D] -> [H, S, D]
+        return t.movedim(2, 1).reshape(ph_h, ph_s, ph_d)
+    ok, ph_err, ph_ratio = flash_close(
+        fold(op), kfa.flash_attention_plain(
+            *(fold(t).float() for t in (qp, kp, vp)), **ph_kw))
+    check(ok, f"head dim 96 attention != plain (max abs {ph_err:.3g})")
+    del qp, kp, vp, op
+    print(f"phase 7: CUDA-core route's path, ops.flash_sdpa at phi-3-vision's "
+          f"attention [1, {ph_s}, {ph_h}, {ph_d}] bfloat16 causal: launches "
+          f"{simt_path}; max abs vs plain {ph_err:.4g} ({ph_ratio:.3g} x "
+          f"tolerance)", flush=True)
 
     # -- 8. decode kernel: bitwise sweep, then its path --------------------
+    # phase 2's rows [workers, rows, cols]: 1003, no vpb divides it; 4096,
+    # aligned (also with y one element off alignment, and with the payload
+    # one to three bytes into its buffer); 17, shorter than one vector; 1;
+    # 4104, 1- and 2-bit payload rows not 4-byte aligned
     n = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        y_cpu = (torch.randn((3, 5, 1003), generator=gen) * 4).to(dtype)
-        y = y_cpu.to(dev)
-        for bits in (1, 2, 4, 8):
-            spec = QuantSpec(bits, bits > 1)
-            B_cpu = modulo.b_theta(2.0, delta_for_bits(bits, bits > 1), "cpu")
-            p_cpu = torch.randint(0, 256, (3, 5, -(-1003 // (8 // bits))),
-                                  generator=gen, dtype=torch.uint8)
-            for mode in kdec.MODES:
-                fn = getattr(ops, f"moniqua_decode_{mode}")
-                got = fn(p_cpu.to(dev), y, B_cpu.to(dev), spec)
-                plain = kdec.decode_plain(
-                    p_cpu.to(dev).reshape(15, -1), y.reshape(15, -1),
-                    B_cpu.to(dev), bits=bits, mode=mode).reshape(y.shape)
-                cpu = fn(p_cpu, y_cpu, B_cpu, spec)
-                what = f"decode {mode} {dtype} bits={bits}"
-                check(torch.equal(got, plain), what + " != plain (card)")
-                check(torch.equal(got.cpu(), cpu), what + " != plain (CPU)")
+    for shape in ((3, 5, 1003), (2, 3, 4096), (1, 1, 17), (1, 1, 1),
+                  (1, 3, 4104)):
+        for dtype in (torch.float32, torch.bfloat16):
+            y_cpu = (torch.randn(shape, generator=gen) * 4).to(dtype)
+            y = y_cpu.to(dev)
+            cases = [("", y, 0)]
+            if shape == (2, 3, 4096):
+                cases += [("y off alignment", offset_view(y), 0)] + [
+                    (f"payload +{k} bytes", y, k) for k in (1, 2, 3)]
+            for bits in (1, 2, 4, 8):
+                spec = QuantSpec(bits, bits > 1)
+                B_cpu = modulo.b_theta(2.0, delta_for_bits(bits, bits > 1),
+                                       "cpu")
+                p_cpu = torch.randint(0, 256, shape[:2] + (
+                    -(-shape[2] // (8 // bits)),), generator=gen,
+                    dtype=torch.uint8)
+                for mode in kdec.MODES:
+                    fn = getattr(ops, f"moniqua_decode_{mode}")
+                    cpu = fn(p_cpu, y_cpu, B_cpu, spec)
+                    for tag, yv, k in cases:
+                        p = offset_view(p_cpu.to(dev), k) if k else \
+                            p_cpu.to(dev)
+                        got = fn(p, yv, B_cpu.to(dev), spec)
+                        plain = kdec.decode_plain(
+                            p.reshape(-1, p.shape[-1]),
+                            yv.reshape(-1, shape[-1]), B_cpu.to(dev),
+                            bits=bits, mode=mode).reshape(shape)
+                        what = (f"decode {mode} {list(shape)} {tag} {dtype} "
+                                f"bits={bits}")
+                        check(torch.equal(got, plain),
+                              what + " != plain (card)")
+                        check(torch.equal(got.cpu(), cpu),
+                              what + " != plain (CPU)")
+                        n += 1
+    # ResNet-110's bucket (8 workers): its own payload (self) and its left
+    # neighbor's (remote), at the main path's 8-bit (stochastic) and 1-bit
+    # (nearest) specs
+    for bits, x110 in flat110.items():
+        spec = QuantSpec(bits, bits == 8)
+        B = modulo.b_theta(2.0, delta_for_bits(bits, spec.stochastic), dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            y = x110.reshape(N_WORKERS, -1).to(dtype)
+            p = kenc.encode(y[:, None], B, 7, bits=bits,
+                            stochastic=spec.stochastic)[:, 0]
+            y_cpu, B_cpu = y.cpu(), B.cpu()
+            for mode, pm in (("self", p), ("remote", torch.roll(p, 1, 0))):
+                got = kdec.decode(pm, y, B, bits=bits, mode=mode)
+                what = (f"decode {mode} ResNet-110 {list(y.shape)} {dtype} "
+                        f"bits={bits}")
+                check(torch.equal(got, kdec.decode_plain(
+                    pm, y, B, bits=bits, mode=mode)),
+                    what + " != plain (card)")
+                check(torch.equal(got.cpu(), kdec.decode_plain(
+                    pm.cpu(), y_cpu, B_cpu, bits=bits, mode=mode)),
+                    what + " != plain (CPU)")
                 n += 1
     # the path: each worker encodes, receives its left neighbor's payload
     # and decodes it (line 5) and its own (line 4)
@@ -513,15 +651,15 @@ def serving_phases(dev, timer, card, flat, B8):
                                 seed=0).global_batch(0)
     tokens = batch["tokens"]
     torch.cuda.synchronize()
-    kfa.flash_attention_tc.launches = kfa.flash_attention_simt.launches = 0
+    zero_launches()
     lf = make_prefill_step(m32)(params, batch)
     torch.cuda.synchronize()
-    simt_launches = kfa.flash_attention_simt.launches
-    check(simt_launches == cfg.num_layers
-          and kfa.flash_attention_tc.launches == 0,
-          f"f32 prefill launched the CUDA-core flash kernel {simt_launches} "
-          f"times (want {cfg.num_layers}) and the tensor-core one "
-          f"{kfa.flash_attention_tc.launches} times (want 0)")
+    f32_launches = launches()
+    check(f32_launches == {"flash_attention_tc": 0,
+                           "flash_attention_f32tc": cfg.num_layers,
+                           "flash_attention_simt": 0},
+          f"f32 prefill flash launches {f32_launches}, want the float32 "
+          f"tensor-core kernel {cfg.num_layers} times and no other")
     lp = make_prefill_step(m32_plain)(params, batch)
     scale32 = float(lp.abs().max())
     gap_i = float((lf - lp).abs().max()) / scale32
@@ -543,12 +681,13 @@ def serving_phases(dev, timer, card, flat, B8):
         logits, cache = serve(params, cache, tok.int())
         check(bool(torch.isfinite(logits).all()), "f32 decode not finite")
     check(int(cache["pos"]) == F32_PROMPT + F32_GREEDY, "f32 cache pos")
-    print(f"phase 9: {SERVE_ARCH} float32 (TF32 off), batch {SERVE_BATCH}, "
-          f"{F32_PROMPT}-token prompt: CUDA-core flash launched "
-          f"{simt_launches} times in one prefill; last-position logits flash "
-          f"vs plain prefill {gap_i:.3g} x max|logit| ({scale32:.4g}), token-by-token "
-          f"serve_step vs prefill {gap_ii:.3g}; greedy "
-          f"{torch.cat(greedy, 1).tolist()}", flush=True)
+    print(f"phase 9: {SERVE_ARCH} float32 (torch's TF32 off; the flash "
+          f"kernel 3xTF32), batch {SERVE_BATCH}, {F32_PROMPT}-token prompt: "
+          f"flash launches in one prefill {f32_launches}; last-position "
+          f"logits flash vs plain prefill {gap_i:.3g} x max|logit| "
+          f"({scale32:.4g}), token-by-token serve_step vs prefill "
+          f"{gap_ii:.3g}; greedy {torch.cat(greedy, 1).tolist()}",
+          flush=True)
     del params, cache, lf, lp, logits
     torch.cuda.empty_cache()
 
@@ -563,15 +702,15 @@ def serving_phases(dev, timer, card, flat, B8):
     batch = SyntheticLMPipeline(mbf, shape, seed=1).global_batch(0)
     prefill = make_prefill_step(mbf)
     torch.cuda.synchronize()
-    kfa.flash_attention_tc.launches = kfa.flash_attention_simt.launches = 0
+    zero_launches()
     logits = prefill(params, batch)
     torch.cuda.synchronize()
     fa_launches = kfa.flash_attention_tc.launches
-    check(fa_launches == cfg.num_layers
-          and kfa.flash_attention_simt.launches == 0,
-          f"bf16 prefill launched the tensor-core flash kernel {fa_launches} "
-          f"times (want {cfg.num_layers}) and the CUDA-core one "
-          f"{kfa.flash_attention_simt.launches} times (want 0)")
+    check(launches() == {"flash_attention_tc": cfg.num_layers,
+                         "flash_attention_f32tc": 0,
+                         "flash_attention_simt": 0},
+          f"bf16 prefill flash launches {launches()}, want the tensor-core "
+          f"kernel {cfg.num_layers} times and no other")
     check(bool(torch.isfinite(logits).all()), "bf16 prefill not finite")
     plain = make_prefill_step(mbf_plain)(params, batch)
     gap = float((logits - plain).abs().max()) / float(plain.abs().max())
@@ -644,23 +783,67 @@ def serving_phases(dev, timer, card, flat, B8):
     fa_bytes = 2 * (2 * bh + 2 * kv_main) * s_main * d_main
     fa_bound = 1e3 * max(fa_bytes / HBM_BYTES_PER_S,
                          fa_flops / BF16_OPS_PER_S)
+    # float32 at the same shape, 48 KV blocks: the float32 tensor-core
+    # kernel (phase 9's route), the CUDA-core kernel on the same inputs,
+    # the plain version and the library call
     q32, k32, v32 = f32_main
+    f32tc_ms = timer(lambda: kfa.flash_attention_f32tc(q32, k32, v32,
+                                                       **fa_kw),
+                     reps=10, warmup=2)
     simt_ms = timer(lambda: kfa.flash_attention_simt(q32, k32, v32, **fa_kw),
                     reps=10, warmup=2)
-    simt_plain_ms = timer(lambda: kfa.flash_attention_plain(q32, k32, v32,
-                                                            **fa_kw),
-                          reps=5, warmup=1)
+    f32_plain_ms = timer(lambda: kfa.flash_attention_plain(q32, k32, v32,
+                                                           **fa_kw),
+                         reps=5, warmup=1)
     sdpa32_ms = timer(lambda: sdpa(q32[None], k32[None], v32[None],
                                    is_causal=True), reps=10, warmup=2)
-    simt_bytes = 4 * 4 * bh * s_main * d_main
-    simt_bound = 1e3 * max(simt_bytes / HBM_BYTES_PER_S,
+    _, simt_err, _ = flash_close(
+        kfa.flash_attention_simt(q32, k32, v32, **fa_kw),
+        kfa.flash_attention_plain(q32, k32, v32, **fa_kw))
+    f32_bytes = 4 * 4 * bh * s_main * d_main
+    # 3xTF32 issues three TF32 products for each float32 one
+    f32tc_bound = 1e3 * max(f32_bytes / HBM_BYTES_PER_S,
+                            3 * fa_flops / TF32_OPS_PER_S)
+    simt_bound = 1e3 * max(f32_bytes / HBM_BYTES_PER_S,
                            fa_flops / F32_OPS_PER_S)
     del q32, k32, v32, f32_main
+    # float32 at head dim 64, the route's other instantiation
+    d64 = 64
+    q64, k64, v64 = (torch.randn((bh, s_main, d64), generator=gen).to(dev)
+                     for _ in range(3))
+    kw64 = dict(fa_kw, scale=1.0 / math.sqrt(d64))
+    f32tc64_ms = timer(lambda: kfa.flash_attention_f32tc(q64, k64, v64,
+                                                         **kw64),
+                       reps=10, warmup=2)
+    simt64_ms = timer(lambda: kfa.flash_attention_simt(q64, k64, v64,
+                                                       **kw64),
+                      reps=10, warmup=2)
+    sdpa64_ms = timer(lambda: sdpa(q64[None], k64[None], v64[None],
+                                   is_causal=True), reps=10, warmup=2)
+    del q64, k64, v64
+    f32tc64_bound = 1e3 * max(4 * 4 * bh * s_main * d64 / HBM_BYTES_PER_S,
+                              3 * 4 * d64 * bh * causal_pairs(s_main)
+                              / TF32_OPS_PER_S)
+    # the CUDA-core kernel at its path's shape: phase 7's phi-3-vision
+    # attention as the kernel gets it, [32, 4096, 96] bfloat16 causal
+    qp, kp, vp = (torch.randn((ph_h, ph_s, ph_d), generator=gen)
+                  .to(torch.bfloat16).to(dev) for _ in range(3))
+    ph_ms = timer(lambda: kfa.flash_attention_simt(qp, kp, vp, **ph_kw),
+                  reps=10, warmup=2)
+    ph_plain_ms = timer(lambda: kfa.flash_attention_plain(qp, kp, vp,
+                                                          **ph_kw),
+                        reps=5, warmup=1)
+    ph_sdpa_ms = timer(lambda: sdpa(qp[None], kp[None], vp[None],
+                                    is_causal=True), reps=10, warmup=2)
+    del qp, kp, vp
+    ph_flops = 4 * ph_d * ph_h * causal_pairs(ph_s)
+    ph_bytes = 2 * 4 * ph_h * ph_s * ph_d
+    ph_bound = 1e3 * max(ph_bytes / HBM_BYTES_PER_S,
+                         ph_flops / BF16_OPS_PER_S)
     elems = flat.numel()
     dec_ms = timer(lambda: kdec.decode(p_nbr, flat, B8, bits=8))
     dec_plain_ms = timer(lambda: kdec.decode_plain(p_nbr, flat, B8, bits=8))
-    dec_bound = bound_ms(elems * 1 + elems * 4 + elems * 4,
-                         elems * DECODE_OPS)
+    dec_bound = decode_bound_ms(elems, 8)
     print(f"time: flash_attention_tc {list(FLASH_MAIN)} bfloat16 causal, "
           f"{kv_main} KV blocks: kernel {fa_ms:.4f} ms "
           f"({fa_flops / fa_ms / 1e9:.1f} TFLOP/s of the algorithm's "
@@ -674,11 +857,27 @@ def serving_phases(dev, timer, card, flat, B8):
           f"tensor-core kernel {tc48_ms:.4f} ms | CUDA-core kernel "
           f"{simt_bf16_ms:.4f} ms | scaled_dot_product_attention "
           f"{sdpa48_ms:.4f} ms {card}", flush=True)
-    print(f"time: flash_attention (CUDA cores) {list(FLASH_MAIN)} float32 "
-          f"causal: kernel {simt_ms:.4f} ms | plain {simt_plain_ms:.4f} ms | "
-          f"scaled_dot_product_attention {sdpa32_ms:.4f} ms | bound "
-          f"{simt_bound:.4f} ms (operations at {F32_OPS_PER_S / 1e12:.0f} "
-          f"TFLOP/s float32) {card}", flush=True)
+    print(f"time: flash {list(FLASH_MAIN)} float32 causal, {bh} KV blocks: "
+          f"flash_attention_f32tc (3xTF32 mma.sync) {f32tc_ms:.4f} ms | "
+          f"flash_attention (CUDA cores) {simt_ms:.4f} ms | plain "
+          f"{f32_plain_ms:.4f} ms | scaled_dot_product_attention "
+          f"{sdpa32_ms:.4f} ms | bounds: 3xTF32 {f32tc_bound:.4f} ms "
+          f"(operations x3 at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s TF32), "
+          f"CUDA cores {simt_bound:.4f} ms (operations at "
+          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32) {card}", flush=True)
+    print(f"time: flash [{bh}, {s_main}, {d64}] float32 causal, {bh} KV "
+          f"blocks: flash_attention_f32tc {f32tc64_ms:.4f} ms | "
+          f"flash_attention (CUDA cores) {simt64_ms:.4f} ms | "
+          f"scaled_dot_product_attention {sdpa64_ms:.4f} ms | 3xTF32 bound "
+          f"{f32tc64_bound:.4f} ms "
+          f"{card}", flush=True)
+    print(f"time: flash_attention (CUDA cores) at its path's shape [{ph_h}, "
+          f"{ph_s}, {ph_d}] bfloat16 causal: kernel {ph_ms:.4f} ms | plain "
+          f"{ph_plain_ms:.4f} ms | scaled_dot_product_attention "
+          f"{ph_sdpa_ms:.4f} ms | bound {ph_bound:.4f} ms (operations at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; "
+          f"{1e3 * ph_flops / F32_OPS_PER_S:.4f} ms at the CUDA cores' "
+          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32) {card}", flush=True)
     print(f"time: moniqua_decode 8-bit remote {list(flat.shape)} float32: "
           f"kernel {dec_ms:.5f} ms | plain {dec_plain_ms:.5f} ms | bound "
           f"{dec_bound:.5f} ms (bytes) | library: no single PyTorch call "
@@ -691,12 +890,26 @@ def serving_phases(dev, timer, card, flat, B8):
              max_abs_err=main["bfloat16", kv_main][0], ms=fa_ms,
              plain_ms=fa_plain_ms, bound_ms=fa_bound, bound_by="operations",
              library_ms=sdpa_ms),
+        dict(name="flash_attention_f32tc", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_f32tc.cu",
+             replaces="src/repro/kernels/flash_attention.py:130",
+             launches=f32_launches["flash_attention_f32tc"],
+             max_abs_err=main["float32", bh][0], ms=f32tc_ms,
+             plain_ms=f32_plain_ms, bound_ms=f32tc_bound,
+             bound_by="operations", library_ms=sdpa32_ms),
+        # launches and times at its path's shape (phase 7's head dim 96);
+        # float32 at the serving shape kept beside as the earlier record
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:130",
-             launches=simt_launches, max_abs_err=main["float32", bh][0],
-             ms=simt_ms, plain_ms=simt_plain_ms, bound_ms=simt_bound,
-             bound_by="operations", library_ms=sdpa32_ms),
+             launches=simt_path["flash_attention_simt"],
+             max_abs_err=ph_err, ms=ph_ms, plain_ms=ph_plain_ms,
+             bound_ms=ph_bound, bound_by="operations",
+             library_ms=ph_sdpa_ms,
+             float32_record=dict(shape=list(FLASH_MAIN), max_abs_err=simt_err,
+                                 ms=simt_ms, plain_ms=f32_plain_ms,
+                                 bound_ms=simt_bound, bound_by="operations",
+                                 library_ms=sdpa32_ms)),
         dict(name="moniqua_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/moniqua_decode.cu",
              replaces="src/repro/kernels/moniqua_decode.py:68",
@@ -894,8 +1107,7 @@ def adpsgd_phase(dev, timer, card, model, batches, X_cpu):
     dec_ms = timer(lambda: kdec.decode(p2f, pair, B8, bits=8))
     dec_plain_ms = timer(lambda: kdec.decode_plain(p2f, pair, B8, bits=8))
     elems = pair.numel()
-    dec_bound = bound_ms(elems * 1 + elems * 4 + elems * 4,
-                         elems * DECODE_OPS)
+    dec_bound = decode_bound_ms(elems, 8)
     print(f"time: moniqua_decode 8-bit remote {list(pair.shape)} float32 (an "
           f"AD-PSGD exchange): kernel {dec_ms:.5f} ms | plain "
           f"{dec_plain_ms:.5f} ms | bound {dec_bound:.5f} ms (bytes) | "
@@ -914,9 +1126,11 @@ def adpsgd_phase(dev, timer, card, model, batches, X_cpu):
 
 
 def split_phase(dev, card):
-    """Phase 14: a row of 2^31 + 4100 columns through both codec kernels."""
+    """Phase 14: a row of 2^31 + 4100 columns through the three codec
+    kernels."""
     from repro_torch.core import modulo
     from repro_torch.core.quantizers import QuantSpec, delta_for_bits
+    from repro_torch.kernels import moniqua_decode as kdec
     from repro_torch.kernels import moniqua_decode_reduce as kdr
     from repro_torch.kernels import moniqua_encode as kenc
     from repro_torch.kernels import ops
@@ -936,13 +1150,17 @@ def split_phase(dev, card):
         n_win = len(ops._windows(cols, vpb))
         torch.cuda.synchronize()
         kenc.encode.launches = kdr.decode_reduce.launches = 0
+        kdec.decode.launches = 0
         p = ops.moniqua_encode_stacked(x, B, spec, 99, idx_base=base)
         pn = torch.randint(0, 256, (2,) + tuple(p.shape), generator=gen,
                            device=dev, dtype=torch.uint8)
         out = ops.moniqua_decode_reduce_stacked(p, pn, x, B, weights, spec)
         torch.cuda.synchronize()
-        launches = (kenc.encode.launches, kdr.decode_reduce.launches)
-        check(launches == (n_win, n_win) and n_win > 1,
+        xr = ops.moniqua_decode_remote(pn[0], x, B, spec)
+        torch.cuda.synchronize()
+        launches = (kenc.encode.launches, kdr.decode_reduce.launches,
+                    kdec.decode.launches)
+        check(launches == (n_win,) * 3 and n_win > 1,
               f"split row {bits}-bit: launches {launches}, want {n_win} "
               f"each (> 1)")
         split = ops._windows(cols, vpb)[1][0]
@@ -969,12 +1187,18 @@ def split_phase(dev, card):
             check(torch.equal(out[:, a:b].reshape(want_o.shape), want_o),
                   f"split row {bits}-bit decode-reduce != plain at the "
                   f"{where}")
-        del p, pn, out
+            want_r = kdec.decode_plain(pn[0, :, pw].contiguous(),
+                                       x[:, a:b].contiguous(), B, bits=bits)
+            check(torch.equal(xr[:, a:b], want_r),
+                  f"split row {bits}-bit point decode != plain at the "
+                  f"{where}")
+        del p, pn, out, xr
         torch.cuda.empty_cache()
     print(f"phase 14: a [1, {cols}] float32 row ("
           f"{x.numel() * 4 / 1e9:.2f} GB), counter base {base} (wraps at "
-          f"column {2 ** 32 - base}): encode and decode-reduce in {n_win} "
-          f"launches each at 8 and 1 bit, bitwise equal to the plain version on "
+          f"column {2 ** 32 - base}): encode, decode-reduce and the point "
+          f"decode in {n_win} launches each at 8 and 1 bit, bitwise equal to "
+          f"the plain version on "
           f"{win}-column windows at the start, across the split, across the "
           f"wrap and at the end ({time.perf_counter() - t0:.1f} s) {card}",
           flush=True)
@@ -1014,7 +1238,7 @@ def main() -> int:
     # -- 2. build, then each kernel against its plain version --------------
     t0 = time.perf_counter()
     libs = build.build_all(force=True)
-    check(len(libs) == 5, f"built {sorted(libs)}, want 5 kernels")
+    check(len(libs) == 6, f"built {sorted(libs)}, want 6 kernels")
     print(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR}", flush=True)
     for name, path in libs.items():
@@ -1034,14 +1258,18 @@ def main() -> int:
         for line in log.splitlines():
             if "C75" in line:                    # ptxas performance warnings
                 print(f"  ptxas {name}: {line.strip()}")
-    sass = sass_counts(libs["flash_attention_tc"], ("HGMMA", "UTMALDG"))
-    if sass is None:
-        print("sass: flash_attention_tc HGMMA and UTMALDG counts not measured "
-              "(no cuobjdump in the toolkit)")
-    else:
-        check(all(sass.values()), f"flash_attention_tc SASS {sass}: want "
-              f"wgmma (HGMMA) and TMA loads (UTMALDG)")
-        print(f"sass: flash_attention_tc " + ", ".join(
+    for name, ops_, what in (
+            ("flash_attention_tc", ("HGMMA", "UTMALDG"),
+             "wgmma (HGMMA) and TMA loads (UTMALDG)"),
+            ("flash_attention_f32tc", ("HMMA.1688.F32.TF32",),
+             "TF32 mma.sync (HMMA.1688.F32.TF32)")):
+        sass = sass_counts(libs[name], ops_)
+        if sass is None:
+            print(f"sass: {name} {' and '.join(ops_)} counts not measured "
+                  f"(no cuobjdump in the toolkit)")
+            continue
+        check(all(sass.values()), f"{name} SASS {sass}: want {what}")
+        print(f"sass: {name} " + ", ".join(
             f"{op} {n}" for op, n in sass.items()), flush=True)
 
     gen = torch.Generator().manual_seed(0)
@@ -1081,14 +1309,6 @@ def main() -> int:
                 f"bits={bits}")
         check(torch.equal(got, plain), what + " != plain (card)")
         check(torch.equal(got.cpu(), cpu), what + " != plain (CPU)")
-
-    def offset_view(t, k=1):
-        """``t`` in a buffer ``k`` elements in: for k = 1, no row of y starts
-        16-byte aligned and the wrapper's output does not share its
-        alignment; a payload k bytes in starts inside a 4-byte word."""
-        buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
-        buf[k:] = t.reshape(-1)
-        return buf[k:].view(t.shape)
 
     # [workers, rows, cols]: 1003, no vpb divides the row; 4096, rows
     # 16-byte aligned and a multiple of 128; 17, shorter than one vector;
@@ -1346,7 +1566,7 @@ def main() -> int:
 
     torch.cuda.synchronize()
     kernels += serving_phases(dev, timer, card, flat.reshape(N_WORKERS, D),
-                              B8)
+                              B8, flat110)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     rules_phase(dev, card, model, batches)

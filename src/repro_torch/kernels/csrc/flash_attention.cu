@@ -1,15 +1,16 @@
 // Flash-attention forward (online softmax) on CUDA cores, sm_90a: the
-// float32 route, and the bfloat16 route at head dims that the tensor-core
-// kernel (flash_attention_tc.cu) does not instantiate.
+// route of every head dim that the tensor-core kernels do not instantiate
+// (float32 and bfloat16 at head dims other than 64 and 128).
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel) where
-// the tensor-core kernel does not: TF32 tensor cores keep about three
-// decimal digits, which cannot meet float32's rtol = atol = 2e-5, so
-// float32 stays on CUDA cores.  q [BH, Sq, D], k/v [BH/g, Sk, D],
-// row-major, float32 or bfloat16 (all three the same), out [BH, Sq, D] in
-// q's type; query row block bh reads KV block bh / g (grouped-query
-// attention without a copy).  Per query row i and key j:
+// the tensor-core kernels do not: at head dims 64 and 128, bfloat16 runs in
+// flash_attention_tc.cu and float32 in flash_attention_f32tc.cu, whose
+// 3xTF32 products (each operand split into two TF32 parts) keep float32's
+// rtol = atol = 2e-5, which one TF32 pass cannot.  q [BH, Sq, D], k/v
+// [BH/g, Sk, D], row-major, float32 or bfloat16 (all three the same), out
+// [BH, Sq, D] in q's type; query row block bh reads KV block bh / g
+// (grouped-query attention without a copy).  Per query row i and key j:
 //   s_ij = (q_i . k_j) * scale in float32 from inputs upcast to float32,
 //   valid: i < Sq, j < Sk and, when causal, j <= i and (window == 0 or
 //   j > i - window); masked scores are the finite sentinel -1e30;

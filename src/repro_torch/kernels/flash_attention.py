@@ -8,13 +8,16 @@ block ``bh // g``, which is the reference's ``jnp.repeat`` of the KV heads
 when heads are folded ``(lead..., H)``.  The window applies only when
 ``causal``; ``Sq != Sk`` is allowed.
 
-:func:`flash_attention` picks one of two CUDA kernels by dtype and head dim,
-never by trying: bfloat16 at a head dim in :data:`TC_HEAD_DIMS` goes to
-:func:`flash_attention_tc` (``csrc/flash_attention_tc.cu``: tensor cores,
-``wgmma`` and TMA); everything else to :func:`flash_attention_simt`
-(``csrc/flash_attention.cu``: CUDA cores in float32, since TF32 tensor cores
-cannot meet float32's tolerance).  Each keeps its own count of launches.
-CPU tensors take :func:`flash_attention_plain`.
+:func:`flash_attention` picks one of three CUDA kernels by dtype and head
+dim (:func:`route`), never by trying.  At a head dim in
+:data:`TC_HEAD_DIMS` both dtypes run on the tensor cores: bfloat16 through
+:func:`flash_attention_tc` (``csrc/flash_attention_tc.cu``: ``wgmma`` and
+TMA), float32 through :func:`flash_attention_f32tc`
+(``csrc/flash_attention_f32tc.cu``: 3xTF32 ``mma.sync``, each operand split
+into two TF32 parts, which keeps float32's tolerance where one TF32 pass
+cannot).  Every other head dim goes to :func:`flash_attention_simt`
+(``csrc/flash_attention.cu``: CUDA cores).  Each keeps its own count of
+launches.  CPU tensors take :func:`flash_attention_plain`.
 
 :func:`sdpa` with :func:`causal_mask` is the one masked-softmax oracle of
 the port: ``models.layers`` runs it as the plain attention path and for
@@ -33,7 +36,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-# bfloat16 head dims that the tensor-core kernel instantiates
+# head dims that the tensor-core kernels instantiate (both dtypes)
 TC_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -159,6 +162,34 @@ def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention_f32tc(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, scale: float,
+                          causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """The float32 tensor-core route: float32, head dim in
+    :data:`TC_HEAD_DIMS`, every base 16-byte aligned (``cp.async``).  A
+    CUDA tensor launches ``csrc/flash_attention_f32tc.cu`` (counted in
+    ``flash_attention_f32tc.launches``) or raises; CPU tensors take
+    :func:`flash_attention_plain`."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
+                                     window=window)
+    _check_cuda(q, k, v)
+    bh, sq, d = q.shape
+    if q.dtype != torch.float32 or d not in TC_HEAD_DIMS:
+        raise ValueError(f"the float32 tensor-core route takes float32 at "
+                         f"head dims {TC_HEAD_DIMS}, got {q.dtype}, d={d}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("cp.async needs 16-byte aligned q, k, v")
+    out = _launch("flash_attention_f32tc", q, k, v,
+                  (bh, k.shape[0], sq, k.shape[1], d, ctypes.c_float(scale),
+                   int(bool(causal)), int(window)))
+    if out.numel():
+        flash_attention_f32tc.launches += 1
+    return out
+
+
 def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: float, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
@@ -181,9 +212,15 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def uses_tensor_cores(q: torch.Tensor) -> bool:
-    """The route of :func:`flash_attention`, fixed by dtype and head dim."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+def route(q: torch.Tensor):
+    """The kernel wrapper :func:`flash_attention` calls, fixed by dtype and
+    head dim: the tensor cores at :data:`TC_HEAD_DIMS` (bfloat16
+    :func:`flash_attention_tc`, float32 :func:`flash_attention_f32tc`), the
+    CUDA cores (:func:`flash_attention_simt`) at any other head dim."""
+    if q.shape[-1] in TC_HEAD_DIMS:
+        return (flash_attention_tc if q.dtype == torch.bfloat16
+                else flash_attention_f32tc)
+    return flash_attention_simt
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -191,13 +228,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
     """q: [BH, Sq, D]; k, v: [BH/g, Sk, D] -> o [BH, Sq, D] in q's dtype.
 
-    CUDA tensors launch :func:`flash_attention_tc` when
-    :func:`uses_tensor_cores`, else :func:`flash_attention_simt`; CPU
-    tensors take :func:`flash_attention_plain`."""
-    route = (flash_attention_tc if uses_tensor_cores(q)
-             else flash_attention_simt)
-    return route(q, k, v, scale=scale, causal=causal, window=window)
+    CUDA tensors launch the kernel of :func:`route`; CPU tensors take
+    :func:`flash_attention_plain`."""
+    return route(q)(q, k, v, scale=scale, causal=causal, window=window)
 
 
 flash_attention_tc.launches = 0
+flash_attention_f32tc.launches = 0
 flash_attention_simt.launches = 0

@@ -152,15 +152,16 @@ def test_model_attention_flash_flag():
 
 def test_flash_counts_no_cpu_launch_and_rejects_bad_input():
     q = torch.zeros(2, 16, 64)
-    routes = (tfa.flash_attention_tc, tfa.flash_attention_simt)
+    routes = (tfa.flash_attention_tc, tfa.flash_attention_f32tc,
+              tfa.flash_attention_simt)
     for route in routes:
         route.launches = 0
-    for x in (q, q.bfloat16()):                   # one per route
+    for x in (q, q.bfloat16(), torch.zeros(2, 16, 96)):  # one per route
         tfa.flash_attention(x, x, x, scale=0.125)
         for route in routes:
             route(x, x, x, scale=0.125)
     # plain version on the CPU: no route counts a launch
-    assert [r.launches for r in routes] == [0, 0]
+    assert [r.launches for r in routes] == [0, 0, 0]
     with pytest.raises(ValueError):
         tfa.flash_attention(torch.zeros(2, 16, 300), torch.zeros(2, 16, 300),
                             torch.zeros(2, 16, 300), scale=0.1)
@@ -175,15 +176,18 @@ def test_flash_counts_no_cpu_launch_and_rejects_bad_input():
 
 
 def test_flash_route_is_fixed_by_dtype_and_head_dim():
-    """bfloat16 at head dims 64 and 128 is the tensor-core route; float32
-    and every other head dim the CUDA-core route."""
+    """At head dims 64 and 128 both dtypes take the tensor cores: bfloat16
+    the wgmma route, float32 the 3xTF32 route; every other head dim the
+    CUDA-core route."""
     def q(dtype, d):
         return torch.zeros(1, 4, d, dtype=dtype)
-    assert tfa.uses_tensor_cores(q(torch.bfloat16, 64))
-    assert tfa.uses_tensor_cores(q(torch.bfloat16, 128))
-    for dtype, d in ((torch.float32, 64), (torch.float32, 128),
-                     (torch.bfloat16, 96), (torch.bfloat16, 256)):
-        assert not tfa.uses_tensor_cores(q(dtype, d))
+    for d in (64, 128):
+        assert tfa.route(q(torch.bfloat16, d)) is tfa.flash_attention_tc
+        assert tfa.route(q(torch.float32, d)) is tfa.flash_attention_f32tc
+    for dtype, d in ((torch.float32, 96), (torch.float32, 256),
+                     (torch.bfloat16, 96), (torch.bfloat16, 256),
+                     (torch.float32, 32)):
+        assert tfa.route(q(dtype, d)) is tfa.flash_attention_simt
 
 
 def test_flash_rejects_bad_gqa_and_dtype():
