@@ -9,9 +9,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
    versions; no card -> exit 2.  TF32 is off for matmul and cuDNN.
 2. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
    (nvcc, sm_90a, in parallel; read with cuobjdump, the bfloat16
-   tensor-core flash kernel's SASS must hold ``HGMMA`` and ``UTMALDG``, the
-   float32 one's TF32 ``HMMA.1688.F32.TF32``; registers and spills from
-   ptxas), then hold each codec kernel against its plain
+   tensor-core flash kernel's SASS must hold ``HGMMA`` and ``UTMALDG``, its
+   head dim 96 instantiation's too, the float32 one's TF32
+   ``HMMA.1688.F32.TF32``; registers and spills from ptxas, none spilled in
+   either tensor-core kernel's head dim 96 instantiation), then hold each
+   codec kernel against its plain
    PyTorch version with ``torch.equal``, on the card and against the CPU:
    encode over bits 1/2/4/8 x stochastic and nearest x idx_base != 0 x
    float32 and bfloat16, decode-reduce over ring(8), exponential(8) and
@@ -39,19 +41,23 @@ Phases (any failure exits non-zero, and the result line is not printed):
    launches, and device time by kernel group and by kernel.
 7. The flash-attention kernels against their plain version in float32 on
    the same inputs, on the card, each case through the route its dtype and
-   head dim select (at head dims 64 and 128 the tensor cores: bfloat16 the
-   ``wgmma`` kernel, float32 the 3xTF32 ``mma.sync`` kernel; the rest: the
-   CUDA-core kernel), each route's launches counted: the reference tests'
-   sweep (S 256/384/128/130 with windows 0/100/32/0), non-causal
-   Sq=130/Sk=256, head dims 64 and 128 (and 96, 256 once), grouped-query
-   cases (K/V at 1/3 and 1/2 of the query heads), and the serving shape
-   [48, 4096, 128] causal (with 48 and with 16 KV heads), each in float32
-   (rtol = atol = 2e-5, the reference tests' numbers) and bfloat16 (within
-   the reference tests' atol 0.03, and element by element within one
-   bfloat16 ulp of the plain value plus the float32 tolerance).  Then the
-   CUDA-core route's path: ``ops.flash_sdpa`` at phi-3-vision-4.2b's
-   attention (32 heads of 96, bfloat16 as published), one 4096-token causal
-   prompt.
+   head dim select (at head dims 64, 96 and 128 the tensor cores: bfloat16
+   the ``wgmma`` kernel, float32 the 3xTF32 ``mma.sync`` kernel; the rest:
+   the CUDA-core kernel), each route's launches counted: the reference
+   tests' sweep (S 256/384/128/130 with windows 0/100/32/0), non-causal
+   Sq=130/Sk=256, head dims 64, 96 and 128, grouped-query cases (K/V at
+   1/3, 1/2 and, at 96, 1/4 of the query heads), at 96 also Sq=200/Sk=300
+   causal and Sq=130/Sk=200 non-causal, the CUDA-core route at 256 and 33,
+   and the serving shape [48, 4096, 128] causal (with 48 and with 16 KV
+   heads), each in float32 (rtol = atol = 2e-5, the reference tests'
+   numbers) and bfloat16 (within the reference tests' atol 0.03, and
+   element by element within one bfloat16 ulp of the plain value plus the
+   float32 tolerance).  Then two paths through ``ops.flash_sdpa``, one
+   causal 4096-token prompt each: phi-3-vision-4.2b's attention (32 heads
+   of 96, bfloat16 as published), the bfloat16 tensor-core kernel once;
+   and a check that the CUDA-core route still runs from there, 16 heads
+   of 256 (a head dim no config has, the widest the reference's kernel
+   takes: a route check, not a workload), that kernel once.
 8. The single-payload decode kernel against its plain version, bitwise on
    the card and against the CPU: phase 2's rows (1003, 4096, 17, 1, 4104,
    4096 one element off alignment, payloads one to three bytes into their
@@ -78,9 +84,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
    each beside scaled_dot_product_attention and its bound (float32: the
    3xTF32 bound at the TF32 tensor-core peak, and the CUDA-core one at the
    float32 peak); the two float32 kernels and the library call at head dim
-   64; the CUDA-core kernel at its path's shape (phase 7's [32, 4096, 96]
-   bfloat16), which its kernels-line entry reports, its float32 reading
-   kept beside as the earlier record; the point decode at its path's shape.
+   64; at phase 7's phi-3-vision shape [32, 4096, 96] causal, in both
+   dtypes, the tensor-core kernel, the CUDA-core kernel on the same inputs
+   (the record of the route head dim 96 left), the plain version, the
+   library call and the bound; the CUDA-core kernel on phase 7's route
+   check ([16, 4096, 256] bfloat16), which its kernels-line entry reports
+   as a record of the route; the point decode at its path's shape.
 12. The paper's other update rules on the main path's model (ResNet-20,
    8 workers, 128 images each, 8 bits, 10 steps through ``Trainer.run``):
    naive, choco and deepsqueeze (gamma 0.3), dcd, ecd on a ring; d2 and
@@ -162,15 +171,19 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_counts(lib, ops):
+def sass_counts(lib, ops, fn=None):
     """How many instructions of each name in ``ops`` the library's SASS
-    holds (cuobjdump -sass), or None without cuobjdump."""
+    holds (cuobjdump -sass), only in the functions whose mangled name holds
+    ``fn`` if it is given; None without cuobjdump."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                         "cuobjdump")
     if not os.path.exists(tool):
         return None
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
+    if fn is not None:
+        text = "".join(f for f in text.split("Function : ")[1:]
+                       if fn in f.split("\n", 1)[0])
     return {op: text.count(op) for op in ops}
 
 
@@ -179,6 +192,9 @@ def sass_counts(lib, ops):
 MAIN_PATH_KERNELS = ("encode_kernelIfLi8E", "encode_kernelIfLi1E",
                      "decode_reduce_kernelIfLi8ELi2E",
                      "decode_reduce_kernelIfLi1ELi2E")
+# the tensor-core flash kernels' head dim 96 instantiations, by library
+FLASH_D96_KERNELS = {"flash_attention_tc": "fa_kernel_tcILi96E",
+                     "flash_attention_f32tc": "fa_f32tc_kernelILi96E"}
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -330,6 +346,12 @@ SERVE_BATCH = 2
 F32_PROMPT, F32_GREEDY = 256, 16          # phase 9
 BF16_PROMPT, BF16_GREEDY = 4096, 32       # phase 10
 FLASH_MAIN = (48, 4096, 128)              # [B*H, S, D] of phase 10's prefill
+# [B*H, S, D] of phase 7's two flash paths: phi-3-vision-4.2b's attention
+# (32 heads of 96); and a check that the CUDA-core route still runs from
+# ops.flash_sdpa, at 16 heads of 256, a head dim no config has (no model's
+# traffic: its times are a record of the route, not of a workload)
+FLASH_PHI = (32, 4096, 96)
+FLASH_WIDE = (16, 4096, 256)
 GQA_MAIN = 3                               # its query heads per KV head (24/8)
 # float32 serving checks (phase 9): the flash path and the token-by-token
 # decode against prefill, each within this share of max|logit|
@@ -352,31 +374,6 @@ def serve_config(**over):
     for the plain masked-softmax path."""
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(SERVE_ARCH), **over)
-
-
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """One bfloat16 ulp at |x| (8 significant bits): 2^(e - 8) for
-    |x| = m 2^e, m in [0.5, 1); 0 at x = 0."""
-    _, e = torch.frexp(x)
-    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
-
-
-def flash_close(got: torch.Tensor, want: torch.Tensor):
-    """The flash kernel's output against its plain version in float32 on
-    the same inputs -> (ok, max abs error, worst error / tolerance).
-    float32: within rtol = atol = 2e-5 (the two sum in other orders).
-    bfloat16: within the reference tests' atol 0.03 and, element by
-    element, within one bfloat16 ulp of |want| plus the float32 tolerance,
-    since the kernel's output is one rounding of a float32 result."""
-    err = (got.float() - want).abs()
-    tol = 2e-5 * (1 + want.abs())
-    if got.dtype == torch.bfloat16:
-        tol = tol + bf16_ulp(want)
-    max_err = float(err.max())
-    ok = bool((err <= tol).all())
-    if got.dtype == torch.bfloat16:
-        ok = ok and max_err <= 0.03
-    return ok, max_err, float((err / tol).max())
 
 
 def causal_pairs(s: int) -> int:
@@ -462,7 +459,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
                                          **kw)
         check(got.dtype == q.dtype and got.shape == q.shape,
               what + ": dtype/shape")
-        ok, err, ratio = flash_close(got, want)
+        ok, err, ratio = kfa.flash_close(got, want)
         check(ok, what + f" != plain (max abs {err:.3g}, {ratio:.3g} x "
               f"tolerance)")
         return err, ratio, float(want.abs().median())
@@ -470,11 +467,17 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     cases = [(True, 256, 256, 0), (True, 384, 384, 100), (True, 128, 128, 32),
              (True, 130, 130, 0), (False, 130, 256, 0)]
     n = 0
-    for causal, sq, sk, window in cases:
-        # (query blocks, KV blocks): MHA at head dims 64 and 128, then
-        # grouped-query attention with g = 3 (llama3.2-3b's 24 / 8) and 2
-        for (bh, bh_kv), d in [((4, 4), 64), ((4, 4), 128), ((6, 2), 128),
-                               ((4, 2), 128), ((6, 2), 64)]:
+    # head dim 96 also at ragged Sq != Sk, causal and not
+    cases96 = [(True, 200, 300, 0), (False, 130, 200, 0)]
+    for causal, sq, sk, window in cases + cases96:
+        # (query blocks, KV blocks): MHA at head dims 64, 96 and 128, then
+        # grouped-query attention with g = 3 (llama3.2-3b's 24 / 8), 2 and,
+        # at head dim 96, 4
+        heads = [((4, 4), 96), ((4, 1), 96)]
+        if (causal, sq, sk, window) not in cases96:
+            heads += [((4, 4), 64), ((4, 4), 128), ((6, 2), 128),
+                      ((4, 2), 128), ((6, 2), 64)]
+        for (bh, bh_kv), d in heads:
             for dtype in (torch.float32, torch.bfloat16):
                 q = torch.randn((bh, sq, d), generator=gen).to(dtype).to(dev)
                 k, v = (torch.randn((bh_kv, sk, d), generator=gen).to(dtype)
@@ -484,7 +487,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
                            scale=1.0 / math.sqrt(d), causal=causal,
                            window=window)
                 n += 1
-    for d in (96, 256):                # padded and widest head dims
+    for d in (256, 33):                # the CUDA-core route: widest, odd
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn((4, 384, d), generator=gen).to(dtype)
                        .to(dev) for _ in range(3))
@@ -514,34 +517,47 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
                       f"tolerance, median |plain| {m:.4g})"
                       for (dt, kv), (e, r, m) in main.items())
           + f"; launches by route {launches()}", flush=True)
-    # the CUDA-core route's path: attention at a head dim of 96, that of
-    # phi-3-vision-4.2b (32 query and 32 KV heads, bfloat16 as published),
-    # through the differentiable entry point, one causal 4096-token prompt
-    ph_s, ph_h, ph_d = 4096, 32, 96
-    qp, kp, vp = (torch.randn((1, ph_s, ph_h, ph_d), generator=gen)
-                  .to(torch.bfloat16).to(dev) for _ in range(3))
-    ph_kw = dict(scale=1.0 / math.sqrt(ph_d), causal=True, window=0)
-    torch.cuda.synchronize()
-    zero_launches()
-    op = ops.flash_sdpa(qp, kp, vp, **ph_kw)
-    torch.cuda.synchronize()
-    simt_path = launches()
-    check(simt_path == {"flash_attention_tc": 0, "flash_attention_f32tc": 0,
-                        "flash_attention_simt": 1},
-          f"head dim 96 attention launches {simt_path}, want the CUDA-core "
-          f"kernel once")
+    def sdpa_path(shape, route, what):
+        """``ops.flash_sdpa`` on one causal bfloat16 prompt ``[1, S, H, D]``
+        (``shape`` is ``[H, S, D]``), the route counts zeroed just before
+        and read just after; the launches must be ``route``'s one ->
+        launches, max abs error, worst error / tolerance."""
+        h, s_, d = shape
+        qp, kp, vp = (torch.randn((1, s_, h, d), generator=gen)
+                      .to(torch.bfloat16).to(dev) for _ in range(3))
+        kw = dict(scale=1.0 / math.sqrt(d), causal=True, window=0)
+        torch.cuda.synchronize()
+        zero_launches()
+        op = ops.flash_sdpa(qp, kp, vp, **kw)
+        torch.cuda.synchronize()
+        got = launches()
+        want = {r.__name__: int(r is route) for r in routes}
+        check(got == want, f"{what} launches {got}, want {want}")
 
-    def fold(t):                        # [1, S, H, D] -> [H, S, D]
-        return t.movedim(2, 1).reshape(ph_h, ph_s, ph_d)
-    ok, ph_err, ph_ratio = flash_close(
-        fold(op), kfa.flash_attention_plain(
-            *(fold(t).float() for t in (qp, kp, vp)), **ph_kw))
-    check(ok, f"head dim 96 attention != plain (max abs {ph_err:.3g})")
-    del qp, kp, vp, op
-    print(f"phase 7: CUDA-core route's path, ops.flash_sdpa at phi-3-vision's "
-          f"attention [1, {ph_s}, {ph_h}, {ph_d}] bfloat16 causal: launches "
-          f"{simt_path}; max abs vs plain {ph_err:.4g} ({ph_ratio:.3g} x "
-          f"tolerance)", flush=True)
+        def fold(t):                    # [1, S, H, D] -> [H, S, D]
+            return t.movedim(2, 1).reshape(h, s_, d)
+        plain = kfa.flash_attention_plain(
+            *(fold(t).float() for t in (qp, kp, vp)), **kw)
+        ok, err, ratio = kfa.flash_close(fold(op), plain)
+        check(ok, f"{what} != plain (max abs {err:.3g})")
+        print(f"phase 7: {what}, ops.flash_sdpa [1, {s_}, {h}, {d}] bfloat16 "
+              f"causal: launches {got}; max abs vs plain {err:.4g} "
+              f"({ratio:.3g} x tolerance)", flush=True)
+        return got, err, ratio
+
+    # phi-3-vision-4.2b's attention (32 query and 32 KV heads of 96,
+    # bfloat16 as published): the bfloat16 tensor-core kernel at head dim 96
+    ph_h, ph_s, ph_d = FLASH_PHI
+    ph_kw = dict(scale=1.0 / math.sqrt(ph_d), causal=True, window=0)
+    tc96_path, ph_err, _ = sdpa_path(FLASH_PHI, kfa.flash_attention_tc,
+                                     "phi-3-vision-4.2b's attention")
+    # a check of the CUDA-core route through ops.flash_sdpa, not a
+    # workload: head dim 256, which no config has, the widest the
+    # reference's kernel takes
+    wd_h, wd_s, wd_d = FLASH_WIDE
+    wd_kw = dict(scale=1.0 / math.sqrt(wd_d), causal=True, window=0)
+    simt_path, wd_err, _ = sdpa_path(FLASH_WIDE, kfa.flash_attention_simt,
+                                     "the CUDA-core route check")
 
     # -- 8. decode kernel: bitwise sweep, then its path --------------------
     # phase 2's rows [workers, rows, cols]: 1003, no vpb divides it; 4096,
@@ -797,7 +813,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
                          reps=5, warmup=1)
     sdpa32_ms = timer(lambda: sdpa(q32[None], k32[None], v32[None],
                                    is_causal=True), reps=10, warmup=2)
-    _, simt_err, _ = flash_close(
+    _, simt_err, _ = kfa.flash_close(
         kfa.flash_attention_simt(q32, k32, v32, **fa_kw),
         kfa.flash_attention_plain(q32, k32, v32, **fa_kw))
     f32_bytes = 4 * 4 * bh * s_main * d_main
@@ -824,22 +840,60 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     f32tc64_bound = 1e3 * max(4 * 4 * bh * s_main * d64 / HBM_BYTES_PER_S,
                               3 * 4 * d64 * bh * causal_pairs(s_main)
                               / TF32_OPS_PER_S)
-    # the CUDA-core kernel at its path's shape: phase 7's phi-3-vision
-    # attention as the kernel gets it, [32, 4096, 96] bfloat16 causal
+    # head dim 96 at phase 7's phi-3-vision shape as the kernels get it,
+    # [32, 4096, 96] causal, in both dtypes: the tensor-core kernel, the
+    # CUDA-core kernel on the same inputs (the record of the route head dim
+    # 96 took before), the plain version and the library call
     qp, kp, vp = (torch.randn((ph_h, ph_s, ph_d), generator=gen)
                   .to(torch.bfloat16).to(dev) for _ in range(3))
-    ph_ms = timer(lambda: kfa.flash_attention_simt(qp, kp, vp, **ph_kw),
-                  reps=10, warmup=2)
+    ph_ms = timer(lambda: kfa.flash_attention_tc(qp, kp, vp, **ph_kw),
+                  reps=20, warmup=2)
+    ph_simt_ms = timer(lambda: kfa.flash_attention_simt(qp, kp, vp,
+                                                        **ph_kw),
+                       reps=10, warmup=2)
     ph_plain_ms = timer(lambda: kfa.flash_attention_plain(qp, kp, vp,
                                                           **ph_kw),
                         reps=5, warmup=1)
     ph_sdpa_ms = timer(lambda: sdpa(qp[None], kp[None], vp[None],
-                                    is_causal=True), reps=10, warmup=2)
+                                    is_causal=True), reps=20, warmup=2)
+    qp, kp, vp = (t.float() for t in (qp, kp, vp))
+    ph32_ms = timer(lambda: kfa.flash_attention_f32tc(qp, kp, vp, **ph_kw),
+                    reps=10, warmup=2)
+    ph32_simt_ms = timer(lambda: kfa.flash_attention_simt(qp, kp, vp,
+                                                          **ph_kw),
+                         reps=10, warmup=2)
+    ph32_plain_ms = timer(lambda: kfa.flash_attention_plain(qp, kp, vp,
+                                                            **ph_kw),
+                          reps=5, warmup=1)
+    ph32_sdpa_ms = timer(lambda: sdpa(qp[None], kp[None], vp[None],
+                                      is_causal=True), reps=10, warmup=2)
+    ok, ph32_err, ph32_ratio = kfa.flash_close(
+        kfa.flash_attention_f32tc(qp, kp, vp, **ph_kw),
+        kfa.flash_attention_plain(qp, kp, vp, **ph_kw))
+    check(ok, f"float32 flash {list(FLASH_PHI)} != plain (max abs "
+          f"{ph32_err:.3g})")
     del qp, kp, vp
     ph_flops = 4 * ph_d * ph_h * causal_pairs(ph_s)
     ph_bytes = 2 * 4 * ph_h * ph_s * ph_d
     ph_bound = 1e3 * max(ph_bytes / HBM_BYTES_PER_S,
                          ph_flops / BF16_OPS_PER_S)
+    ph32_bound = 1e3 * max(2 * ph_bytes / HBM_BYTES_PER_S,
+                           3 * ph_flops / TF32_OPS_PER_S)
+    # the CUDA-core kernel on phase 7's route check, [16, 4096, 256]
+    # bfloat16 causal (a head dim no config has)
+    qw, kw_, vw = (torch.randn((wd_h, wd_s, wd_d), generator=gen)
+                   .to(torch.bfloat16).to(dev) for _ in range(3))
+    wd_ms = timer(lambda: kfa.flash_attention_simt(qw, kw_, vw, **wd_kw),
+                  reps=10, warmup=2)
+    wd_plain_ms = timer(lambda: kfa.flash_attention_plain(qw, kw_, vw,
+                                                          **wd_kw),
+                        reps=5, warmup=1)
+    wd_sdpa_ms = timer(lambda: sdpa(qw[None], kw_[None], vw[None],
+                                    is_causal=True), reps=10, warmup=2)
+    del qw, kw_, vw
+    wd_flops = 4 * wd_d * wd_h * causal_pairs(wd_s)
+    wd_bound = 1e3 * max(2 * 4 * wd_h * wd_s * wd_d / HBM_BYTES_PER_S,
+                         wd_flops / BF16_OPS_PER_S)
     elems = flat.numel()
     dec_ms = timer(lambda: kdec.decode(p_nbr, flat, B8, bits=8))
     dec_plain_ms = timer(lambda: kdec.decode_plain(p_nbr, flat, B8, bits=8))
@@ -871,13 +925,32 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
           f"scaled_dot_product_attention {sdpa64_ms:.4f} ms | 3xTF32 bound "
           f"{f32tc64_bound:.4f} ms "
           f"{card}", flush=True)
-    print(f"time: flash_attention (CUDA cores) at its path's shape [{ph_h}, "
-          f"{ph_s}, {ph_d}] bfloat16 causal: kernel {ph_ms:.4f} ms | plain "
-          f"{ph_plain_ms:.4f} ms | scaled_dot_product_attention "
-          f"{ph_sdpa_ms:.4f} ms | bound {ph_bound:.4f} ms (operations at "
-          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16; "
-          f"{1e3 * ph_flops / F32_OPS_PER_S:.4f} ms at the CUDA cores' "
-          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32) {card}", flush=True)
+    print(f"time: flash {list(FLASH_PHI)} bfloat16 causal (phi-3-vision-"
+          f"4.2b's attention): flash_attention_tc {ph_ms:.4f} ms "
+          f"({ph_flops / ph_ms / 1e9:.1f} TFLOP/s of the algorithm's "
+          f"{ph_flops / 1e9:.1f} GFLOP) | flash_attention (CUDA cores) "
+          f"{ph_simt_ms:.4f} ms | plain {ph_plain_ms:.4f} ms | "
+          f"scaled_dot_product_attention {ph_sdpa_ms:.4f} ms | bound "
+          f"{ph_bound:.4f} ms (operations at {BF16_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s bf16; {1e3 * ph_flops / F32_OPS_PER_S:.4f} ms at the "
+          f"CUDA cores' {F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32) {card}",
+          flush=True)
+    print(f"time: flash {list(FLASH_PHI)} float32 causal: "
+          f"flash_attention_f32tc (3xTF32 mma.sync) {ph32_ms:.4f} ms | "
+          f"flash_attention (CUDA cores) {ph32_simt_ms:.4f} ms | plain "
+          f"{ph32_plain_ms:.4f} ms | scaled_dot_product_attention "
+          f"{ph32_sdpa_ms:.4f} ms | 3xTF32 bound {ph32_bound:.4f} ms "
+          f"(operations x3 at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s TF32) | "
+          f"max abs vs plain {ph32_err:.4g} ({ph32_ratio:.3g} x tolerance) "
+          f"{card}", flush=True)
+    print(f"time: flash_attention (CUDA cores) on the route check "
+          f"{list(FLASH_WIDE)} bfloat16 causal: kernel {wd_ms:.4f} ms "
+          f"({wd_flops / wd_ms / 1e9:.1f} TFLOP/s) | plain {wd_plain_ms:.4f} "
+          f"ms | scaled_dot_product_attention {wd_sdpa_ms:.4f} ms | bound "
+          f"{wd_bound:.4f} ms (operations at {BF16_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s bf16; {1e3 * wd_flops / F32_OPS_PER_S:.4f} ms at the "
+          f"CUDA cores' {F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32) {card}",
+          flush=True)
     print(f"time: moniqua_decode 8-bit remote {list(flat.shape)} float32: "
           f"kernel {dec_ms:.5f} ms | plain {dec_plain_ms:.5f} ms | bound "
           f"{dec_bound:.5f} ms (bytes) | library: no single PyTorch call "
@@ -889,23 +962,38 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
              launches=fa_launches,
              max_abs_err=main["bfloat16", kv_main][0], ms=fa_ms,
              plain_ms=fa_plain_ms, bound_ms=fa_bound, bound_by="operations",
-             library_ms=sdpa_ms),
+             library_ms=sdpa_ms,
+             # head dim 96 on its path, phase 7's phi-3-vision attention
+             d96=dict(shape=list(FLASH_PHI),
+                      launches=tc96_path["flash_attention_tc"],
+                      max_abs_err=ph_err, ms=ph_ms, plain_ms=ph_plain_ms,
+                      bound_ms=ph_bound, bound_by="operations",
+                      library_ms=ph_sdpa_ms)),
         dict(name="flash_attention_f32tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_f32tc.cu",
              replaces="src/repro/kernels/flash_attention.py:130",
              launches=f32_launches["flash_attention_f32tc"],
              max_abs_err=main["float32", bh][0], ms=f32tc_ms,
              plain_ms=f32_plain_ms, bound_ms=f32tc_bound,
-             bound_by="operations", library_ms=sdpa32_ms),
-        # launches and times at its path's shape (phase 7's head dim 96);
-        # float32 at the serving shape kept beside as the earlier record
+             bound_by="operations", library_ms=sdpa32_ms,
+             # head dim 96 at phase 7's phi-3-vision shape (no float32 path)
+             d96=dict(shape=list(FLASH_PHI), max_abs_err=ph32_err,
+                      ms=ph32_ms, plain_ms=ph32_plain_ms,
+                      bound_ms=ph32_bound, bound_by="operations",
+                      library_ms=ph32_sdpa_ms)),
+        # launches and times on phase 7's check of the CUDA-core route
+        # (head dim 256, which no config has: a route check, not traffic);
+        # head dim 96, which it served before, and float32 at the serving
+        # shape kept beside as the earlier records
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:130",
              launches=simt_path["flash_attention_simt"],
-             max_abs_err=ph_err, ms=ph_ms, plain_ms=ph_plain_ms,
-             bound_ms=ph_bound, bound_by="operations",
-             library_ms=ph_sdpa_ms,
+             max_abs_err=wd_err, ms=wd_ms, plain_ms=wd_plain_ms,
+             bound_ms=wd_bound, bound_by="operations",
+             library_ms=wd_sdpa_ms,
+             d96_record=dict(shape=list(FLASH_PHI), bfloat16_ms=ph_simt_ms,
+                             float32_ms=ph32_simt_ms),
              float32_record=dict(shape=list(FLASH_MAIN), max_abs_err=simt_err,
                                  ms=simt_ms, plain_ms=f32_plain_ms,
                                  bound_ms=simt_bound, bound_by="operations",
@@ -1271,6 +1359,27 @@ def main() -> int:
         check(all(sass.values()), f"{name} SASS {sass}: want {what}")
         print(f"sass: {name} " + ", ".join(
             f"{op} {n}" for op, n in sass.items()), flush=True)
+    # the head dim 96 instantiations (phi-3-vision-4.2b's attention): the
+    # bfloat16 one's SASS, and no spill in either
+    fn96 = FLASH_D96_KERNELS["flash_attention_tc"]
+    sass = sass_counts(libs["flash_attention_tc"], ("HGMMA", "UTMALDG"),
+                       fn=fn96)
+    if sass is None:
+        print("sass: flash_attention_tc head dim 96 counts not measured (no "
+              "cuobjdump in the toolkit)")
+    else:
+        check(all(sass.values()), f"flash_attention_tc head dim 96 SASS "
+              f"{sass}: want wgmma (HGMMA) and TMA loads (UTMALDG)")
+        print(f"sass: flash_attention_tc head dim 96 ({fn96}) " + ", ".join(
+            f"{op} {n}" for op, n in sass.items()), flush=True)
+    for name, fn in FLASH_D96_KERNELS.items():
+        kern = {k: v for k, v in ptxas_kernels(
+            libs[name].with_suffix(".log").read_text()).items() if fn in k}
+        check(len(kern) == 1, f"{name}: no ptxas lines for {fn}")
+        (regs, spill), = kern.values()
+        check(spill == 0, f"{name} head dim 96 spills {spill} bytes")
+        print(f"  ptxas {name} head dim 96 ({fn}): {regs} registers, "
+              f"{spill} bytes spilled", flush=True)
 
     gen = torch.Generator().manual_seed(0)
 

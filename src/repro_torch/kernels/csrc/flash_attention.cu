@@ -1,14 +1,16 @@
 // Flash-attention forward (online softmax) on CUDA cores, sm_90a: the
 // route of every head dim that the tensor-core kernels do not instantiate
-// (float32 and bfloat16 at head dims other than 64 and 128).
+// (float32 and bfloat16 at head dims other than 64, 96 and 128).  No
+// config of the model zoo has such a head dim (its attention runs at 64,
+// 96 and 128); the reference's kernel takes any D <= 256, and so does this.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel) where
-// the tensor-core kernels do not: at head dims 64 and 128, bfloat16 runs in
-// flash_attention_tc.cu and float32 in flash_attention_f32tc.cu, whose
-// 3xTF32 products (each operand split into two TF32 parts) keep float32's
-// rtol = atol = 2e-5, which one TF32 pass cannot.  q [BH, Sq, D], k/v
-// [BH/g, Sk, D], row-major, float32 or bfloat16 (all three the same), out
+// the tensor-core kernels do not: at head dims 64, 96 and 128, bfloat16
+// runs in flash_attention_tc.cu and float32 in flash_attention_f32tc.cu,
+// whose 3xTF32 products (each operand split into two TF32 parts) keep
+// float32's rtol = atol = 2e-5, which one TF32 pass cannot.  q [BH, Sq, D],
+// k/v [BH/g, Sk, D], row-major, float32 or bfloat16 (all three the same), out
 // [BH, Sq, D] in q's type; query row block bh reads KV block bh / g
 // (grouped-query attention without a copy).  Per query row i and key j:
 //   s_ij = (q_i . k_j) * scale in float32 from inputs upcast to float32,

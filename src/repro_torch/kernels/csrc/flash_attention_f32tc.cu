@@ -1,9 +1,9 @@
 // Flash-attention forward in float32 on Hopper's tensor cores (3xTF32
-// mma.sync), sm_90a: the float32 route at head dims 64 and 128.
+// mma.sync), sm_90a: the float32 route at head dims 64, 96 and 128.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel) where
-// the inputs are float32 at head dim 64 or 128; bfloat16 there takes
+// the inputs are float32 at head dim 64, 96 or 128; bfloat16 there takes
 // flash_attention_tc.cu, every other head dim flash_attention.cu.  q [BH,
 // Sq, D], k/v [BH/g, Sk, D], row-major float32, out [BH, Sq, D] float32;
 // query row block bh reads KV block bh / g (grouped-query attention without
@@ -38,10 +38,12 @@
 //   most live tiles (the last query tiles) are launched first.
 // - Q (once) and each K and V tile are staged in shared memory with
 //   cp.async (16-byte copies, rows past Sq or Sk zero-filled), one stage:
-//   at D = 128 a CTA holds 101 KB, so two CTAs share an SM and one computes
-//   while the other loads (two stages would leave room for one CTA).  Rows
-//   are padded to D + 4 floats, so that every fragment load below hits 32
-//   different banks.
+//   at D = 128 a CTA holds 101 KB (77 KB at D = 96), so two CTAs share an
+//   SM and one computes while the other loads (two stages would leave room
+//   for one CTA).  Rows are padded to D + 4 floats, so that every fragment
+//   load below hits 32 different banks: D + 4 is 4 mod 32 at each head dim
+//   (68, 100, 132), so K's (row g, column t) lands in bank 4 g + t and V's
+//   (row 2 t, column g) in bank 8 t + g.
 // - Fragments are read from shared memory with plain 32-bit loads, as
 //   mma.sync m16n8k8 lays them out, and split as they are loaded.  (Split
 //   once a tile at staging, the four warps would split each value once,
@@ -329,15 +331,15 @@ int launch(const float* q, const float* k, const float* v, float* o,
 
 // Returns the launch's cudaError_t (0 on success).  q, k, v, o are float32,
 // 16-byte aligned; q, o [bh, sq, d], k, v [bh_kv, sk, d] with bh_kv dividing
-// bh; d is 64 or 128.  `window` is read only when `causal` is set.
+// bh; d is 64, 96 or 128.  `window` is read only when `causal` is set.
 extern "C" int flash_attention_f32tc(const void* q, const void* k,
                                      const void* v, void* o, int64_t bh,
                                      int64_t bh_kv, int64_t sq, int64_t sk,
                                      int d, float scale, int causal,
                                      int64_t window, void* stream) {
-  if ((d != 64 && d != 128) || bh < 0 || sq < 0 || sk < 0 || bh_kv < 1 ||
-      bh % bh_kv)
+  if (bh < 0 || sq < 0 || sk < 0 || bh_kv < 1 || bh % bh_kv)
     return (int)cudaErrorInvalidValue;
+  if (d != 64 && d != 96 && d != 128) return (int)cudaErrorInvalidValue;
   if (bh == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qt = static_cast<const float*>(q);
@@ -347,6 +349,11 @@ extern "C" int flash_attention_f32tc(const void* q, const void* k,
   if (d == 64)
     return launch<64>(qt, kt, vt, ot, bh, bh / bh_kv, sq, sk, scale, causal,
                       window, s);
-  return launch<128>(qt, kt, vt, ot, bh, bh / bh_kv, sq, sk, scale, causal,
-                     window, s);
+  if (d == 96)
+    return launch<96>(qt, kt, vt, ot, bh, bh / bh_kv, sq, sk, scale, causal,
+                      window, s);
+  if (d == 128)
+    return launch<128>(qt, kt, vt, ot, bh, bh / bh_kv, sq, sk, scale,
+                       causal, window, s);
+  return (int)cudaErrorInvalidValue;
 }

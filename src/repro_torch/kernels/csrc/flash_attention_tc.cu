@@ -1,10 +1,11 @@
 // Flash-attention forward on Hopper's tensor cores (wgmma, TMA), sm_90a:
-// the bfloat16 route at head dims 64 and 128.
+// the bfloat16 route at head dims 64, 96 and 128.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel) where
-// the inputs are bfloat16; float32 inputs and other head dims take the
-// CUDA-core route (flash_attention.cu).  q [BH, Sq, D], k/v [BH/g, Sk, D],
+// the inputs are bfloat16; float32 inputs take flash_attention_f32tc.cu,
+// and head dims other than these three the CUDA-core route
+// (flash_attention.cu).  q [BH, Sq, D], k/v [BH/g, Sk, D],
 // row-major bfloat16, out [BH, Sq, D] bfloat16.  Query row block bh reads
 // KV block bh / g: with heads folded (lead..., H) that is the reference's
 // jnp.repeat of the KV heads, done here without a copy.  Per query row i
@@ -18,27 +19,34 @@
 // Bound: operations.  Causal attention at BH = 48, S = 4096, D = 128 does
 // 4 * D flops for each of the ~403 M causal (i, j) pairs: 206 GFLOP, 0.21 ms
 // at the bf16 tensor-core peak; Q + K + V + O are 134 MB with 16 KV heads
-// (0.04 ms).
+// (0.04 ms).  At phi-3-vision-4.2b's [32, 4096, 96]: 103 GFLOP, 0.104 ms.
 //
 // Design.  A CTA takes 128 query rows of one bh (the reference's block) and
 // walks the live key tiles of 128 rows, heaviest query blocks first.
 // The CTA is two warpgroups, 64 query rows each.  Thread 0 starts every
-// load with TMA (3-D tensor maps over [heads, rows, D], 128-byte swizzle,
-// rows past Sq or Sk zero-filled): Q once, then K and V into a ring of
-// STAGES stages with full/empty mbarriers, STAGES - 1 tiles ahead; it
-// refills a stage at the end of a tile, once both warpgroups have released
-// the stage's previous tile, so one warpgroup may trail the other by a
-// tile.  There is no producer warp: with one (384 threads, setmaxnreg 24 /
-// 240) ptxas still compiles the whole kernel to 168 registers a thread,
-// spills and serialises the wgmmas; 256 threads leave each up to 255.
+// load with TMA (3-D tensor maps over [heads, rows, D], rows past Sq or Sk
+// zero-filled): Q once, then K and V into a ring of STAGES stages with
+// full/empty mbarriers, STAGES - 1 tiles ahead; it refills a stage at the
+// end of a tile, once both warpgroups have released the stage's previous
+// tile, so one warpgroup may trail the other by a tile.  There is no
+// producer warp: with one (384 threads, setmaxnreg 24 / 240) ptxas still
+// compiles the whole kernel to 168 registers a thread, spills and
+// serialises the wgmmas; 256 threads leave each up to 255.
+// Each tile is held as D / PC panels of [rows][PC columns], each swizzled
+// by TMA: PC = 64 (128-byte rows, 128-byte swizzle) where 64 divides D,
+// else PC = 32 (64-byte rows, 64-byte swizzle), so D = 96 is three exact
+// panels.  (Two 128-byte panels with columns 96-127 zero-filled would pad
+// P V, two thirds of the tensor work with P's hi/lo split, to N = 128.)
 // Each warpgroup computes, per key tile,
-//   S = Q K^T    wgmma m64n128k16, Q and K from shared memory, K-major;
+//   S = Q K^T    wgmma m64n128k16, Q and K from shared memory, K-major,
+//                PC / 16 k-steps a panel;
 //   softmax      in registers on S's accumulator fragment, float32, with
 //                the mask computed only on ragged, diagonal and window-edge
 //                tiles; l sums the float32 P;
 //   O += P V     wgmma m64nDk16 with P as the A operand from registers (S's
 //                fragment is already the A fragment's layout) and V from
-//                shared memory, MN-major (transposed).
+//                shared memory, MN-major (transposed), D / PC swizzle atoms
+//                along N.
 // P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and both go
 // through the tensor cores into O: one bf16 rounding of P would err by up
 // to 2^-9 per weight, which over a 4096-key row adds a large share of an
@@ -54,17 +62,25 @@ namespace {
 
 constexpr int kBlockM = 128;               // query rows of a CTA
 constexpr int kBlockN = 128;               // key rows of a tile
-constexpr int kPanel = 64;                 // bf16 columns of a 128-byte row
 constexpr int kThreads = 256;              // two warpgroups
 constexpr float kNegInf = -1e30f;
 
+// bf16 columns of a panel at head dim D: a 128-byte row under the 128-byte
+// swizzle where 64 divides D, else a 64-byte row under the 64-byte swizzle
+template <int D>
+constexpr int panel_cols() {
+  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
+  return D % 64 == 0 ? 64 : 32;
+}
+
 template <int D, int STAGES>
 struct Smem {
-  // each [rows][64] panel is 128-byte swizzled by TMA; panels of 16 KB
-  // keep every panel 1024-byte aligned, as the swizzle needs
-  __nv_bfloat16 q[D / kPanel][kBlockM * kPanel];
-  __nv_bfloat16 k[STAGES][D / kPanel][kBlockN * kPanel];
-  __nv_bfloat16 v[STAGES][D / kPanel][kBlockN * kPanel];
+  static constexpr int PC = panel_cols<D>();
+  // each [rows][PC] panel is swizzled by TMA; panels of 16 or 8 KB keep
+  // every panel 1024-byte aligned, a multiple of either swizzle's period
+  __nv_bfloat16 q[D / PC][kBlockM * PC];
+  __nv_bfloat16 k[STAGES][D / PC][kBlockN * PC];
+  __nv_bfloat16 v[STAGES][D / PC][kBlockN * PC];
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
   uint64_t q_full;
@@ -129,13 +145,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma shared-memory descriptor of an operand in panels of PC bf16
+// columns: start address, leading and stride byte offsets (16-byte units),
+// layout type 1 (128-byte swizzle, PC = 64) or 2 (64-byte swizzle, PC = 32).
+template <int PC>
+__device__ __forceinline__ uint64_t sw_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  constexpr uint64_t layout = PC == 64 ? 1 : 2;
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -156,7 +175,7 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 // d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T with A and B K-major in
-// shared memory (128-byte swizzle); scale_d = 0 overwrites d.
+// shared memory (swizzled panels); scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -186,8 +205,8 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
 }
 
 // d[64 x 128] += A[64 x 16] . B[16 x 128] with A in registers (bf16 pairs
-// in the accumulator's layout) and B MN-major in shared memory (128-byte
-// swizzle, transposed).
+// in the accumulator's layout) and B MN-major in shared memory (swizzled
+// panels, transposed); likewise at N = 96 and 64 below.
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                              const uint32_t* a, uint64_t db) {
   asm volatile(
@@ -216,9 +235,30 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d[64 x 64] += A[64 x 16] . B[16 x 64] with A in registers (bf16 pairs
-// in the accumulator's layout) and B MN-major in shared memory (128-byte
-// swizzle, transposed).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+      "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t* a, uint64_t db) {
   asm volatile(
@@ -243,12 +283,15 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// O += P V over one 16-key step: D = 128 or 64 output columns.
+// O += P V over one 16-key step: D = 128, 96 or 64 output columns.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
                                          const uint32_t* a, uint64_t db) {
+  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
   if constexpr (D == 128) {
     wgmma_rs_n128(acc, a, db);
+  } else if constexpr (D == 96) {
+    wgmma_rs_n96(acc, a, db);
   } else {
     wgmma_rs_n64(acc, a, db);
   }
@@ -261,13 +304,14 @@ __device__ __forceinline__ void load_kv(Smem<D, STAGES>& sm,
                                         const CUtensorMap* k_map,
                                         const CUtensorMap* v_map, int t,
                                         int j, int kvh) {
+  constexpr int PC = Smem<D, STAGES>::PC;
   const int st = t % STAGES;
   if (t >= STAGES) mbar_wait(&sm.empty[st], ((t / STAGES) - 1) & 1);
   mbar_expect_tx(&sm.full[st], 2 * kBlockN * D * 2);
 #pragma unroll
-  for (int p = 0; p < D / kPanel; ++p) {
-    tma_load(sm.k[st][p], k_map, &sm.full[st], p * kPanel, j * kBlockN, kvh);
-    tma_load(sm.v[st][p], v_map, &sm.full[st], p * kPanel, j * kBlockN, kvh);
+  for (int p = 0; p < D / PC; ++p) {
+    tma_load(sm.k[st][p], k_map, &sm.full[st], p * PC, j * kBlockN, kvh);
+    tma_load(sm.v[st][p], v_map, &sm.full[st], p * PC, j * kBlockN, kvh);
   }
 }
 
@@ -279,7 +323,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                  __nv_bfloat16* __restrict__ out, int bh_count, int group,
                  int sq, int sk, float scale, int causal, int window,
                  int nq_blocks) {
-  constexpr int P = D / kPanel;  // panels of a row
+  constexpr int PC = Smem<D, STAGES>::PC;  // columns of a panel
+  constexpr int P = D / PC;                 // panels of a row
+  constexpr uint32_t kAtom = 16 * PC;  // bytes of 8 swizzled rows
   extern __shared__ uint8_t smem_raw[];
   Smem<D, STAGES>& sm = *reinterpret_cast<Smem<D, STAGES>*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
@@ -314,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_expect_tx(&sm.q_full, kBlockM * D * 2);
 #pragma unroll
     for (int p = 0; p < P; ++p)
-      tma_load(sm.q[p], &q_map, &sm.q_full, p * kPanel, q0, bh);
+      tma_load(sm.q[p], &q_map, &sm.q_full, p * PC, q0, bh);
     for (int t = 0; t < STAGES - 1 && t < n_tiles; ++t)
       load_kv(sm, &k_map, &v_map, t, j_begin + t, kvh);
   }
@@ -327,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int qa = q0 + wg * 64, qb = qa + 63;
   const int row_a = qa + warp * 16 + lane / 4, row_b = row_a + 8;
   const int col0 = 2 * (lane % 4);
-  const __nv_bfloat16* q_wg = &sm.q[0][wg * 64 * kPanel];
+  const __nv_bfloat16* q_wg = &sm.q[0][wg * 64 * PC];
 
   float acc[D / 2], s[64];
 #pragma unroll
@@ -346,14 +392,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool live =
         !causal || (k_lo <= qb && (!window || k_hi > qa - window));
     if (live) {
-      // S = Q K^T over D in steps of 16
+      // S = Q K^T over D in steps of 16, PC / 16 of them a panel; groups
+      // of 8 rows lie kAtom bytes apart (stride offset)
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        const int p = ks / 4, c = (ks % 4) * 16;
+        const int p = ks / (PC / 16), c = (ks % (PC / 16)) * 16;
         wgmma_ss_n128(s,
-                      sw128_desc(q_wg + p * kBlockM * kPanel + c, 16, 1024),
-                      sw128_desc(&sm.k[st][p][c], 16, 1024), ks > 0);
+                      sw_desc<PC>(q_wg + p * kBlockM * PC + c, 16, kAtom),
+                      sw_desc<PC>(&sm.k[st][p][c], 16, kAtom), ks > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -428,14 +475,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 
       // O += P_hi V + P_lo V over the tile's keys in steps of 16; V is
-      // MN-major: the 64-column panels lie 16 KB apart (leading offset),
-      // groups of 8 keys 1 KB apart (stride offset)
+      // MN-major: the PC-column panels lie kBlockN * PC * 2 bytes apart
+      // (leading offset), groups of 8 keys kAtom bytes apart (stride offset)
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        const uint64_t db = sw128_desc(&sm.v[st][0][kk * 16 * kPanel],
-                                       kBlockN * kPanel * 2, 1024);
+        const uint64_t db = sw_desc<PC>(&sm.v[st][0][kk * 16 * PC],
+                                        kBlockN * PC * 2, kAtom);
         wgmma_pv<D>(acc, &p_hi[4 * kk], db);
         wgmma_pv<D>(acc, &p_lo[4 * kk], db);
       }
@@ -497,20 +544,22 @@ EncodeTiled encode_tiled() {
 }
 
 // A 3-D map over [heads, rows, d] bf16 (dims listed innermost first)
-// whose box is one 128-byte-swizzled [128 rows][64 columns] panel.
+// whose box is one [128 rows][pc columns] panel, 128-byte swizzled at
+// pc = 64, 64-byte swizzled at pc = 32.
 bool make_map(CUtensorMap* map, const void* base, int64_t heads,
-              int64_t rows, int d) {
+              int64_t rows, int d, int pc) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {kPanel, kBlockN, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)pc, kBlockN, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            pc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -520,9 +569,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
            int64_t bh_kv, int64_t sq, int64_t sk, float scale, int causal,
            int window, cudaStream_t stream) {
   static_assert(kBlockM == kBlockN, "one box shape serves Q, K and V");
+  constexpr int PC = Smem<D, STAGES>::PC;
   CUtensorMap q_map, k_map, v_map;
-  if (!make_map(&q_map, q, bh, sq, D) || !make_map(&k_map, k, bh_kv, sk, D) ||
-      !make_map(&v_map, v, bh_kv, sk, D))
+  if (!make_map(&q_map, q, bh, sq, D, PC) ||
+      !make_map(&k_map, k, bh_kv, sk, D, PC) ||
+      !make_map(&v_map, v, bh_kv, sk, D, PC))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(Smem<D, STAGES>) + 1024;  // + alignment slack
   const cudaError_t err = cudaFuncSetAttribute(
@@ -541,7 +592,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
 
 // Returns the launch's cudaError_t (0 on success).  q, o [bh, sq, d] and
 // k, v [bh_kv, sk, d] bfloat16, contiguous, 16-byte aligned; bh_kv divides
-// bh; d is 64 or 128; sk >= 1.  `window` is read only when `causal` is set.
+// bh; d is 64, 96 or 128; sk >= 1.  `window` is read only when `causal` is
+// set.
 extern "C" int flash_attention_tc(const void* q, const void* k,
                                   const void* v, void* o, int64_t bh,
                                   int64_t bh_kv, int64_t sq, int64_t sk,
@@ -562,6 +614,8 @@ extern "C" int flash_attention_tc(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
     return launch<64, 4>(q, k, v, o, bh, bh_kv, sq, sk, scale, causal, w, s);
+  if (d == 96)
+    return launch<96, 4>(q, k, v, o, bh, bh_kv, sq, sk, scale, causal, w, s);
   if (d == 128)
     return launch<128, 3>(q, k, v, o, bh, bh_kv, sq, sk, scale, causal, w,
                           s);

@@ -10,13 +10,16 @@ when heads are folded ``(lead..., H)``.  The window applies only when
 
 :func:`flash_attention` picks one of three CUDA kernels by dtype and head
 dim (:func:`route`), never by trying.  At a head dim in
-:data:`TC_HEAD_DIMS` both dtypes run on the tensor cores: bfloat16 through
-:func:`flash_attention_tc` (``csrc/flash_attention_tc.cu``: ``wgmma`` and
-TMA), float32 through :func:`flash_attention_f32tc`
+:data:`TC_HEAD_DIMS` (64, 96 and 128: every head dim at which a config of
+the reference's model zoo runs attention) both dtypes run on the tensor
+cores: bfloat16 through :func:`flash_attention_tc`
+(``csrc/flash_attention_tc.cu``: ``wgmma`` and TMA), float32 through
+:func:`flash_attention_f32tc`
 (``csrc/flash_attention_f32tc.cu``: 3xTF32 ``mma.sync``, each operand split
 into two TF32 parts, which keeps float32's tolerance where one TF32 pass
-cannot).  Every other head dim goes to :func:`flash_attention_simt`
-(``csrc/flash_attention.cu``: CUDA cores).  Each keeps its own count of
+cannot).  Every other head dim up to :data:`MAX_HEAD_DIM`, which no config
+has, goes to :func:`flash_attention_simt` (``csrc/flash_attention.cu``:
+CUDA cores).  Each keeps its own count of
 launches.  CPU tensors take :func:`flash_attention_plain`.
 
 :func:`sdpa` with :func:`causal_mask` is the one masked-softmax oracle of
@@ -37,7 +40,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 # head dims that the tensor-core kernels instantiate (both dtypes)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 96, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -88,6 +91,31 @@ def flash_attention_plain(q, k, v, *, scale: float, causal: bool = True,
     return sdpa_ref(q.float(), expand_kv(k.float(), g),
                     expand_kv(v.float(), g), scale, causal,
                     window).to(q.dtype)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at |x| (8 significant bits): 2^(e - 8) for
+    |x| = m 2^e, m in [0.5, 1); 0 at x = 0."""
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def flash_close(got: torch.Tensor, want: torch.Tensor):
+    """A flash kernel's output against its plain version in float32 on
+    the same inputs -> (ok, max abs error, worst error / tolerance).
+    float32: within rtol = atol = 2e-5 (the two sum in other orders).
+    bfloat16: within the reference tests' atol 0.03 and, element by
+    element, within one bfloat16 ulp of |want| plus the float32 tolerance,
+    since the kernel's output is one rounding of a float32 result."""
+    err = (got.float() - want).abs()
+    tol = 2e-5 * (1 + want.abs())
+    if got.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(want)
+    max_err = float(err.max())
+    ok = bool((err <= tol).all())
+    if got.dtype == torch.bfloat16:
+        ok = ok and max_err <= 0.03
+    return ok, max_err, float((err / tol).max())
 
 
 def _check(q, k, v):
@@ -194,7 +222,8 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: float, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
     """The CUDA-core route: float32 or bfloat16, any head dim up to
-    :data:`MAX_HEAD_DIM`.  A CUDA tensor launches ``csrc/flash_attention.cu``
+    :data:`MAX_HEAD_DIM` (:func:`route` sends it those outside
+    :data:`TC_HEAD_DIMS`).  A CUDA tensor launches ``csrc/flash_attention.cu``
     (counted in ``flash_attention_simt.launches``); CPU tensors take
     :func:`flash_attention_plain`."""
     _check(q, k, v)
@@ -214,9 +243,10 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def route(q: torch.Tensor):
     """The kernel wrapper :func:`flash_attention` calls, fixed by dtype and
-    head dim: the tensor cores at :data:`TC_HEAD_DIMS` (bfloat16
-    :func:`flash_attention_tc`, float32 :func:`flash_attention_f32tc`), the
-    CUDA cores (:func:`flash_attention_simt`) at any other head dim."""
+    head dim: the tensor cores at :data:`TC_HEAD_DIMS` = 64, 96, 128
+    (bfloat16 :func:`flash_attention_tc`, float32
+    :func:`flash_attention_f32tc`), the CUDA cores
+    (:func:`flash_attention_simt`) at any other head dim."""
     if q.shape[-1] in TC_HEAD_DIMS:
         return (flash_attention_tc if q.dtype == torch.bfloat16
                 else flash_attention_f32tc)

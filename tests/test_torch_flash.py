@@ -65,7 +65,7 @@ def test_flash_sdpa_matches_reference(S, window):
     np.testing.assert_allclose(_np(out), _np(ref), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 @pytest.mark.parametrize("causal,sq,sk,window", [
     (True, 256, 256, 0), (True, 384, 384, 100), (True, 130, 130, 0),
     (False, 130, 256, 0), (False, 130, 256, 50)])   # non-causal: no window
@@ -105,6 +105,29 @@ def test_flash_bfloat16(causal, Sk):
     assert bool((err <= ulp + 2e-5 * (1 + oracle.abs())).all())
     ref = jops.flash_sdpa(jq, jk, jv, scale=scale, causal=causal,
                           interpret=True)
+    assert ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_np(out), _np(ref), rtol=0, atol=0.03)
+
+
+@pytest.mark.parametrize("g,causal,sq,sk,window", [
+    (1, True, 256, 256, 0), (4, True, 384, 384, 100), (1, True, 130, 130, 0),
+    (4, False, 130, 200, 0)])
+def test_flash_bfloat16_head_dim_96(g, causal, sq, sk, window):
+    """phi-3-vision-4.2b's head dim, bfloat16 as published, through
+    ops.flash_sdpa ([B, S, H, D], K/V at H / g heads) against the
+    reference's interpret-mode ops.flash_sdpa on K/V repeated to H heads:
+    within the reference tests' atol 0.03."""
+    B, hkv, D = 1, 2, 96
+    rng = np.random.default_rng(96 + sq + g)
+    q = rng.standard_normal((B, sq, hkv * g, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, sk, hkv, D)).astype(np.float32)
+            for _ in range(2))
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], "bfloat16")
+    kw = dict(scale=1.0 / math.sqrt(D), causal=causal, window=window)
+    out = tops.flash_sdpa(tq, tk, tv, **kw)
+    assert out.shape == tq.shape and out.dtype == torch.bfloat16
+    ref = jops.flash_sdpa(jq, jnp.repeat(jk, g, axis=-2),
+                          jnp.repeat(jv, g, axis=-2), interpret=True, **kw)
     assert ref.dtype == jnp.bfloat16
     np.testing.assert_allclose(_np(out), _np(ref), rtol=0, atol=0.03)
 
@@ -156,7 +179,7 @@ def test_flash_counts_no_cpu_launch_and_rejects_bad_input():
               tfa.flash_attention_simt)
     for route in routes:
         route.launches = 0
-    for x in (q, q.bfloat16(), torch.zeros(2, 16, 96)):  # one per route
+    for x in (q, q.bfloat16(), torch.zeros(2, 16, 32)):  # one per route
         tfa.flash_attention(x, x, x, scale=0.125)
         for route in routes:
             route(x, x, x, scale=0.125)
@@ -176,17 +199,17 @@ def test_flash_counts_no_cpu_launch_and_rejects_bad_input():
 
 
 def test_flash_route_is_fixed_by_dtype_and_head_dim():
-    """At head dims 64 and 128 both dtypes take the tensor cores: bfloat16
-    the wgmma route, float32 the 3xTF32 route; every other head dim the
-    CUDA-core route."""
+    """At head dims 64, 96 (phi-3-vision-4.2b) and 128 both dtypes take the
+    tensor cores: bfloat16 the wgmma route, float32 the 3xTF32 route; every
+    other head dim the CUDA-core route."""
     def q(dtype, d):
         return torch.zeros(1, 4, d, dtype=dtype)
-    for d in (64, 128):
+    for d in (64, 96, 128):
         assert tfa.route(q(torch.bfloat16, d)) is tfa.flash_attention_tc
         assert tfa.route(q(torch.float32, d)) is tfa.flash_attention_f32tc
-    for dtype, d in ((torch.float32, 96), (torch.float32, 256),
-                     (torch.bfloat16, 96), (torch.bfloat16, 256),
-                     (torch.float32, 32)):
+    for dtype, d in ((torch.float32, 32), (torch.float32, 256),
+                     (torch.bfloat16, 32), (torch.bfloat16, 256),
+                     (torch.float32, 80), (torch.bfloat16, 192)):
         assert tfa.route(q(dtype, d)) is tfa.flash_attention_simt
 
 

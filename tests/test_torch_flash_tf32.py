@@ -7,7 +7,7 @@ from zero, to 10 mantissa bits), and a product is ``lo_a hi_b + hi_a lo_b +
 hi_a hi_b`` with float32 sums.  The card is not here, so this emulates the
 kernel's arithmetic in torch: TF32 operands held in float32 (their products
 are exact in float32: 11 x 11 significant bits), float32 sums, and the
-kernel's loop: 64-row query blocks, 64-key tiles (at both head dims) over
+kernel's loop: 64-row query blocks, 64-key tiles (at every head dim) over
 the live tiles the kernel walks, and its online softmax in base 2 (``exp2``
 of the score times ``scale * log2(e)``, rounded to float32, less the
 running max).
@@ -156,6 +156,9 @@ CASES = [  # causal, sq, sk, window, bh, bh_kv, d
     (True, 128, 128, 32, 2, 1, 128), (True, 130, 130, 0, 3, 1, 128),
     (False, 130, 256, 0, 2, 1, 64), (True, 256, 256, 0, 4, 2, 128),
     (True, 200, 300, 0, 3, 3, 128), (True, 384, 384, 0, 1, 1, 128),
+    # head dim 96 (phi-3-vision-4.2b): GQA with a window, ragged, non-causal
+    (True, 384, 384, 100, 4, 1, 96), (True, 130, 130, 0, 2, 2, 96),
+    (True, 200, 300, 0, 4, 1, 96), (False, 130, 200, 0, 2, 1, 96),
 ]
 
 
@@ -169,7 +172,7 @@ def test_3xtf32_attention_within_float32_tolerance(causal, sq, sk, window,
     assert _worst(got, want) <= 1.0
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 def test_one_tf32_pass_misses_float32_tolerance(d):
     q, k, v = _inputs(2, 1, 256, 256, d, seed=d)
     kw = dict(scale=1.0 / math.sqrt(d), causal=True, window=0)

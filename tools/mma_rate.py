@@ -7,9 +7,10 @@ Builds ``tools/mma_rate.cu`` with the float32 flash kernel's flags into
 ``build/kernels/`` and times its loop of independent ``mma.sync``
 accumulators: m16n8k8 TF32 (the float32 flash kernel's instruction,
 ``csrc/flash_attention_f32tc.cu``) and m16n8k16 bfloat16.  With the rate,
-the float32 kernel's 3xTF32 work at ``chip_smoke.FLASH_MAIN`` has a bound
-that this instruction can reach, beside the data sheet's TF32 peak, which
-only ``wgmma`` reaches.  Prints one JSON line with the card's name and
+the float32 kernel's 3xTF32 work at ``chip_smoke.FLASH_MAIN`` (and at
+``chip_smoke.FLASH_PHI``, head dim 96) has a bound that this instruction
+can reach, beside the data sheet's TF32 peak, which only ``wgmma``
+reaches.  Prints one JSON line with the card's name and
 power limit.
 """
 from __future__ import annotations
@@ -55,8 +56,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "src"))
-    from chip_smoke import (FLASH_MAIN, TF32_OPS_PER_S, causal_pairs,
-                            nvidia_smi)
+    from chip_smoke import (FLASH_MAIN, FLASH_PHI, TF32_OPS_PER_S,
+                            causal_pairs, nvidia_smi)
     from repro_torch.kernels import build
 
     dev = torch.device("cuda", 0)
@@ -74,12 +75,14 @@ def main() -> int:
                    ctypes.c_int, ctypes.c_void_p)
     fn.restype = ctypes.c_int
     rate = {"tf32": tflops(fn, True, dev), "bf16": tflops(fn, False, dev)}
-    bh, s, d = FLASH_MAIN
-    flops = 4 * d * bh * causal_pairs(s)
-    row = {"card": f"[{nvidia_smi()}]", "mma_sync_tflops": rate,
-           "f32tc_shape": list(FLASH_MAIN),
-           "f32tc_bound_ms_at_mma_sync": 3 * flops / rate["tf32"] / 1e9,
-           "f32tc_bound_ms_at_peak": 1e3 * 3 * flops / TF32_OPS_PER_S}
+    row = {"card": f"[{nvidia_smi()}]", "mma_sync_tflops": rate}
+    for key, (bh, s, d) in (("f32tc", FLASH_MAIN), ("f32tc_d96", FLASH_PHI)):
+        flops = 4 * d * bh * causal_pairs(s)
+        row.update({f"{key}_shape": [bh, s, d],
+                    f"{key}_bound_ms_at_mma_sync":
+                        3 * flops / rate["tf32"] / 1e9,
+                    f"{key}_bound_ms_at_peak":
+                        1e3 * 3 * flops / TF32_OPS_PER_S})
     print(json.dumps(row))
     return 0
 
