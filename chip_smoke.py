@@ -114,6 +114,25 @@ Phases (any failure exits non-zero, and the result line is not printed):
    (the row split), held bitwise
    against the plain version on windows of 2^20 columns at the start,
    across the split, across the wrap and at the end.
+15. The staged round on the ResNet-20 bucket (n = 8): ring(8) with the
+   wires ``full``, ``moniqua`` 8-bit stochastic and 1-bit nearest,
+   ``qsgd`` 8, ``ef_qsgd`` 4 and ``onebit`` (warmup 2), and ``moniqua``
+   8-bit on exponential(8), 3 rounds each at K = 1, 2, 5 and 61 chunks
+   (61: one a leaf).  Each K bitwise its K = 1 round, WireState included;
+   K = 1 against the CPU: ``full`` and ``moniqua`` bitwise, the others
+   within ``RULE_ULPS``; a Moniqua round at K chunks K encode and K
+   decode-reduce launches (wrapper counts and the profiler).
+   ``mix_stale`` 3 rounds card == CPU bitwise, one encode and one
+   decode-reduce a round, the first returning the model.  Host-clock round
+   times at every K.
+16. ``Trainer.run`` on the main path's model, 10 steps each: ``moniqua``
+   8-bit at ``chunks=4`` (params bitwise a ``chunks=1`` run's, 4 launches
+   of each kernel a step), one round stale twice (bitwise, losses
+   falling), ``qsgd`` 8, ``ef_qsgd`` 8 and ``onebit`` (warmup 4); bytes
+   per step and extra memory per worker equal to the reference's
+   (``WIRE_BYTES``); ``ef_qsgd`` and ``onebit`` cut, checkpointed,
+   restored and resumed, bitwise the uninterrupted run's whole state.
+   Step times and one profiled step per wire.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -1294,6 +1313,306 @@ def split_phase(dev, card):
     torch.cuda.empty_cache()
 
 
+# -- the staged round, stale overlap and the other wires ----------------------
+
+# phase 15's wires (wire, bits): the matrix of tests/test_overlap.py
+STAGED_WIRES = (("full", 32), ("moniqua", 8), ("moniqua", 1), ("qsgd", 8),
+                ("ef_qsgd", 4), ("onebit", 1))
+STAGED_KS = (1, 2, 5, 61)       # 61: one chunk a leaf of ResNet-20
+STAGED_ROUNDS = 3               # onebit's warmup of 2 switches in round 3
+# phase 16's bytes per step and extra memory per worker, from the
+# reference's CommEngine on ResNet-20 and ring(8)
+WIRE_BYTES = {"moniqua": (544564, 0), "qsgd": (545052, 0),
+              "ef_qsgd": (545052, 1089132), "onebit": (69144, 1090692)}
+
+
+def _kernel_launches(prof) -> tuple:
+    """(encode, decode-reduce) kernels the profiler saw on the card."""
+    n = {"encode_kernel": 0, "decode_reduce_kernel": 0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in n:
+                if k in e.key:
+                    n[k] += e.count
+    return n["encode_kernel"], n["decode_reduce_kernel"]
+
+
+def staged_phase(dev, card, X_cpu):
+    """Phase 15: the staged round at K chunks on every wire, and
+    ``mix_stale``, on the ResNet-20 bucket."""
+    from repro_torch import tree
+    from repro_torch.comm.engine import CommEngine, MoniquaWire, make_wire
+    from repro_torch.core.quantizers import QuantSpec
+    from repro_torch.core.topology import exponential, ring
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+
+    X = tree.map(lambda a: a.to(dev), X_cpu)
+    eps = torch.finfo(torch.float32).eps
+    t0 = time.perf_counter()
+    cases = [(w, b, ring) for w, b in STAGED_WIRES]
+    cases.append(("moniqua", 8, exponential))
+    for wire, bits, topo_fn in cases:
+        spec = QuantSpec(min(bits, 8), 1 < bits <= 8)
+        what = f"{wire} {bits}-bit on {topo_fn.__name__}({N_WORKERS})"
+
+        def engine(K):
+            return CommEngine(topo_fn(N_WORKERS),
+                              make_wire(wire, spec, warmup=2), chunks=K)
+
+        def kw(k):
+            if wire == "full":
+                return {}
+            return dict(seed=500 + k, **({"theta": 2.0}
+                                         if wire == "moniqua" else {}))
+
+        def rounds(eng, X0):
+            Xk = X0
+            st = eng.init_wire_state(X0) if eng.stateful else None
+            out = []
+            for k in range(STAGED_ROUNDS):
+                r = eng.mix(Xk, state=st, **kw(k))
+                Xk, st = r.x, (r.state if eng.stateful else None)
+                out.append((tree.leaves(Xk), st))
+            return out
+
+        card_rounds = {K: rounds(engine(K), X) for K in STAGED_KS}
+        for K in STAGED_KS[1:]:
+            for k, ((xa, sa), (xb, sb)) in enumerate(zip(card_rounds[1],
+                                                         card_rounds[K])):
+                check(all(torch.equal(a, b) for a, b in zip(xa, xb)),
+                      f"{what}: K={K} round {k} != K=1 (card)")
+                if sa is not None:
+                    check(torch.equal(sa["residual"], sb["residual"])
+                          and torch.equal(sa["step"], sb["step"]),
+                          f"{what}: K={K} round {k} WireState != K=1")
+        err = 0.0
+        for k, ((xa, sa), (xc, sc)) in enumerate(zip(
+                card_rounds[1], rounds(engine(1), X_cpu))):
+            pairs = list(zip(xa, xc))
+            if sa is not None:
+                pairs.append((sa["residual"], sc["residual"]))
+                check(int(sa["step"]) == int(sc["step"]) == k + 1,
+                      f"{what}: step counter")
+            for a, b in pairs:
+                a = a.cpu()
+                if wire in ("full", "moniqua"):
+                    check(torch.equal(a, b), f"{what}: round {k} card != "
+                          f"CPU")
+                    continue
+                d = float((a.float() - b.float()).abs().max())
+                tol = RULE_ULPS * eps * max(1.0, float(b.abs().max()))
+                check(d <= tol, f"{what}: round {k} card vs CPU {d:.3g} > "
+                      f"{tol:.3g}")
+                err = max(err, d)
+        times = []
+        for K in STAGED_KS:
+            eng = engine(K)
+            st = eng.init_wire_state(X) if eng.stateful else None
+            if wire == "moniqua":
+                torch.cuda.synchronize()
+                kenc.encode.launches = kdr.decode_reduce.launches = 0
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    eng.mix(X, **kw(0))
+                    torch.cuda.synchronize()
+                n = eng.round_plan(X, **kw(0)).num_chunks
+                check((kenc.encode.launches, kdr.decode_reduce.launches)
+                      == (n, n) and n == min(K, 61),
+                      f"{what}: K={K} launches "
+                      f"{(kenc.encode.launches, kdr.decode_reduce.launches)}")
+                seen = _kernel_launches(prof)
+                if seen == (0, 0):
+                    print(f"  profile: {what} K={K}: no device kernels "
+                          f"recorded (not measured)")
+                else:
+                    check(seen == (n, n), f"{what}: K={K} profiler saw "
+                          f"{seen} encode / decode-reduce kernels")
+            times.append(host_ms(lambda: eng.mix(X, state=st, **kw(0)),
+                                 reps=10))
+        print(f"time: one {what} round of the ResNet-20 bucket, host clock, "
+              + ", ".join(f"K={K} {t:.3f} ms"
+                          for K, t in zip(STAGED_KS, times))
+              + f" | card vs CPU at K=1 "
+              + ("bitwise" if wire in ("full", "moniqua")
+                 else f"max abs {err:.3g}") + f" {card}", flush=True)
+    # one-round-stale overlap: 3 rounds, card against CPU
+    eng = CommEngine(ring(N_WORKERS), MoniquaWire(QuantSpec(8)))
+    Xg, Xc = X, X_cpu
+    cg, cc = eng.init_gossip_carry(X), eng.init_gossip_carry(X_cpu)
+    check(all(t.device == dev for t in cg.values()),
+          "stale carry not on the card")
+    torch.cuda.synchronize()
+    kenc.encode.launches = kdr.decode_reduce.launches = 0
+    card_rounds = []
+    for k in range(STAGED_ROUNDS):
+        rg = eng.mix_stale(Xg, cg, theta=2.0, seed=700 + k)
+        Xg, cg = rg.x, rg.state
+        card_rounds.append(rg)
+    torch.cuda.synchronize()
+    stale_launches = (kenc.encode.launches, kdr.decode_reduce.launches)
+    check(stale_launches == (STAGED_ROUNDS, STAGED_ROUNDS),
+          f"mix_stale launches {stale_launches}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(card_rounds[0].x), tree.leaves(X))),
+        "mix_stale round 1 moved the model")
+    for k, rg in enumerate(card_rounds):
+        rc = eng.mix_stale(Xc, cc, theta=2.0, seed=700 + k)
+        Xc, cc = rc.x, rc.state
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(
+            tree.leaves(rg.x), tree.leaves(rc.x))),
+            f"mix_stale round {k}: card != CPU")
+        for name in ("packed", "ref", "B", "valid"):
+            check(torch.equal(rg.state[name].cpu(), rc.state[name]),
+                  f"mix_stale round {k}: carry {name} card != CPU")
+    stale_ms = host_ms(lambda: eng.mix_stale(Xg, cg, theta=2.0, seed=1),
+                       reps=10)
+    print(f"time: one mix_stale of the ResNet-20 bucket (8-bit, ring), host "
+          f"clock {stale_ms:.3f} ms {card}", flush=True)
+    print(f"phase 15: staged rounds on the ResNet-20 bucket: {len(cases)} "
+          f"wire cases x K in {list(STAGED_KS)}, {STAGED_ROUNDS} rounds, "
+          f"K chunks == K=1 bitwise (WireState too), card == CPU at K=1 "
+          f"(full, moniqua bitwise; qsgd, ef_qsgd, onebit within "
+          f"{RULE_ULPS} ulp), K encode + K decode-reduce launches a Moniqua "
+          f"round; mix_stale 3 rounds card == CPU bitwise, one launch each a "
+          f"round, round 1 the model ({time.perf_counter() - t0:.1f} s) "
+          f"{card}", flush=True)
+
+
+def wires_phase(dev, card, model, batches):
+    """Phase 16: Trainer.run on the new schedules and wires, and resume."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    base = dict(algo="moniqua", topology="ring", n_workers=N_WORKERS,
+                theta=2.0, lr=0.1, momentum=0.9, weight_decay=5e-4,
+                steps=STEPS, log_every=1, seed=0)
+    # The bitwise run-against-run checks below need deterministic
+    # gradients: by default cuDNN may pick a convolution backward whose
+    # sums run in another order from one run to the next (phase 4's
+    # moniqua-8bit losses and this phase's barrier run part in the 4th
+    # digit after 4 steps).  The gossip itself is bitwise (phase 15).
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def run(name, kw, want_launches):
+        trainer = Trainer(model, TrainerConfig(**base, **kw),
+                          lambda k: batches[k])
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdr.decode_reduce.launches = 0
+        out = trainer.run()
+        torch.cuda.synchronize()
+        launches = (kenc.encode.launches, kdr.decode_reduce.launches)
+        losses = [h["loss"] for h in out["history"]]
+        walls = [h["wall"] for h in out["history"]]
+        step_ms = 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1)
+        check(all(map(math.isfinite, losses)), f"{name}: non-finite loss")
+        check(launches == want_launches, f"{name}: encode / decode-reduce "
+              f"launches {launches}, want {want_launches}")
+        X = out["state"]["params"]
+        wire = kw.get("wire", "moniqua")
+        mem = trainer.algo.extra_memory_bytes(X, trainer.hp)
+        check((out["bytes_per_step"], mem) == WIRE_BYTES[wire],
+              f"{name}: bytes/step, memory {(out['bytes_per_step'], mem)} "
+              f"!= {WIRE_BYTES[wire]}")
+        print(f"run {name}: losses {[round(v, 4) for v in losses]} | "
+              f"launches {launches} | bytes/step {out['bytes_per_step']} | "
+              f"extra memory {mem} bytes/worker", flush=True)
+        print(f"time: step {name} (ResNet-20 w16, n={N_WORKERS}, {IMAGES} "
+              f"images/worker, mean of steps 1-{STEPS - 1}) {step_ms:.3f} ms "
+              f"{card}", flush=True)
+        return trainer, out, losses
+
+    S = STEPS
+    tr, barrier, _ = run("moniqua-8bit chunks=1", dict(bits=8), (S, S))
+    profile_device(lambda: tr.step_fn(barrier["state"], batches[0]),
+                   "one moniqua-8bit chunks=1 step", card)
+    tr, chunked, _ = run("moniqua-8bit chunks=4", dict(bits=8, chunks=4),
+                         (4 * S, 4 * S))
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(barrier["state"]["params"]),
+        tree.leaves(chunked["state"]["params"]))),
+        "chunks=4 params != chunks=1 params after 10 steps")
+    profile_device(lambda: tr.step_fn(chunked["state"], batches[0]),
+                   "one moniqua-8bit chunks=4 step", card)
+    stale = []
+    for rep in range(2):
+        tr, out, losses = run(f"moniqua-8bit stale (run {rep + 1})",
+                              dict(bits=8, overlap="stale"), (S, S))
+        check(losses[-1] < losses[0], "stale: loss did not fall")
+        stale.append(out)
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(stale[0]["state"]["params"]),
+        tree.leaves(stale[1]["state"]["params"]))),
+        "two stale runs differ")
+    profile_device(lambda: tr.step_fn(stale[0]["state"], batches[0]),
+                   "one moniqua-8bit stale step", card)
+    ckdir = os.path.join(ROOT, "build", "ckpt")
+    wires = (("qsgd-8bit", dict(wire="qsgd", bits=8)),
+             ("ef_qsgd-8bit", dict(wire="ef_qsgd", bits=8)),
+             ("onebit warmup 4", dict(wire="onebit", bits=1, warmup=4)))
+
+    def resume_check(name, kw, full_state):
+        """``cut`` steps, checkpoint, restore, the rest == STEPS steps
+        uninterrupted.  onebit is cut at its warmup: the checkpoint holds
+        the last warm round's state and the resumed leg crosses the
+        switch."""
+        cut = min(kw.get("warmup", STEPS // 2), STEPS // 2)
+        path = os.path.join(ckdir, kw["wire"])
+        first = dict(kw, steps=cut, checkpoint_path=path,
+                     checkpoint_every=cut)
+        Trainer(model, TrainerConfig(**dict(base, **first)),
+                lambda k: batches[k]).run()
+        resumer = Trainer(model, TrainerConfig(**dict(
+            base, **kw, steps=STEPS - cut, checkpoint_path=path)),
+            lambda k: batches[k])
+        state = resumer.restore_state()
+        check(state["step"] == cut
+              and int(state["extra"]["wire"]["step"]) == cut
+              and state["extra"]["wire"]["residual"].device == dev,
+              f"{name}: restored state")
+        resumed = resumer.run(state)["state"]
+        a_l, a_t = tree.flatten(full_state)
+        b_l, b_t = tree.flatten(resumed)
+        check(a_t == b_t, f"{name}: resumed state tree differs")
+        for a, b in zip(a_l, b_l):
+            if isinstance(a, torch.Generator):
+                same = torch.equal(a.get_state(), b.get_state())
+            elif isinstance(a, torch.Tensor):
+                same = a.dtype == b.dtype and torch.equal(a, b)
+            else:
+                same = a == b
+            check(same, f"{name}: {cut} + checkpoint + {STEPS - cut} "
+                  f"steps != {STEPS} steps")
+        print(f"resume {name}: {cut} steps, checkpoint, restore, "
+              f"{STEPS - cut} more == {STEPS} uninterrupted steps, bitwise "
+              f"(params, momentum, WireState, step, generator)", flush=True)
+
+    for name, kw in wires:
+        tr, full, _ = run(name, kw, (0, 0))
+        if kw["wire"] != "qsgd":
+            resume_check(name, kw, full["state"])
+        # after the resume check: a step draws from the state's generator
+        profile_device(lambda: tr.step_fn(full["state"], batches[0]),
+                       f"one {name} step", card)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+    print(f"phase 16: Trainer.run on the main path's model: chunks=4 == "
+          f"chunks=1 bitwise, two stale runs bitwise with falling losses, "
+          f"qsgd / ef_qsgd / onebit finite, bytes and extra memory equal to "
+          f"the reference's, ef_qsgd and onebit resumed bitwise "
+          f"({time.perf_counter() - t0:.1f} s) {card}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1683,6 +2002,9 @@ def main() -> int:
     kernels = [dec_entry if k["name"] == "moniqua_decode" else k
                for k in kernels]
     split_phase(dev, card)
+    torch.cuda.empty_cache()
+    staged_phase(dev, card, X_cpu)
+    wires_phase(dev, card, model, batches)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -53,6 +53,13 @@ class BucketChunk:
     size: int                # padded elements in the window
     slots: Tuple[LeafSlot, ...]   # the (contiguous) slots covered
 
+    @property
+    def segment_sizes(self) -> Tuple[int, ...]:
+        """Per-tensor segment lengths inside this chunk (row padding
+        included): the statistics windows of the scale+codes and 1-bit
+        codecs, which never straddle a chunk."""
+        return tuple(s.padded_size for s in self.slots)
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketLayout:
@@ -86,6 +93,12 @@ class BucketLayout:
     def uniform_dtype(self) -> bool:
         """True when every leaf already has the staging dtype."""
         return all(s.dtype == self.stage_dtype for s in self.slots)
+
+    @property
+    def segment_sizes(self) -> Tuple[int, ...]:
+        """Per-leaf contiguous segment lengths (row padding included): one
+        max-norm scale (qsgd) or lo/hi level pair (onebit) each."""
+        return tuple(s.padded_size for s in self.slots)
 
     def chunks(self, k: int) -> Tuple[BucketChunk, ...]:
         """Partition the buffer into (at most) ``k`` contiguous slot-aligned

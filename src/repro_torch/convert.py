@@ -2,8 +2,10 @@
 
 Any tree of arrays crosses the same way: parameters, and an update rule's
 state ``extra`` (replicas ``x_hat``, error buffers, D^2's ``x_prev`` /
-``g_prev`` and its 0-d ``alpha_prev``), so both packages can start from one
-state.
+``g_prev`` and its 0-d ``alpha_prev``), the EF wires' WireState (float32
+``residual [n, padded]``, 0-d int32 ``step``) and ``mix_stale``'s carry
+(uint8 ``packed``, float32 ``ref``, 0-d ``B``, 0-d bool ``valid``), so
+both packages can start from one state.
 
 The two packages use the same tree: the same dict keys and nesting, conv
 weights in HWIO, the same leaf shapes.  So a conversion is a leaf-wise copy

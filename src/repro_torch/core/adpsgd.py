@@ -25,7 +25,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.comm.engine import CommEngine, FullPrecisionWire, MoniquaWire
+from repro_torch.comm.engine import CommEngine, FullPrecisionWire, make_wire
 from repro_torch.core.moniqua import MoniquaCodec
 from repro_torch.core.topology import Topology
 
@@ -37,10 +37,11 @@ class ADPSGDConfig:
     theta: float = 2.0
     max_delay: int = 4
     quantized: bool = False     # False = plain AD-PSGD, True = Moniqua
+    wire: str = "moniqua"       # wire codec when quantized (moniqua | qsgd)
 
     def engine(self) -> CommEngine:
-        """Pair-exchange engine: the Moniqua wire or the exact baseline."""
-        return CommEngine(self.topo, MoniquaWire(self.codec.spec)
+        """Pair-exchange engine: the quantized wire or the exact baseline."""
+        return CommEngine(self.topo, make_wire(self.wire, self.codec.spec)
                           if self.quantized else FullPrecisionWire())
 
 

@@ -55,13 +55,19 @@ class AlgoHyper:
     naive_delta: float = 0.05     # absolute lattice pitch of the naive rule
     wire: str = "moniqua"         # wire codec for quantized gossip (engine())
     path: str = "bucketed"        # gossip path: bucketed | per_leaf
+    chunks: int = 1               # staged-round chunk count (1 = barrier)
+    overlap: str = "none"         # step-level overlap: none | stale (Moniqua)
+    warmup: int = 16              # onebit wire: fp32 rounds before 1-bit+EF
 
     def engine(self) -> CommEngine:
-        return CommEngine(self.topo, make_wire(self.wire, self.codec.spec),
-                          path=self.path)
+        return CommEngine(self.topo,
+                          make_wire(self.wire, self.codec.spec,
+                                    warmup=self.warmup),
+                          path=self.path, chunks=self.chunks)
 
     def exact_engine(self) -> CommEngine:
-        return CommEngine(self.topo, FullPrecisionWire(), path=self.path)
+        return CommEngine(self.topo, FullPrecisionWire(), path=self.path,
+                          chunks=self.chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -224,15 +230,43 @@ class NaiveQuant(Algorithm):
 
 
 class Moniqua(Algorithm):
-    """Algorithm 1: gossip through the engine's configured wire, then SGD."""
+    """Algorithm 1: gossip through the engine's configured wire, then SGD.
+
+    A stateful wire (``hp.wire`` ``ef_qsgd`` / ``onebit``) keeps its
+    per-worker WireState under ``extra["wire"]``; ``hp.overlap == "stale"``
+    (stateless Moniqua wire) mixes one round stale through ``mix_stale``
+    and keeps its gossip carry under ``extra["gossip"]``."""
     name = "moniqua"
 
+    def init(self, X, hp):
+        eng = hp.engine()
+        if eng.stateful:
+            return {"wire": eng.init_wire_state(X)}
+        if hp.overlap == "stale":
+            return {"gossip": eng.init_gossip_carry(X)}
+        return {}
+
     def step(self, X, extra, g, alpha, k, seed, hp, uniforms=None):
-        res = hp.engine().mix(X, theta=hp.theta, seed=seed)
-        return _sgd(res.x, g, alpha), extra
+        eng = hp.engine()
+        new_extra = dict(extra)
+        if eng.stateful:
+            res = eng.mix(X, theta=hp.theta, seed=seed, state=extra["wire"])
+            new_extra["wire"] = res.state
+        elif hp.overlap == "stale":
+            res = eng.mix_stale(X, extra["gossip"], theta=hp.theta,
+                                seed=seed)
+            new_extra["gossip"] = res.state
+        else:
+            res = eng.mix(X, theta=hp.theta, seed=seed)
+        return _sgd(res.x, g, alpha), new_extra
 
     def bytes_per_step(self, X, hp):
         return hp.engine().bytes_per_round(X)
+
+    def extra_memory_bytes(self, X, hp):
+        # 0 for the moniqua wire (the headline claim); residual + counter
+        # for the EF wires
+        return hp.engine().wire_state_bytes(X)
 
 
 class ChocoSGD(Algorithm):

@@ -2,7 +2,8 @@
 
 The batch source is a callable ``step -> stacked batch`` (leaves
 ``[n, batch, ...]``); for ResNet-20 that is
-``data.synthetic.stacked_cifar_like``.
+``data.synthetic.stacked_cifar_like``.  Checkpoints (``checkpoint/ckpt.py``)
+hold the params and the full state, so a cut run resumes bit for bit.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.core.algorithms import AlgoHyper, get_algorithm
 from repro_torch.core.moniqua import MoniquaCodec
 from repro_torch.core.quantizers import QuantSpec
@@ -36,19 +38,27 @@ class TrainerConfig:
     steps: int = 100
     log_every: int = 10
     seed: int = 0
+    checkpoint_path: Optional[str] = None
+    checkpoint_every: int = 0
+    wire: str = "moniqua"       # CommEngine wire codec (moniqua | qsgd |
+                                #   ef_qsgd | onebit | full)
+    chunks: int = 1             # staged-round chunk count (1 = barrier)
+    overlap: str = "none"       # step-level overlap: none | stale (moniqua)
+    warmup: int = 16            # onebit wire: fp32 rounds before 1-bit+EF
 
 
 def build_hyper(tc: TrainerConfig) -> AlgoHyper:
-    """The run's AlgoHyper: the Moniqua wire on the bucketed path (D-PSGD
-    and all-reduce gossip full precision whatever the wire).  1-bit rounds
-    to nearest (stochastic 1-bit has delta = 1/2, which Moniqua rejects),
-    wider codes round stochastically."""
+    """The run's AlgoHyper on the bucketed path (D-PSGD and all-reduce
+    gossip full precision whatever the wire).  1-bit rounds to nearest
+    (stochastic 1-bit has delta = 1/2, which Moniqua rejects), wider codes
+    round stochastically."""
     topo = get_topology(tc.topology, tc.n_workers)
     if tc.slack < 1.0:
         topo = topo.slack(tc.slack)
     spec = QuantSpec(bits=tc.bits, stochastic=tc.bits > 1)
     return AlgoHyper(topo=topo, codec=MoniquaCodec(spec), theta=tc.theta,
-                     gamma=tc.gamma)
+                     gamma=tc.gamma, wire=tc.wire, chunks=tc.chunks,
+                     overlap=tc.overlap, warmup=tc.warmup)
 
 
 class Trainer:
@@ -72,11 +82,27 @@ class Trainer:
     def bytes_per_step(self, state) -> int:
         return self.algo.bytes_per_step(state["params"], self.hp)
 
+    def restore_state(self, path: Optional[str] = None) -> Dict[str, Any]:
+        """Rebuild the FULL trainer state (params, momentum, the rule's
+        ``extra`` with any WireState or gossip carry, step, g_inf and the
+        seed generator) from the ``<checkpoint_path>.state`` file ``run()``
+        writes, on the devices of a fresh state.  Passing it back into
+        ``run()`` resumes bit for bit."""
+        path = path or self.tc.checkpoint_path
+        if not path:
+            raise ValueError("restore_state needs a checkpoint path "
+                             "(argument or TrainerConfig.checkpoint_path)")
+        return ckpt.restore(path + ".state", self.init_state())
+
     def run(self, state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-        """Run ``tc.steps`` steps from ``state`` (a fresh one by default).
-        Every ``log_every`` steps, and at the last, the metrics are read back
-        to the host (which waits for the card) into ``history``, with
-        ``wall`` the seconds since the loop started."""
+        """Run ``tc.steps`` steps from ``state`` (a fresh one by default;
+        a restored one resumes at its own step, and the batch source is
+        indexed by the global step).  Every ``log_every`` steps, and at the
+        last, the metrics are read back to the host (which waits for the
+        card) into ``history``, with ``wall`` the seconds since the loop
+        started.  With ``checkpoint_path`` and ``checkpoint_every``, every
+        that many steps the params go to ``checkpoint_path`` and the full
+        state to ``<checkpoint_path>.state``."""
         tc = self.tc
         state = state if state is not None else self.init_state()
         k0 = state["step"]
@@ -89,5 +115,10 @@ class Trainer:
                 m["step"] = k
                 m["wall"] = time.perf_counter() - t0
                 history.append(m)
+            if (tc.checkpoint_path and tc.checkpoint_every
+                    and (k + 1) % tc.checkpoint_every == 0):
+                meta = {"step": k + 1, "algo": tc.algo, "wire": tc.wire}
+                ckpt.save(tc.checkpoint_path, state["params"], meta)
+                ckpt.save(tc.checkpoint_path + ".state", state, meta)
         return {"state": state, "history": history,
                 "bytes_per_step": self.bytes_per_step(state)}

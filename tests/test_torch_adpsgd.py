@@ -101,8 +101,9 @@ def test_pair_average_rejects_what_is_not_ported():
     x = torch.zeros(8)
     with pytest.raises(NotImplementedError, match="Queue 1 #9"):
         te.pair_average(x, x, theta=1.0, seed=0, presence=(1, 0))
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        teng.make_wire("qsgd", TSpec(8))
+    assert teng.make_wire("qsgd", TSpec(8)).name == "qsgd"
+    with pytest.raises(ValueError, match="unknown wire"):
+        teng.make_wire("topk", TSpec(8))
     with pytest.raises(ValueError):           # stochastic wire, no seed
         te.pair_average(x, x, theta=1.0)
 
