@@ -133,6 +133,30 @@ Phases (any failure exits non-zero, and the result line is not printed):
    (``WIRE_BYTES``); ``ef_qsgd`` and ``onebit`` cut, checkpointed,
    restored and resumed, bitwise the uninterrupted run's whole state.
    Step times and one profiled step per wire.
+17. Elastic rounds on the ResNet-20 bucket (n = 8), phase 15's wires:
+   ``presence`` all-ones bitwise ``presence=None`` over 3 rounds with
+   WireState, both paths, K = 1 and 5; workers 2 and 5 absent on ring(8),
+   worker 3 on exponential(8): absent models and EF residuals untouched,
+   K = 5 bitwise K = 1, per-leaf bitwise bucketed on ``moniqua``,
+   ``ef_qsgd`` and ``onebit`` (``qsgd``'s per-leaf round hashes a seed a
+   leaf; the masked full wire's paths sum in different orders, as in the
+   reference), card == CPU bitwise (``onebit`` within ``RULE_ULPS``), the
+   full wire's worker mean kept within 1e-6; masked ``mix_stale`` card ==
+   CPU over 3 rounds; a masked Moniqua round at K chunks K encode and
+   K * m decode-reduce launches (m = 2, 5; wrappers and profiler), a
+   masked ``mix_stale`` 1 and m; host-clock round times masked and not.
+18. The simulator driving the engine: ``simulate_sync_rounds`` on
+   churn-ring (n = 8) with a round deadline gives 20 realized masks,
+   replayed through ``mix(presence=)`` on Moniqua's 8-bit wire (card ==
+   CPU bitwise, absent workers untouched); ``Trainer.run`` with
+   ``presence=(1, 1, 0, 1, 1, 0, 1, 1)`` on the main path's model, 10 steps
+   each of moniqua 8-bit, 1-bit (slack) and dpsgd (finite losses, 1 encode
+   and 2 decode-reduces a Moniqua step, a profiled step's launches beside
+   an unmasked one's); ``replay_adpsgd`` on churn-ring's message loss, 200
+   updates with the ResNet-20 gradient on the bucket: one encode and two
+   point decodes a delivered exchange, every lost one the identity, the
+   first 8 updates card == CPU bitwise (a quadratic gradient); time per
+   update.  Phases 17-18's launches are added to the kernels line.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -1107,6 +1131,24 @@ def rules_phase(dev, card, model, batches):
           f"ulp", flush=True)
 
 
+def bucket_grad(model, batches, lay1):
+    """``(grad, calls)``: ``grad(x, i, _)`` is worker i's ResNet-20 loss
+    gradient at the flat bucket row ``x`` (its model, through the bucket
+    layout ``lay1`` of one worker) on its part of batch ``calls[0]`` (mod
+    the batches), and counts the call."""
+    from repro_torch import tree
+    loss_grad = torch.func.grad_and_value(model.loss)
+    calls = [0]
+
+    def grad(x, i, _):
+        params = tree.map(lambda a: a[0], lay1.unflatten(x[None]))
+        b = batches[calls[0] % len(batches)]
+        g, _ = loss_grad(params, {key: v[i] for key, v in b.items()})
+        calls[0] += 1
+        return lay1.flatten(tree.map(lambda a: a[None], g))[0]
+    return grad, calls
+
+
 def adpsgd_phase(dev, timer, card, model, batches, X_cpu):
     """Phase 13: Moniqua on AD-PSGD on the ResNet-20 bucket; returns the
     point decode's kernels-line entry on this path."""
@@ -1130,23 +1172,12 @@ def adpsgd_phase(dev, timer, card, model, batches, X_cpu):
     lay1 = eng.layout(tree.map(lambda a: a[:1], X0))
     x0 = lay.flatten(X0)                          # [8, 272282], identical rows
     D = x0.shape[1]
-    loss_grad = torch.func.grad_and_value(model.loss)
-    calls = [0]
-
-    def worker_batch(k, i):
-        b = batches[k % len(batches)]
-        return {key: v[i] for key, v in b.items()}
-
-    def resnet_grad(x, i, noise):
-        """Worker i's ResNet-20 loss gradient at its (stale) model ``x``."""
-        params = tree.map(lambda a: a[0], lay1.unflatten(x[None]))
-        g, _ = loss_grad(params, worker_batch(calls[0], i))
-        calls[0] += 1
-        return lay1.flatten(tree.map(lambda a: a[None], g))[0]
+    resnet_grad, calls = bucket_grad(model, batches, lay1)
 
     def mean_loss(X):
         params = tree.map(lambda a: a[0], lay1.unflatten(X.mean(0)[None]))
-        return float(model.loss(params, worker_batch(0, 0)))
+        return float(model.loss(params, {key: v[0] for key, v in
+                                         batches[0].items()}))
 
     cfg = adpsgd.ADPSGDConfig(topo=ring(N_WORKERS), codec=MoniquaCodec(spec8),
                               theta=2.0, max_delay=ADPSGD_DELAY,
@@ -1613,6 +1644,414 @@ def wires_phase(dev, card, model, batches):
           f"({time.perf_counter() - t0:.1f} s) {card}", flush=True)
 
 
+# -- elastic rounds and the simulator -----------------------------------------
+
+# phase 17's masks: workers 2 and 5 absent on the ring, worker 3 on
+# exponential(8) (m = 2 and 5 neighbour offsets)
+ELASTIC_MASKS = (("ring", (1, 1, 0, 1, 1, 0, 1, 1)),
+                 ("exponential", (1, 1, 1, 0, 1, 1, 1, 1)))
+ELASTIC_KS = (1, 5)
+# the wires whose per-leaf round hashes the bucket's global indices, so it
+# is bitwise the bucketed round (qsgd's per-leaf round hashes a seed per
+# leaf; the masked full wire's two paths add the gated diffs in different
+# orders, in the reference too)
+PATH_BITWISE = ("moniqua", "ef_qsgd", "onebit")
+# phase 18: churn-ring (n = 8) under a round deadline, rounds replayed;
+# the trainer's mask; the AD-PSGD replay's updates and its card-vs-CPU
+# prefix
+SIM_ROUNDS, SIM_DEADLINE = 20, 0.054
+TRAIN_MASK = (1, 1, 0, 1, 1, 0, 1, 1)
+REPLAY_UPDATES, REPLAY_CHECK = 200, 8
+
+
+def _same_rounds(a, b) -> bool:
+    """Every round's leaves and WireState bitwise."""
+    for (xa, sa), (xb, sb) in zip(a, b):
+        if not all(torch.equal(u, v) for u, v in zip(xa, xb)):
+            return False
+        if sa is not None and not (torch.equal(sa["residual"], sb["residual"])
+                                   and torch.equal(sa["step"], sb["step"])):
+            return False
+    return len(a) == len(b)
+
+
+def elastic_phase(dev, card, X_cpu):
+    """Phase 17: masked rounds on every wire, both paths and chunk counts,
+    and masked ``mix_stale``, on the ResNet-20 bucket; returns the counted
+    masked Moniqua rounds' launches by kernels-line entry."""
+    from repro_torch import tree
+    from repro_torch.comm.engine import CommEngine, MoniquaWire, make_wire
+    from repro_torch.core.quantizers import QuantSpec
+    from repro_torch.core.topology import exponential, ring
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+
+    X = tree.map(lambda a: a.to(dev), X_cpu)
+    topos = {"ring": ring, "exponential": exponential}
+    eps = torch.finfo(torch.float32).eps
+    t0 = time.perf_counter()
+    n_cases = 0
+    for wire, bits in STAGED_WIRES:
+        spec = QuantSpec(min(bits, 8), 1 < bits <= 8)
+
+        def engine(topo, path="bucketed", K=1):
+            return CommEngine(topos[topo](N_WORKERS),
+                              make_wire(wire, spec, warmup=2), path=path,
+                              chunks=K)
+
+        def kw(k):
+            if wire == "full":
+                return {}
+            return dict(seed=900 + k, **({"theta": 2.0}
+                                         if wire == "moniqua" else {}))
+
+        def rounds(eng, X0, presence):
+            Xk = X0
+            st = eng.init_wire_state(X0) if eng.stateful else None
+            out = []
+            for k in range(STAGED_ROUNDS):
+                r = eng.mix(Xk, state=st, presence=presence, **kw(k))
+                Xk, st = r.x, (r.state if eng.stateful else None)
+                out.append((tree.leaves(Xk), st))
+            return out
+
+        what = f"{wire} {bits}-bit"
+        # full presence: all-ones is the unmasked round, bit for bit
+        for path in ("bucketed", "per_leaf"):
+            for K in ELASTIC_KS:
+                eng = engine("ring", path, K)
+                check(_same_rounds(rounds(eng, X, None),
+                                   rounds(eng, X, (1,) * N_WORKERS)),
+                      f"{what} {path} K={K}: all-ones presence != None")
+                n_cases += 1
+        for topo, mask in ELASTIC_MASKS:
+            wt = f"{what} on {topo}({N_WORKERS}) mask {mask}"
+            absent = [i for i in range(N_WORKERS) if not mask[i]]
+            eng = engine(topo)
+            card1 = rounds(eng, X, mask)
+            prev = (tree.leaves(X),
+                    eng.init_wire_state(X) if eng.stateful else None)
+            for k, (xs, st) in enumerate(card1):
+                check(all(torch.equal(a[i], b[i]) for a, b in zip(xs, prev[0])
+                          for i in absent),
+                      f"{wt}: round {k} moved an absent worker's model")
+                if st is not None:
+                    check(int(st["step"]) == k + 1, f"{wt}: step counter")
+                    check(all(torch.equal(st["residual"][i],
+                                          prev[1]["residual"][i])
+                              for i in absent),
+                          f"{wt}: round {k} moved an absent residual")
+                prev = (xs, st)
+            check(_same_rounds(card1, rounds(engine(topo, K=5), X, mask)),
+                  f"{wt}: K=5 != K=1")
+            leaf = rounds(engine(topo, "per_leaf"), X, mask)
+            if wire in PATH_BITWISE:
+                check(_same_rounds(card1, leaf),
+                      f"{wt}: per-leaf != bucketed")
+            pairs = [(card1, rounds(engine(topo), X_cpu, mask))]
+            if wire not in PATH_BITWISE:
+                pairs.append((leaf, rounds(engine(topo, "per_leaf"), X_cpu,
+                                           mask)))
+            err = 0.0
+            for got, cpu in pairs:
+                for k, ((xg, sg), (xc, sc)) in enumerate(zip(got, cpu)):
+                    ts = list(zip(xg, xc))
+                    if sg is not None:
+                        ts.append((sg["residual"], sc["residual"]))
+                    for a, b in ts:
+                        a = a.cpu()
+                        if wire != "onebit":
+                            check(torch.equal(a, b),
+                                  f"{wt}: round {k} card != CPU")
+                            continue
+                        d = float((a - b).abs().max())
+                        tol = RULE_ULPS * eps * max(1.0,
+                                                    float(b.abs().max()))
+                        check(d <= tol, f"{wt}: round {k} card vs CPU "
+                              f"{d:.3g} > {tol:.3g}")
+                        err = max(err, d)
+            if wire == "full":
+                for a, b in zip(card1[0][0], tree.leaves(X)):
+                    d = float((a.mean(0) - b.mean(0)).abs().max())
+                    check(d <= 1e-6, f"{wt}: worker mean moved by {d:.3g}")
+            n_cases += 1
+            if wire == "onebit":
+                print(f"  {wt}: card vs CPU max abs {err:.3g}", flush=True)
+    # masked mix_stale: 3 rounds card == CPU, carry included
+    eng8 = {t: CommEngine(topos[t](N_WORKERS), MoniquaWire(QuantSpec(8)))
+            for t in topos}
+    for topo, mask in ELASTIC_MASKS:
+        eng = eng8[topo]
+        Xg, Xc = X, X_cpu
+        cg, cc = eng.init_gossip_carry(X), eng.init_gossip_carry(X_cpu)
+        for k in range(STAGED_ROUNDS):
+            rg = eng.mix_stale(Xg, cg, theta=2.0, seed=950 + k,
+                               presence=mask)
+            rc = eng.mix_stale(Xc, cc, theta=2.0, seed=950 + k,
+                               presence=mask)
+            Xg, cg, Xc, cc = rg.x, rg.state, rc.x, rc.state
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(
+                tree.leaves(Xg), tree.leaves(Xc))),
+                f"masked mix_stale on {topo} round {k}: card != CPU")
+            for name in ("packed", "ref", "B", "valid"):
+                check(torch.equal(cg[name].cpu(), cc[name]),
+                      f"masked mix_stale on {topo} round {k}: carry {name}")
+    # launches of a masked Moniqua round: K encodes, K * m decode-reduces
+    counted = {"moniqua_encode": 0, "moniqua_decode_reduce": 0}
+    for topo, mask in ELASTIC_MASKS:
+        m = len(topos[topo](N_WORKERS).neighbor_offsets())
+        for K in ELASTIC_KS:
+            eng = CommEngine(topos[topo](N_WORKERS), MoniquaWire(QuantSpec(8)),
+                             chunks=K)
+            torch.cuda.synchronize()
+            kenc.encode.launches = kdr.decode_reduce.launches = 0
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                eng.mix(X, theta=2.0, seed=1, presence=mask)
+                torch.cuda.synchronize()
+            got = (kenc.encode.launches, kdr.decode_reduce.launches)
+            counted["moniqua_encode"] += got[0]
+            counted["moniqua_decode_reduce"] += got[1]
+            check(got == (K, K * m), f"masked moniqua round on {topo} K={K}:"
+                  f" encode / decode-reduce launches {got}, want "
+                  f"{(K, K * m)}")
+            seen = _kernel_launches(prof)
+            if seen == (0, 0):
+                print(f"  profile: masked round on {topo} K={K}: no device "
+                      f"kernels recorded (not measured)")
+            else:
+                check(seen == got, f"masked moniqua round on {topo} K={K}: "
+                      f"profiler saw {seen}")
+            print(f"  masked moniqua-8bit round on {topo}({N_WORKERS}) "
+                  f"K={K}: {got[0]} encode and {got[1]} decode-reduce "
+                  f"launches (wrappers; profiler {seen})", flush=True)
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdr.decode_reduce.launches = 0
+        eng8[topo].mix_stale(X, eng8[topo].init_gossip_carry(X), theta=2.0,
+                             seed=1, presence=mask)
+        torch.cuda.synchronize()
+        got = (kenc.encode.launches, kdr.decode_reduce.launches)
+        check(got == (1, m), f"masked mix_stale on {topo}: launches {got}")
+        counted["moniqua_encode"] += got[0]
+        counted["moniqua_decode_reduce"] += got[1]
+    for topo, mask in ELASTIC_MASKS:
+        eng = eng8[topo]
+        plain = host_ms(lambda: eng.mix(X, theta=2.0, seed=1), reps=10)
+        masked = host_ms(lambda: eng.mix(X, theta=2.0, seed=1,
+                                         presence=mask), reps=10)
+        print(f"time: one moniqua-8bit round of the ResNet-20 bucket on "
+              f"{topo}({N_WORKERS}) at K=1, host clock: unmasked "
+              f"{plain:.3f} ms | mask {mask} {masked:.3f} ms {card}",
+              flush=True)
+    print(f"phase 17: elastic rounds on the ResNet-20 bucket: "
+          f"{len(STAGED_WIRES)} wires, all-ones == None bitwise (both paths,"
+          f" K in {list(ELASTIC_KS)}, 3 rounds with WireState); masks on "
+          f"ring and exponential(8): absent models and residuals untouched,"
+          f" K=5 == K=1 and per-leaf == bucketed ({', '.join(PATH_BITWISE)})"
+          f" bitwise, card == CPU bitwise (onebit within {RULE_ULPS} ulp), "
+          f"full-wire mean kept within 1e-6; masked mix_stale card == CPU; "
+          f"K encode + K*m decode-reduce launches a masked Moniqua round "
+          f"({n_cases} cases, {time.perf_counter() - t0:.1f} s) {card}",
+          flush=True)
+    return counted
+
+
+def sim_phase(dev, card, model, batches, X_cpu):
+    """Phase 18: the simulator driving the engine: churn-ring's realized
+    masks replayed through ``mix``, ``Trainer.run`` under a mask, and
+    ``replay_adpsgd`` on churn-ring's message loss; returns the launches of
+    the three paths by kernels-line entry."""
+    from repro_torch import tree
+    from repro_torch.comm.engine import CommEngine, MoniquaWire
+    from repro_torch.core.quantizers import QuantSpec
+    from repro_torch.core.topology import ring
+    from repro_torch.data.synthetic import quadratic_grad
+    from repro_torch.kernels import moniqua_decode as kdec
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.sim import events, scenarios
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def zero():
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdr.decode_reduce.launches = 0
+        kdec.decode.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {"moniqua_encode": kenc.encode.launches,
+                "moniqua_decode_reduce": kdr.decode_reduce.launches,
+                "moniqua_decode": kdec.decode.launches}
+
+    def add(total, got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    counted = {}
+    X = tree.map(lambda a: a.to(dev), X_cpu)
+    eng = CommEngine(ring(N_WORKERS), MoniquaWire(QuantSpec(8)))
+    sc = scenarios.get_scenario("churn-ring", n=N_WORKERS)
+    # -- the sync rounds' realized masks, replayed through mix -------------
+    nbytes = eng.payload_bytes_per_broadcast(X)
+    trace = events.simulate_sync_rounds(sc.with_deadline(SIM_DEADLINE),
+                                        nbytes, SIM_ROUNDS)
+    masks = trace.presence
+    check(len(masks) == SIM_ROUNDS, f"sim gave {len(masks)} masks")
+    zero()
+    t1 = time.perf_counter()
+    Xg, card_rounds = X, []
+    for k, mask in enumerate(masks):
+        Xg = eng.mix(Xg, theta=2.0, seed=1000 + k, presence=mask).x
+        card_rounds.append(Xg)
+    got = read()
+    round_ms = 1e3 * (time.perf_counter() - t1) / SIM_ROUNDS
+    add(counted, got)
+    partial = sum(1 for m in masks if not all(m))
+    want = (SIM_ROUNDS, 2 * partial + (SIM_ROUNDS - partial), 0)
+    check(tuple(got.values()) == want, f"sync replay launches {got}, want "
+          f"{want}")
+    Xc, prev = X_cpu, X_cpu
+    for k, (mask, Xk) in enumerate(zip(masks, card_rounds)):
+        Xc = eng.mix(Xc, theta=2.0, seed=1000 + k, presence=mask).x
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(
+            tree.leaves(Xk), tree.leaves(Xc))),
+            f"sync replay round {k}: card != CPU")
+        check(all(torch.equal(a[i], b[i]) for a, b in zip(
+            tree.leaves(Xc), tree.leaves(prev))
+            for i in range(N_WORKERS) if not mask[i]),
+            f"sync replay round {k}: an absent worker moved")
+        prev = Xc
+    print(f"run sim-sync churn-ring ({SIM_ROUNDS} rounds, deadline "
+          f"{SIM_DEADLINE} s): participation {trace.participation_mean:.4f},"
+          f" {partial} masked rounds, {trace.count(events.LATE)} late and "
+          f"{trace.count(events.MSGDROP)} lost payloads, simulated "
+          f"{trace.total_seconds:.4f} s; replayed through mix(presence=) on "
+          f"the card: launches {got}, card == CPU bitwise", flush=True)
+    print(f"time: sync replay, one moniqua-8bit round of the ResNet-20 "
+          f"bucket under churn-ring's masks, host clock {round_ms:.3f} ms "
+          f"(mean of {SIM_ROUNDS}) {card}", flush=True)
+    # -- Trainer.run under a fixed mask -----------------------------------
+    base = dict(topology="ring", n_workers=N_WORKERS, theta=2.0, lr=0.1,
+                momentum=0.9, weight_decay=5e-4, steps=STEPS, log_every=1,
+                seed=0)
+    runs = [("moniqua-8bit", dict(algo="moniqua", bits=8), (1, 2)),
+            ("moniqua-1bit", dict(algo="moniqua", bits=1, slack=SLACK_1BIT),
+             (1, 2)),
+            ("dpsgd", dict(algo="dpsgd"), (0, 0))]
+    for name, kw, (enc_step, dr_step) in runs:
+        trainer = Trainer(model, TrainerConfig(**base, **kw,
+                                               presence=TRAIN_MASK),
+                          lambda k: batches[k])
+        check(trainer.hp.presence == TRAIN_MASK, f"{name}: presence lost")
+        zero()
+        out = trainer.run()
+        got = read()
+        add(counted, got)
+        losses = [h["loss"] for h in out["history"]]
+        walls = [h["wall"] for h in out["history"]]
+        step_ms = 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1)
+        check(all(map(math.isfinite, losses)), f"{name} masked: non-finite "
+              f"loss")
+        want = {"moniqua_encode": STEPS * enc_step,
+                "moniqua_decode_reduce": STEPS * dr_step,
+                "moniqua_decode": 0}
+        check(got == want, f"{name} masked: launches {got}, want {want}")
+        steps = {}
+        for tag, tr in (("masked", trainer), ("unmasked", Trainer(
+                model, TrainerConfig(**base, **kw), lambda k: batches[k]))):
+            state = out["state"] if tag == "masked" else tr.init_state()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                tr.step_fn(state, batches[0])
+                torch.cuda.synchronize()
+            steps[tag] = sum(e.count for e in prof.key_averages()
+                             if e.device_type
+                             == torch.autograd.DeviceType.CUDA)
+        print(f"run {name} presence {TRAIN_MASK}: losses "
+              f"{[round(v, 4) for v in losses]} | launches {got}",
+              flush=True)
+        print(f"time: step {name} presence {TRAIN_MASK} (ResNet-20 w16, "
+              f"n={N_WORKERS}, {IMAGES} images/worker, mean of steps 1-"
+              f"{STEPS - 1}) {step_ms:.3f} ms | one profiled step: "
+              f"{steps['masked']} kernel launches masked, "
+              f"{steps['unmasked']} unmasked {card}", flush=True)
+    # -- AD-PSGD replay on churn-ring's message loss ----------------------
+    p0 = model.init(torch.Generator().manual_seed(0))
+    X0 = tree.map(lambda a: a[None].expand((N_WORKERS,) + a.shape), p0)
+    lay1 = eng.layout(tree.map(lambda a: a[:1], X0))
+    x0 = eng.layout(X0).flatten(X0)               # [8, 272282], identical rows
+    grad, calls = bucket_grad(model, batches, lay1)
+    rep_eng = CommEngine(ring(N_WORKERS), MoniquaWire(QuantSpec(8)))
+    exchanges, drops = [], []
+    pair = rep_eng.pair_average
+
+    def spy(xi, xj, presence=None, **kw_):
+        res = pair(xi, xj, presence=presence, **kw_)
+        exchanges.append(presence)
+        if presence is not None:
+            drops.append((xi, xj, res))
+        return res
+    object.__setattr__(rep_eng, "pair_average", spy)
+    zero()
+    t1 = time.perf_counter()
+    out = events.replay_adpsgd(sc, rep_eng, x0, grad, alpha=0.1,
+                               num_updates=REPLAY_UPDATES, theta=2.0)
+    got = read()
+    upd_ms = 1e3 * (time.perf_counter() - t1) / REPLAY_UPDATES
+    add(counted, got)
+    tr = out["trace"]
+    delivered, dropped = tr.count(events.GOSSIP), tr.count(events.MSGDROP)
+    check(delivered + dropped == REPLAY_UPDATES == len(exchanges)
+          == calls[0], f"replay: {delivered} + {dropped} exchanges, "
+          f"{len(exchanges)} pair_average calls, {calls[0]} gradients")
+    want = {"moniqua_encode": delivered, "moniqua_decode_reduce": 0,
+            "moniqua_decode": 2 * delivered}
+    check(got == want, f"replay launches {got}, want {want}")
+    check(dropped >= 1, "replay: churn-ring lost no exchange; nothing "
+          "exercised the identity exchange")
+    check(len(drops) == dropped and all(
+        torch.equal(r.xi, xi) and torch.equal(r.xj, xj)
+        for xi, xj, r in drops), "replay: a dropped exchange moved")
+    check(bool(torch.isfinite(out["X"]).all()), "replay: not finite")
+    # the first exchanges card against CPU: perturbed ResNet-20 models, a
+    # quadratic gradient with noise drawn on the host from the draw's seed
+    lay_c = eng.layout(X_cpu)
+    xp = lay_c.flatten(X_cpu)
+
+    def quad(x, i, seed):
+        noise = torch.randn(x.shape, generator=torch.Generator()
+                            .manual_seed(seed))
+        return quadratic_grad(x, 0.2, noise.to(x.device), 0.05)
+    first = [events.replay_adpsgd(sc, CommEngine(ring(N_WORKERS),
+                                                 MoniquaWire(QuantSpec(8))),
+                                  x, quad, alpha=0.1,
+                                  num_updates=REPLAY_CHECK, theta=2.0)
+             for x in (xp.to(dev), xp)]
+    check(torch.equal(first[0]["X"].cpu(), first[1]["X"])
+          and first[0]["trace"].fingerprint()
+          == first[1]["trace"].fingerprint(),
+          f"replay: first {REPLAY_CHECK} exchanges card != CPU")
+    print(f"run sim-adpsgd churn-ring ({REPLAY_UPDATES} updates, ResNet-20 "
+          f"gradient, moniqua 8-bit): {delivered} exchanges delivered, "
+          f"{dropped} lost (the identity, bitwise); launches {got}; "
+          f"consensus_sq {out['consensus_sq']:.6g}; simulated "
+          f"{tr.total_seconds:.4f} s, staleness max {tr.staleness_max}",
+          flush=True)
+    print(f"time: replay_adpsgd, one update (ResNet-20 gradient and one "
+          f"exchange) host clock {upd_ms:.3f} ms (mean of "
+          f"{REPLAY_UPDATES}) {card}", flush=True)
+    print(f"phase 18: the simulator on the card: {SIM_ROUNDS} churn-ring "
+          f"rounds replayed through mix (card == CPU bitwise), 3 masked "
+          f"trainings with finite losses, replay_adpsgd with 2 point "
+          f"decodes a delivered exchange and the identity on {dropped} "
+          f"lost, the first {REPLAY_CHECK} card == CPU "
+          f"({time.perf_counter() - t0:.1f} s) {card}", flush=True)
+    return counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2005,6 +2444,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     staged_phase(dev, card, X_cpu)
     wires_phase(dev, card, model, batches)
+    torch.cuda.empty_cache()
+    # the new paths' launches go onto the codec and point-decode entries
+    extra = {}
+    for counts in (elastic_phase(dev, card, X_cpu),
+                   sim_phase(dev, card, model, batches, X_cpu)):
+        for name, n in counts.items():
+            extra[name] = extra.get(name, 0) + n
+    for k in kernels:
+        k["launches"] += extra.get(k["name"], 0)
+    print(f"launches on phases 17-18's paths, added to the kernels line: "
+          f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

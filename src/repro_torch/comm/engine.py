@@ -46,12 +46,23 @@ and B they were encoded from, then encodes its own mixed model for k+1.
 AD-PSGD's primitive is one edge exchange, :meth:`CommEngine.pair_average`
 (Algorithm 3 lines 4-7), on every wire.
 
+Elastic rounds (``presence=``, a host 0/1 tuple over the workers): an edge
+survives only if both endpoints showed up; a dead edge's decoded diff never
+enters the reduction (the receiver keeps that weight on itself: the
+``Topology.with_presence`` matrix applied edge-wise), and an absent worker
+comes back untouched, EF residual included.  Encode and permute do not
+change.  ``None`` or an all-ones mask takes literally the unmasked code
+path, which is the whole full-presence bitwise contract.  The masked
+Moniqua round runs one single-weight decode-reduce per neighbor offset and
+recombines the gated diffs in float32.
+
 Randomness: the reference takes a JAX key; the port takes the uint32 hash
 ``seed`` the reference derives from it (``kops._key_to_seed``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -70,7 +81,7 @@ from repro_torch.core.quantizers import (_U32, QuantSpec,
                                          qsgd_decode_segmented, qsgd_encode,
                                          qsgd_encode_segmented,
                                          qsgd_payload_bytes)
-from repro_torch.core.topology import Topology
+from repro_torch.core.topology import Topology, normalize_mask
 from repro_torch.kernels import ops as kops
 
 PyTree = Any
@@ -189,13 +200,91 @@ def _neighbor_weights_of(topo: Topology) -> Tuple[float, ...]:
                  if o % topo.n != 0)
 
 
-def _weighted_diffs(d_self: torch.Tensor, decoded, weights) -> torch.Tensor:
-    """``sum_o w_o * (decoded_o - d_self)``, offsets in order."""
+def _weighted_diffs(d_self: torch.Tensor, decoded, weights,
+                    presence: Optional[Tuple[int, ...]] = None,
+                    offsets=()) -> torch.Tensor:
+    """``sum_o w_o * gate_o(decoded_o - d_self)``, offsets in order; under
+    a mask the gate zeroes a dead edge's diff before the weight."""
     acc = None
-    for d, w in zip(decoded, weights):
-        t = (d - d_self) * w
+    for k, (d, w) in enumerate(zip(decoded, weights)):
+        t = d - d_self
+        if presence is not None:
+            t = _gate(presence, offsets[k], t)
+        t = t * w
         acc = t if acc is None else acc + t
     return acc
+
+
+# -- elastic rounds: presence masks ------------------------------------------
+
+def _normalize_presence(presence, n: int) -> Optional[Tuple[int, ...]]:
+    """``None`` or an all-ones mask -> ``None`` (the caller then takes the
+    unmasked code path); a partial mask -> a validated 0/1 tuple."""
+    if presence is None:
+        return None
+    vals = normalize_mask(presence, n)
+    if all(vals):
+        return None
+    return vals
+
+
+@functools.lru_cache(maxsize=256)
+def _present_cols(presence: Tuple[int, ...], device: torch.device,
+                  ndim: int = 2) -> torch.Tensor:
+    """Bool ``[n, 1, ..]`` mask of the present workers, on ``device``.
+    Cached per (mask, device, ndim), so a round copies nothing to the card
+    after its first; the cached tensors are shared, so nothing writes them."""
+    pb = torch.tensor(presence, dtype=torch.bool, device=device)
+    return pb.reshape((-1,) + (1,) * (ndim - 1))
+
+
+@functools.lru_cache(maxsize=256)
+def _alive_cols(presence: Tuple[int, ...], offset: int, device: torch.device,
+                ndim: int = 2) -> torch.Tensor:
+    """Bool ``[n, 1, ..]`` mask: worker ``i`` True iff both endpoints of its
+    edge to ``i + offset`` showed up (row ``i`` of ``_roll(x, o)`` is
+    ``x[i + o]``)."""
+    pb = _present_cols(presence, device, ndim)
+    return torch.logical_and(pb, gossip._roll(pb, offset))
+
+
+def _gate(presence: Tuple[int, ...], offset: int,
+          t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the edge to ``i + offset`` survived the mask, else 0."""
+    return torch.where(_alive_cols(presence, offset, t.device, t.dim()), t,
+                       0.0)
+
+
+def _if_present(presence: Tuple[int, ...], new: torch.Tensor, old):
+    """``new`` on the present workers' rows, ``old`` on the absent ones'."""
+    return torch.where(_present_cols(presence, new.device, new.dim()), new,
+                       old)
+
+
+def _masked_circulant(x: torch.Tensor, topo: Topology,
+                      presence: Tuple[int, ...]) -> torch.Tensor:
+    """Full-precision elastic mix of one stacked leaf: identity plus the
+    weighted diffs of the edges that survived the mask (the gate comes
+    before the weight, and the diffs sum before the add to ``x``)."""
+    f = x.float()
+    acc = None
+    for o, w in zip(topo.offsets, topo.weights):
+        if o % topo.n == 0:
+            continue
+        t = _gate(presence, o, gossip._roll(f, o) - f) * w
+        acc = t if acc is None else acc + t
+    if acc is None:
+        return x
+    return (f + acc).to(x.dtype)
+
+
+def _dropped_edge_count(presence: Tuple[int, ...], topo: Topology) -> int:
+    """Directed gossip edges the mask killed (a host count)."""
+    n = topo.n
+    return sum(1
+               for o in topo.neighbor_offsets()
+               for i in range(n)
+               if not (presence[i] and presence[(i + o) % n]))
 
 
 @dataclasses.dataclass
@@ -212,7 +301,10 @@ class RoundPlan:
     window exactly what the barrier round computes there.
 
     ``residual`` and ``step`` are the EF wires' WireState (the flat buffer
-    is then float32).
+    is then float32).  ``presence`` is a normalized partial mask (``None``:
+    everyone present, the unmasked arithmetic); it gates only which decoded
+    neighbor diffs enter the reduction and, on the EF wires, which rows
+    update.
     """
     engine: "CommEngine"
     layout: bucket.BucketLayout
@@ -222,6 +314,7 @@ class RoundPlan:
     seed: int = kops.NO_KEY_SEED
     residual: Optional[torch.Tensor] = None
     step: Optional[torch.Tensor] = None
+    presence: Optional[Tuple[int, ...]] = None
 
     @property
     def num_chunks(self) -> int:
@@ -280,39 +373,76 @@ class RoundPlan:
         eng = self.engine
         name = eng.codec.name
         topo = eng.topo
+        p = self.presence
         if name == "full":
-            out = None
-            for w, r in zip(topo.weights, nbrs):
-                t = r * gossip.as_weight(w, r.dtype)
-                out = t if out is None else out + t
-            return out.to(enc[0].dtype)
+            if p is None:
+                out = None
+                for w, r in zip(topo.weights, nbrs):
+                    t = r * gossip.as_weight(w, r.dtype)
+                    out = t if out is None else out + t
+                return out.to(enc[0].dtype)
+            # masked raw wire: identity plus the gated neighbor diffs, added
+            # one offset at a time (a re-weighted sum of windows would put
+            # an absent row one ulp off identity)
+            win = enc[0]
+            f = win.float()
+            out = f
+            for o, w, r in zip(topo.offsets, topo.weights, nbrs):
+                if o % topo.n == 0:
+                    continue
+                out = out + _gate(p, o, r.float() - f) * w
+            return out.to(win.dtype)
         spec = eng.codec.spec
+        offsets = topo.neighbor_offsets()
         weights = _neighbor_weights_of(topo)
         if name == "moniqua":
-            return kops.moniqua_decode_reduce_chunk(
-                enc[0], nbrs, self.flat, c.offset, c.size, self.B, weights,
-                spec)
+            if p is None:
+                return kops.moniqua_decode_reduce_chunk(
+                    enc[0], nbrs, self.flat, c.offset, c.size, self.B,
+                    weights, spec)
+            # masked: one single-weight decode-reduce per offset,
+            # recombined as win + sum of the gated diffs in float32
+            win = self._win(self.flat, c).float()
+            out = win
+            for k, (o, w) in enumerate(zip(offsets, weights)):
+                mixed_o = kops.moniqua_decode_reduce_chunk(
+                    enc[0], nbrs[k:k + 1], self.flat, c.offset, c.size,
+                    self.B, (w,), spec)
+                out = out + _gate(p, o, mixed_o.float() - win)
+            return out.to(self._win(self.flat, c).dtype)
         seg = c.segment_sizes
         win = self._win(self.flat, c)
         if name in ("qsgd", "ef_qsgd"):
             d_self = qsgd_decode_segmented(enc[0], enc[1], spec, seg)
             acc = _weighted_diffs(
-                d_self, (qsgd_decode_segmented(p, s, spec, seg)
-                         for p, s in nbrs), weights)
+                d_self, (qsgd_decode_segmented(q, s, spec, seg)
+                         for q, s in nbrs), weights, p, offsets)
             if name == "qsgd":
                 return (win.float() + acc).to(win.dtype)
-            return win + acc, enc[2] - d_self
+            out, res = win + acc, enc[2] - d_self
+            if p is not None:
+                # an absent worker's model and EF residual pass through
+                # the missed round untouched
+                out = _if_present(p, out, win)
+                res = _if_present(p, res, self._win(self.residual, c))
+            return out, res
         # onebit: full-precision gossip during warmup, sign codes + EF
         # after.  Both are computed and selected with torch.where: a Python
         # branch on the step would wait for the card.
         packed, lo, hi, v = enc
+        rwin = self._win(self.residual, c)
         warm = self.step < eng.codec.warmup
+        out_warm = (gossip.mix(win, topo) if p is None
+                    else _masked_circulant(win, topo, p))
         d_self = onebit_decode_segmented(packed, lo, hi, seg)
         acc = _weighted_diffs(
-            d_self, (onebit_decode_segmented(p, l, h, seg)
-                     for p, l, h in nbrs), weights)
-        return (torch.where(warm, gossip.mix(win, topo), win + acc),
-                torch.where(warm, self._win(self.residual, c), v - d_self))
+            d_self, (onebit_decode_segmented(q, l, h, seg)
+                     for q, l, h in nbrs), weights, p, offsets)
+        out = torch.where(warm, out_warm, win + acc)
+        res = torch.where(warm, rwin, v - d_self)
+        if p is not None:
+            out, res = _if_present(p, out, win), _if_present(p, res, rwin)
+        return out, res
 
     def run(self):
         """Run the round through the skewed pipeline: at tick t, encode(t),
@@ -400,10 +530,11 @@ class CommEngine:
     # -- the staged round --------------------------------------------------
     def round_plan(self, X: PyTree, theta=None, seed: Optional[int] = None,
                    state: Optional[dict] = None,
-                   chunks: Optional[int] = None) -> RoundPlan:
+                   chunks: Optional[int] = None,
+                   presence=None) -> RoundPlan:
         """Stage one gossip round on the flat bucket in ``chunks`` (default
         the engine's) slot-aligned chunks; ``state`` is the EF wires'
-        WireState."""
+        WireState, ``presence`` the round's 0/1 worker mask."""
         layout = self.layout(X)
         name = self.codec.name
         if name == "full" and not layout.uniform_dtype:
@@ -428,11 +559,12 @@ class CommEngine:
         return RoundPlan(engine=self, layout=layout, chunks=layout.chunks(k),
                          flat=flat, B=B,
                          seed=kops.NO_KEY_SEED if seed is None else int(seed),
-                         residual=residual, step=step)
+                         residual=residual, step=step,
+                         presence=_normalize_presence(presence, self.topo.n))
 
     def mix(self, X: PyTree, theta=None, seed: Optional[int] = None,
             ledger: Optional[BytesLedger] = None,
-            state: Optional[dict] = None) -> MixResult:
+            state: Optional[dict] = None, presence=None) -> MixResult:
         """One gossip round on stacked models (leaves ``[n, ...]``).
 
         ``.x`` of the result is ``X_{k+1/2}`` (with the full-precision codec
@@ -441,9 +573,14 @@ class CommEngine:
         carry from :meth:`init_wire_state`.  ``seed`` is the uint32 hash seed
         of stochastic rounding.  ``ledger`` (if given) is credited with
         payload-bytes * n_neighbors.
+
+        ``presence`` (elastic rounds): a per-worker 0/1 mask; dead edges
+        contribute identity and absent workers come back untouched
+        (module docstring).  ``None`` or all-ones is the unmasked round.
         """
         if self.stateful:
             self._check_wire_state(state)
+        presence = _normalize_presence(presence, self.topo.n)
         if not self.topo.neighbor_offsets() or not tree.leaves(X):
             return MixResult(X, state if state is not None else {})
         if ledger is not None:
@@ -452,14 +589,18 @@ class CommEngine:
         if name == "moniqua" and theta is None:
             raise ValueError("MoniquaWire needs the a-priori bound theta")
         if self.stateful:
-            return MixResult(*self._mix_stateful(X, state, seed))
+            return MixResult(*self._mix_stateful(X, state, seed, presence))
         layout = self.layout(X)
         full_mixed_dtype = name == "full" and not layout.uniform_dtype
         if self.path == "bucketed" and not full_mixed_dtype:
             return MixResult(layout.unflatten(
-                self.round_plan(X, theta=theta, seed=seed).run()))
+                self.round_plan(X, theta=theta, seed=seed,
+                                presence=presence).run()))
         if name == "full":
-            return MixResult(gossip.mix(X, self.topo))
+            if presence is None:
+                return MixResult(gossip.mix(X, self.topo))
+            return MixResult(tree.map(
+                lambda l: _masked_circulant(l, self.topo, presence), X))
         self._require_seed(seed)
         seed = kops.NO_KEY_SEED if seed is None else int(seed)
         leaves, td = tree.flatten(X)
@@ -467,10 +608,12 @@ class CommEngine:
             # global counter indices: leaf i's elements hash
             # (seed, layout.offset_i + e), the SAME pairs the bucketed
             # one-shot encode hashes: the bucketed-vs-per-leaf parity
-            out = [self._mix_leaf(l, theta, seed, idx_base=layout.offsets[i])
+            out = [self._mix_leaf(l, theta, seed, idx_base=layout.offsets[i],
+                                  presence=presence)
                    for i, l in enumerate(leaves)]
         else:
-            out = [self._mix_leaf(l, theta, _leaf_seed(seed, i))
+            out = [self._mix_leaf(l, theta, _leaf_seed(seed, i),
+                                  presence=presence)
                    for i, l in enumerate(leaves)]
         return MixResult(tree.unflatten(td, out))
 
@@ -499,7 +642,8 @@ class CommEngine:
 
     def mix_stale(self, X: PyTree, carry: dict, theta=None,
                   seed: Optional[int] = None,
-                  ledger: Optional[BytesLedger] = None) -> MixResult:
+                  ledger: Optional[BytesLedger] = None,
+                  presence=None) -> MixResult:
         """One-round-stale gossip: apply the PREVIOUS round's payloads to
         this round's model, then encode the mixed result for the next round.
 
@@ -510,6 +654,11 @@ class CommEngine:
         is added through ``torch.where(valid, delta, 0.0)``: the first
         round's decode divides by its carry's B = 0, and the add turns a
         -0.0 of the model into +0.0, as the reference does.
+
+        ``presence`` (elastic): this round's mask gates which of last
+        round's payloads are applied, one single-weight decode-reduce per
+        offset; an absent worker applies no delta.  Everyone still
+        re-encodes.
         """
         self._require_stale_wire()
         if not isinstance(carry, dict) or "packed" not in carry:
@@ -523,17 +672,28 @@ class CommEngine:
             raise ValueError("MoniquaWire needs the a-priori bound theta")
         if ledger is not None:
             self._record(X, ledger)
+        presence = _normalize_presence(presence, self.topo.n)
         self._require_seed(seed)
         seed = kops.NO_KEY_SEED if seed is None else int(seed)
         spec = self.codec.spec
         layout = self.layout(X)
+        weights = _neighbor_weights_of(self.topo)
         flat = layout.flatten(X).float()
         p_nbrs = torch.stack([gossip._roll(carry["packed"], o)
                               for o in offsets])
-        mixed_ref = kops.moniqua_decode_reduce_stacked(
-            carry["packed"], p_nbrs, carry["ref"], carry["B"],
-            _neighbor_weights_of(self.topo), spec)
-        delta = mixed_ref - carry["ref"]
+        if presence is None:
+            mixed_ref = kops.moniqua_decode_reduce_stacked(
+                carry["packed"], p_nbrs, carry["ref"], carry["B"], weights,
+                spec)
+            delta = mixed_ref - carry["ref"]
+        else:
+            delta = torch.zeros_like(carry["ref"])
+            for k, (o, w) in enumerate(zip(offsets, weights)):
+                mixed_o = kops.moniqua_decode_reduce_stacked(
+                    carry["packed"], p_nbrs[k:k + 1], carry["ref"],
+                    carry["B"], (w,), spec)
+                delta = delta + _gate(presence, o, mixed_o - carry["ref"])
+            delta = _if_present(presence, delta, 0.0)
         out = flat + torch.where(carry["valid"], delta, 0.0)
         B = modulo.b_theta(theta, spec.delta, flat.device)
         packed = kops.moniqua_encode_stacked(out, B, spec, seed)
@@ -544,17 +704,20 @@ class CommEngine:
                          new_carry)
 
     # -- stateful wires: error-feedback rounds on the flat bucket ----------
-    def _mix_stateful(self, X: PyTree, state: dict,
-                      seed: Optional[int]) -> Tuple[PyTree, dict]:
+    def _mix_stateful(self, X: PyTree, state: dict, seed: Optional[int],
+                      presence: Optional[Tuple[int, ...]] = None
+                      ) -> Tuple[PyTree, dict]:
         """One EF gossip round; returns ``(X_{k+1/2}, new WireState)``.
 
         The bucketed path runs the staged plan chunk by chunk, the per-leaf
         path :meth:`_ef_flat_round` slot by slot on the same canonical flat
         residual: same per-segment statistics, same row-position uniforms,
-        same accumulation order, so outputs and state agree bitwise."""
+        same accumulation order, so outputs and state agree bitwise.  The
+        step counter advances for every worker, absent ones included."""
         layout = self.layout(X)
         if self.path == "bucketed":
-            out, res = self.round_plan(X, seed=seed, state=state).run()
+            out, res = self.round_plan(X, seed=seed, state=state,
+                                       presence=presence).run()
         else:
             self._require_seed(seed)
             seed = kops.NO_KEY_SEED if seed is None else int(seed)
@@ -564,7 +727,7 @@ class CommEngine:
                 w = slice(s.offset, s.offset + s.padded_size)
                 o, r = self._ef_flat_round(flat[:, w], state["residual"][:, w],
                                            (s.padded_size,), s.offset, seed,
-                                           state["step"])
+                                           state["step"], presence)
                 outs.append(o)
                 ress.append(r)
             out, res = torch.cat(outs, dim=1), torch.cat(ress, dim=1)
@@ -573,39 +736,56 @@ class CommEngine:
 
     def _ef_flat_round(self, v_base: torch.Tensor, residual: torch.Tensor,
                        segments: Tuple[int, ...], idx_base: int, seed: int,
-                       step: torch.Tensor
+                       step: torch.Tensor,
+                       presence: Optional[Tuple[int, ...]] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """EF round on one flat f32 slice (the per-leaf path): encode
         ``v = x + r``, gossip the codes, mix
         ``x + sum w_o (decode_o - decode_self)``, keep ``r' = v - decode_self``
-        (onebit: the full-precision round and ``r`` during warmup)."""
+        (onebit: the full-precision round and ``r`` during warmup).
+        ``presence`` gates dead edges to identity and carries absent rows'
+        models and residuals through untouched."""
         offsets = self.topo.neighbor_offsets()
         weights = _neighbor_weights_of(self.topo)
         spec = self.codec.spec
+
+        def reduce(d_self, decoded):
+            return v_base + _weighted_diffs(d_self, decoded, weights,
+                                            presence, offsets)
+
+        def mask_absent(out, res):
+            if presence is None:
+                return out, res
+            return (_if_present(presence, out, v_base),
+                    _if_present(presence, res, residual))
+
         v = v_base + residual
         if self.codec.name == "ef_qsgd":
             packed, scales = ef_qsgd_encode_segmented(v, spec, seed,
                                                       segments, idx_base)
             d_self = qsgd_decode_segmented(packed, scales, spec, segments)
-            acc = _weighted_diffs(d_self, (qsgd_decode_segmented(
+            out = reduce(d_self, (qsgd_decode_segmented(
                 gossip._roll(packed, o), gossip._roll(scales, o), spec,
-                segments) for o in offsets), weights)
-            return v_base + acc, v - d_self
+                segments) for o in offsets))
+            return mask_absent(out, v - d_self)
         warm = step < self.codec.warmup
+        out_warm = (gossip.mix(v_base, self.topo) if presence is None
+                    else _masked_circulant(v_base, self.topo, presence))
         packed, lo, hi = onebit_encode_segmented(v, seed, segments, idx_base,
                                                  spec.stochastic)
         d_self = onebit_decode_segmented(packed, lo, hi, segments)
-        acc = _weighted_diffs(d_self, (onebit_decode_segmented(
+        out_q = reduce(d_self, (onebit_decode_segmented(
             gossip._roll(packed, o), gossip._roll(lo, o),
-            gossip._roll(hi, o), segments) for o in offsets), weights)
-        return (torch.where(warm, gossip.mix(v_base, self.topo),
-                            v_base + acc),
-                torch.where(warm, residual, v - d_self))
+            gossip._roll(hi, o), segments) for o in offsets))
+        return mask_absent(torch.where(warm, out_warm, out_q),
+                           torch.where(warm, residual, v - d_self))
 
     def _mix_leaf(self, x: torch.Tensor, theta, seed: int,
-                  idx_base: int = 0) -> torch.Tensor:
+                  idx_base: int = 0,
+                  presence: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
         if x.dim() == 1:     # scalar-per-worker leaf: give it a unit last axis
-            return self._mix_leaf(x[:, None], theta, seed, idx_base)[:, 0]
+            return self._mix_leaf(x[:, None], theta, seed, idx_base,
+                                  presence)[:, 0]
         spec = self.codec.spec
         offsets = self.topo.neighbor_offsets()
         weights = _neighbor_weights_of(self.topo)
@@ -614,15 +794,25 @@ class CommEngine:
             packed = kops.moniqua_encode_stacked(x, B, spec, seed,
                                                  idx_base=idx_base)
             p_nbrs = torch.stack([gossip._roll(packed, o) for o in offsets])
-            return kops.moniqua_decode_reduce_stacked(packed, p_nbrs, x, B,
-                                                      weights, spec)
+            if presence is None:
+                return kops.moniqua_decode_reduce_stacked(
+                    packed, p_nbrs, x, B, weights, spec)
+            # elastic: one single-weight decode-reduce per offset, gated
+            f = x.float()
+            out = f
+            for k, (o, w) in enumerate(zip(offsets, weights)):
+                mixed_o = kops.moniqua_decode_reduce_stacked(
+                    packed, p_nbrs[k:k + 1], x, B, (w,), spec)
+                out = out + _gate(presence, o, mixed_o.float() - f)
+            return out.to(x.dtype)
         # qsgd: reference-free decode; each worker ships (codes, own scale)
         packed, scale = qsgd_encode(x, spec, seed)
         last = x.shape[-1]
         acc = _weighted_diffs(
             qsgd_decode(packed, scale, spec, last),
             (qsgd_decode(gossip._roll(packed, o), gossip._roll(scale, o),
-                         spec, last) for o in offsets), weights)
+                         spec, last) for o in offsets), weights, presence,
+            offsets)
         return (x.float() + acc).to(x.dtype)
 
     def _align(self) -> int:
@@ -674,11 +864,16 @@ class CommEngine:
         a bfloat16 pair comes back in float32, as the reference promotes.
         ``qsgd``: both decode each other's codes and scale.  The EF wires
         take and return per-endpoint carries from :meth:`init_edge_state`.
+
+        ``presence`` (elastic): a 2-mask ``(p_i, p_j)``.  If either endpoint
+        is absent, or the message between them was dropped, the exchange is
+        the identity: both models come back untouched and the EF carries
+        (step counters included) do not advance.
         """
-        if presence is not None:
-            raise NotImplementedError(
-                "pair_average(presence=...) is not ported yet (ROADMAP.md, "
-                "Queue 1 #9)")
+        if _normalize_presence(presence, 2) is not None:
+            return PairResult(xi, xj,
+                              state_i if self.stateful else {},
+                              state_j if self.stateful else {})
         if self.stateful:
             return self._pair_average_stateful(xi, xj, seed, state_i,
                                                state_j)

@@ -47,6 +47,13 @@ class AlgoHyper:
     ``engine()`` builds the configured wire (``wire`` x ``codec.spec``) for
     quantized gossip, ``exact_engine()`` the full-precision engine the
     baselines (and replica mixing) use.
+
+    Elastic rounds: ``presence`` is a 0/1 worker mask that D-PSGD, Moniqua
+    (every branch), D² and Moniqua-D² hand to the engine's
+    ``mix(presence=...)`` every round; ``None`` or all-ones is the unmasked
+    gossip.  ``deadline`` is the round deadline in seconds that the
+    simulator enforces (``sim.faults.FaultSpec.deadline_s``); no step reads
+    it, it rides here so one hyper object carries the elastic setup.
     """
     topo: Topology
     codec: MoniquaCodec = MoniquaCodec()
@@ -58,6 +65,8 @@ class AlgoHyper:
     chunks: int = 1               # staged-round chunk count (1 = barrier)
     overlap: str = "none"         # step-level overlap: none | stale (Moniqua)
     warmup: int = 16              # onebit wire: fp32 rounds before 1-bit+EF
+    presence: Optional[Tuple[int, ...]] = None   # elastic 0/1 worker mask
+    deadline: Optional[float] = None             # sim round deadline (s)
 
     def engine(self) -> CommEngine:
         return CommEngine(self.topo,
@@ -197,7 +206,8 @@ class DPSGD(Algorithm):
     name = "dpsgd"
 
     def step(self, X, extra, g, alpha, k, seed, hp, uniforms=None):
-        return _sgd(hp.exact_engine().mix(X).x, g, alpha), extra
+        return (_sgd(hp.exact_engine().mix(X, presence=hp.presence).x, g,
+                     alpha), extra)
 
     def bytes_per_step(self, X, hp):
         return hp.exact_engine().bytes_per_round(X)
@@ -250,14 +260,15 @@ class Moniqua(Algorithm):
         eng = hp.engine()
         new_extra = dict(extra)
         if eng.stateful:
-            res = eng.mix(X, theta=hp.theta, seed=seed, state=extra["wire"])
+            res = eng.mix(X, theta=hp.theta, seed=seed, state=extra["wire"],
+                          presence=hp.presence)
             new_extra["wire"] = res.state
         elif hp.overlap == "stale":
             res = eng.mix_stale(X, extra["gossip"], theta=hp.theta,
-                                seed=seed)
+                                seed=seed, presence=hp.presence)
             new_extra["gossip"] = res.state
         else:
-            res = eng.mix(X, theta=hp.theta, seed=seed)
+            res = eng.mix(X, theta=hp.theta, seed=seed, presence=hp.presence)
         return _sgd(res.x, g, alpha), new_extra
 
     def bytes_per_step(self, X, hp):
@@ -377,7 +388,7 @@ class D2(Algorithm):
             + a_prev * gp, X, extra["x_prev"], g, extra["g_prev"])
 
     def _mix(self, Xh, seed, hp):
-        return hp.exact_engine().mix(Xh).x
+        return hp.exact_engine().mix(Xh, presence=hp.presence).x
 
     def step(self, X, extra, g, alpha, k, seed, hp, uniforms=None):
         mixed = self._mix(self._half_step(X, extra, g, alpha), seed, hp)
@@ -401,7 +412,8 @@ class MoniquaD2(D2):
     name = "moniqua_d2"
 
     def _mix(self, Xh, seed, hp):
-        return hp.engine().mix(Xh, theta=hp.theta, seed=seed).x
+        return hp.engine().mix(Xh, theta=hp.theta, seed=seed,
+                               presence=hp.presence).x
 
     def bytes_per_step(self, X, hp):
         return hp.engine().bytes_per_round(X)

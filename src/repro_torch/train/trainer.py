@@ -45,6 +45,10 @@ class TrainerConfig:
     chunks: int = 1             # staged-round chunk count (1 = barrier)
     overlap: str = "none"       # step-level overlap: none | stale (moniqua)
     warmup: int = 16            # onebit wire: fp32 rounds before 1-bit+EF
+    presence: Optional[tuple] = None  # elastic 0/1 worker mask for every
+                                #   round (AlgoHyper.presence); None = all up
+    deadline: Optional[float] = None  # sim round deadline in seconds
+                                #   (recorded; enforced by sim/faults.py)
 
 
 def build_hyper(tc: TrainerConfig) -> AlgoHyper:
@@ -56,9 +60,11 @@ def build_hyper(tc: TrainerConfig) -> AlgoHyper:
     if tc.slack < 1.0:
         topo = topo.slack(tc.slack)
     spec = QuantSpec(bits=tc.bits, stochastic=tc.bits > 1)
+    presence = None if tc.presence is None else tuple(tc.presence)
     return AlgoHyper(topo=topo, codec=MoniquaCodec(spec), theta=tc.theta,
                      gamma=tc.gamma, wire=tc.wire, chunks=tc.chunks,
-                     overlap=tc.overlap, warmup=tc.warmup)
+                     overlap=tc.overlap, warmup=tc.warmup, presence=presence,
+                     deadline=tc.deadline)
 
 
 class Trainer:

@@ -99,8 +99,12 @@ def test_pair_average_bfloat16_bitwise(wire, bits):
 def test_pair_average_rejects_what_is_not_ported():
     _, te = _engines("moniqua", 8)
     x = torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        te.pair_average(x, x, theta=1.0, seed=0, presence=(1, 0))
+    # presence is ported: a missing endpoint makes the identity exchange
+    y = torch.ones(8)
+    res = te.pair_average(x, y, theta=1.0, seed=0, presence=(1, 0))
+    assert res.xi is x and res.xj is y
+    with pytest.raises(ValueError, match="length"):
+        te.pair_average(x, x, theta=1.0, seed=0, presence=(1, 0, 1))
     assert teng.make_wire("qsgd", TSpec(8)).name == "qsgd"
     with pytest.raises(ValueError, match="unknown wire"):
         teng.make_wire("topk", TSpec(8))

@@ -34,7 +34,10 @@ def test_port_imports_without_jax_or_repro():
                  "models.model_factory", "train.serve_step", "data.pipeline",
                  "kernels.flash_attention", "kernels.moniqua_decode",
                  "core.adpsgd", "core.algorithms", "core.theta",
-                 "data.synthetic", "checkpoint", "checkpoint.ckpt"):
+                 "data.synthetic", "checkpoint", "checkpoint.ckpt",
+                 "sim", "sim.network", "sim.cluster", "sim.faults",
+                 "sim.contention", "sim.events", "sim.scenarios",
+                 "sim.calibrate"):
         assert f"repro_torch.{name}" in res["modules"], name
-    assert len(res["modules"]) >= 38
+    assert len(res["modules"]) >= 46
     assert res["bad"] == [], f"repro_torch pulled in: {res['bad']}"
