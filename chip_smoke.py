@@ -118,10 +118,11 @@ Phases (any failure exits non-zero, and the result line is not printed):
    wires ``full``, ``moniqua`` 8-bit stochastic and 1-bit nearest,
    ``qsgd`` 8, ``ef_qsgd`` 4 and ``onebit`` (warmup 2), and ``moniqua``
    8-bit on exponential(8), 3 rounds each at K = 1, 2, 5 and 61 chunks
-   (61: one a leaf).  Each K bitwise its K = 1 round, WireState included;
-   K = 1 against the CPU: ``full`` and ``moniqua`` bitwise, the others
-   within ``RULE_ULPS``; a Moniqua round at K chunks K encode and K
-   decode-reduce launches (wrapper counts and the profiler).
+   (61: one a leaf), on the bucketed path.  Each K bitwise its K = 1
+   round, WireState included; K = 1 against the CPU: ``full`` and
+   ``moniqua`` bitwise, the others within ``RULE_ULPS``; a Moniqua round
+   at K chunks K encode and K decode-reduce launches (wrapper counts and
+   the profiler).
    ``mix_stale`` 3 rounds card == CPU bitwise, one encode and one
    decode-reduce a round, the first returning the model.  Host-clock round
    times at every K.
@@ -156,7 +157,23 @@ Phases (any failure exits non-zero, and the result line is not printed):
    updates with the ResNet-20 gradient on the bucket: one encode and two
    point decodes a delivered exchange, every lost one the identity, the
    first 8 updates card == CPU bitwise (a quadratic gradient); time per
-   update.  Phases 17-18's launches are added to the kernels line.
+   update.
+19. Two-tier rounds on the ResNet-20 bucket (n = 8), phase 15's wires, 3
+   rounds each with WireState: ``two_tier(8, 1)`` bitwise ring(8)'s
+   bucketed round at K = 1 and 5; on ``two_tier(8, 2)`` and ``(8, 4)``
+   K = 5 bitwise K = 1 and card == CPU bitwise (``onebit`` within
+   ``RULE_ULPS``), every node's workers leaving with one model; per-node
+   presence on ``two_tier(8, 2)``: all-ones bitwise ``None``, node 1
+   absent keeps its intra average and its residual rows, card == CPU; the
+   fast/slow ledger, bytes a round and WireState bytes equal to the
+   reference's (``TIER_BYTES``); ``path="auto"``'s verdicts on ResNet-20,
+   flat and per shard (``TIER_SHARDS``), and the default ``qsgd`` round
+   per-leaf, card == CPU bitwise; a tiered Moniqua round's launches
+   (``TIER_LAUNCHES``, wrappers and profiler) and its host-clock time
+   beside the flat round's; ``Trainer.run`` with ``tiers=2`` for moniqua
+   8-bit and dpsgd (falling losses, 2 encodes and 2 decode-reduces a
+   Moniqua step, bytes per step, no extra memory).  Phases 17-19's
+   launches are added to the kernels line.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -1389,7 +1406,8 @@ def staged_phase(dev, card, X_cpu):
 
         def engine(K):
             return CommEngine(topo_fn(N_WORKERS),
-                              make_wire(wire, spec, warmup=2), chunks=K)
+                              make_wire(wire, spec, warmup=2),
+                              path="bucketed", chunks=K)
 
         def kw(k):
             if wire == "full":
@@ -2052,6 +2070,320 @@ def sim_phase(dev, card, model, batches, X_cpu):
     return counted
 
 
+# -- two-tier rounds and path="auto" ------------------------------------------
+
+# phase 19's engines: n_intra -> (moniqua 8-bit slow bytes a broadcast, fast
+# bytes a round, total bytes a round, ef_qsgd 4-bit and onebit WireState
+# bytes a worker), from the reference's CommEngine on ResNet-20 (n = 8;
+# n_intra 1 is ring(8), flat)
+TIER_BYTES = {1: (272282, 0, 544564, 1089132, 1090692),
+              2: (136141, 1089128, 1361410, 544568, 545348),
+              4: (68071, 1633692, 1701763, 272288, 272676)}
+# each owned shard's slots and the reference's "auto" verdict for moniqua
+TIER_SHARDS = {2: ((46, "bucketed"), (15, "bucketed")),
+               4: ((39, "bucketed"), (7, "per_leaf"), (6, "per_leaf"),
+                   (9, "per_leaf"))}
+# (n_intra, K) -> encodes (= decode-reduces) of a tiered moniqua round
+TIER_LAUNCHES = {(2, 1): 2, (2, 5): 10, (4, 1): 23, (4, 5): 27}
+TIER_KS = (1, 5)
+TIER_MASK = (1, 0, 1, 1)       # node 1 (workers 2-3) absent on two_tier(8, 2)
+
+
+def tiered_phase(dev, card, model, batches, X_cpu):
+    """Phase 19: two-tier rounds of every wire on the ResNet-20 bucket,
+    per-node presence, the fast/slow byte ledger, ``path="auto"`` and
+    ``Trainer.run(tiers=2)``; returns the counted tiered Moniqua launches
+    by kernels-line entry."""
+    from repro_torch import tree
+    from repro_torch.comm.engine import CommEngine, make_wire
+    from repro_torch.comm.gossip import BytesLedger
+    from repro_torch.core.quantizers import QuantSpec
+    from repro_torch.core.topology import ring, two_tier
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    X = tree.map(lambda a: a.to(dev), X_cpu)
+    eps = torch.finfo(torch.float32).eps
+    t0 = time.perf_counter()
+    counted = {"moniqua_encode": 0, "moniqua_decode_reduce": 0}
+
+    def topo_of(n_intra):
+        return two_tier(N_WORKERS, n_intra)
+
+    def wire_of(wire, bits):
+        return make_wire(wire, QuantSpec(min(bits, 8), 1 < bits <= 8),
+                         warmup=2)
+
+    def kw(wire, k):
+        if wire == "full":
+            return {}
+        return dict(seed=1100 + k, **({"theta": 2.0}
+                                      if wire == "moniqua" else {}))
+
+    def rounds(eng, X0, presence=None):
+        Xk = X0
+        st = eng.init_wire_state(X0) if eng.stateful else None
+        out = []
+        for k in range(STAGED_ROUNDS):
+            r = eng.mix(Xk, state=st, presence=presence,
+                        **kw(eng.codec.name, k))
+            Xk, st = r.x, (r.state if eng.stateful else None)
+            out.append((tree.leaves(Xk), st))
+        return out
+
+    def card_vs_cpu(got, cpu, wire, what):
+        err = 0.0
+        for k, ((xg, sg), (xc, sc)) in enumerate(zip(got, cpu)):
+            ts = list(zip(xg, xc))
+            if sg is not None:
+                check(int(sg["step"]) == int(sc["step"]) == k + 1,
+                      f"{what}: step counter")
+                ts.append((sg["residual"], sc["residual"]))
+            for a, b in ts:
+                a = a.cpu()
+                if wire != "onebit":
+                    check(torch.equal(a, b), f"{what}: round {k} card != "
+                          f"CPU")
+                    continue
+                d = float((a - b).abs().max())
+                tol = RULE_ULPS * eps * max(1.0, float(b.abs().max()))
+                check(d <= tol, f"{what}: round {k} card vs CPU {d:.3g} > "
+                      f"{tol:.3g}")
+                err = max(err, d)
+        return err
+
+    n_cases = 0
+    for wire, bits in STAGED_WIRES:
+        what = f"{wire} {bits}-bit"
+        # the trivial tier is the flat bucketed round, WireState too
+        for K in TIER_KS:
+            flat = CommEngine(ring(N_WORKERS), wire_of(wire, bits),
+                              path="bucketed", chunks=K)
+            triv = CommEngine(topo_of(1), wire_of(wire, bits), chunks=K)
+            check(_same_rounds(rounds(flat, X), rounds(triv, X)),
+                  f"{what}: two_tier(8, 1) K={K} != ring(8) bucketed")
+            n_cases += 1
+        errs = []
+        for n_intra in (2, 4):
+            wt = f"{what} on two_tier({N_WORKERS}, {n_intra})"
+            eng = {K: CommEngine(topo_of(n_intra), wire_of(wire, bits),
+                                 chunks=K) for K in TIER_KS}
+            got = rounds(eng[1], X)
+            check(_same_rounds(got, rounds(eng[5], X)), f"{wt}: K=5 != K=1")
+            errs.append(card_vs_cpu(got, rounds(eng[1], X_cpu), wire, wt))
+            for xs, _ in got:               # a node leaves with one model
+                for a in xs:
+                    nodes = a.reshape(N_WORKERS // n_intra, n_intra, -1)
+                    check(torch.equal(nodes, nodes[:, :1].expand_as(nodes)),
+                          f"{wt}: a node's workers differ")
+            n_cases += 2
+        # per-node presence on two_tier(8, 2)
+        eng = CommEngine(topo_of(2), wire_of(wire, bits))
+        check(_same_rounds(rounds(eng, X), rounds(eng, X, (1,) * 4)),
+              f"{what}: all-ones node mask != None")
+        masked = rounds(eng, X, TIER_MASK)
+        prev = (tree.leaves(X),
+                eng.init_wire_state(X) if eng.stateful else None)
+        for k, (xs, st) in enumerate(masked):
+            for a, b in zip(xs, prev[0]):
+                avg = b[2] * 0.5 + b[3] * 0.5
+                check(torch.equal(a[2], avg) and torch.equal(a[3], avg),
+                      f"{what} mask {TIER_MASK}: round {k} node 1 is not "
+                      f"its intra average")
+            if st is not None:
+                check(torch.equal(st["residual"][1], prev[1]["residual"][1]),
+                      f"{what} mask {TIER_MASK}: round {k} moved node 1's "
+                      f"residual")
+            prev = (xs, st)
+        errs.append(card_vs_cpu(masked, rounds(eng, X_cpu, TIER_MASK), wire,
+                                f"{what} mask {TIER_MASK}"))
+        n_cases += 2
+        if wire == "onebit":
+            print(f"  {what} tiered: card vs CPU max abs {max(errs):.3g}",
+                  flush=True)
+    # the byte ledger and the owned-shard WireState
+    spec8 = QuantSpec(8)
+    for n_intra, (slow, fast, total, ef_b, ob_b) in TIER_BYTES.items():
+        topo = ring(N_WORKERS) if n_intra == 1 else topo_of(n_intra)
+        eng = CommEngine(topo, make_wire("moniqua", spec8))
+        led = BytesLedger()
+        eng.mix(X, theta=2.0, seed=1, ledger=led)
+        m = len(eng.gossip_topo.neighbor_offsets())
+        got = (eng.payload_bytes_per_broadcast(X),
+               eng.fast_bytes_per_round(X), eng.bytes_per_round(X),
+               CommEngine(topo, make_wire("ef_qsgd", QuantSpec(4)))
+               .wire_state_bytes(X),
+               CommEngine(topo, make_wire("onebit", QuantSpec(1, False)))
+               .wire_state_bytes(X))
+        check(got == (slow, fast, total, ef_b, ob_b),
+              f"{topo.name}: bytes {got} != {(slow, fast, total, ef_b, ob_b)}")
+        check((led.bytes_slow, led.bytes_fast, led.bytes_per_worker)
+              == (slow * m, fast, total), f"{topo.name}: ledger "
+              f"{(led.bytes_slow, led.bytes_fast, led.bytes_per_worker)}")
+        print(f"  bytes {topo.name}: moniqua-8bit slow {slow} B a broadcast "
+              f"x {m}, fast {fast} B, total {total} B a round (ledger "
+              f"equal); WireState ef_qsgd-4bit {ef_b}, onebit {ob_b} B a "
+              f"worker", flush=True)
+    # path="auto": the reference's verdicts on ResNet-20
+    for wire, bits in STAGED_WIRES:
+        eng = CommEngine(ring(N_WORKERS), wire_of(wire, bits))
+        want = "per_leaf" if wire in ("full", "qsgd") else "bucketed"
+        check(eng.resolved_path(X) == want, f"auto {wire} {bits}-bit on "
+              f"ring(8): {eng.resolved_path(X)}, want {want}")
+        for n_intra in (2, 4):
+            eng = CommEngine(topo_of(n_intra), wire_of(wire, bits))
+            lay = eng.layout(X)
+            shards = [lay.shard(n_intra, j) for j in range(n_intra)]
+            got = tuple((len(s.slots), eng.resolved_path(None, shard=s))
+                        for s in shards)
+            if wire == "moniqua" and bits == 8:
+                check(got == TIER_SHARDS[n_intra], f"auto shards on "
+                      f"two_tier(8, {n_intra}): {got}")
+            if wire in ("full", "qsgd"):
+                check(all(v == "per_leaf" for _, v in got), f"auto {wire} "
+                      f"shards on two_tier(8, {n_intra}): {got}")
+    eng = CommEngine(ring(N_WORKERS), wire_of("qsgd", 8))
+    got, cpu = eng.mix(X, seed=77).x, eng.mix(X_cpu, seed=77).x
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(tree.leaves(got),
+                                                      tree.leaves(cpu))),
+          "default-path qsgd 8-bit round: card != CPU")
+    bk = CommEngine(ring(N_WORKERS), wire_of("qsgd", 8), path="bucketed")
+    check(any(not torch.equal(a, b) for a, b in zip(
+        tree.leaves(got), tree.leaves(bk.mix(X, seed=77).x))),
+        "default-path qsgd round equals the bucketed one")
+    print(f"  auto: ResNet-20 moniqua bucketed, qsgd and full per-leaf (flat"
+          f" and on every shard), the EF wires bucketed; shards "
+          f"{TIER_SHARDS}; the default qsgd 8-bit round per-leaf, card == "
+          f"CPU bitwise", flush=True)
+    # launches of a tiered Moniqua round: wrappers and profiler
+    times = {}
+    for (n_intra, K), want in TIER_LAUNCHES.items():
+        eng = CommEngine(topo_of(n_intra), make_wire("moniqua", spec8),
+                         chunks=K)
+        eng.mix(X, theta=2.0, seed=1)       # warm-up, outside the trace
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdr.decode_reduce.launches = 0
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eng.mix(X, theta=2.0, seed=1)
+            torch.cuda.synchronize()
+        got = (kenc.encode.launches, kdr.decode_reduce.launches)
+        counted["moniqua_encode"] += got[0]
+        counted["moniqua_decode_reduce"] += got[1]
+        check(got == (want, want), f"tiered moniqua round two_tier(8, "
+              f"{n_intra}) K={K}: launches {got}, want {(want, want)}")
+        seen = _kernel_launches(prof)
+        if seen == (0, 0):
+            print(f"  profile: tiered round two_tier(8, {n_intra}) K={K}: "
+                  f"no device kernels recorded (not measured)")
+        else:
+            check(seen == got, f"tiered moniqua round two_tier(8, {n_intra})"
+                  f" K={K}: profiler saw {seen}")
+        if K == 1:
+            times[n_intra] = host_ms(lambda: eng.mix(X, theta=2.0, seed=1),
+                                     reps=10)
+        print(f"  tiered moniqua-8bit round on two_tier({N_WORKERS}, "
+              f"{n_intra}) K={K}: {got[0]} encode and {got[1]} "
+              f"decode-reduce launches (wrappers; profiler {seen})",
+              flush=True)
+    flat8 = CommEngine(ring(N_WORKERS), make_wire("moniqua", spec8))
+    times[1] = host_ms(lambda: flat8.mix(X, theta=2.0, seed=1), reps=10)
+    print(f"time: one moniqua-8bit round of the ResNet-20 bucket at K=1, "
+          f"host clock: ring(8) {times[1]:.3f} ms | two_tier(8, 2) "
+          f"{times[2]:.3f} ms | two_tier(8, 4) {times[4]:.3f} ms {card}",
+          flush=True)
+    # Trainer.run with tiers=2 on the main path's model
+    base = dict(topology="ring", n_workers=N_WORKERS, theta=2.0, lr=0.1,
+                momentum=0.9, weight_decay=5e-4, steps=STEPS, log_every=1,
+                seed=0, tiers=2)
+    for name, kwr, per_step in (("moniqua-8bit", dict(algo="moniqua",
+                                                      bits=8), 2),
+                                ("dpsgd", dict(algo="dpsgd"), 0)):
+        trainer = Trainer(model, TrainerConfig(**base, **kwr),
+                          lambda k: batches[k])
+        check(trainer.hp.comm_topo().name == "ring4xcomplete2",
+              f"tiers=2 {name}: {trainer.hp.comm_topo().name}")
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdr.decode_reduce.launches = 0
+        out = trainer.run()
+        torch.cuda.synchronize()
+        got = (kenc.encode.launches, kdr.decode_reduce.launches)
+        counted["moniqua_encode"] += got[0]
+        counted["moniqua_decode_reduce"] += got[1]
+        losses = [h["loss"] for h in out["history"]]
+        walls = [h["wall"] for h in out["history"]]
+        step_ms = 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1)
+        mem = trainer.algo.extra_memory_bytes(out["state"]["params"],
+                                              trainer.hp)
+        want_bytes = (TIER_BYTES[2][2] if name != "dpsgd" else
+                      trainer.hp.exact_engine().bytes_per_round(X_cpu))
+        check(all(map(math.isfinite, losses)), f"tiers=2 {name}: "
+              f"non-finite loss")
+        check(losses[-1] < losses[0], f"tiers=2 {name}: loss did not fall")
+        check(got == (STEPS * per_step,) * 2, f"tiers=2 {name}: launches "
+              f"{got}, want {(STEPS * per_step,) * 2}")
+        check((out["bytes_per_step"], mem) == (want_bytes, 0),
+              f"tiers=2 {name}: bytes/step, memory "
+              f"{(out['bytes_per_step'], mem)}")
+        print(f"run {name} tiers=2 (two_tier(8, 2)): losses "
+              f"{[round(v, 4) for v in losses]} | launches {got} | "
+              f"bytes/step {out['bytes_per_step']} | extra memory {mem}",
+              flush=True)
+        print(f"time: step {name} tiers=2 (ResNet-20 w16, n={N_WORKERS}, "
+              f"{IMAGES} images/worker, mean of steps 1-{STEPS - 1}) "
+              f"{step_ms:.3f} ms {card}", flush=True)
+    # what the reference's verdict costs the card: the rounds that "auto"
+    # moved onto the per-leaf path, beside the bucketed round
+    for wire, mask in (("full", None), ("full", TRAIN_MASK), ("qsgd", None)):
+        ms, n = {}, {}
+        for path in ("bucketed", "auto"):
+            eng = CommEngine(ring(N_WORKERS), wire_of(wire, 8), path=path)
+            kwp = kw(wire, 0)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                eng.mix(X, presence=mask, **kwp)
+                torch.cuda.synchronize()
+            n[path] = sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+            ms[path] = host_ms(lambda: eng.mix(X, presence=mask, **kwp),
+                               reps=10)
+        print(f"time: one {wire} round of the ResNet-20 bucket on ring(8)"
+              f"{'' if mask is None else f' mask {mask}'}, host clock: "
+              f"bucketed {ms['bucketed']:.3f} ms ({n['bucketed']} kernel "
+              f"launches) | auto, per-leaf {ms['auto']:.3f} ms "
+              f"({n['auto']}) {card}", flush=True)
+    # the same cost a step: D-PSGD under phase 18's mask on both paths
+    flat_base = dict(base, tiers=1, algo="dpsgd", presence=TRAIN_MASK,
+                     steps=STEPS // 2)
+    step_ms = {}
+    for path in ("bucketed", "auto", "bucketed", "auto"):
+        out = Trainer(model, TrainerConfig(**flat_base, comm_path=path),
+                      lambda k: batches[k]).run()
+        walls = [h["wall"] for h in out["history"]]
+        step_ms.setdefault(path, []).append(
+            1e3 * (walls[-1] - walls[0]) / (len(walls) - 1))
+    print(f"time: step dpsgd presence {TRAIN_MASK} (ResNet-20 w16, "
+          f"n={N_WORKERS}, {IMAGES} images/worker, mean of steps 1-"
+          f"{STEPS // 2 - 1}, two runs each, in turns): bucketed "
+          + ", ".join(f"{v:.3f}" for v in step_ms["bucketed"])
+          + " ms | auto, per-leaf "
+          + ", ".join(f"{v:.3f}" for v in step_ms["auto"])
+          + f" ms {card}", flush=True)
+    print(f"phase 19: two-tier rounds on the ResNet-20 bucket: "
+          f"{len(STAGED_WIRES)} wires, two_tier(8, 1) == ring(8) bucketed, "
+          f"K=5 == K=1 and card == CPU on two_tier(8, 2) and (8, 4) "
+          f"(onebit within {RULE_ULPS} ulp), per-node presence (all-ones == "
+          f"None, node 1 absent keeps its intra average and residual), "
+          f"fast/slow bytes and WireState equal to the reference's, auto "
+          f"verdicts, launches {TIER_LAUNCHES}, Trainer.run tiers=2 "
+          f"({n_cases} cases, {time.perf_counter() - t0:.1f} s) {card}",
+          flush=True)
+    return counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2448,12 +2780,13 @@ def main() -> int:
     # the new paths' launches go onto the codec and point-decode entries
     extra = {}
     for counts in (elastic_phase(dev, card, X_cpu),
-                   sim_phase(dev, card, model, batches, X_cpu)):
+                   sim_phase(dev, card, model, batches, X_cpu),
+                   tiered_phase(dev, card, model, batches, X_cpu)):
         for name, n in counts.items():
             extra[name] = extra.get(name, 0) + n
     for k in kernels:
         k["launches"] += extra.get(k["name"], 0)
-    print(f"launches on phases 17-18's paths, added to the kernels line: "
+    print(f"launches on phases 17-19's paths, added to the kernels line: "
           f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))

@@ -60,6 +60,15 @@ class BucketChunk:
         codecs, which never straddle a chunk."""
         return tuple(s.padded_size for s in self.slots)
 
+    def chunks(self, k: int) -> Tuple["BucketChunk", ...]:
+        """Sub-partition this window into (at most) ``k`` slot-aligned
+        chunks with the greedy sweep of :meth:`BucketLayout.chunks`.
+        Offsets stay global buffer offsets (the encode's ``idx_base``); an
+        empty window yields no chunks."""
+        if not self.slots:
+            return ()
+        return _partition_slots(self.slots, max(int(k), 1))
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketLayout:
@@ -105,6 +114,21 @@ class BucketLayout:
         chunks, balanced by padded element count (the reference's greedy
         sweep).  ``chunks(1)`` is the whole buffer."""
         return _partition_slots(self.slots, max(int(k), 1))
+
+    def shard(self, axis_size: int, axis_index: int) -> BucketChunk:
+        """The slot-aligned window that worker ``axis_index`` of an
+        ``axis_size``-way intra axis owns: the shards partition
+        ``[0, padded_elems)`` in order, balanced by the same greedy sweep as
+        :meth:`chunks` but with a fixed count, so with fewer slots than
+        ``axis_size`` the trailing shards are empty windows at the buffer's
+        end.  ``shard(1, 0)`` is the whole buffer."""
+        if axis_size < 1:
+            raise ValueError(f"axis_size must be >= 1, got {axis_size}")
+        if not 0 <= axis_index < axis_size:
+            raise ValueError(
+                f"axis_index {axis_index} out of range for "
+                f"axis_size {axis_size}")
+        return _shards_of(self, int(axis_size))[axis_index]
 
     def flatten(self, X: PyTree) -> torch.Tensor:
         """Stacked pytree -> one ``[n, padded_elems]`` staging buffer."""
@@ -164,6 +188,19 @@ def _partition_slots(slots: Tuple[LeafSlot, ...],
         remaining -= chunks[-1].size
         start = end
     return tuple(chunks)
+
+
+@functools.lru_cache(maxsize=1024)
+def _shards_of(layout: BucketLayout,
+               axis_size: int) -> Tuple[BucketChunk, ...]:
+    """Exactly ``axis_size`` shard windows covering the buffer in order:
+    the greedy partition, then empty windows pinned to the buffer's end
+    when there are more workers than slots (memoized: a tiered round asks
+    for the same windows every round)."""
+    real = _partition_slots(layout.slots, axis_size)
+    end = layout.padded_elems
+    return real + tuple(BucketChunk(index=i, offset=end, size=0, slots=())
+                        for i in range(len(real), axis_size))
 
 
 def _common_stage_dtype(dtypes) -> torch.dtype:

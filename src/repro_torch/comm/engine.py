@@ -24,13 +24,17 @@ Wires (``codec``):
 The scale+codes and EF wires are plain PyTorch ops, as they are jnp ops in
 the reference (it has no kernel for them).
 
-Gossip path (``path=``): ``"bucketed"`` (default) flattens the whole stacked
-pytree into one ``[n, D]`` buffer (``comm/bucket.py``) and runs the staged
-round of :class:`RoundPlan`; ``"per_leaf"`` gossips leaf by leaf and is the
-parity reference.  Moniqua's and the EF wires' per-leaf rounds hash the same
-global element indices as the bucketed round, so the paths agree bit for
-bit; the per-leaf ``qsgd`` round hashes a seed per leaf, as the reference's
-does, and is held to the reference's per-leaf round only.
+Gossip path (``path=``): ``"bucketed"`` flattens the whole stacked pytree
+into one ``[n, D]`` buffer (``comm/bucket.py``) and runs the staged round of
+:class:`RoundPlan`; ``"per_leaf"`` gossips leaf by leaf; ``"auto"``
+(default) takes the reference's decision for the (layout, wire) pair:
+bucket when the per-leaf tile-pad amplification clears the crossover the
+reference derives from its committed ``BENCH_comm_fusion.json``.  That is a
+parity rule, so that both packages take the same path by default; it is not
+a speed of the card.  Stateful (EF) wires always bucket.  Moniqua's and the
+EF wires' per-leaf rounds hash the same global element indices as the
+bucketed round, so the paths agree bit for bit; the per-leaf ``qsgd`` round
+hashes a seed per leaf, as the reference's does.
 
 Staged rounds: ``chunks=K`` splits the flat buffer into K slot-aligned
 windows, and :meth:`RoundPlan.run` issues encode(t), permute(t-1),
@@ -56,6 +60,15 @@ path, which is the whole full-presence bitwise contract.  The masked
 Moniqua round runs one single-weight decode-reduce per neighbor offset and
 recombines the gated diffs in float32.
 
+Two-tier rounds (``topo`` a :class:`HierarchicalTopology`): every ``mix``
+is a :class:`TieredPlan`: a full-precision reduce along each node's intra
+axis, then each worker's owned slot-aligned shard gossiped across nodes on
+the inter tier (one :class:`RoundPlan` per shard, hashing global indices),
+then an all-gather.  The EF residual lives in the owned-shard domain
+``[n_inter, padded_elems]``, ``presence`` is per node, and the ledger splits
+the fast (intra) and slow (inter) bytes.  With ``n_intra == 1`` the round is
+bitwise the single-tier bucketed round on the inter topology.
+
 Randomness: the reference takes a JAX key; the port takes the uint32 hash
 ``seed`` the reference derives from it (``kops._key_to_seed``).
 """
@@ -63,7 +76,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, NamedTuple, Optional, Tuple
+import json
+import math
+import os
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,13 +97,14 @@ from repro_torch.core.quantizers import (_U32, QuantSpec,
                                          qsgd_decode_segmented, qsgd_encode,
                                          qsgd_encode_segmented,
                                          qsgd_payload_bytes)
-from repro_torch.core.topology import Topology, normalize_mask
+from repro_torch.core.topology import (HierarchicalTopology, Topology,
+                                       normalize_mask)
 from repro_torch.kernels import ops as kops
 
 PyTree = Any
 
 WIRES = ("full", "moniqua", "qsgd", "ef_qsgd", "onebit")
-PATHS = ("bucketed", "per_leaf")
+PATHS = ("bucketed", "per_leaf", "auto")
 
 
 class MixResult(NamedTuple):
@@ -188,6 +205,79 @@ def make_wire(name: str, spec: Optional[QuantSpec] = None, warmup: int = 16):
         # stochastic / nearest choice, pin the width
         return OneBitWire(dataclasses.replace(spec, bits=1), warmup=warmup)
     raise ValueError(f"unknown wire codec {name!r}; one of {WIRES}")
+
+
+# -- path="auto": the reference's per-(layout, wire) crossover ----------------
+
+# The reference's Pallas encode pads each launch to a grid of 256 x 1024
+# tiles, and its "auto" rule weighs that padding.  These two numbers are the
+# reference's decision rule, kept so both packages resolve "auto" alike; the
+# port's kernels have no such grid.
+REF_TILE_ROWS = 256
+REF_TILE_COLS = 1024
+
+# the reference's crossover for a tree without BENCH_comm_fusion.json
+_FALLBACK_CROSSOVER = {"moniqua": 9.8, "qsgd": float("inf"),
+                       "full": float("inf")}
+_BENCH_COMM_FUSION = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))), "BENCH_comm_fusion.json")
+
+
+def _tile_padded(elems: int) -> int:
+    """Elements after padding a flat segment to the reference's encode
+    tile grid."""
+    rows = -(-elems // REF_TILE_COLS)
+    return -(-rows // REF_TILE_ROWS) * REF_TILE_ROWS * REF_TILE_COLS
+
+
+@functools.lru_cache(maxsize=1)
+def _crossover_table() -> Dict[str, float]:
+    """Per-wire pad-amplification threshold above which bucketing wins, as
+    the reference derives it from the committed ``BENCH_comm_fusion.json``
+    at the repo root: the geometric mean of the worst winning and the best
+    losing model's ratio (per-leaf / bucketed tile-padded elements), ``inf``
+    when bucketing never won, 1.0 when it never lost.  Without the file, the
+    reference's fallback table."""
+    try:
+        with open(_BENCH_COMM_FUSION) as f:
+            data = json.load(f)
+    except FileNotFoundError:
+        return dict(_FALLBACK_CROSSOVER)
+    ratios = {o["model"]: (o["tile_padded_elems_per_leaf_path"]
+                           / o["tile_padded_elems_bucketed"])
+              for o in data["overhead"]}
+    wire_of = {"moniqua-1bit": "moniqua", "moniqua-8bit": "moniqua",
+               "qsgd-8bit": "qsgd", "fp32": "full"}
+    wins: Dict[str, list] = {}
+    losses: Dict[str, list] = {}
+    for row in data["table"]:
+        wire = wire_of.get(row["codec"])
+        if wire is None or row["model"] not in ratios:
+            continue
+        side = wins if row["speedup_x"] >= 1.0 else losses
+        side.setdefault(wire, []).append(ratios[row["model"]])
+    table = {}
+    for wire in ("moniqua", "qsgd", "full"):
+        w, l = wins.get(wire), losses.get(wire)
+        if not w:
+            table[wire] = float("inf")
+        elif not l:
+            table[wire] = 1.0
+        else:
+            table[wire] = math.sqrt(max(l) * min(w))
+    return table
+
+
+@functools.lru_cache(maxsize=4096)
+def _auto_bucketed_slots(slots: Tuple[bucket.LeafSlot, ...],
+                         padded_elems: int, codec_name: str) -> bool:
+    """``path="auto"`` on one contiguous slot window: bucket when its
+    per-leaf pad amplification clears the wire's crossover.  A shard of the
+    buffer resolves on its own leaves."""
+    per_leaf = sum(_tile_padded(s.padded_size) for s in slots)
+    ratio = per_leaf / max(_tile_padded(padded_elems), 1)
+    return ratio >= _crossover_table().get(codec_name, float("inf"))
 
 
 def _leaf_seed(base_seed: int, leaf_idx: int) -> int:
@@ -305,6 +395,13 @@ class RoundPlan:
     everyone present, the unmasked arithmetic); it gates only which decoded
     neighbor diffs enter the reduction and, on the EF wires, which rows
     update.
+
+    A shard plan of :class:`TieredPlan` has ``flat`` (and ``residual``) the
+    owned-shard window starting at buffer element ``base`` and gossips on
+    ``topo``, the inter tier.  Chunk offsets stay global (they are the
+    encode's ``idx_base``), so windows are sliced at ``c.offset - base``.
+    The defaults (``base=0``, ``topo`` the engine's gossip topology) are
+    the single-tier round.
     """
     engine: "CommEngine"
     layout: bucket.BucketLayout
@@ -315,13 +412,20 @@ class RoundPlan:
     residual: Optional[torch.Tensor] = None
     step: Optional[torch.Tensor] = None
     presence: Optional[Tuple[int, ...]] = None
+    base: int = 0
+    topo: Optional[Topology] = None
+
+    def __post_init__(self):
+        if self.topo is None:
+            self.topo = self.engine.gossip_topo
 
     @property
     def num_chunks(self) -> int:
         return len(self.chunks)
 
     def _win(self, arr: torch.Tensor, c: bucket.BucketChunk) -> torch.Tensor:
-        return arr[:, c.offset:c.offset + c.size]
+        off = c.offset - self.base
+        return arr[:, off:off + c.size]
 
     def encode_chunk(self, i: int) -> Tuple[torch.Tensor, ...]:
         """Encode chunk ``i`` of the staging buffer; returns the payload
@@ -333,8 +437,9 @@ class RoundPlan:
         if name == "full":
             return (self._win(self.flat, c),)
         if name == "moniqua":
-            return (kops.moniqua_encode_chunk(self.flat, c.offset, c.size,
-                                              self.B, codec.spec, self.seed),)
+            return (kops.moniqua_encode_chunk(
+                self.flat, c.offset - self.base, c.size, self.B, codec.spec,
+                self.seed, idx_base=c.offset),)
         if name == "qsgd":
             return qsgd_encode_segmented(
                 self._win(self.flat, c), codec.spec, self.seed,
@@ -352,7 +457,7 @@ class RoundPlan:
     def permute(self, i: int, enc: Tuple[torch.Tensor, ...]):
         """Roll chunk ``i``'s payload along the worker axis: the round's only
         cross-worker traffic.  The EF wires' ``v`` never rides the wire."""
-        topo = self.engine.topo
+        topo = self.topo
         name = self.engine.codec.name
         if name == "full":
             # the raw wire reduces over ALL offsets (self included, where
@@ -372,7 +477,7 @@ class RoundPlan:
         c = self.chunks[i]
         eng = self.engine
         name = eng.codec.name
-        topo = eng.topo
+        topo = self.topo
         p = self.presence
         if name == "full":
             if p is None:
@@ -398,16 +503,16 @@ class RoundPlan:
         if name == "moniqua":
             if p is None:
                 return kops.moniqua_decode_reduce_chunk(
-                    enc[0], nbrs, self.flat, c.offset, c.size, self.B,
-                    weights, spec)
+                    enc[0], nbrs, self.flat, c.offset - self.base, c.size,
+                    self.B, weights, spec)
             # masked: one single-weight decode-reduce per offset,
             # recombined as win + sum of the gated diffs in float32
             win = self._win(self.flat, c).float()
             out = win
             for k, (o, w) in enumerate(zip(offsets, weights)):
                 mixed_o = kops.moniqua_decode_reduce_chunk(
-                    enc[0], nbrs[k:k + 1], self.flat, c.offset, c.size,
-                    self.B, (w,), spec)
+                    enc[0], nbrs[k:k + 1], self.flat, c.offset - self.base,
+                    c.size, self.B, (w,), spec)
                 out = out + _gate(p, o, mixed_o.float() - win)
             return out.to(self._win(self.flat, c).dtype)
         seg = c.segment_sizes
@@ -470,15 +575,121 @@ class RoundPlan:
         return out
 
 
+@dataclasses.dataclass
+class TieredPlan:
+    """One two-tier round on the flat bucket (built by
+    :meth:`CommEngine.tiered_plan`), on ``[n, D]`` viewed as
+    ``[n_inter, n_intra, D]`` (worker ``w = g * n_intra + j``):
+
+    1. intra reduce (fast axis, full precision): the intra tier's circulant
+       mix along the node axis, the node mean for the default fully
+       connected tier; a pure reshape when ``n_intra == 1``;
+    2. inter shard gossip (slow axis, the wire): worker ``j`` owns the
+       slot-aligned window ``layout.shard(n_intra, j)`` and gossips only it
+       across nodes, one :class:`RoundPlan` per shard on the inter tier
+       with ``base`` the shard's offset, sub-chunked by
+       ``BucketChunk.chunks`` (slot-granular when the shard's own census
+       resolves per-leaf);
+    3. all-gather (fast axis): the mixed shards concatenate back and every
+       worker of a node leaves with its node's model.
+
+    The EF wires' residual lives in the owned-shard domain: one
+    ``[n_inter, padded_elems]`` float32 buffer whose row ``g``, window
+    ``j``, is worker ``(g, j)``'s residual for the shard it encodes.
+    ``presence`` is per node (length ``n_inter``): an absent node keeps its
+    intra average, drops out of the inter gossip, and its residual rows
+    pass through untouched.
+    """
+    engine: "CommEngine"
+    layout: bucket.BucketLayout
+    flat: torch.Tensor                 # [n, D] staging buffer
+    chunks: int = 1                    # per-shard sub-chunk count K
+    B: Optional[torch.Tensor] = None
+    seed: int = kops.NO_KEY_SEED
+    residual: Optional[torch.Tensor] = None   # [n_inter, D] owned shards
+    step: Optional[torch.Tensor] = None
+    presence: Optional[Tuple[int, ...]] = None
+
+    @property
+    def topo(self) -> HierarchicalTopology:
+        return self.engine.topo
+
+    def intra_reduce(self) -> torch.Tensor:
+        """Stage 1: the intra tier's circulant mix along the node axis
+        (rolled by ``-o``, each term times its weight rounded to the
+        buffer's dtype, added in offset order); ``[n_inter, n_intra, D]``."""
+        intra = self.topo.intra
+        g, k = self.topo.n_inter, self.topo.n_intra
+        stage = self.flat.reshape(g, k, self.flat.shape[-1])
+        if k == 1:
+            return stage
+        out = None
+        for o, w in zip(intra.offsets, intra.weights):
+            t = ((torch.roll(stage, -o, 1) if o % k else stage)
+                 * gossip.as_weight(w, stage.dtype))
+            out = t if out is None else out + t
+        return out.to(stage.dtype)
+
+    def shard_plan(self, j: int, z: torch.Tensor) -> RoundPlan:
+        """Stage 2 for shard ``j``: the owner rows' window as a RoundPlan
+        over the ``n_inter`` nodes on the inter tier."""
+        shard = self.layout.shard(self.topo.n_intra, j)
+        k = self.chunks
+        if not self.engine._shard_bucketed(shard):
+            # the shard's own census says per-leaf: one chunk a slot
+            k = max(k, len(shard.slots))
+        win = slice(shard.offset, shard.offset + shard.size)
+        res = None if self.residual is None else self.residual[:, win]
+        return RoundPlan(engine=self.engine, layout=self.layout,
+                         chunks=shard.chunks(k), flat=z[:, j, win], B=self.B,
+                         seed=self.seed, residual=res, step=self.step,
+                         presence=self.presence, base=shard.offset,
+                         topo=self.topo.inter)
+
+    def run(self):
+        """Run the tiered round: the mixed ``[n, D]`` buffer, or for the
+        EF wires ``(mixed buffer, new [n_inter, D] residual)``."""
+        g, k = self.topo.n_inter, self.topo.n_intra
+        stateful = self.engine.stateful
+        z = self.intra_reduce()
+        res = self.residual
+        if not self.topo.inter.neighbor_offsets():
+            out = z                 # a single node: its intra average
+        else:
+            outs, ress = [], []
+            for j in range(k):
+                if self.layout.shard(k, j).size == 0:
+                    continue        # more workers than slots: empty window
+                r = self.shard_plan(j, z).run()
+                if stateful:
+                    outs.append(r[0])
+                    ress.append(r[1])
+                else:
+                    outs.append(r)
+            # the mixed shards cover [0, D) slot-aligned, in order
+            out = (outs[0] if len(outs) == 1
+                   else torch.cat(outs, dim=1))[:, None, :]
+            if stateful:
+                res = ress[0] if len(ress) == 1 else torch.cat(ress, dim=1)
+        D = self.flat.shape[-1]
+        out = out.expand(g, k, D).reshape(g * k, D)
+        return (out, res) if stateful else out
+
+
 @dataclasses.dataclass(frozen=True)
 class CommEngine:
     """One gossip round, end to end: wire codec x topology x path x chunk
     count, plus the byte accounting.  Static configuration only; per-round
     inputs (``theta``, ``seed``, WireState, the ledger) are call
-    arguments."""
-    topo: Topology
+    arguments.
+
+    ``topo`` may be a :class:`HierarchicalTopology`: every ``mix`` is then a
+    two-tier round (:class:`TieredPlan`) in the staged flat-bucket domain,
+    and ``path`` governs each owned shard's launch granularity through the
+    shard's own leaf census."""
+    topo: Any                     # Topology | HierarchicalTopology
     codec: Any = dataclasses.field(default_factory=MoniquaWire)
-    path: str = "bucketed"
+    path: str = "auto"
     chunks: int = 1
 
     def __post_init__(self) -> None:
@@ -489,8 +700,22 @@ class CommEngine:
                              f"one of {WIRES}")
         if int(self.chunks) < 1:
             raise ValueError(f"chunks must be >= 1, got {self.chunks}")
-        if not isinstance(self.topo, Topology):
-            raise TypeError("the port gossips on a flat circulant Topology")
+        if not isinstance(self.topo, (Topology, HierarchicalTopology)):
+            raise TypeError("the engine gossips on a circulant Topology or "
+                            "a HierarchicalTopology")
+
+    # -- hierarchy plumbing ------------------------------------------------
+    @property
+    def tiered(self) -> bool:
+        """True when the topology is two-tier (every mix is a
+        TieredPlan)."""
+        return isinstance(self.topo, HierarchicalTopology)
+
+    @property
+    def gossip_topo(self) -> Topology:
+        """The tier whose edges carry the wire's payloads: the inter tier
+        of a hierarchy, or the flat topology."""
+        return self.topo.inter if self.tiered else self.topo
 
     # -- persistent per-worker codec state (WireState) ---------------------
     @property
@@ -503,22 +728,28 @@ class CommEngine:
         """Fresh WireState for a stacked pytree on its device (``{}`` for
         stateless wires): the residual in the flat bucket domain
         ``[n, padded_elems]`` float32, which both paths read and write, and
-        the step counter, a 0-dim int32."""
+        the step counter, a 0-dim int32.  A tiered engine keeps the
+        owned-shard residual, ``[n_inter, padded_elems]``."""
         if not self.stateful:
             return {}
         layout = self.layout(X)
         dev = tree.leaves(X)[0].device
-        return {"residual": torch.zeros((layout.n_workers,
-                                         layout.padded_elems),
+        rows = self.topo.n_inter if self.tiered else layout.n_workers
+        return {"residual": torch.zeros((rows, layout.padded_elems),
                                         dtype=torch.float32, device=dev),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def wire_state_bytes(self, X: PyTree) -> int:
         """Per-worker bytes of persistent codec state (Table 1's memory
-        column): 0 for full/moniqua/qsgd, residual + counter for EF wires."""
+        column): 0 for full/moniqua/qsgd, residual + counter for EF wires.
+        A tiered worker keeps only its owned shard: the ceil'd
+        ``n_intra``-th of the residual."""
         if not self.stateful or not tree.leaves(X):
             return 0
-        return self.layout(X).padded_elems * 4 + 4
+        elems = self.layout(X).padded_elems
+        if self.tiered:
+            elems = -(-elems // self.topo.n_intra)
+        return elems * 4 + 4
 
     def _check_wire_state(self, state) -> None:
         if not isinstance(state, dict) or "residual" not in state:
@@ -527,24 +758,47 @@ class CommEngine:
                 "state=engine.init_wire_state(X) and thread the returned "
                 "MixResult.state carry across rounds")
 
+    # -- gossip path resolution --------------------------------------------
+    def resolved_path(self, X: PyTree,
+                      shard: Optional[bucket.BucketChunk] = None) -> str:
+        """The concrete path (``"bucketed"`` or ``"per_leaf"``) this engine
+        takes for ``X``: the configured one, or under ``"auto"`` the
+        reference's crossover for the layout and wire; stateful wires
+        always bucket.  With ``shard`` (a ``BucketLayout.shard`` window)
+        ``"auto"`` resolves on the shard's own leaf census."""
+        if self.path != "auto":
+            return self.path
+        if self.stateful:
+            return "bucketed"
+        if shard is not None:
+            slots, elems = shard.slots, max(shard.size, 1)
+        else:
+            layout = self.layout(X)
+            slots, elems = layout.slots, layout.padded_elems
+        return ("bucketed" if _auto_bucketed_slots(slots, elems,
+                                                   self.codec.name)
+                else "per_leaf")
+
+    def _use_bucketed(self, X: PyTree) -> bool:
+        return self.resolved_path(X) == "bucketed"
+
+    def _shard_bucketed(self, shard: bucket.BucketChunk) -> bool:
+        return self.resolved_path(None, shard=shard) == "bucketed"
+
     # -- the staged round --------------------------------------------------
-    def round_plan(self, X: PyTree, theta=None, seed: Optional[int] = None,
-                   state: Optional[dict] = None,
-                   chunks: Optional[int] = None,
-                   presence=None) -> RoundPlan:
-        """Stage one gossip round on the flat bucket in ``chunks`` (default
-        the engine's) slot-aligned chunks; ``state`` is the EF wires'
-        WireState, ``presence`` the round's 0/1 worker mask."""
+    def _stage(self, X: PyTree, theta, seed, state, what: str):
+        """The checks and per-round inputs both staged rounds share:
+        ``(layout, flat, B, seed, residual, step)``."""
         layout = self.layout(X)
         name = self.codec.name
         if name == "full" and not layout.uniform_dtype:
             raise ValueError(
-                "no staged round for a mixed-dtype tree on the full wire "
+                f"no {what} for a mixed-dtype tree on the full wire "
                 "(f32 staging would change the mixing arithmetic); "
-                "use mix(), which falls back to the per-leaf circulant")
+                "use mix() on a flat topology, which falls back to the "
+                "per-leaf circulant")
         if self.stateful:
             self._check_wire_state(state)
-        k = self.chunks if chunks is None else int(chunks)
         flat = layout.flatten(X)
         B = residual = step = None
         if name != "full":
@@ -556,11 +810,49 @@ class CommEngine:
         if self.stateful:
             flat = flat.float()
             residual, step = state["residual"], state["step"]
+        return (layout, flat, B,
+                kops.NO_KEY_SEED if seed is None else int(seed), residual,
+                step)
+
+    def round_plan(self, X: PyTree, theta=None, seed: Optional[int] = None,
+                   state: Optional[dict] = None,
+                   chunks: Optional[int] = None,
+                   presence=None) -> RoundPlan:
+        """Stage one gossip round on the flat bucket in ``chunks`` (default
+        the engine's) slot-aligned chunks; ``state`` is the EF wires'
+        WireState, ``presence`` the round's 0/1 worker mask.  A tiered
+        engine stages per owned shard: use :meth:`tiered_plan` or
+        ``mix``."""
+        if self.tiered:
+            raise ValueError(
+                "a tiered engine stages per owned shard; use "
+                "tiered_plan()/mix() instead of round_plan()")
+        layout, flat, B, seed, residual, step = self._stage(
+            X, theta, seed, state, "staged round")
+        k = self.chunks if chunks is None else int(chunks)
         return RoundPlan(engine=self, layout=layout, chunks=layout.chunks(k),
-                         flat=flat, B=B,
-                         seed=kops.NO_KEY_SEED if seed is None else int(seed),
-                         residual=residual, step=step,
+                         flat=flat, B=B, seed=seed, residual=residual,
+                         step=step,
                          presence=_normalize_presence(presence, self.topo.n))
+
+    def tiered_plan(self, X: PyTree, theta=None, seed: Optional[int] = None,
+                    state: Optional[dict] = None,
+                    chunks: Optional[int] = None,
+                    presence=None) -> TieredPlan:
+        """Stage one two-tier round (intra reduce, per-shard inter gossip,
+        all-gather); ``chunks`` is the per-shard sub-chunk count K and
+        ``presence`` a per-node 0/1 mask of length ``n_inter``."""
+        if not self.tiered:
+            raise ValueError("tiered_plan needs a HierarchicalTopology "
+                             "engine; use round_plan() on flat topologies")
+        layout, flat, B, seed, residual, step = self._stage(
+            X, theta, seed, state, "tiered round")
+        k = self.chunks if chunks is None else int(chunks)
+        return TieredPlan(engine=self, layout=layout, flat=flat,
+                          chunks=max(k, 1), B=B, seed=seed,
+                          residual=residual, step=step,
+                          presence=_normalize_presence(presence,
+                                                       self.topo.n_inter))
 
     def mix(self, X: PyTree, theta=None, seed: Optional[int] = None,
             ledger: Optional[BytesLedger] = None,
@@ -574,12 +866,15 @@ class CommEngine:
         of stochastic rounding.  ``ledger`` (if given) is credited with
         payload-bytes * n_neighbors.
 
-        ``presence`` (elastic rounds): a per-worker 0/1 mask; dead edges
-        contribute identity and absent workers come back untouched
-        (module docstring).  ``None`` or all-ones is the unmasked round.
+        ``presence`` (elastic rounds): a per-worker 0/1 mask, per node
+        (length ``n_inter``) on a tiered engine; dead edges contribute
+        identity and absent workers come back untouched (module
+        docstring).  ``None`` or all-ones is the unmasked round.
         """
         if self.stateful:
             self._check_wire_state(state)
+        if self.tiered:
+            return self._mix_tiered(X, theta, seed, ledger, state, presence)
         presence = _normalize_presence(presence, self.topo.n)
         if not self.topo.neighbor_offsets() or not tree.leaves(X):
             return MixResult(X, state if state is not None else {})
@@ -592,7 +887,7 @@ class CommEngine:
             return MixResult(*self._mix_stateful(X, state, seed, presence))
         layout = self.layout(X)
         full_mixed_dtype = name == "full" and not layout.uniform_dtype
-        if self.path == "bucketed" and not full_mixed_dtype:
+        if self._use_bucketed(X) and not full_mixed_dtype:
             return MixResult(layout.unflatten(
                 self.round_plan(X, theta=theta, seed=seed,
                                 presence=presence).run()))
@@ -617,12 +912,37 @@ class CommEngine:
                    for i, l in enumerate(leaves)]
         return MixResult(tree.unflatten(td, out))
 
+    def _mix_tiered(self, X: PyTree, theta, seed: Optional[int],
+                    ledger: Optional[BytesLedger], state: Optional[dict],
+                    presence=None) -> MixResult:
+        """A tiered engine's round: stage and run a :class:`TieredPlan`.
+        Always in the flat bucket (the intra reduce and all-gather are
+        whole-buffer operations); the step counter advances by one."""
+        if not tree.leaves(X) or self.topo.n == 1:
+            return MixResult(X, state if state is not None else {})
+        if self.codec.name == "moniqua" and theta is None:
+            raise ValueError("MoniquaWire needs the a-priori bound theta")
+        if ledger is not None:
+            self._record(X, ledger)
+        plan = self.tiered_plan(X, theta=theta, seed=seed, state=state,
+                                presence=presence)
+        layout = plan.layout
+        if self.stateful:
+            out, res = plan.run()
+            return MixResult(layout.unflatten(out.to(layout.stage_dtype)),
+                             {"residual": res, "step": state["step"] + 1})
+        return MixResult(layout.unflatten(plan.run()))
+
     # -- step-level overlap: one-round-stale mixing ------------------------
     def _require_stale_wire(self) -> None:
         if self.stateful or self.codec.name != "moniqua":
             raise ValueError(
                 "one-round-stale overlap needs the stateless moniqua wire "
                 f"(got {self.codec.name!r})")
+        if self.tiered:
+            raise ValueError(
+                "one-round-stale overlap is single-tier only: a tiered "
+                "round's payloads are per owned shard, not whole-buffer")
 
     def init_gossip_carry(self, X: PyTree) -> dict:
         """Fresh carry for :meth:`mix_stale`, on ``X``'s device: the
@@ -715,7 +1035,7 @@ class CommEngine:
         same accumulation order, so outputs and state agree bitwise.  The
         step counter advances for every worker, absent ones included."""
         layout = self.layout(X)
-        if self.path == "bucketed":
+        if self._use_bucketed(X):
             out, res = self.round_plan(X, seed=seed, state=state,
                                        presence=presence).run()
         else:
@@ -956,11 +1276,19 @@ class CommEngine:
             {"residual": rj[0], "step": state_j["step"] + 1})
 
     # -- gossip building blocks of the replica-mixing baselines -------------
+    def _require_flat(self, what: str) -> None:
+        if self.tiered:
+            raise ValueError(
+                f"{what} needs a flat circulant topology; the "
+                "replica-mixing baselines do not support tiers")
+
     def neighbor_sum(self, X: PyTree, transform) -> PyTree:
         """``sum_{o != 0} w_o * transform(roll(X, -o), o)`` leaf-wise."""
+        self._require_flat("neighbor_sum")
         return gossip.neighbor_sum(X, self.topo, transform)
 
     def self_weight(self) -> float:
+        self._require_flat("self_weight")
         return gossip.self_weight(self.topo)
 
     # -- accounting --------------------------------------------------------
@@ -969,13 +1297,18 @@ class CommEngine:
         alignment makes the bucketed payload equal the per-leaf sum exactly
         (with one scale word, or a lo/hi level pair, per tensor), so the
         path never changes this number.  The EF wires gossip packed flat
-        segments on both paths; onebit reports its steady state."""
+        segments on both paths; onebit reports its steady state.  A tiered
+        worker broadcasts only its owned shard on the slow axis: the ceil'd
+        ``n_intra``-th of the staged payload."""
         leaves = tree.leaves(X)
         if not leaves:
             return 0
+        if self.tiered:
+            return -(-self._staged_payload_bytes(self.layout(X))
+                     // self.topo.n_intra)
         if self.stateful:
             return self._staged_payload_bytes(self.layout(X))
-        if self.path == "bucketed":
+        if self._use_bucketed(X):
             layout = self.layout(X)
             if self.codec.name != "full" or layout.uniform_dtype:
                 return self._staged_payload_bytes(layout)
@@ -997,11 +1330,32 @@ class CommEngine:
             nbytes += 8 * layout.num_leaves
         return nbytes
 
+    def fast_bytes_per_round(self, X: PyTree) -> int:
+        """Fast-axis (intra) bytes one worker sends per tiered round: the
+        reduce-scatter and all-gather of the staging buffer,
+        ``2 * (n_intra - 1) / n_intra`` of it in the staging dtype (float32
+        for the EF wires).  0 on a flat engine or a trivial intra tier."""
+        if not self.tiered or not tree.leaves(X):
+            return 0
+        k = self.topo.n_intra
+        if k == 1:
+            return 0
+        layout = self.layout(X)
+        itemsize = (4 if self.stateful else torch.empty(
+            (), dtype=layout.stage_dtype).element_size())
+        return 2 * itemsize * layout.padded_elems * (k - 1) // k
+
     def bytes_per_round(self, X: PyTree) -> int:
-        """Payload bytes *sent* per worker per gossip round (all leaves)."""
-        return (self.payload_bytes_per_broadcast(X)
-                * len(self.topo.neighbor_offsets()))
+        """Payload bytes *sent* per worker per gossip round (all leaves):
+        on a tiered engine the fast-axis bytes plus one owned-shard
+        broadcast per inter neighbor."""
+        return (self.fast_bytes_per_round(X)
+                + self.payload_bytes_per_broadcast(X)
+                * len(self.gossip_topo.neighbor_offsets()))
 
     def _record(self, X: PyTree, ledger: BytesLedger) -> None:
         ledger.add(self.payload_bytes_per_broadcast(X),
-                   len(self.topo.neighbor_offsets()), tier="slow")
+                   len(self.gossip_topo.neighbor_offsets()), tier="slow")
+        fast = self.fast_bytes_per_round(X)
+        if fast:
+            ledger.add(fast, 1, tier="fast")

@@ -35,6 +35,7 @@ from repro_torch.comm.engine import CommEngine, FullPrecisionWire, make_wire
 from repro_torch.comm.gossip import as_weight
 from repro_torch.core.modulo import _scalar
 from repro_torch.core.moniqua import MoniquaCodec
+from repro_torch.core import topology
 from repro_torch.core.topology import Topology
 
 PyTree = Any
@@ -42,11 +43,13 @@ PyTree = Any
 
 @dataclasses.dataclass(frozen=True)
 class AlgoHyper:
-    """Static hyper-parameters of the update rules (flat topology only).
+    """Static hyper-parameters of the update rules.
 
     ``engine()`` builds the configured wire (``wire`` x ``codec.spec``) for
     quantized gossip, ``exact_engine()`` the full-precision engine the
-    baselines (and replica mixing) use.
+    baselines (and replica mixing) use, both on ``comm_topo()``: ``topo``
+    itself, or with ``tiers = k > 1`` the two-tier hierarchy of nodes of k
+    workers.  ``path`` defaults to ``"auto"``, the reference's default.
 
     Elastic rounds: ``presence`` is a 0/1 worker mask that D-PSGD, Moniqua
     (every branch), D² and Moniqua-D² hand to the engine's
@@ -61,22 +64,42 @@ class AlgoHyper:
     gamma: float = 1.0            # consensus step size (Choco/DeepSqueeze)
     naive_delta: float = 0.05     # absolute lattice pitch of the naive rule
     wire: str = "moniqua"         # wire codec for quantized gossip (engine())
-    path: str = "bucketed"        # gossip path: bucketed | per_leaf
+    path: str = "auto"            # gossip path: bucketed | per_leaf | auto
     chunks: int = 1               # staged-round chunk count (1 = barrier)
     overlap: str = "none"         # step-level overlap: none | stale (Moniqua)
     warmup: int = 16              # onebit wire: fp32 rounds before 1-bit+EF
+    tiers: int = 1                # 1 = flat gossip; k>1 = two-tier, nodes of k
     presence: Optional[Tuple[int, ...]] = None   # elastic 0/1 worker mask
     deadline: Optional[float] = None             # sim round deadline (s)
 
+    def comm_topo(self):
+        """The topology the engines gossip on: ``topo`` for flat runs
+        (``tiers=1``), else the two-tier hierarchy with ``topo``'s family
+        as the inter graph over ``n // tiers`` nodes and a fully connected
+        intra tier of ``tiers`` workers.  A ``HierarchicalTopology`` given
+        as ``topo`` wins over ``tiers``."""
+        if isinstance(self.topo, topology.HierarchicalTopology):
+            return self.topo
+        if self.tiers <= 1:
+            return self.topo
+        # replay the slack factors the flat name carries ("ring-slack0.9")
+        # onto the inter tier, the only quantized one
+        parts = self.topo.name.split("-slack")
+        hier = topology.two_tier(self.topo.n, self.tiers,
+                                 inter_name=parts[0])
+        for g in parts[1:]:
+            hier = hier.slack(float(g))
+        return hier
+
     def engine(self) -> CommEngine:
-        return CommEngine(self.topo,
+        return CommEngine(self.comm_topo(),
                           make_wire(self.wire, self.codec.spec,
                                     warmup=self.warmup),
                           path=self.path, chunks=self.chunks)
 
     def exact_engine(self) -> CommEngine:
-        return CommEngine(self.topo, FullPrecisionWire(), path=self.path,
-                          chunks=self.chunks)
+        return CommEngine(self.comm_topo(), FullPrecisionWire(),
+                          path=self.path, chunks=self.chunks)
 
 
 # ---------------------------------------------------------------------------

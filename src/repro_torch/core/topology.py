@@ -17,8 +17,12 @@ weights over the workers that showed up (absent workers keep self-weight
 1, W stays symmetric doubly stochastic), and ``TimeVaryingTopology`` holds
 a per-round matrix schedule with a *joint* spectral gap over one window.
 Both are numpy analysis objects: the engine applies the renormalization
-edge-wise and never builds them.  Hierarchical topologies belong to a
-later slice of the port.
+edge-wise and never builds them.
+
+Two-tier gossip: ``HierarchicalTopology`` (built by ``two_tier``) composes
+an intra-node graph and an inter-node graph as ``kron(W_inter, W_intra)``;
+the engine runs it as a full-precision reduce inside each node and
+quantized gossip of owned shards across nodes.
 """
 from __future__ import annotations
 
@@ -278,6 +282,95 @@ class TimeVaryingTopology:
         """Slack every round of the window (Theorem 3 entrywise)."""
         return TimeVaryingTopology(
             tuple(t.slack(gamma) for t in self.schedule))
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalTopology:
+    """Two-tier gossip topology: an intra-tier graph inside each node times
+    an inter-tier graph across nodes.
+
+    Worker ``w = g * intra.n + j`` is member ``j`` of node ``g`` (the intra
+    index varies fastest, a ``reshape(n_inter, n_intra)`` of the stacked
+    worker axis).  One round composes as ``W_hier = kron(W_inter,
+    W_intra)``; with ``intra = fully_connected(k)`` that is exactly what the
+    engine's tiered round computes (intra reduce, inter shard gossip, intra
+    all-gather).  Only the inter tier's gossip is quantized, so ``slack``
+    (Theorem 3) applies to the inter tier only.
+    """
+    intra: Topology
+    inter: Topology
+
+    @property
+    def name(self) -> str:
+        return (f"{self.inter.name}{self.inter.n}"
+                f"x{self.intra.name}{self.intra.n}")
+
+    @property
+    def n(self) -> int:
+        return self.intra.n * self.inter.n
+
+    @property
+    def n_intra(self) -> int:
+        return self.intra.n
+
+    @property
+    def n_inter(self) -> int:
+        return self.inter.n
+
+    @property
+    def matrix(self) -> np.ndarray:
+        """``kron(W_inter, W_intra)`` on the flat worker index
+        ``w = g * n_intra + j``."""
+        return np.kron(self.inter.matrix, self.intra.matrix)
+
+    @property
+    def rho(self) -> float:
+        """Second-largest absolute eigenvalue of the composed W (A2),
+        from the kron (``max(intra.rho, inter.rho)`` for symmetric doubly
+        stochastic tiers)."""
+        ev = np.sort(np.abs(np.linalg.eigvalsh(self.matrix)))[::-1]
+        return float(ev[1]) if self.n > 1 else 0.0
+
+    @property
+    def phi(self) -> float:
+        W = self.matrix
+        nz = W[W > 1e-12]
+        return float(nz.min()) if nz.size else 0.0
+
+    @property
+    def t_mix_bound(self) -> float:
+        gap = 1.0 - self.rho
+        if gap <= 0:
+            return float("inf")
+        return float(np.log(4 * self.n) / gap)
+
+    def neighbor_offsets(self) -> Tuple[int, ...]:
+        """Nonzero inter-tier offsets on the flat worker index: the stride
+        ``o * n_intra`` (node g's member j talks to node g+o's member j)."""
+        return tuple(o * self.intra.n
+                     for o in self.inter.neighbor_offsets())
+
+    def slack(self, gamma: float) -> "HierarchicalTopology":
+        """Slack on the quantized (inter) tier only."""
+        return HierarchicalTopology(intra=self.intra,
+                                    inter=self.inter.slack(gamma))
+
+
+def two_tier(n: int, n_intra: int, inter_name: str = "ring",
+             intra: Topology | None = None, **kw) -> HierarchicalTopology:
+    """Two-tier hierarchy over ``n`` workers in nodes of ``n_intra``: the
+    named topology over ``n // n_intra`` nodes, and a fully connected intra
+    tier unless ``intra`` is given.  ``n_intra = 1`` is the flat graph."""
+    if n_intra < 1 or n % n_intra:
+        raise ValueError(
+            f"n_intra must divide n: got n={n}, n_intra={n_intra}")
+    if intra is None:
+        intra = fully_connected(n_intra)
+    elif intra.n != n_intra:
+        raise ValueError(f"intra topology has n={intra.n}, want {n_intra}")
+    return HierarchicalTopology(intra=intra,
+                                inter=get_topology(inter_name,
+                                                   n // n_intra, **kw))
 
 
 def get_topology(name: str, n: int, **kw) -> Topology:

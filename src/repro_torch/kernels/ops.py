@@ -16,6 +16,8 @@ reference layout fix the payload bits and are kept:
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.modulo import _scalar
@@ -112,11 +114,17 @@ def moniqua_decode_reduce_stacked(p_self: torch.Tensor, p_nbrs: torch.Tensor,
 
 
 def moniqua_encode_chunk(flat: torch.Tensor, offset: int, size: int, B,
-                         spec: QuantSpec, seed: int) -> torch.Tensor:
+                         spec: QuantSpec, seed: int, *,
+                         idx_base: Optional[int] = None) -> torch.Tensor:
     """Encode the window ``flat[:, offset:offset+size]`` of a stacked flat
-    buffer with globally indexed uniforms (``idx_base = offset``)."""
+    buffer with globally indexed uniforms (``idx_base = offset``).
+
+    ``idx_base`` overrides the counter base when ``flat`` is itself a
+    window of a larger buffer: a shard plan slices at shard-local offsets
+    but must hash the global element indices."""
     return moniqua_encode_stacked(flat[:, offset:offset + size], B, spec,
-                                  seed, idx_base=offset)
+                                  seed, idx_base=offset if idx_base is None
+                                  else idx_base)
 
 
 def moniqua_decode_reduce_chunk(p_self: torch.Tensor, p_nbrs: torch.Tensor,

@@ -42,9 +42,13 @@ class TrainerConfig:
     checkpoint_every: int = 0
     wire: str = "moniqua"       # CommEngine wire codec (moniqua | qsgd |
                                 #   ef_qsgd | onebit | full)
+    comm_path: str = "auto"     # gossip path: bucketed | per_leaf | auto
     chunks: int = 1             # staged-round chunk count (1 = barrier)
     overlap: str = "none"       # step-level overlap: none | stale (moniqua)
     warmup: int = 16            # onebit wire: fp32 rounds before 1-bit+EF
+    tiers: int = 1              # 1 = flat gossip; k>1 = two-tier hierarchy
+                                #   (nodes of k workers, tc.topology across
+                                #   nodes, full-precision reduce inside)
     presence: Optional[tuple] = None  # elastic 0/1 worker mask for every
                                 #   round (AlgoHyper.presence); None = all up
     deadline: Optional[float] = None  # sim round deadline in seconds
@@ -52,18 +56,19 @@ class TrainerConfig:
 
 
 def build_hyper(tc: TrainerConfig) -> AlgoHyper:
-    """The run's AlgoHyper on the bucketed path (D-PSGD and all-reduce
-    gossip full precision whatever the wire).  1-bit rounds to nearest
-    (stochastic 1-bit has delta = 1/2, which Moniqua rejects), wider codes
-    round stochastically."""
+    """The run's AlgoHyper (D-PSGD and all-reduce gossip full precision
+    whatever the wire).  1-bit rounds to nearest (stochastic 1-bit has
+    delta = 1/2, which Moniqua rejects), wider codes round
+    stochastically."""
     topo = get_topology(tc.topology, tc.n_workers)
     if tc.slack < 1.0:
         topo = topo.slack(tc.slack)
     spec = QuantSpec(bits=tc.bits, stochastic=tc.bits > 1)
     presence = None if tc.presence is None else tuple(tc.presence)
     return AlgoHyper(topo=topo, codec=MoniquaCodec(spec), theta=tc.theta,
-                     gamma=tc.gamma, wire=tc.wire, chunks=tc.chunks,
-                     overlap=tc.overlap, warmup=tc.warmup, presence=presence,
+                     gamma=tc.gamma, wire=tc.wire, path=tc.comm_path,
+                     chunks=tc.chunks, overlap=tc.overlap, warmup=tc.warmup,
+                     tiers=tc.tiers, presence=presence,
                      deadline=tc.deadline)
 
 
@@ -78,7 +83,8 @@ class Trainer:
             sgd=SGDConfig(momentum=tc.momentum, weight_decay=tc.weight_decay),
             lr=tc.lr,
             theta=ThetaSchedule(mode="constant", value=tc.theta,
-                                n=tc.n_workers, rho=self.hp.topo.rho))
+                                n=tc.n_workers,
+                                rho=self.hp.comm_topo().rho))
         self.step_fn = TS.make_train_step(model, self.hp, self.tcfg)
 
     def init_state(self) -> Dict[str, Any]:

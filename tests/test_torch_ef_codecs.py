@@ -322,7 +322,7 @@ def test_ef_round_from_a_reference_state(wire):
         wire, jq.QuantSpec(**spec), warmup=0), backend="jnp",
         path="bucketed")
     te = teng.CommEngine(ttopo.ring(8), teng.make_wire(
-        wire, tq.QuantSpec(**spec), warmup=0))
+        wire, tq.QuantSpec(**spec), warmup=0), path="bucketed")
     Xj = jax.tree.map(jnp.asarray, _tree_np())
     r1 = je.mix(Xj, state=je.init_wire_state(Xj))
     r2 = je.mix(r1.x, state=r1.state)

@@ -399,7 +399,8 @@ def test_rule_with_presence_matches_reference(name, over, topo, mask):
     if name in ("d2", "moniqua_d2"):
         jt, tt = jt.slack(0.75), tt.slack(0.75)
     spec = dict(bits=8, stochastic=True)
-    # the reference's "auto" path may pick per-leaf: pin the port's default
+    # both packages' "auto" may pick per-leaf for the full wire, whose
+    # masked sum takes another order: pin the bucketed path in both
     kw = dict(theta=THETA, presence=mask, deadline=0.25, path="bucketed",
               **over)
     jhp = jalg.AlgoHyper(topo=jt, codec=JCodec(JSpec(**spec)), **kw)

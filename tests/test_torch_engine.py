@@ -101,7 +101,7 @@ def test_bucket_layout_matches_reference_on_resnet20(align):
     _assert_trees_equal(X, tl.unflatten(flat))
 
 
-@pytest.mark.parametrize("path", ["bucketed", "per_leaf"])
+@pytest.mark.parametrize("path", ["bucketed", "per_leaf", "auto"])
 @pytest.mark.parametrize("topo", TOPOS, ids=lambda t: t[0])
 def test_full_wire_mix_bitwise(topo, path):
     X = _tree_np()
@@ -113,7 +113,7 @@ def test_full_wire_mix_bitwise(topo, path):
     _assert_trees_equal(ref, out)
 
 
-@pytest.mark.parametrize("path", ["bucketed", "per_leaf"])
+@pytest.mark.parametrize("path", ["bucketed", "per_leaf", "auto"])
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("topo", TOPOS, ids=lambda t: t[0])
 def test_moniqua_mix_bitwise(topo, bits, path):
@@ -153,7 +153,7 @@ def test_bucketed_payload_is_concatenated_per_leaf_payload():
     assert torch.equal(p_bucket, torch.cat(p_leaves, dim=1))
 
 
-@pytest.mark.parametrize("path", ["bucketed", "per_leaf"])
+@pytest.mark.parametrize("path", ["bucketed", "per_leaf", "auto"])
 @pytest.mark.parametrize("wire,bits", [("full", 8)] + [("moniqua", b)
                                                        for b in BITS])
 def test_bytes_per_round_and_ledger_match_reference(wire, bits, path):
@@ -208,5 +208,5 @@ def test_engine_rejects_missing_seed_and_theta():
         eng.mix(X, theta=2.0)                 # stochastic needs a seed
     with pytest.raises(ValueError):
         eng.mix(X, seed=1)                    # moniqua needs theta
-    with pytest.raises(ValueError):
-        teng.CommEngine(ttopo.ring(9), path="auto")
+    with pytest.raises(ValueError, match="unknown path"):
+        teng.CommEngine(ttopo.ring(9), path="fused")
