@@ -172,8 +172,29 @@ Phases (any failure exits non-zero, and the result line is not printed):
    (``TIER_LAUNCHES``, wrappers and profiler) and its host-clock time
    beside the flat round's; ``Trainer.run`` with ``tiers=2`` for moniqua
    8-bit and dpsgd (falling losses, 2 encodes and 2 decode-reduces a
-   Moniqua step, bytes per step, no extra memory).  Phases 17-19's
-   launches are added to the kernels line.
+   Moniqua step, bytes per step, no extra memory).
+20. Round-health telemetry (``repro_torch.obs``) on the ResNet-20 bucket:
+   phase 15's wires on ring(8), ring(8) under phase 18's mask and
+   ``two_tier(8, 2)``, bucketed at K = 1 and 5 and per-leaf, 3 rounds:
+   telemetry on == off bitwise (x, WireState), the health the same across
+   the routes and equal to the CPU's (``ef_residual_l2`` within
+   ``OBS_L2_RTOL`` relative); a telemetered Moniqua round's encode and
+   decode-reduce launches beside an untelemetered one's (wrappers and
+   profiler: the sentinel reuses a barrier bucketed round's payload, else
+   one re-encode); the alias sentinel silent on the main path's trained
+   model at theta 2.0 and firing, card == CPU, at an undersized theta;
+   ``Trainer.run`` of the main path with telemetry, a run log and a Chrome
+   trace (params bitwise a telemetry-off run's under deterministic cuDNN,
+   ``obs_*`` metrics, log and trace valid by the port's validators, device
+   time of a profiled step under the ``comm.*`` labels); AD-PSGD with edge
+   telemetry, 200 iterations (X bitwise, two extra encodes an iteration);
+   ``SimTrace.to_chrome`` of churn-ring merged with the trainer's trace;
+   ``MoniquaCodec(use_kernels=True)`` on the bucket (encode and point
+   decode card == CPU bitwise, within Lemma 2's delta B) and
+   ``moniqua_gossip`` on the ResNet-20 params (within its bound of the
+   exact mix); host-clock rounds with telemetry on and off, and phase
+   15's K = 61 round with its phase labels on and off, in turns.  Phases
+   17-20's launches are added to the kernels line.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -393,6 +414,68 @@ def host_ms(fn, reps: int = 20) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
+# record_function labels (the engine's ``comm.*`` phases, the serve steps'
+# ``serve.*``): host ranges the profiler also draws on the device track,
+# left out of every device sum and launch count
+ANNOTATIONS = ("comm.", "serve.")
+
+# The profiler loses the first kernel records of a profiled window: 10 of
+# every window late in a run of this script on the H100, and in a fresh
+# process now and then a few dozen (`tools/profiler_gaps.py`), whatever
+# host time passes first.  Every profiled window therefore opens with
+# PROFILER_PRIME spin kernels, which absorb the loss and which
+# ``device_kernels`` leaves out of every sum and count.
+PROFILER_PRIME = 256
+SPIN_KERNEL = "spin_kernel"        # torch.cuda._sleep's kernel
+
+
+def device_kernels(prof) -> list:
+    """The profiler's device events that are kernels, not label ranges or
+    the window's priming spin kernels."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(ANNOTATIONS)
+            and SPIN_KERNEL not in e.key]
+
+
+def profiler_prime() -> None:
+    for _ in range(PROFILER_PRIME):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def traced(fn):
+    """Profile one call of ``fn`` (host and card) in a primed window, the
+    card synchronised before it closes; returns the profile."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profiler_prime()
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def primer_lost(prof) -> int:
+    """How many of the window's priming spin kernels the profiler lost."""
+    return PROFILER_PRIME - sum(
+        e.count for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and SPIN_KERNEL in e.key)
+
+
+def window_edges(prof) -> str:
+    """The kernels a profile recorded: their number, and the first and last
+    three in launch order (what a short count lost)."""
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith(ANNOTATIONS)
+                 and SPIN_KERNEL not in e.name),
+                key=lambda e: e.time_range.start)
+    nm = [e.name.split("(")[0][-40:] for e in ev]
+    return f"{len(nm)} kernels, first {nm[:3]}, last {nm[-3:]}"
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -443,18 +526,17 @@ def causal_pairs(s: int) -> int:
 
 def profile_device(fn, what, card):
     """Device busy share, launches and device time by kernel group of one
-    call of ``fn`` under torch.profiler (the serve steps' ``serve.*``
-    ranges are host annotations and are left out of the device sums)."""
+    call of ``fn`` under torch.profiler (label ranges left out:
+    ``device_kernels``)."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profiler_prime()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("serve.")]
+    kern = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
     if busy_us == 0:
         print(f"profile: {what}: no device time recorded (not measured)")
@@ -1377,11 +1459,10 @@ WIRE_BYTES = {"moniqua": (544564, 0), "qsgd": (545052, 0),
 def _kernel_launches(prof) -> tuple:
     """(encode, decode-reduce) kernels the profiler saw on the card."""
     n = {"encode_kernel": 0, "decode_reduce_kernel": 0}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for k in n:
-                if k in e.key:
-                    n[k] += e.count
+    for e in device_kernels(prof):
+        for k in n:
+            if k in e.key:
+                n[k] += e.count
     return n["encode_kernel"], n["decode_reduce_kernel"]
 
 
@@ -1461,11 +1542,7 @@ def staged_phase(dev, card, X_cpu):
             if wire == "moniqua":
                 torch.cuda.synchronize()
                 kenc.encode.launches = kdr.decode_reduce.launches = 0
-                with torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    eng.mix(X, **kw(0))
-                    torch.cuda.synchronize()
+                prof = traced(lambda: eng.mix(X, **kw(0)))
                 n = eng.round_plan(X, **kw(0)).num_chunks
                 check((kenc.encode.launches, kdr.decode_reduce.launches)
                       == (n, n) and n == min(K, 61),
@@ -1823,11 +1900,8 @@ def elastic_phase(dev, card, X_cpu):
                              chunks=K)
             torch.cuda.synchronize()
             kenc.encode.launches = kdr.decode_reduce.launches = 0
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                eng.mix(X, theta=2.0, seed=1, presence=mask)
-                torch.cuda.synchronize()
+            prof = traced(lambda: eng.mix(X, theta=2.0, seed=1,
+                                          presence=mask))
             got = (kenc.encode.launches, kdr.decode_reduce.launches)
             counted["moniqua_encode"] += got[0]
             counted["moniqua_decode_reduce"] += got[1]
@@ -1980,14 +2054,8 @@ def sim_phase(dev, card, model, batches, X_cpu):
         for tag, tr in (("masked", trainer), ("unmasked", Trainer(
                 model, TrainerConfig(**base, **kw), lambda k: batches[k]))):
             state = out["state"] if tag == "masked" else tr.init_state()
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                tr.step_fn(state, batches[0])
-                torch.cuda.synchronize()
-            steps[tag] = sum(e.count for e in prof.key_averages()
-                             if e.device_type
-                             == torch.autograd.DeviceType.CUDA)
+            prof = traced(lambda: tr.step_fn(state, batches[0]))
+            steps[tag] = sum(e.count for e in device_kernels(prof))
         print(f"run {name} presence {TRAIN_MASK}: losses "
               f"{[round(v, 4) for v in losses]} | launches {got}",
               flush=True)
@@ -2264,11 +2332,7 @@ def tiered_phase(dev, card, model, batches, X_cpu):
         eng.mix(X, theta=2.0, seed=1)       # warm-up, outside the trace
         torch.cuda.synchronize()
         kenc.encode.launches = kdr.decode_reduce.launches = 0
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            eng.mix(X, theta=2.0, seed=1)
-            torch.cuda.synchronize()
+        prof = traced(lambda: eng.mix(X, theta=2.0, seed=1))
         got = (kenc.encode.launches, kdr.decode_reduce.launches)
         counted["moniqua_encode"] += got[0]
         counted["moniqua_decode_reduce"] += got[1]
@@ -2341,13 +2405,8 @@ def tiered_phase(dev, card, model, batches, X_cpu):
         for path in ("bucketed", "auto"):
             eng = CommEngine(ring(N_WORKERS), wire_of(wire, 8), path=path)
             kwp = kw(wire, 0)
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                eng.mix(X, presence=mask, **kwp)
-                torch.cuda.synchronize()
-            n[path] = sum(e.count for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA)
+            prof = traced(lambda: eng.mix(X, presence=mask, **kwp))
+            n[path] = sum(e.count for e in device_kernels(prof))
             ms[path] = host_ms(lambda: eng.mix(X, presence=mask, **kwp),
                                reps=10)
         print(f"time: one {wire} round of the ResNet-20 bucket on ring(8)"
@@ -2381,6 +2440,452 @@ def tiered_phase(dev, card, model, batches, X_cpu):
           f"verdicts, launches {TIER_LAUNCHES}, Trainer.run tiers=2 "
           f"({n_cases} cases, {time.perf_counter() - t0:.1f} s) {card}",
           flush=True)
+    return counted
+
+
+# -- round-health telemetry, run logs and traces (phase 20) -------------------
+
+# phase 20's rounds: ring(8), ring(8) under phase 18's mask, two_tier(8, 2);
+# the routes each takes (path, K); the card's ef_residual_l2 against the
+# CPU's (its sum of squares runs in another order on the card: relative)
+OBS_LAYOUTS = (("ring", None), ("ring", TRAIN_MASK), ("two_tier", None))
+OBS_ROUTES = (("bucketed", 1), ("bucketed", 5), ("per_leaf", 1))
+OBS_L2_RTOL = 1e-5
+OBS_TURNS = 4                  # in-turn repeats of each host-clock timing
+OBS_BAD_THETA = 0.05           # an undersized theta (tests/test_obs.py)
+
+
+def _label_device_ms(prof) -> dict:
+    """Device time under each ``comm.*`` label (the CPU-side label event's
+    children), ms."""
+    out = {}
+    for e in prof.key_averages():
+        if (e.key.startswith("comm.")
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            base = e.key.split("/")[0]
+            out[base] = out.get(base, 0.0) + e.device_time_total / 1e3
+    return out
+
+
+def _device_busy_ms(prof) -> float:
+    return sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+
+
+def obs_phase(dev, card, model, batches, X_cpu, trained):
+    """Phase 20: round-health telemetry on every wire (observational on the
+    card, card health == CPU health), the alias sentinel, the trainer's run
+    log and Chrome trace, AD-PSGD's edge health, ``SimTrace.to_chrome``,
+    the functional kernel codec and ``moniqua_gossip``, and telemetry's and
+    the phase labels' cost; returns the counted launches by kernels-line
+    entry.  ``trained`` is the main path's params after its 10 steps."""
+    from repro_torch import tree
+    from repro_torch.comm import gossip
+    from repro_torch.comm.engine import CommEngine, MoniquaWire, make_wire
+    from repro_torch.core import adpsgd, modulo
+    from repro_torch.core.moniqua import MoniquaCodec
+    from repro_torch.core.quantizers import QuantSpec
+    from repro_torch.core.topology import ring, two_tier
+    from repro_torch.kernels import moniqua_decode as kdec
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import runlog, trace as obs_trace
+    from repro_torch.sim import events, scenarios
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def zero():
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdr.decode_reduce.launches = 0
+        kdec.decode.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {"moniqua_encode": kenc.encode.launches,
+                "moniqua_decode_reduce": kdr.decode_reduce.launches,
+                "moniqua_decode": kdec.decode.launches}
+
+    def add(total, got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    counted = {}
+    X = tree.map(lambda a: a.to(dev), X_cpu)
+    exact = [k for k in obs_metrics.HEALTH_ROUND_KEYS
+             if k != "ef_residual_l2"]
+    outdir = os.path.join(ROOT, "build", "obs")
+    os.makedirs(outdir, exist_ok=True)
+
+    def kw(wire, k):
+        if wire == "full":
+            return {}
+        return dict(seed=2000 + k, **({"theta": 2.0}
+                                      if wire == "moniqua" else {}))
+
+    def rounds(eng, X0, presence):
+        Xk = X0
+        st = eng.init_wire_state(X0) if eng.stateful else None
+        out = []
+        for k in range(STAGED_ROUNDS):
+            r = eng.mix(Xk, state=st, presence=presence,
+                        **kw(eng.codec.name, k))
+            Xk, st = r.x, (r.state if eng.stateful else None)
+            out.append((tree.leaves(Xk), st, r.health))
+        return out
+
+    # -- 1-2. on == off on the card, the same across routes, card == CPU ---
+    n_cases, l2_worst = 0, 0.0
+    for topo_name, mask in OBS_LAYOUTS:
+        topo = (ring(N_WORKERS) if topo_name == "ring"
+                else two_tier(N_WORKERS, 2))
+        presence = mask if topo_name == "ring" else None
+        for wire, bits in STAGED_WIRES:
+            spec = QuantSpec(min(bits, 8), 1 < bits <= 8)
+            what = (f"{wire} {bits}-bit on {topo.name}"
+                    + ("" if presence is None else f" mask {presence}"))
+
+            def engine(path, K, tel):
+                return CommEngine(topo, make_wire(wire, spec, warmup=2),
+                                  path=path, chunks=K, telemetry=tel)
+
+            first = None
+            for path, K in OBS_ROUTES:
+                on = rounds(engine(path, K, True), X, presence)
+                off = rounds(engine(path, K, False), X, presence)
+                check(_same_rounds([r[:2] for r in on], [r[:2] for r in off]),
+                      f"{what} {path} K={K}: telemetry on != off (card)")
+                check(all(r[2] is None for r in off), f"{what}: health off")
+                n_cases += 1
+                if first is None:
+                    first = on
+                    continue
+                # every round when the routes are bitwise (K = 5), the
+                # first (same input) when they are not (per-leaf)
+                upto = STAGED_ROUNDS if path == "bucketed" else 1
+                for k in range(upto):
+                    for key in obs_metrics.HEALTH_ROUND_KEYS:
+                        check(torch.equal(first[k][2][key], on[k][2][key]),
+                              f"{what} {path} K={K} round {k}: health "
+                              f"{key} differs from bucketed K=1")
+            cpu = rounds(engine("bucketed", 1, True), X_cpu, presence)
+            bitwise = wire in ("full", "moniqua")
+            for k in range(STAGED_ROUNDS if bitwise else 1):
+                hg, hc = first[k][2], cpu[k][2]
+                for key in exact:
+                    check(torch.equal(hg[key].cpu(), hc[key]),
+                          f"{what} round {k}: health {key} card "
+                          f"{float(hg[key])} != CPU {float(hc[key])}")
+                a, b = float(hg["ef_residual_l2"]), float(hc["ef_residual_l2"])
+                rel = abs(a - b) / max(abs(b), 1e-30)
+                check(rel <= OBS_L2_RTOL, f"{what}: ef_residual_l2 card {a} "
+                      f"vs CPU {b} (rel {rel:.3g})")
+                l2_worst = max(l2_worst, rel)
+    print(f"phase 20: telemetry on == off bitwise on the card ({n_cases} "
+          f"cases: {len(STAGED_WIRES)} wires x {len(OBS_LAYOUTS)} layouts x "
+          f"routes {list(OBS_ROUTES)}, {STAGED_ROUNDS} rounds, x and "
+          f"WireState); health equal across routes; card == CPU ({exact} "
+          f"exact; ef_residual_l2 within {l2_worst:.3g} relative, limit "
+          f"{OBS_L2_RTOL}) {card}", flush=True)
+
+    # -- 3. a telemetered round's launches, beside an untelemetered one ---
+    eng_of = {}
+    for path, K in OBS_ROUTES + (("bucketed", 61),):
+        for tel in (False, True):
+            eng_of[path, K, tel] = CommEngine(
+                ring(N_WORKERS), MoniquaWire(QuantSpec(8)), path=path,
+                chunks=K, telemetry=tel)
+    prof_busy, lost = {}, {}
+    for path, K in OBS_ROUTES:
+        n = (eng_of[path, K, False].round_plan(X, theta=2.0, seed=1)
+             .num_chunks if path == "bucketed" else len(tree.leaves(X)))
+        seen = {}
+        for tel in (False, True):
+            eng = eng_of[path, K, tel]
+            eng.mix(X, theta=2.0, seed=1)            # untraced warm-up
+            want = (n + (1 if tel and (path, K) != ("bucketed", 1) else 0),
+                    n)
+            zero()
+            prof = traced(lambda: eng.mix(X, theta=2.0, seed=1))
+            got = read()
+            add(counted, got)
+            have = (got["moniqua_encode"], got["moniqua_decode_reduce"])
+            check(have == want, f"{path} K={K} telemetry={tel}: encode / "
+                  f"decode-reduce launches {have}, want {want}")
+            prof_seen = _kernel_launches(prof)
+            if prof_seen == (0, 0):
+                print(f"  profile: {path} K={K} telemetry={tel}: no device "
+                      f"kernels recorded (not measured)")
+            else:
+                check(prof_seen == want, f"{path} K={K} telemetry={tel}: "
+                      f"profiler saw {prof_seen}, want {want}; "
+                      + window_edges(prof))
+            prof_busy[path, K, tel] = _device_busy_ms(prof)
+            lost[path, K, tel] = primer_lost(prof)
+            seen[tel] = have
+        print(f"launches: one moniqua 8-bit round on ring(8), {path} K={K}: "
+              f"encode / decode-reduce {seen[False]} untelemetered, "
+              f"{seen[True]} telemetered (wrappers and profiler); device "
+              f"busy {prof_busy[path, K, False]:.4f} -> "
+              f"{prof_busy[path, K, True]:.4f} ms; priming kernels the "
+              f"profiler lost {lost[path, K, False]}, {lost[path, K, True]} "
+              f"of {PROFILER_PRIME} {card}", flush=True)
+
+    # -- 4. the sentinel on the trained bucket, and firing ----------------
+    eng = eng_of["bucketed", 1, True]
+    h = eng.mix(trained, theta=2.0, seed=3).health
+    check(int(h["alias_count"]) == 0, f"trained bucket at theta 2.0: "
+          f"alias_count {int(h['alias_count'])}")
+    print(f"sentinel: the main path's trained ResNet-20 ({STEPS} steps) at "
+          f"theta 2.0: consensus_inf {float(h['consensus_inf']):.6g}, headroom "
+          f"{float(h['headroom']):.6g}, alias_count 0", flush=True)
+    gen = torch.Generator().manual_seed(5)
+    bad_cpu = {"w": torch.randn((N_WORKERS, 4096), generator=gen) * 3.0}
+    bad = tree.map(lambda a: a.to(dev), bad_cpu)
+    fired = {}
+    for bits in (4, 8):
+        e = CommEngine(ring(N_WORKERS), MoniquaWire(QuantSpec(bits)),
+                       telemetry=True)
+        hg = e.mix(bad, theta=OBS_BAD_THETA, seed=2).health
+        hc = e.mix(bad_cpu, theta=OBS_BAD_THETA, seed=2).health
+        fired[bits] = int(hg["alias_count"])
+        check(fired[bits] > 0 and fired[bits] == int(hc["alias_count"]),
+              f"undersized theta {bits}-bit: alias_count card "
+              f"{fired[bits]}, CPU {int(hc['alias_count'])}")
+    print(f"sentinel: theta {OBS_BAD_THETA} on [8, 4096] of scale 3.0: "
+          f"alias_count {fired} (4-, 8-bit), card == CPU", flush=True)
+
+    # -- 5. Trainer.run with telemetry, a run log and a trace -------------
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    base = dict(algo="moniqua", topology="ring", n_workers=N_WORKERS, bits=8,
+                theta=2.0, lr=0.1, momentum=0.9, weight_decay=5e-4,
+                steps=STEPS, log_every=1, seed=0)
+    log = os.path.join(outdir, "trainer_runlog.jsonl")
+    trace_path = os.path.join(outdir, "trainer_trace.json")
+    runs, step_ms = {}, {}
+    for tel in (True, False, True, False):
+        extra = (dict(telemetry=True, log_jsonl=log, trace_path=trace_path)
+                 if tel else {})
+        trainer = Trainer(model, TrainerConfig(**base, **extra),
+                          lambda k: batches[k])
+        zero()
+        out = trainer.run()
+        got = read()
+        check((got["moniqua_encode"], got["moniqua_decode_reduce"])
+              == (STEPS, STEPS), f"trainer telemetry={tel}: launches {got}")
+        walls = [hh["wall"] for hh in out["history"]]
+        step_ms.setdefault(tel, []).append(
+            1e3 * (walls[-1] - walls[0]) / (len(walls) - 1))
+        runs[tel] = (trainer, out)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(runs[True][1]["state"]["params"]),
+        tree.leaves(runs[False][1]["state"]["params"])))
+    check(same, "Trainer.run telemetry on != off (params, deterministic "
+          "cuDNN)")
+    hist = runs[True][1]["history"]
+    obs_keys = sorted(k for k in hist[-1] if k.startswith("obs_"))
+    check(len(obs_keys) == len(obs_metrics.HEALTH_KEYS),
+          f"obs metrics {obs_keys}")
+    check(not any(k.startswith("obs_") for k in runs[False][1]["history"][-1]),
+          "obs_* without telemetry")
+    check(runlog.validate_runlog(log) == [], f"run log: "
+          f"{runlog.validate_runlog(log)[:3]}")
+    records = runlog.read_runlog(log)
+    with open(trace_path) as f:
+        tobj = json.load(f)
+    check(obs_trace.validate_chrome(tobj) == [], "trainer Chrome trace")
+    n_spans = sum(e.get("name") == "train.step" and e.get("ph") == "X"
+                  for e in tobj["traceEvents"])
+    check(n_spans == STEPS, f"trace has {n_spans} train.step spans")
+    last = hist[-1]
+    print(f"run moniqua-8bit telemetry=True ({STEPS} steps, deterministic "
+          f"cuDNN): "
+          f"params == telemetry-off run bitwise; obs_alias_total "
+          f"{last['obs_alias_total']:.0f}, headroom {last['obs_headroom']:.6g}"
+          f", consensus_inf {last['obs_consensus_inf']:.6g}, bits/param "
+          f"{last['obs_bits_per_param']:.6g}; run log {len(records)} records "
+          f"({len(runlog.step_records(records))} steps, valid), Chrome trace "
+          f"{len(tobj['traceEvents'])} events (valid)", flush=True)
+    print(f"time: step moniqua-8bit (deterministic cuDNN, mean of steps 1-"
+          f"{STEPS - 1}, two runs each, in turns): telemetry on "
+          + ", ".join(f"{v:.3f}" for v in step_ms[True]) + " ms | off "
+          + ", ".join(f"{v:.3f}" for v in step_ms[False]) + f" ms {card}",
+          flush=True)
+    # one profiled step: device time under each comm.* label
+    trainer, out = runs[True]
+    state = out["state"]
+    trainer.step_fn(state, batches[0])               # untraced warm-up
+    torch.cuda.synchronize()
+    prof = traced(lambda: trainer.step_fn(state, batches[0]))
+    labels = _label_device_ms(prof)
+    busy = _device_busy_ms(prof)
+    if busy == 0:
+        print("profile: one telemetered step: no device time recorded (not "
+              "measured)")
+    else:
+        print(f"profile: one telemetered moniqua-8bit step: device busy "
+              f"{busy:.3f} ms; under the labels " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in sorted(labels.items()))
+              + f" {card}", flush=True)
+
+    # -- 6. AD-PSGD with telemetry ----------------------------------------
+    spec8 = QuantSpec(8)
+    e1 = CommEngine(ring(N_WORKERS), MoniquaWire(spec8))
+    p0 = model.init(torch.Generator().manual_seed(0))
+    X0 = tree.map(lambda a: a[None].expand((N_WORKERS,) + a.shape), p0)
+    lay1 = e1.layout(tree.map(lambda a: a[:1], X0))
+    x0 = e1.layout(X0).flatten(X0)
+    resnet_grad, calls = bucket_grad(model, batches, lay1)
+    cfg = adpsgd.ADPSGDConfig(topo=ring(N_WORKERS),
+                              codec=MoniquaCodec(spec8), theta=2.0,
+                              max_delay=ADPSGD_DELAY, quantized=True)
+    sched = adpsgd.make_schedule(N_WORKERS, ADPSGD_ITERS, cfg, seed=0)
+    ad, it_ms = {}, {}
+    for turn, tel in enumerate((False, True, False, True)):
+        calls[0] = 0
+        zero()
+        t1 = time.perf_counter()
+        res = adpsgd.run(x0, resnet_grad, 0.1, ADPSGD_ITERS,
+                         dataclasses.replace(cfg, telemetry=tel),
+                         schedule=sched)
+        got = read()
+        it_ms.setdefault(tel, []).append(
+            1e3 * (time.perf_counter() - t1) / ADPSGD_ITERS)
+        if turn < 2:                # the second pair only times
+            add(counted, got)
+            ad[tel] = (res, got)
+    check(torch.equal(ad[False][0][0], ad[True][0][0]),
+          "AD-PSGD telemetry on != off (X)")
+    enc_off, enc_on = (ad[False][1]["moniqua_encode"],
+                       ad[True][1]["moniqua_encode"])
+    check(enc_off == ADPSGD_ITERS and enc_on == 3 * ADPSGD_ITERS,
+          f"AD-PSGD encodes {enc_off} / {enc_on}")
+    check(ad[True][1]["moniqua_decode"] == ad[False][1]["moniqua_decode"]
+          == 2 * ADPSGD_ITERS, "AD-PSGD point decodes")
+    htr = ad[True][0][2]
+    check(tuple(htr["consensus_inf"].shape) == (ADPSGD_ITERS,),
+          "AD-PSGD health trace shape")
+    print(f"run adpsgd-moniqua telemetry=True ({ADPSGD_ITERS} iterations, "
+          f"deterministic cuDNN): X == telemetry-off bitwise; encodes "
+          f"{enc_off} -> {enc_on} (two extra an iteration); edge alias "
+          f"total {int(htr['alias_count'].sum())}, max consensus_inf "
+          f"{float(htr['consensus_inf'].max()):.6g}", flush=True)
+    print(f"time: AD-PSGD moniqua iteration (ResNet-20 gradient, mean of "
+          f"{ADPSGD_ITERS}), host clock, two runs each, in turns: telemetry "
+          f"off " + ", ".join(f"{v:.3f}" for v in it_ms[False]) + " ms | on "
+          + ", ".join(f"{v:.3f}" for v in it_ms[True]) + f" ms {card}",
+          flush=True)
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+    # -- 7. the simulator's timeline as a Chrome trace --------------------
+    sc = scenarios.get_scenario("churn-ring", n=N_WORKERS)
+    nbytes = eng_of["bucketed", 1, False].payload_bytes_per_broadcast(X)
+    strace = events.simulate_sync_rounds(sc.with_deadline(SIM_DEADLINE),
+                                         nbytes, SIM_ROUNDS)
+    sobj = strace.to_chrome()
+    merged = obs_trace.merge_chrome_traces([tobj, sobj])
+    check(obs_trace.validate_chrome(sobj) == []
+          and obs_trace.validate_chrome(merged) == [],
+          "SimTrace.to_chrome / merged trace invalid")
+    obs_trace.save_chrome_trace(merged, os.path.join(outdir, "merged.json"))
+    print(f"sim: churn-ring {SIM_ROUNDS} rounds -> Chrome trace of "
+          f"{len(sobj['traceEvents'])} events (valid), merged with the "
+          f"trainer's ({len(merged['traceEvents'])} events, valid)",
+          flush=True)
+
+    # -- 8. the functional kernel codec and moniqua_gossip -----------------
+    codec = MoniquaCodec(spec8, use_kernels=True)
+    lay = e1.layout(X)
+    x = lay.flatten(X)
+    y_cpu = (lay.flatten(X_cpu) + (torch.rand(x.shape, generator=gen) - 0.5)
+             * 1.8 * 2.0)                          # |y - x| < theta
+    y = y_cpu.to(dev)
+    zero()
+    p = codec.encode(x, 2.0, seed=77)
+    xh = codec.decode(p, y, 2.0)
+    xs = codec.decode_self(p, x, 2.0)
+    got = read()
+    add(counted, got)
+    check(got == {"moniqua_encode": 1, "moniqua_decode_reduce": 0,
+                  "moniqua_decode": 2}, f"codec launches {got}")
+    p_cpu = codec.encode(x.cpu(), 2.0, seed=77)
+    check(torch.equal(p.cpu(), p_cpu), "kernel codec encode card != CPU")
+    check(torch.equal(xh.cpu(), codec.decode(p_cpu, y_cpu, 2.0)),
+          "kernel codec decode card != CPU")
+    B = float(modulo.b_theta(2.0, spec8.delta))
+    eps = torch.finfo(torch.float32).eps
+    err = float((xh - x).abs().max())
+    slack = 4 * eps * max(float(x.abs().max()), B)
+    check(err <= codec.max_error(2.0) + slack, f"codec decode error {err} > "
+          f"delta B {codec.max_error(2.0)}")
+    check(bool(torch.isfinite(xs).all()), "decode_self not finite")
+    seeds = list(range(900, 900 + len(tree.leaves(X))))
+    zero()
+    mg = gossip.moniqua_gossip(X, ring(N_WORKERS), codec, 2.0, seeds=seeds)
+    got = read()
+    add(counted, got)
+    n_leaves = len(tree.leaves(X))
+    check(got == {"moniqua_encode": n_leaves, "moniqua_decode_reduce": 0,
+                  "moniqua_decode": 3 * n_leaves},
+          f"moniqua_gossip launches {got}")
+    exact_mix = gossip.mix(X, ring(N_WORKERS))
+    w_self = gossip.self_weight(ring(N_WORKERS))
+    gap = max(float((a - b).abs().max()) for a, b in zip(
+        tree.leaves(mg), tree.leaves(exact_mix)))
+    bound = 2 * (1 - w_self) * codec.max_error(2.0) + slack
+    check(all(bool(torch.isfinite(a).all()) for a in tree.leaves(mg))
+          and gap <= bound, f"moniqua_gossip {gap} from the exact mix > "
+          f"{bound}")
+    mg_cpu = gossip.moniqua_gossip(X_cpu, ring(N_WORKERS), codec, 2.0,
+                                   seeds=seeds)
+    cpu_gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree.leaves(mg), tree.leaves(mg_cpu)))
+    print(f"codec: MoniquaCodec(use_kernels=True) on the ResNet-20 bucket "
+          f"{list(x.shape)}: encode card == CPU bitwise, decode card == CPU "
+          f"bitwise, |x_hat - x| {err:.6g} <= delta B {codec.max_error(2.0)}"
+          f"; moniqua_gossip on the ResNet-20 params ({n_leaves} leaves): "
+          f"finite, {gap:.6g} from the exact mix (bound {bound:.6g}), card "
+          f"vs CPU {cpu_gap:.3g}; launches {got}", flush=True)
+
+    # -- 9. host-clock cost of telemetry and of the phase labels -----------
+    ms = {}
+    for _ in range(OBS_TURNS):
+        for tel in (False, True):
+            e = eng_of["bucketed", 1, tel]
+            ms.setdefault(tel, []).append(
+                host_ms(lambda: e.mix(X, theta=2.0, seed=1), reps=10))
+    print(f"time: one moniqua 8-bit round of the ResNet-20 bucket on "
+          f"ring(8), bucketed K=1, host clock, in turns: telemetry off "
+          + ", ".join(f"{v:.3f}" for v in ms[False]) + " ms | on "
+          + ", ".join(f"{v:.3f}" for v in ms[True]) + f" ms {card}",
+          flush=True)
+    # the labels' cost: entered on every call (labels_on patched to True)
+    # against the default, entered only while a profiler records
+    e61 = eng_of["bucketed", 61, False]
+    lab = {}
+    default = obs_trace.labels_on
+    try:
+        for _ in range(OBS_TURNS):
+            for on in (False, True):
+                obs_trace.labels_on = (lambda: True) if on else default
+                lab.setdefault(on, []).append(
+                    host_ms(lambda: e61.mix(X, theta=2.0, seed=1), reps=10))
+    finally:
+        obs_trace.labels_on = default
+    n_labels = 3 * e61.round_plan(X, theta=2.0, seed=1).num_chunks
+    print(f"time: phase 15's K=61 moniqua 8-bit round ({n_labels} phase "
+          f"labels), host clock, in turns: labels off (the default without a "
+          f"profiler) " + ", ".join(f"{v:.3f}" for v in lab[False])
+          + " ms | labels entered " + ", ".join(
+              f"{v:.3f}" for v in lab[True]) + f" ms {card}", flush=True)
+    print(f"phase 20: telemetry observational and card == CPU, launches "
+          f"counted, sentinel silent on the trained bucket and firing at "
+          f"theta {OBS_BAD_THETA}, Trainer.run run log and trace valid, "
+          f"AD-PSGD bitwise, SimTrace.to_chrome valid, kernel codec and "
+          f"moniqua_gossip; launches {counted} "
+          f"({time.perf_counter() - t0:.1f} s) {card}", flush=True)
     return counted
 
 
@@ -2733,13 +3238,13 @@ def main() -> int:
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profiler_prime()
         t0 = time.perf_counter()
         for k in range(3):
             state, _ = step_fn(state, batches[k])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = device_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
     if busy_us == 0:
         print("profile: no device time recorded (not measured)")
@@ -2781,12 +3286,14 @@ def main() -> int:
     extra = {}
     for counts in (elastic_phase(dev, card, X_cpu),
                    sim_phase(dev, card, model, batches, X_cpu),
-                   tiered_phase(dev, card, model, batches, X_cpu)):
+                   tiered_phase(dev, card, model, batches, X_cpu),
+                   obs_phase(dev, card, model, batches, X_cpu,
+                             main_run[1]["params"])):
         for name, n in counts.items():
             extra[name] = extra.get(name, 0) + n
     for k in kernels:
         k["launches"] += extra.get(k["name"], 0)
-    print(f"launches on phases 17-19's paths, added to the kernels line: "
+    print(f"launches on phases 17-20's paths, added to the kernels line: "
           f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))

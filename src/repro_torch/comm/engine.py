@@ -69,6 +69,15 @@ then an all-gather.  The EF residual lives in the owned-shard domain
 the fast (intra) and slow (inter) bytes.  With ``n_intra == 1`` the round is
 bitwise the single-tier bucketed round on the inter topology.
 
+Telemetry (``telemetry=True``): every ``mix`` / ``mix_stale`` result also
+carries the round-health dict of ``repro_torch.obs.metrics`` (consensus
+distance, theta headroom, the alias sentinel, EF residual norm, bytes),
+read from the round's own flat buffer, payload and WireState.  It feeds
+nothing back: outputs, payloads and WireState are bitwise the same with it
+on or off.  The phases of a round run under ``obs.trace`` labels
+(``comm.encode`` / ``comm.permute`` / ``comm.decode_reduce`` /
+``comm.intra_reduce`` / ``comm.telemetry``) for ``torch.profiler``.
+
 Randomness: the reference takes a JAX key; the port takes the uint32 hash
 ``seed`` the reference derives from it (``kops._key_to_seed``).
 """
@@ -100,6 +109,8 @@ from repro_torch.core.quantizers import (_U32, QuantSpec,
 from repro_torch.core.topology import (HierarchicalTopology, Topology,
                                        normalize_mask)
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 PyTree = Any
 
@@ -110,9 +121,12 @@ PATHS = ("bucketed", "per_leaf", "auto")
 class MixResult(NamedTuple):
     """What one gossip round returns: ``x`` is the mixed model
     ``X_{k+1/2}``; ``state`` the post-round WireState (``{}`` for stateless
-    wires) or, from :meth:`CommEngine.mix_stale`, the gossip carry."""
+    wires) or, from :meth:`CommEngine.mix_stale`, the gossip carry;
+    ``health`` the round-health dict of an engine with ``telemetry=True``
+    (else ``None``)."""
     x: Any
     state: dict = {}
+    health: Optional[dict] = None
 
 
 class PairResult(NamedTuple):
@@ -549,30 +563,39 @@ class RoundPlan:
             out, res = _if_present(p, out, win), _if_present(p, res, rwin)
         return out, res
 
-    def run(self):
+    def run(self, with_payload: bool = False):
         """Run the round through the skewed pipeline: at tick t, encode(t),
         permute(t-1), decode_reduce(t-2).  Returns the mixed flat buffer,
         or ``(mixed flat buffer, new flat residual)`` for the EF wires.
-        With one chunk it is the barrier round."""
+        With one chunk it is the barrier round.  ``with_payload`` returns
+        ``(result, payload)``: the barrier round's packed payload (None at
+        K > 1), which the telemetry's alias sentinel reads."""
         K = self.num_chunks
         stateful = self.engine.stateful
         enc, nbr = {}, {}
         outs, ress = [None] * K, [None] * K
+        payload = None
         for t in range(K + 2):
             if t < K:
-                enc[t] = self.encode_chunk(t)
+                with obs_trace.chunk_phase("comm.encode", t, K):
+                    enc[t] = self.encode_chunk(t)
+                if with_payload and K == 1:
+                    payload = enc[t][0]
             if 0 <= t - 1 < K:
-                nbr[t - 1] = self.permute(t - 1, enc[t - 1])
+                with obs_trace.chunk_phase("comm.permute", t - 1, K):
+                    nbr[t - 1] = self.permute(t - 1, enc[t - 1])
             if 0 <= t - 2 < K:
-                r = self.decode_reduce(t - 2, enc.pop(t - 2), nbr.pop(t - 2))
+                with obs_trace.chunk_phase("comm.decode_reduce", t - 2, K):
+                    r = self.decode_reduce(t - 2, enc.pop(t - 2),
+                                           nbr.pop(t - 2))
                 if stateful:
                     outs[t - 2], ress[t - 2] = r
                 else:
                     outs[t - 2] = r
         out = outs[0] if K == 1 else torch.cat(outs, dim=1)
         if stateful:
-            return out, (ress[0] if K == 1 else torch.cat(ress, dim=1))
-        return out
+            out = out, (ress[0] if K == 1 else torch.cat(ress, dim=1))
+        return (out, payload) if with_payload else out
 
 
 @dataclasses.dataclass
@@ -651,7 +674,8 @@ class TieredPlan:
         EF wires ``(mixed buffer, new [n_inter, D] residual)``."""
         g, k = self.topo.n_inter, self.topo.n_intra
         stateful = self.engine.stateful
-        z = self.intra_reduce()
+        with obs_trace.named_phase("comm.intra_reduce"):
+            z = self.intra_reduce()
         res = self.residual
         if not self.topo.inter.neighbor_offsets():
             out = z                 # a single node: its intra average
@@ -686,11 +710,16 @@ class CommEngine:
     ``topo`` may be a :class:`HierarchicalTopology`: every ``mix`` is then a
     two-tier round (:class:`TieredPlan`) in the staged flat-bucket domain,
     and ``path`` governs each owned shard's launch granularity through the
-    shard's own leaf census."""
+    shard's own leaf census.
+
+    ``telemetry`` attaches a round-health dict (``repro_torch.obs``) to
+    every returned :class:`MixResult`; the mix itself is bitwise the same
+    with it on or off (module docstring)."""
     topo: Any                     # Topology | HierarchicalTopology
     codec: Any = dataclasses.field(default_factory=MoniquaWire)
     path: str = "auto"
     chunks: int = 1
+    telemetry: bool = False
 
     def __post_init__(self) -> None:
         if self.path not in PATHS:
@@ -877,40 +906,53 @@ class CommEngine:
             return self._mix_tiered(X, theta, seed, ledger, state, presence)
         presence = _normalize_presence(presence, self.topo.n)
         if not self.topo.neighbor_offsets() or not tree.leaves(X):
-            return MixResult(X, state if state is not None else {})
+            return self._empty_round(X, state)
         if ledger is not None:
             self._record(X, ledger)
         name = self.codec.name
         if name == "moniqua" and theta is None:
             raise ValueError("MoniquaWire needs the a-priori bound theta")
         if self.stateful:
-            return MixResult(*self._mix_stateful(X, state, seed, presence))
+            Xm, new_state = self._mix_stateful(X, state, seed, presence)
+            return MixResult(Xm, new_state, self._round_health(
+                X, theta, seed, new_state, presence))
         layout = self.layout(X)
         full_mixed_dtype = name == "full" and not layout.uniform_dtype
+        flat = payload = None
         if self._use_bucketed(X) and not full_mixed_dtype:
-            return MixResult(layout.unflatten(
-                self.round_plan(X, theta=theta, seed=seed,
-                                presence=presence).run()))
-        if name == "full":
+            plan = self.round_plan(X, theta=theta, seed=seed,
+                                   presence=presence)
+            if self.telemetry and name == "moniqua":
+                out, payload = plan.run(with_payload=True)
+            else:
+                out = plan.run()
+            Xm = layout.unflatten(out)
+            flat = plan.flat
+        elif name == "full":
             if presence is None:
-                return MixResult(gossip.mix(X, self.topo))
-            return MixResult(tree.map(
-                lambda l: _masked_circulant(l, self.topo, presence), X))
-        self._require_seed(seed)
-        seed = kops.NO_KEY_SEED if seed is None else int(seed)
-        leaves, td = tree.flatten(X)
-        if name == "moniqua":
-            # global counter indices: leaf i's elements hash
-            # (seed, layout.offset_i + e), the SAME pairs the bucketed
-            # one-shot encode hashes: the bucketed-vs-per-leaf parity
-            out = [self._mix_leaf(l, theta, seed, idx_base=layout.offsets[i],
-                                  presence=presence)
-                   for i, l in enumerate(leaves)]
+                Xm = gossip.mix(X, self.topo)
+            else:
+                Xm = tree.map(
+                    lambda l: _masked_circulant(l, self.topo, presence), X)
         else:
-            out = [self._mix_leaf(l, theta, _leaf_seed(seed, i),
-                                  presence=presence)
-                   for i, l in enumerate(leaves)]
-        return MixResult(tree.unflatten(td, out))
+            self._require_seed(seed)
+            base_seed = kops.NO_KEY_SEED if seed is None else int(seed)
+            leaves, td = tree.flatten(X)
+            if name == "moniqua":
+                # global counter indices: leaf i's elements hash
+                # (seed, layout.offset_i + e), the SAME pairs the bucketed
+                # one-shot encode hashes: the bucketed-vs-per-leaf parity
+                out = [self._mix_leaf(l, theta, base_seed,
+                                      idx_base=layout.offsets[i],
+                                      presence=presence)
+                       for i, l in enumerate(leaves)]
+            else:
+                out = [self._mix_leaf(l, theta, _leaf_seed(base_seed, i),
+                                      presence=presence)
+                       for i, l in enumerate(leaves)]
+            Xm = tree.unflatten(td, out)
+        return MixResult(Xm, {}, self._round_health(
+            X, theta, seed, None, presence, flat=flat, payload=payload))
 
     def _mix_tiered(self, X: PyTree, theta, seed: Optional[int],
                     ledger: Optional[BytesLedger], state: Optional[dict],
@@ -919,7 +961,7 @@ class CommEngine:
         Always in the flat bucket (the intra reduce and all-gather are
         whole-buffer operations); the step counter advances by one."""
         if not tree.leaves(X) or self.topo.n == 1:
-            return MixResult(X, state if state is not None else {})
+            return self._empty_round(X, state)
         if self.codec.name == "moniqua" and theta is None:
             raise ValueError("MoniquaWire needs the a-priori bound theta")
         if ledger is not None:
@@ -927,11 +969,26 @@ class CommEngine:
         plan = self.tiered_plan(X, theta=theta, seed=seed, state=state,
                                 presence=presence)
         layout = plan.layout
+        new_state = None
         if self.stateful:
             out, res = plan.run()
-            return MixResult(layout.unflatten(out.to(layout.stage_dtype)),
-                             {"residual": res, "step": state["step"] + 1})
-        return MixResult(layout.unflatten(plan.run()))
+            new_state = {"residual": res, "step": state["step"] + 1}
+            Xm = layout.unflatten(out.to(layout.stage_dtype))
+        else:
+            Xm = layout.unflatten(plan.run())
+        return MixResult(Xm, new_state if new_state is not None else {},
+                         self._round_health(X, theta, seed, new_state,
+                                            plan.presence, flat=plan.flat))
+
+    def _empty_round(self, X: PyTree, state: Optional[dict]) -> MixResult:
+        """A single worker or an empty pytree: nothing on the wire (with
+        telemetry, an all-zero health dict)."""
+        health = None
+        if self.telemetry:
+            leaves = tree.leaves(X)
+            health = obs_metrics.round_health_zero(
+                leaves[0].device if leaves else None)
+        return MixResult(X, state if state is not None else {}, health)
 
     # -- step-level overlap: one-round-stale mixing ------------------------
     def _require_stale_wire(self) -> None:
@@ -987,41 +1044,133 @@ class CommEngine:
                 "returned MixResult.state across steps")
         offsets = self.topo.neighbor_offsets()
         if not offsets or not tree.leaves(X):
-            return MixResult(X, carry)
+            return self._empty_round(X, carry)
         if theta is None:
             raise ValueError("MoniquaWire needs the a-priori bound theta")
         if ledger is not None:
             self._record(X, ledger)
         presence = _normalize_presence(presence, self.topo.n)
         self._require_seed(seed)
-        seed = kops.NO_KEY_SEED if seed is None else int(seed)
+        hash_seed = kops.NO_KEY_SEED if seed is None else int(seed)
         spec = self.codec.spec
         layout = self.layout(X)
         weights = _neighbor_weights_of(self.topo)
         flat = layout.flatten(X).float()
-        p_nbrs = torch.stack([gossip._roll(carry["packed"], o)
-                              for o in offsets])
-        if presence is None:
-            mixed_ref = kops.moniqua_decode_reduce_stacked(
-                carry["packed"], p_nbrs, carry["ref"], carry["B"], weights,
-                spec)
-            delta = mixed_ref - carry["ref"]
-        else:
-            delta = torch.zeros_like(carry["ref"])
-            for k, (o, w) in enumerate(zip(offsets, weights)):
-                mixed_o = kops.moniqua_decode_reduce_stacked(
-                    carry["packed"], p_nbrs[k:k + 1], carry["ref"],
-                    carry["B"], (w,), spec)
-                delta = delta + _gate(presence, o, mixed_o - carry["ref"])
-            delta = _if_present(presence, delta, 0.0)
-        out = flat + torch.where(carry["valid"], delta, 0.0)
+        # decode round k-1 against its own reference and B, apply the delta
+        with obs_trace.named_phase("comm.decode_reduce"):
+            p_nbrs = torch.stack([gossip._roll(carry["packed"], o)
+                                  for o in offsets])
+            if presence is None:
+                mixed_ref = kops.moniqua_decode_reduce_stacked(
+                    carry["packed"], p_nbrs, carry["ref"], carry["B"],
+                    weights, spec)
+                delta = mixed_ref - carry["ref"]
+            else:
+                delta = torch.zeros_like(carry["ref"])
+                for k, (o, w) in enumerate(zip(offsets, weights)):
+                    mixed_o = kops.moniqua_decode_reduce_stacked(
+                        carry["packed"], p_nbrs[k:k + 1], carry["ref"],
+                        carry["B"], (w,), spec)
+                    delta = delta + _gate(presence, o,
+                                          mixed_o - carry["ref"])
+                delta = _if_present(presence, delta, 0.0)
+            out = flat + torch.where(carry["valid"], delta, 0.0)
+        # encode round k from the mixed model, for consumption at k+1
         B = modulo.b_theta(theta, spec.delta, flat.device)
-        packed = kops.moniqua_encode_stacked(out, B, spec, seed)
+        with obs_trace.named_phase("comm.encode"):
+            packed = kops.moniqua_encode_stacked(out, B, spec, hash_seed)
         new_carry = {"packed": packed, "ref": out, "B": B,
                      "valid": torch.ones((), dtype=torch.bool,
                                          device=flat.device)}
         return MixResult(layout.unflatten(out.to(layout.stage_dtype)),
-                         new_carry)
+                         new_carry, self._round_health(
+                             X, theta, seed, None, presence, flat=flat))
+
+    # -- round health (telemetry=True) -------------------------------------
+    def _round_health(self, X: PyTree, theta, seed: Optional[int],
+                      new_state: Optional[dict],
+                      presence: Optional[Tuple[int, ...]] = None, *,
+                      flat: Optional[torch.Tensor] = None,
+                      payload: Optional[torch.Tensor] = None
+                      ) -> Optional[dict]:
+        """Health counters of the round just mixed (``obs.metrics``), or
+        ``None`` with telemetry off.
+
+        Read from the canonical flat buffer of the round's input ``X``
+        (``flat``, when the round already staged it: its float32 copy on
+        the EF wires and in ``mix_stale`` reads the same), so the values
+        are the same on either path and at any K.  The alias sentinel
+        tests the whole-buffer payload: a barrier bucketed Moniqua round
+        hands in its own (``payload``, the same bits); elsewhere it is
+        re-encoded once (``ops.moniqua_encode_stacked``, the kernel on the
+        card).  As in the reference, the sentinel reads every neighbor
+        offset even under a mask, and is pinned to 0 on tiered rounds
+        (their payloads are per owned shard) and for ``delta >= 1/4``.
+        """
+        if not self.telemetry:
+            return None
+        with obs_trace.named_phase("comm.telemetry"):
+            layout = self.layout(X)
+            if flat is None:
+                flat = layout.flatten(X)
+            dev = flat.device
+            offsets = self.topo.neighbor_offsets()
+            h = obs_metrics.round_health_zero(dev)
+            h["consensus_inf"] = obs_metrics.consensus_inf(flat, offsets)
+            nbytes = self.payload_bytes_per_broadcast(X)
+            h["bits_per_param"] = obs_metrics.scalar_f32(
+                8.0 * nbytes / max(layout.total_elems, 1), dev)
+            h["bytes_slow"] = obs_metrics.scalar_f32(
+                nbytes * len(self.gossip_topo.neighbor_offsets()), dev)
+            h["bytes_fast"] = obs_metrics.scalar_f32(
+                self.fast_bytes_per_round(X), dev)
+            if presence is not None:
+                # a normalized partial mask (all-ones became None upstream)
+                h["participation"] = obs_metrics.scalar_f32(
+                    sum(presence) / len(presence), dev)
+                h["dropped_neighbors"] = obs_metrics.scalar_i32(
+                    _dropped_edge_count(presence, self.gossip_topo), dev)
+            if self.codec.name == "moniqua" and theta is not None:
+                spec = self.codec.spec
+                theta_t = obs_metrics.f32_on(theta, dev)
+                B = modulo.b_theta(theta_t, spec.delta)
+                h["headroom"] = h["consensus_inf"] / B
+                if spec.delta < 0.25 and not self.tiered:
+                    if payload is None:
+                        payload = kops.moniqua_encode_stacked(
+                            flat, B, spec,
+                            kops.NO_KEY_SEED if seed is None else int(seed))
+                    h["alias_count"] = obs_metrics.moniqua_alias_count(
+                        payload, flat, B, theta_t, spec, offsets)
+            if new_state is not None:
+                h["ef_residual_l2"] = torch.sqrt(torch.sum(torch.square(
+                    new_state["residual"].float())))
+                if self.codec.name == "onebit":
+                    # the counter was already bumped: -1 recovers the flag
+                    # the round just ran under
+                    h["warm"] = ((new_state["step"] - 1)
+                                 < self.codec.warmup).float()
+            return h
+
+    def pair_health(self, xi: torch.Tensor, xj: torch.Tensor, theta=None,
+                    seed: Optional[int] = None) -> dict:
+        """Round health of one :meth:`pair_average` edge exchange, on the
+        *pre-exchange* endpoints: their consensus distance and, on the
+        Moniqua wire, the theta headroom and the alias sentinel in both
+        directions on the payloads re-encoded under the exchange seed
+        (the bits ``pair_average`` ships)."""
+        with obs_trace.named_phase("comm.telemetry"):
+            spec = (self.codec.spec
+                    if self.codec.name == "moniqua" else None)
+            h = obs_metrics.pair_health(xi, xj, theta=theta, spec=spec,
+                                        seed=seed)
+            if spec is None:
+                bits = getattr(getattr(self.codec, "spec", None), "bits",
+                               32)
+                h["bits_per_param"] = obs_metrics.scalar_f32(
+                    32.0 if self.codec.name == "full" else float(bits),
+                    h["consensus_inf"].device)
+            return h
 
     # -- stateful wires: error-feedback rounds on the flat bucket ----------
     def _mix_stateful(self, X: PyTree, state: dict, seed: Optional[int],

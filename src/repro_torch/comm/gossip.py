@@ -10,8 +10,9 @@ row ``i``; on one card it stands for the collective-permute of a mesh, as
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import tree
@@ -82,3 +83,59 @@ def neighbor_sum(X: PyTree, topo: Topology,
 
 def self_weight(topo: Topology) -> float:
     return sum(w for o, w in zip(topo.offsets, topo.weights) if o % topo.n == 0)
+
+
+def moniqua_gossip(X: PyTree, topo: Topology, codec, theta,
+                   uniforms: Optional[PyTree] = None,
+                   ledger: Optional[BytesLedger] = None, *,
+                   seeds: Optional[Sequence[int]] = None,
+                   generator: Optional[torch.Generator] = None) -> PyTree:
+    """Algorithm 1 lines 3-6 with the functional ``MoniquaCodec``: one
+    Moniqua gossip round on stacked models, leaf by leaf; returns
+    ``X_{k+1/2}``.
+
+    Every worker broadcasts one payload (its packed residue).  Stochastic
+    rounding draws per leaf, shared by all workers: ``uniforms`` (a tree
+    shaped like ``X``) for the plain codec, ``seeds`` (one hash seed a leaf)
+    for ``codec.use_kernels``, or else draws from ``generator``.  (The
+    reference splits one key per leaf.)  ``ledger`` is credited with each
+    leaf's payload bytes times the neighbor count.
+    """
+    n_neighbors = len(topo.neighbor_offsets())
+    if n_neighbors == 0:          # single worker
+        return X
+    leaves, td = tree.flatten(X)
+    us = (tree.leaves(uniforms) if uniforms is not None
+          else [None] * len(leaves))
+    ss = list(seeds) if seeds is not None else [None] * len(leaves)
+
+    def gossip_leaf(x, u, seed):
+        packed = codec.encode(x, theta, u, seed=seed, generator=generator)
+        x_hat_self = codec.decode_self(packed, x, theta)    # line 4
+        acc = None
+        for o, w in zip(topo.offsets, topo.weights):
+            if o % topo.n == 0:
+                continue
+            remote = _roll(packed, o)                       # the collective
+            x_hat_j = codec.decode(remote, x, theta)        # line 5
+            d = (x_hat_j - x_hat_self) * w
+            acc = d if acc is None else acc + d
+        if ledger is not None:
+            ledger.add(codec.payload_bytes(tuple(x.shape[1:])), n_neighbors)
+        return (x.float() + acc).to(x.dtype)                # line 6
+
+    return tree.unflatten(td, [gossip_leaf(l, u, sd)
+                               for l, u, sd in zip(leaves, us, ss)])
+
+
+def payload_bytes_tree(X: PyTree, codec) -> int:
+    """Total packed bytes for one broadcast of every leaf (per worker)."""
+    return sum(codec.payload_bytes(tuple(leaf.shape[1:]))
+               for leaf in tree.leaves(X))
+
+
+def dtype_bytes_tree(X: PyTree) -> int:
+    """Full-precision bytes per broadcast (per worker): the D-PSGD
+    baseline."""
+    return sum(int(np.prod(tuple(leaf.shape[1:]), dtype=np.int64))
+               * leaf.element_size() for leaf in tree.leaves(X))

@@ -38,6 +38,8 @@ class ADPSGDConfig:
     max_delay: int = 4
     quantized: bool = False     # False = plain AD-PSGD, True = Moniqua
     wire: str = "moniqua"       # wire codec when quantized (moniqua | qsgd)
+    telemetry: bool = False     # per-exchange edge health (obs); run()
+                                #   then also returns a health trace
 
     def engine(self) -> CommEngine:
         """Pair-exchange engine: the quantized wire or the exact baseline."""
@@ -73,13 +75,21 @@ def run(x0: torch.Tensor,
                           torch.Tensor],
         alpha: float, num_iters: int, cfg: ADPSGDConfig, seed: int = 0,
         schedule: Optional[Dict] = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        ) -> Tuple[torch.Tensor, ...]:
     """Run the simulation from ``x0 [n, d]``; returns (final X ``[n, d]``,
     mean-model trace ``[K, d]``, the mean taken before each iteration's
     exchange).  ``grad_fn(x_worker [d], worker, noise)`` is the stochastic
     gradient, ``noise`` the schedule's row for the iteration (``None``
     without one).  ``schedule`` defaults to ``make_schedule(n, num_iters,
-    cfg, seed)``."""
+    cfg, seed)``.
+
+    With ``cfg.telemetry`` a third element rides along: the per-iteration
+    edge-health trace (``CommEngine.pair_health`` of the exchanged pair,
+    each value a ``[K]`` tensor keyed like ``obs.metrics.round_health_zero``),
+    taken on the *pre-exchange* endpoints under the exchange seed, so it
+    observes the payloads the exchange ships (two encode launches an
+    iteration on the Moniqua wire).  X is bitwise the same with it on or
+    off."""
     n, d = x0.shape
     T = cfg.max_delay
     s = schedule if schedule is not None else make_schedule(
@@ -90,6 +100,7 @@ def run(x0: torch.Tensor,
     X = x0.clone()
     hist = x0.unsqueeze(0).repeat(T + 1, 1, 1)     # staleness ring buffer
     trace = []
+    health = []
     for k in range(num_iters):
         i, tau = int(s["i"][k]), int(s["tau"][k])
         g = grad_fn(hist[(k - tau) % (T + 1), i], i,
@@ -97,7 +108,13 @@ def run(x0: torch.Tensor,
         # gossip on a random incident edge, then the (delayed) update
         j = (i + offsets[int(s["nb"][k])]) % n
         trace.append(X.mean(dim=0))
+        if cfg.telemetry:
+            health.append(eng.pair_health(X[i], X[j], theta=cfg.theta,
+                                          seed=int(s["seed"][k])))
         _pair_average(X, i, j, cfg, int(s["seed"][k]), eng)
         X[i] = X[i] + -alpha * g
         hist[(k + 1) % (T + 1)] = X
+    if cfg.telemetry:
+        return X, torch.stack(trace), {
+            key: torch.stack([h[key] for h in health]) for key in health[0]}
     return X, torch.stack(trace)

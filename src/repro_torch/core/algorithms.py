@@ -22,6 +22,11 @@ tensors' device seeded with it, unless the caller hands in ``uniforms``, a
 tree shaped like ``X`` (the parity tests hand in the reference's
 ``jax.random.uniform`` draws).  ``seed=None`` with no ``uniforms`` rounds to
 nearest, as the reference does for ``key=None``.
+
+Telemetry (``AlgoHyper.telemetry``): the rules the reference instruments,
+D-PSGD, Moniqua, D² and Moniqua-D², carry the accumulated round-health
+dict of their engine's rounds under ``extra["health"]``
+(``repro_torch.obs.metrics``); the trajectory does not change.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.core.modulo import _scalar
 from repro_torch.core.moniqua import MoniquaCodec
 from repro_torch.core import topology
 from repro_torch.core.topology import Topology
+from repro_torch.obs import metrics as obs_metrics
 
 PyTree = Any
 
@@ -57,6 +63,11 @@ class AlgoHyper:
     gossip.  ``deadline`` is the round deadline in seconds that the
     simulator enforces (``sim.faults.FaultSpec.deadline_s``); no step reads
     it, it rides here so one hyper object carries the elastic setup.
+
+    ``telemetry`` turns on the engines' round health: the instrumented
+    rules (Moniqua, Moniqua-D², and the full-precision D-PSGD and D²)
+    carry it under ``extra["health"]`` and the trainer reports it as
+    ``obs_*`` metrics.
     """
     topo: Topology
     codec: MoniquaCodec = MoniquaCodec()
@@ -71,6 +82,7 @@ class AlgoHyper:
     tiers: int = 1                # 1 = flat gossip; k>1 = two-tier, nodes of k
     presence: Optional[Tuple[int, ...]] = None   # elastic 0/1 worker mask
     deadline: Optional[float] = None             # sim round deadline (s)
+    telemetry: bool = False       # round-health observability (obs)
 
     def comm_topo(self):
         """The topology the engines gossip on: ``topo`` for flat runs
@@ -95,11 +107,16 @@ class AlgoHyper:
         return CommEngine(self.comm_topo(),
                           make_wire(self.wire, self.codec.spec,
                                     warmup=self.warmup),
-                          path=self.path, chunks=self.chunks)
+                          path=self.path, chunks=self.chunks,
+                          telemetry=self.telemetry)
 
-    def exact_engine(self) -> CommEngine:
+    def exact_engine(self, telemetry: bool = False) -> CommEngine:
+        """Full-precision engine.  ``telemetry`` is opt-in per call site:
+        the instrumented baselines (D-PSGD, D²) pass ``self.telemetry``;
+        replica mixing never observes."""
         return CommEngine(self.comm_topo(), FullPrecisionWire(),
-                          path=self.path, chunks=self.chunks)
+                          path=self.path, chunks=self.chunks,
+                          telemetry=telemetry)
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +192,17 @@ def _code_bytes(X: PyTree, hp: AlgoHyper) -> int:
             * len(hp.topo.neighbor_offsets()))
 
 
+def _device(X: PyTree) -> torch.device:
+    return tree.leaves(X)[0].device
+
+
+def _with_health(extra: dict, X: PyTree, hp: AlgoHyper) -> dict:
+    """``extra`` plus a fresh health carry when telemetry is on."""
+    if hp.telemetry:
+        extra["health"] = obs_metrics.init_health(_device(X))
+    return extra
+
+
 def _zeros_like(X: PyTree) -> PyTree:
     return tree.map(torch.zeros_like, X)
 
@@ -228,9 +256,18 @@ class AllReduce(Algorithm):
 class DPSGD(Algorithm):
     name = "dpsgd"
 
+    def init(self, X, hp):
+        return _with_health({}, X, hp)
+
     def step(self, X, extra, g, alpha, k, seed, hp, uniforms=None):
-        return (_sgd(hp.exact_engine().mix(X, presence=hp.presence).x, g,
-                     alpha), extra)
+        # theta rides along as a diagnostic only: the full wire ignores it
+        res = hp.exact_engine(telemetry=hp.telemetry).mix(
+            X, theta=hp.theta, presence=hp.presence)
+        if hp.telemetry:
+            extra = dict(extra)
+            extra["health"] = obs_metrics.accumulate_health(
+                extra["health"], res.health)
+        return _sgd(res.x, g, alpha), extra
 
     def bytes_per_step(self, X, hp):
         return hp.exact_engine().bytes_per_round(X)
@@ -273,11 +310,12 @@ class Moniqua(Algorithm):
 
     def init(self, X, hp):
         eng = hp.engine()
+        extra = {}
         if eng.stateful:
-            return {"wire": eng.init_wire_state(X)}
-        if hp.overlap == "stale":
-            return {"gossip": eng.init_gossip_carry(X)}
-        return {}
+            extra["wire"] = eng.init_wire_state(X)
+        elif hp.overlap == "stale":
+            extra["gossip"] = eng.init_gossip_carry(X)
+        return _with_health(extra, X, hp)
 
     def step(self, X, extra, g, alpha, k, seed, hp, uniforms=None):
         eng = hp.engine()
@@ -292,6 +330,9 @@ class Moniqua(Algorithm):
             new_extra["gossip"] = res.state
         else:
             res = eng.mix(X, theta=hp.theta, seed=seed, presence=hp.presence)
+        if hp.telemetry:
+            new_extra["health"] = obs_metrics.accumulate_health(
+                extra["health"], res.health)
         return _sgd(res.x, g, alpha), new_extra
 
     def bytes_per_step(self, X, hp):
@@ -399,10 +440,10 @@ class D2(Algorithm):
     name = "d2"
 
     def init(self, X, hp):
-        dev = tree.leaves(X)[0].device
-        return {"x_prev": _f32_copy(X), "g_prev": _zeros_like(X),
-                "alpha_prev": torch.zeros((), dtype=torch.float32,
-                                          device=dev)}
+        return _with_health(
+            {"x_prev": _f32_copy(X), "g_prev": _zeros_like(X),
+             "alpha_prev": torch.zeros((), dtype=torch.float32,
+                                       device=_device(X))}, X, hp)
 
     def _half_step(self, X, extra, g, alpha):
         a_prev = extra["alpha_prev"]
@@ -410,17 +451,23 @@ class D2(Algorithm):
             lambda x, xp, gi, gp: 2.0 * x.float() - xp - alpha * gi
             + a_prev * gp, X, extra["x_prev"], g, extra["g_prev"])
 
-    def _mix(self, Xh, seed, hp):
-        return hp.exact_engine().mix(Xh, presence=hp.presence).x
+    def _mix(self, Xh, extra, seed, hp):
+        return hp.exact_engine(telemetry=hp.telemetry).mix(
+            Xh, theta=hp.theta, presence=hp.presence)
 
     def step(self, X, extra, g, alpha, k, seed, hp, uniforms=None):
-        mixed = self._mix(self._half_step(X, extra, g, alpha), seed, hp)
-        Xn = tree.map(lambda a, x: a.to(x.dtype), mixed, X)
-        dev = tree.leaves(X)[0].device
-        return Xn, {"x_prev": tree.map(lambda x: x.float(), X),
-                    "g_prev": g,
-                    "alpha_prev": torch.as_tensor(alpha, dtype=torch.float32,
-                                                  device=dev)}
+        res = self._mix(self._half_step(X, extra, g, alpha), extra, seed, hp)
+        Xn = tree.map(lambda a, x: a.to(x.dtype), res.x, X)
+        new_extra = {"x_prev": tree.map(lambda x: x.float(), X),
+                     "g_prev": g,
+                     "alpha_prev": torch.as_tensor(alpha, dtype=torch.float32,
+                                                   device=_device(X))}
+        if "wire" in extra:
+            new_extra["wire"] = res.state
+        if hp.telemetry:
+            new_extra["health"] = obs_metrics.accumulate_health(
+                extra["health"], res.health)
+        return Xn, new_extra
 
     def bytes_per_step(self, X, hp):
         return hp.exact_engine().bytes_per_round(X)
@@ -431,12 +478,22 @@ class D2(Algorithm):
 
 class MoniquaD2(D2):
     """Moniqua on D^2 (Algorithm 2): the half-step gossips through the
-    engine's configured wire (the bucketed Moniqua round)."""
+    engine's configured wire (the bucketed Moniqua round).  A stateful wire
+    keeps its WireState under ``extra["wire"]``, beside D^2's carry."""
     name = "moniqua_d2"
 
-    def _mix(self, Xh, seed, hp):
-        return hp.engine().mix(Xh, theta=hp.theta, seed=seed,
-                               presence=hp.presence).x
+    def init(self, X, hp):
+        extra = super().init(X, hp)
+        eng = hp.engine()
+        if eng.stateful:
+            extra["wire"] = eng.init_wire_state(X)
+        return extra
+
+    def _mix(self, Xh, extra, seed, hp):
+        eng = hp.engine()
+        return eng.mix(Xh, theta=hp.theta, seed=seed,
+                       state=extra["wire"] if eng.stateful else None,
+                       presence=hp.presence)
 
     def bytes_per_step(self, X, hp):
         return hp.engine().bytes_per_round(X)

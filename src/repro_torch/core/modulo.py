@@ -31,6 +31,11 @@ def cmod(z: torch.Tensor, a) -> torch.Tensor:
     return zf - a * torch.floor(zf / a + 0.5)
 
 
+def mod_unit(z: torch.Tensor) -> torch.Tensor:
+    """``z mod 1`` into ``[-1/2, 1/2)``: the rescaled payload domain."""
+    return cmod(z, 1.0)
+
+
 def b_theta(theta, delta: float, device=None) -> torch.Tensor:
     """``B_theta = 2 theta / (1 - 2 delta)`` (requires delta < 1/2).
 
@@ -58,3 +63,7 @@ def local_bias(q_times_b: torch.Tensor, x_local: torch.Tensor, B
     xf = x_local.float()
     return q_times_b.float() - cmod(xf, B) + xf
 
+
+def error_bound(theta, delta: float) -> float:
+    """Lemma 2: ``|x_hat - x| <= theta * 2 delta / (1 - 2 delta)``."""
+    return float(theta) * 2.0 * delta / (1.0 - 2.0 * delta)

@@ -36,6 +36,11 @@ def delta_for_bits(bits: int, stochastic: bool = True) -> float:
     return (1.0 / levels) if stochastic else (1.0 / (2.0 * levels))
 
 
+def bits_for_delta(delta: float) -> int:
+    """Paper Sec. 4: ``B <= ceil(log2(1/(2 delta) + 1))``."""
+    return int(np.ceil(np.log2(1.0 / (2.0 * delta) + 1.0)))
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
     """Static description of a quantizer.
@@ -133,6 +138,47 @@ def _to_lattice(x: torch.Tensor, levels: int) -> torch.Tensor:
 def _from_lattice(c: torch.Tensor, levels: int) -> torch.Tensor:
     f = c.float()
     return (f + 0.5) / torch.as_tensor(float(levels), device=f.device) - 0.5
+
+
+def quantize_codes(x: torch.Tensor, spec: QuantSpec,
+                   uniforms: Optional[torch.Tensor] = None, *,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """Quantize ``x`` in ``[-1/2, 1/2]`` to integer codes in ``[0, levels)``.
+
+    Stochastic mode is ``floor(lattice(x) + u)`` with ``u`` in ``[0, 1)``:
+    the handed-in ``uniforms`` (shaped like ``x``; the parity tests hand in
+    the reference's ``jax.random.uniform`` draws), else one draw from
+    ``generator`` (on ``x``'s device).  Nearest mode rounds half up.  Values
+    outside the box clamp to the lattice ends.  Codes are uint8 (int64 for
+    an unpackable width above 8 bits, where the reference uses uint32)."""
+    lat = _to_lattice(x, spec.levels)
+    if spec.stochastic:
+        if uniforms is None:
+            if generator is None:
+                raise ValueError("stochastic rounding needs uniforms= or a "
+                                 "torch.Generator")
+            uniforms = torch.rand(x.shape, generator=generator,
+                                  device=x.device)
+        codes = torch.floor(lat + uniforms)
+    else:
+        codes = torch.floor(lat + 0.5)
+    codes = torch.clamp(codes, 0, spec.levels - 1)
+    return codes.to(torch.uint8 if spec.bits <= 8 else torch.int64)
+
+
+def dequantize_codes(codes: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Codes -> lattice midpoints in ``[-1/2, 1/2)``, float32."""
+    return _from_lattice(codes, spec.levels)
+
+
+def quantize(x: torch.Tensor, spec: QuantSpec,
+             uniforms: Optional[torch.Tensor] = None, *,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``Q_delta(x)``: quantize-then-dequantize (the value-space round
+    trip)."""
+    return dequantize_codes(quantize_codes(x, spec, uniforms,
+                                           generator=generator), spec)
 
 
 # ---------------------------------------------------------------------------

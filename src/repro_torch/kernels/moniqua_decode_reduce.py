@@ -10,6 +10,10 @@ Given a worker's own packed payload, the stack of its neighbors' payloads
 
 with ``x_hat_s = cmod(q_s - y, B) + y`` (line 5) and
 ``x_hat_self = q_self - cmod(y, B) + y`` (line 4).
+
+:func:`unpack_values` (the dequantizing unpack the kernel math shares) and
+:func:`alias_band_mask` (the telemetry's alias sentinel) are plain PyTorch,
+as they are plain jnp in the reference.
 """
 from __future__ import annotations
 
@@ -17,11 +21,44 @@ import ctypes
 
 import torch
 
+from repro_torch.core.modulo import _scalar
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
 MAX_NEIGHBORS = 8
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def unpack_values(p: torch.Tensor, bits: int, B) -> torch.Tensor:
+    """packed uint8 ``[..., P]`` -> dequantized float32 values scaled by
+    ``B`` (``q * B``), ``[..., P * vpb]``: the kernels' shared unpack
+    (``ref.value_ref``)."""
+    return kref.value_ref(p, B, bits)
+
+
+def alias_band_mask(qb: torch.Tensor, y: torch.Tensor, B, theta
+                    ) -> torch.Tensor:
+    """Modulo alias sentinel on one dequantized neighbor payload.
+
+    The Lemma-1 recovered neighbor difference is ``dhat = cmod(qb - y, B)``
+    (line 5, before adding ``y`` back).  Under the lemma's hypothesis
+    ``|x_j - x_i| < theta`` the decode never wraps and
+    ``|dhat| <= |x_j - x_i| + delta*B < theta + delta*B = B/2``, so the
+    outer band ``|dhat| >= theta`` is reached only when the true distance
+    is already within ``delta*B`` of the bound: True there.
+
+    An element with true distance ``d`` fires iff ``d mod B`` lands in the
+    window ``[theta, B - theta]`` around the wrap point ``B/2``: distances
+    crossing the bound transit it deterministically, and a gross, wrapped
+    violation fires at a per-element rate of ~``2*delta`` a neighbor, so
+    over a model's worth of elements a sustained violation counts in the
+    thousands a round while a safe run stays at exactly zero.  Observational
+    only: it feeds nothing back into the mix.
+    """
+    d = qb - y.float()
+    Bt = _scalar(B, d)
+    dhat = d - Bt * torch.floor(d / Bt + 0.5)              # cmod(d, B)
+    return torch.abs(dhat) >= _scalar(theta, d)
 
 
 def decode_reduce_plain(p_self: torch.Tensor, p_nbrs: torch.Tensor,
@@ -33,7 +70,7 @@ def decode_reduce_plain(p_self: torch.Tensor, p_nbrs: torch.Tensor,
     cols = y.shape[-1]
 
     def val(p):
-        return kref.value_ref(p, B, bits)[..., :cols]
+        return unpack_values(p, bits, B)[..., :cols]
 
     qb_nbrs = [val(p_nbrs[s]) for s in range(p_nbrs.shape[0])]
     out = kref.decode_reduce_values(val(p_self), qb_nbrs, y, B, weights)

@@ -20,12 +20,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import modulo
 from repro_torch.core.modulo import _scalar
 from repro_torch.core.quantizers import QuantSpec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moniqua_decode as _dec
 from repro_torch.kernels import moniqua_decode_reduce as _dr
 from repro_torch.kernels import moniqua_encode as _enc
+from repro_torch.kernels import ref as kref
 
 # Hash seed of a round without one: only nearest rounding may omit the seed
 # (it never draws a uniform); the engine rejects a missing seed otherwise.
@@ -171,6 +173,18 @@ def moniqua_decode_remote(packed, y, B, spec: QuantSpec) -> torch.Tensor:
 def moniqua_decode_self(packed, x, B, spec: QuantSpec) -> torch.Tensor:
     """Algorithm 1 line 4: ``q*B - cmod(x, B) + x``, in ``x``'s dtype."""
     return _decode_common(packed, x, B, spec, "self")
+
+
+# Plain conveniences (the reference's ``ops.moniqua_unpack_value`` /
+# ``moniqua_recover``): the kernels' own unpack and Lemma 1's recovery.
+
+def moniqua_unpack_value(packed: torch.Tensor, B, spec: QuantSpec,
+                         last_dim: int) -> torch.Tensor:
+    """Unpack + dequantize + rescale, ``q * B``, cut to ``last_dim``."""
+    return kref.value_ref(packed, B, spec.bits)[..., :last_dim]
+
+
+moniqua_recover = modulo.recover
 
 
 # ---------------------------------------------------------------------------

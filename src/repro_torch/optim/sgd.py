@@ -3,11 +3,14 @@
 The decentralized algorithms (``core/algorithms.py``) consume a *direction*
 ``d`` and apply ``x <- gossip(x) - alpha d``; this module turns raw
 gradients into that direction (heavy-ball momentum, weight decay) and tracks
-``||g||_inf``, which the theory-mode theta schedule reads (Theorem 2).
+``||g||_inf``, which the theory-mode theta schedule reads (Theorem 2); and
+the step-size schedules (constant, the paper's step decay, cosine, and
+Corollary 1's constant step).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Tuple
 
 import torch
@@ -45,5 +48,44 @@ def direction(cfg: SGDConfig, grads: PyTree, params: PyTree,
     return (tree.unflatten(treedef, ds), tree.unflatten(treedef, ms), g_inf)
 
 
+# ---------------------------------------------------------------------------
+# Step-size schedules, functions of the (host) step index.  All satisfy the
+# paper's two-constant condition alpha_k / alpha_{k+t} <= C_alpha eta^t
+# (Theorem 2).  They compute in double; the reference's jnp ones in float32,
+# so the two agree to float32 rounding.
+# ---------------------------------------------------------------------------
+
 def constant(lr: float) -> Callable[[int], float]:
     return lambda k: lr
+
+
+def step_decay(lr: float, boundaries, factor: float = 0.1
+               ) -> Callable[[int], float]:
+    """Paper Sec. 6: decay by ``factor`` at each of the given steps (epochs
+    250 and 280 there)."""
+    bs = tuple(boundaries)
+
+    def f(k):
+        mult = 1.0
+        for b in bs:
+            if k >= b:
+                mult *= factor
+        return lr * mult
+    return f
+
+
+def cosine(lr: float, total_steps: int, floor: float = 0.0
+           ) -> Callable[[int], float]:
+    """Cosine decay from ``lr`` at step 0 to ``floor`` at ``total_steps``
+    (held there after)."""
+    def f(k):
+        t = min(max(k / max(total_steps, 1), 0.0), 1.0)
+        return floor + 0.5 * (lr - floor) * (1.0 + math.cos(math.pi * t))
+    return f
+
+
+def theorem_lr(K: int, n: int, sigma: float = 1.0, zeta: float = 1.0,
+               L: float = 2.0) -> float:
+    """Corollary 1: alpha = 1 / (zeta^(2/3) K^(1/3) + sigma sqrt(K/n) + 2L)."""
+    return 1.0 / (zeta ** (2 / 3) * K ** (1 / 3)
+                  + sigma * math.sqrt(K / n) + 2 * L)

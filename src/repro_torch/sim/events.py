@@ -162,12 +162,11 @@ class SimTrace:
     def to_chrome(self, pid: int = 1, process_name: str = "sim"
                   ) -> Dict[str, Any]:
         """Chrome-trace JSON of this timeline (one track per worker plus a
-        barrier track), in the reference through
-        ``obs.trace.sim_trace_to_chrome``, which the port does not have
-        yet."""
-        raise NotImplementedError(
-            "SimTrace.to_chrome is not ported yet: ROADMAP Queue 1 #11 "
-            "(telemetry: obs/trace.py)")
+        barrier track), via :func:`repro_torch.obs.trace.sim_trace_to_chrome`;
+        merge it with a measured run's trace with
+        ``obs.trace.merge_chrome_traces``."""
+        from repro_torch.obs.trace import sim_trace_to_chrome
+        return sim_trace_to_chrome(self, pid=pid, process_name=process_name)
 
 
 # ---------------------------------------------------------------------------

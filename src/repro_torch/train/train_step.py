@@ -11,6 +11,11 @@ Randomness: each step's uint32 hash seed for stochastic rounding is drawn
 from the state's ``torch.Generator`` (on the CPU, so drawing it never waits
 for the card), unless the caller passes ``seed=`` (parity tests hand in the
 reference's per-step seed).
+
+The step size comes from ``TrainStepConfig.lr_schedule`` (a callable of the
+step index, e.g. ``optim.sgd.step_decay``), or the constant ``lr``.  With
+``AlgoHyper.telemetry`` the rule's accumulated round health
+(``extra["health"]``) comes back as ``obs_*`` step metrics.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ class TrainStepConfig:
     algo: str = "moniqua"
     sgd: optim.SGDConfig = dataclasses.field(default_factory=optim.SGDConfig)
     lr: float = 0.1
+    lr_schedule: Optional[Callable[[int], float]] = None
     theta: ThetaSchedule = dataclasses.field(default_factory=ThetaSchedule)
 
 
@@ -59,7 +65,7 @@ def make_train_step(model, hp: AlgoHyper, tcfg: TrainStepConfig
     """``train_step(state, batch, seed=None) -> (new_state, metrics)``;
     ``model`` exposes ``loss(params, batch)``."""
     algo = get_algorithm(tcfg.algo)
-    sched = optim.constant(tcfg.lr)
+    sched = tcfg.lr_schedule or optim.constant(tcfg.lr)
     grad_fn = torch.func.vmap(torch.func.grad_and_value(model.loss))
 
     def train_step(state, batch, seed: Optional[int] = None):
@@ -83,6 +89,9 @@ def make_train_step(model, hp: AlgoHyper, tcfg: TrainStepConfig
         metrics = {"loss": torch.mean(losses), "alpha": alpha,
                    "theta": theta, "g_inf": g_inf,
                    "wire_bytes": algo.bytes_per_step(X, hp)}
+        if isinstance(extra, dict) and "health" in extra:
+            metrics.update({f"obs_{k}": v
+                            for k, v in extra["health"].items()})
         return new_state, metrics
 
     return train_step

@@ -4,9 +4,15 @@ The batch source is a callable ``step -> stacked batch`` (leaves
 ``[n, batch, ...]``); for ResNet-20 that is
 ``data.synthetic.stacked_cifar_like``.  Checkpoints (``checkpoint/ckpt.py``)
 hold the params and the full state, so a cut run resumes bit for bit.
+
+Observability (``repro_torch.obs``): ``telemetry`` adds the round-health
+``obs_*`` metrics; ``log_jsonl`` writes a ``repro.obs.runlog/v1`` run log
+(header, drained step metrics, host spans, result); ``trace_path`` a Chrome
+trace of the host spans (``train.step``, ``train.checkpoint``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -19,6 +25,8 @@ from repro_torch.core.moniqua import MoniquaCodec
 from repro_torch.core.quantizers import QuantSpec
 from repro_torch.core.theta import ThetaSchedule
 from repro_torch.core.topology import get_topology
+from repro_torch.obs.runlog import RunLogWriter
+from repro_torch.obs.trace import SpanRecorder
 from repro_torch.optim.sgd import SGDConfig
 from repro_torch.train import train_step as TS
 
@@ -53,6 +61,11 @@ class TrainerConfig:
                                 #   round (AlgoHyper.presence); None = all up
     deadline: Optional[float] = None  # sim round deadline in seconds
                                 #   (recorded; enforced by sim/faults.py)
+    telemetry: bool = False     # round-health obs_* metrics (obs.metrics)
+    log_jsonl: Optional[str] = None   # schema-versioned run log (obs.runlog):
+                                #   drained metrics + spans + result
+    trace_path: Optional[str] = None  # Chrome-trace JSON of the host spans
+                                #   (Perfetto / chrome://tracing)
 
 
 def build_hyper(tc: TrainerConfig) -> AlgoHyper:
@@ -69,7 +82,24 @@ def build_hyper(tc: TrainerConfig) -> AlgoHyper:
                      gamma=tc.gamma, wire=tc.wire, path=tc.comm_path,
                      chunks=tc.chunks, overlap=tc.overlap, warmup=tc.warmup,
                      tiers=tc.tiers, presence=presence,
-                     deadline=tc.deadline)
+                     deadline=tc.deadline, telemetry=tc.telemetry)
+
+
+def drain_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
+    """Every metric as a Python float, with one host transfer per device
+    for all the tensor metrics (one ``float()`` each would wait for the card
+    once per metric)."""
+    out = {k: float(v) for k, v in metrics.items()
+           if not isinstance(v, torch.Tensor)}
+    by_dev: Dict[Any, List[str]] = {}
+    for k, v in metrics.items():
+        if isinstance(v, torch.Tensor):
+            by_dev.setdefault(v.device, []).append(k)
+    for keys in by_dev.values():
+        vals = torch.stack([metrics[k].detach().reshape(())
+                            .to(torch.float64) for k in keys]).cpu()
+        out.update(zip(keys, vals.tolist()))
+    return {k: out[k] for k in metrics}
 
 
 class Trainer:
@@ -106,31 +136,67 @@ class Trainer:
                              "(argument or TrainerConfig.checkpoint_path)")
         return ckpt.restore(path + ".state", self.init_state())
 
-    def run(self, state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    def run(self, state: Optional[Dict[str, Any]] = None,
+            callback: Optional[Callable[[int, Dict], None]] = None
+            ) -> Dict[str, Any]:
         """Run ``tc.steps`` steps from ``state`` (a fresh one by default;
         a restored one resumes at its own step, and the batch source is
         indexed by the global step).  Every ``log_every`` steps, and at the
-        last, the metrics are read back to the host (which waits for the
-        card) into ``history``, with ``wall`` the seconds since the loop
-        started.  With ``checkpoint_path`` and ``checkpoint_every``, every
-        that many steps the params go to ``checkpoint_path`` and the full
-        state to ``<checkpoint_path>.state``."""
+        last, the metrics are read back to the host in one transfer (which
+        waits for the card) into ``history``, with ``wall`` the seconds
+        since the loop started, and handed to ``callback(step, metrics)``.
+        With ``checkpoint_path`` and ``checkpoint_every``, every that many
+        steps the params go to ``checkpoint_path`` and the full state to
+        ``<checkpoint_path>.state``.  ``log_jsonl`` / ``trace_path`` write
+        the run log and the Chrome trace of the ``train.step`` /
+        ``train.checkpoint`` host spans."""
         tc = self.tc
         state = state if state is not None else self.init_state()
         k0 = state["step"]
         history: List[Dict] = []
+        rec = SpanRecorder() if (tc.trace_path or tc.log_jsonl) else None
+        writer = None
+        if tc.log_jsonl:
+            run_meta = dataclasses.asdict(tc)
+            run_meta["theta_mode"] = self.tcfg.theta.mode
+            writer = RunLogWriter(tc.log_jsonl, run=run_meta, tool="trainer")
+
+        def span(name, step):
+            return (rec.span(name, tid="train", step=step) if rec is not None
+                    else contextlib.nullcontext())
+
         t0 = time.perf_counter()
-        for k in range(k0, k0 + tc.steps):
-            state, metrics = self.step_fn(state, self.batch_fn(k))
-            if (k - k0) % tc.log_every == 0 or k == k0 + tc.steps - 1:
-                m = {kk: float(v) for kk, v in metrics.items()}
-                m["step"] = k
-                m["wall"] = time.perf_counter() - t0
-                history.append(m)
-            if (tc.checkpoint_path and tc.checkpoint_every
-                    and (k + 1) % tc.checkpoint_every == 0):
-                meta = {"step": k + 1, "algo": tc.algo, "wire": tc.wire}
-                ckpt.save(tc.checkpoint_path, state["params"], meta)
-                ckpt.save(tc.checkpoint_path + ".state", state, meta)
-        return {"state": state, "history": history,
-                "bytes_per_step": self.bytes_per_step(state)}
+        try:
+            for k in range(k0, k0 + tc.steps):
+                batch = self.batch_fn(k)
+                with span("train.step", k):
+                    state, metrics = self.step_fn(state, batch)
+                if (k - k0) % tc.log_every == 0 or k == k0 + tc.steps - 1:
+                    m = drain_metrics(metrics)
+                    m["step"] = k
+                    m["wall"] = time.perf_counter() - t0
+                    history.append(m)
+                    if writer is not None:
+                        writer.step(k, {kk: v for kk, v in m.items()
+                                        if kk not in ("step", "wall")},
+                                    wall_s=m["wall"])
+                    if callback:
+                        callback(k, m)
+                if (tc.checkpoint_path and tc.checkpoint_every
+                        and (k + 1) % tc.checkpoint_every == 0):
+                    meta = {"step": k + 1, "algo": tc.algo, "wire": tc.wire}
+                    with span("train.checkpoint", k + 1):
+                        ckpt.save(tc.checkpoint_path, state["params"], meta)
+                        ckpt.save(tc.checkpoint_path + ".state", state,
+                                  meta)
+            bps = self.bytes_per_step(state)
+            if writer is not None:
+                writer.spans_from(rec)
+                writer.result(bytes_per_step=bps, steps=tc.steps,
+                              wall_s=time.perf_counter() - t0)
+            if rec is not None and tc.trace_path:
+                rec.save(tc.trace_path, process_name="trainer")
+        finally:
+            if writer is not None:
+                writer.close()
+        return {"state": state, "history": history, "bytes_per_step": bps}

@@ -37,7 +37,8 @@ def test_port_imports_without_jax_or_repro():
                  "data.synthetic", "checkpoint", "checkpoint.ckpt",
                  "sim", "sim.network", "sim.cluster", "sim.faults",
                  "sim.contention", "sim.events", "sim.scenarios",
-                 "sim.calibrate"):
+                 "sim.calibrate", "obs", "obs.metrics", "obs.runlog",
+                 "obs.trace"):
         assert f"repro_torch.{name}" in res["modules"], name
-    assert len(res["modules"]) >= 46
+    assert len(res["modules"]) >= 50
     assert res["bad"] == [], f"repro_torch pulled in: {res['bad']}"

@@ -298,10 +298,17 @@ def test_calibrated_scenario_reads_the_same_model(tmp_path, monkeypatch):
 
 
 def test_to_chrome_names_its_roadmap_item():
+    """ROADMAP Queue 1 #11 ported ``SimTrace.to_chrome``: the port's
+    timeline renders as the reference's ``sim_trace_to_chrome`` of its own
+    (``tests/test_torch_obs.py`` holds the async one and validation)."""
+    from repro.obs.trace import sim_trace_to_chrome
     tr = tev.simulate_sync_rounds(tsc.get_scenario("lan-10gbe-ring"),
                                   NBYTES, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        tr.to_chrome()
+    jt = jev.simulate_sync_rounds(jsc.get_scenario("lan-10gbe-ring"),
+                                  NBYTES, 2)
+    assert tr.to_chrome() == sim_trace_to_chrome(jt)
+    assert tr.to_chrome(pid=3, process_name="x") == sim_trace_to_chrome(
+        jt, pid=3, process_name="x")
 
 
 # -- replay_adpsgd through the port's pair_average ---------------------------
