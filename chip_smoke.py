@@ -195,6 +195,24 @@ Phases (any failure exits non-zero, and the result line is not printed):
    exact mix); host-clock rounds with telemetry on and off, and phase
    15's K = 61 round with its phase labels on and off, in turns.  Phases
    17-20's launches are added to the kernels line.
+21. Decentralized LM training and the dense zoo: llama3.2-3b at its
+   published widths (d 3072, 24 query and 8 KV heads of 128, d_ff 8192,
+   vocab 128,256, bfloat16) cut to 2 layers, 4 workers on ring(4), one
+   2048-token sequence a worker, through ``Trainer(model, tc, shape)``: 5
+   steps of moniqua 8-bit (stochastic) and 5 of dpsgd from the same state
+   and batches (finite losses, step 0's within 10% of ln V; the flash
+   kernel launched once a layer a step, the workers folded into one
+   launch; codec launches as ``path="auto"`` resolves for the tree;
+   ``bytes_per_step`` equal to the shape-only accounting); step time,
+   tokens/s, peak memory and a profile of two steps; Lemma 2 on the LM
+   tree (one step of each rule from one state and one direction:
+   ``|X_moniqua - X_dpsgd| <= 2 (1 - w_ii) delta B`` plus two bfloat16
+   ulps); one worker's loss and gradients through the flash route against
+   the plain one; the flash kernel timed at the training shape.  Then
+   chatglm3-6b, internlm2-20b and qwen2-72b at published widths, 2 layers:
+   a 2 x 2048 prefill through the flash kernel (GQA groups 16, 6 and 8)
+   within phase 10's bound of the plain path, and 8 greedy decode tokens
+   at a 2048-slot cache.  Its launches are added to the kernels line.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -541,10 +559,13 @@ def profile_device(fn, what, card):
     if busy_us == 0:
         print(f"profile: {what}: no device time recorded (not measured)")
         return
-    groups = {"flash kernel": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"flash kernel": 0.0, "gemm": 0.0, "codec kernels": 0.0,
+              "other": 0.0}
     for e in kern:
         nm = e.key.lower()
-        g = ("flash kernel" if "fa_kernel" in nm else "gemm"
+        g = ("flash kernel" if "fa_kernel" in nm else "codec kernels"
+             if "encode_kernel" in nm or "decode_reduce_kernel" in nm
+             else "gemm"
              if any(t in nm for t in ("gemm", "xmma", "sm90", "cutlass",
                                       "nvjet", "gemv", "matmul"))
              else "other")
@@ -806,7 +827,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
           f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
     batch = SyntheticLMPipeline(m32, InputShape("smoke_f32", F32_PROMPT,
                                                 SERVE_BATCH, "prefill"),
-                                seed=0).global_batch(0)
+                                1, seed=0).global_batch(0)
     tokens = batch["tokens"]
     torch.cuda.synchronize()
     zero_launches()
@@ -857,7 +878,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     params = mbf.init(mbf.generator(0))
     shape = InputShape("smoke_prefill_4k", BF16_PROMPT, SERVE_BATCH,
                        "prefill")
-    batch = SyntheticLMPipeline(mbf, shape, seed=1).global_batch(0)
+    batch = SyntheticLMPipeline(mbf, shape, 1, seed=1).global_batch(0)
     prefill = make_prefill_step(mbf)
     torch.cuda.synchronize()
     zero_launches()
@@ -2889,7 +2910,336 @@ def obs_phase(dev, card, model, batches, X_cpu, trained):
     return counted
 
 
+# -- decentralized LM training and the dense zoo (phase 21) ------------------
+
+LM_ARCH = "llama3.2-3b"
+LM_LAYERS = 2                  # depth 28 -> 2; every width as published
+LM_WORKERS, LM_SEQ = 4, 2048   # ring(4), one 2048-token sequence a worker
+LM_STEPS = 5
+ZOO_ARCHS = ("chatglm3-6b", "internlm2-20b", "qwen2-72b")
+ZOO_PROMPT, ZOO_GREEDY = 2048, 8
+# phase 21's flash-vs-plain check of one worker's loss and gradients: the
+# backward is the same recompute on both routes, so they part only through
+# the forward's attention output (rounded once to bfloat16 by the kernel,
+# twice by the plain path), over 2 layers.  Loss within this share of
+# itself; each gradient leaf within BF16_GAP_BOUND of its largest entry.
+LM_LOSS_RTOL = 1e-2
+
+
+def lm_config(arch, **over):
+    """The published config of ``arch`` cut to ``LM_LAYERS`` layers, with
+    ``over`` replaced."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=LM_LAYERS,
+                               **over)
+
+
+def lm_phase(dev, timer, card):
+    """Phase 21: decentralized LM training through ``Trainer(model, tc,
+    shape)`` (llama3.2-3b at its published widths, 2 layers, ring(4), the
+    flash kernel in the vmapped step), Lemma 2 on the LM tree, flash vs
+    plain gradients, then the three new dense configs served at published
+    widths.  Returns the launches on these paths by kernels-line entry and
+    the flash kernel's times at the training shape."""
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import modulo
+    from repro_torch.core.algorithms import get_algorithm
+    from repro_torch.core.quantizers import delta_for_bits
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.models.model_factory import Model
+    from repro_torch.optim import sgd as optim
+    from repro_torch.train.serve_step import make_prefill_step, make_serve_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    routes = (kfa.flash_attention_tc, kfa.flash_attention_f32tc,
+              kfa.flash_attention_simt)
+
+    def zero():
+        torch.cuda.synchronize()
+        kenc.encode.launches = kdr.decode_reduce.launches = 0
+        for r in routes:
+            r.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        got = {r.__name__: r.launches for r in routes}
+        got.update(moniqua_encode=kenc.encode.launches,
+                   moniqua_decode_reduce=kdr.decode_reduce.launches)
+        return got
+
+    counted = {}
+
+    def add(got):
+        for k in ("flash_attention_tc", "moniqua_encode",
+                  "moniqua_decode_reduce"):
+            counted[k] = counted.get(k, 0) + got[k]
+
+    t_phase = time.perf_counter()
+    cfg = lm_config(LM_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.flash_attention,
+          f"{LM_ARCH}: dtype {cfg.dtype}, flash {cfg.flash_attention}")
+    model = Model(cfg, "cuda")
+    shape = InputShape("lm_train", LM_SEQ, LM_WORKERS, "train")
+    base = dict(topology="ring", n_workers=LM_WORKERS, theta=2.0, lr=0.1,
+                momentum=0.9, weight_decay=5e-4, steps=LM_STEPS,
+                log_every=1, seed=0)
+    runs = {"moniqua-8bit": dict(algo="moniqua", bits=8),
+            "dpsgd": dict(algo="dpsgd")}
+    # the stacked tree from its shapes alone (meta tensors), for the
+    # port's shape-only accounting of the wire's bytes
+    meta = tree.map(lambda a: torch.empty((LM_WORKERS,) + a.shape,
+                                          dtype=a.dtype, device="meta"),
+                    model.init(model.generator(0)))
+    n_leaves = len(tree.leaves(meta))
+    n_params = sum(a[0].numel() for a in tree.leaves(meta))
+    for name, kw in runs.items():
+        tr = Trainer(model, TrainerConfig(**base, **kw), shape)
+        want_bytes = tr.algo.bytes_per_step(meta, tr.hp)
+        path = tr.hp.engine().resolved_path(meta)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        res = tr.run()              # holds no other state: the peak is a run's
+        got = read()
+        peak = torch.cuda.max_memory_allocated()
+        add(got)
+        hist = res["history"]
+        losses = [h["loss"] for h in hist]
+        walls = [h["wall"] for h in hist]
+        step_ms = 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1)
+        per_step = 1 if path == "bucketed" else n_leaves
+        n_codec = LM_STEPS * per_step if kw["algo"] == "moniqua" else 0
+        check(all(map(math.isfinite, losses)), f"LM {name}: losses {losses}")
+        check(abs(losses[0] - math.log(cfg.vocab_size))
+              <= 0.1 * math.log(cfg.vocab_size),
+              f"LM {name}: step 0's loss {losses[0]} not within 10% of "
+              f"ln V = {math.log(cfg.vocab_size):.4f}")
+        check(got["flash_attention_tc"] == LM_STEPS * cfg.num_layers
+              and got["flash_attention_f32tc"] == 0
+              and got["flash_attention_simt"] == 0,
+              f"LM {name}: flash launches {got}, want "
+              f"{cfg.num_layers} a step on the bf16 tensor-core kernel")
+        check(got["moniqua_encode"] == n_codec
+              and got["moniqua_decode_reduce"] == n_codec,
+              f"LM {name}: codec launches {got}, want {n_codec} each "
+              f"({path} path, {n_leaves} leaves)")
+        check(res["bytes_per_step"] == want_bytes,
+              f"LM {name}: bytes/step {res['bytes_per_step']} != the "
+              f"shape-only {want_bytes}")
+        print(f"run LM {name}: {LM_ARCH} {cfg.num_layers} layers at "
+              f"published widths, {n_params / 1e6:.1f} M params a worker, "
+              f"ring({LM_WORKERS}), {LM_SEQ} tokens a worker; path {path}; "
+              f"losses {[round(v, 5) for v in losses]}; launches {got}; "
+              f"bytes/step {res['bytes_per_step']}", flush=True)
+        print(f"time: LM step {name} {step_ms:.3f} ms (host clock, card "
+              f"synchronised, mean of steps 1-{LM_STEPS - 1}), "
+              f"{LM_WORKERS * LM_SEQ / step_ms * 1e3:.0f} tokens/s; "
+              f"max_memory_allocated {peak / 2 ** 30:.2f} GiB {card}",
+              flush=True)
+        if name == "moniqua-8bit":
+            state = res["state"]
+            del res
+            batches = [tr.batch_fn(k) for k in (LM_STEPS, LM_STEPS + 1)]
+
+            def two_steps():
+                nonlocal state
+                for b in batches:
+                    state, _ = tr.step_fn(state, b)
+            profile_device(two_steps, f"2 LM {name} steps", card)
+            del state, batches
+        else:
+            del res
+        del tr
+        torch.cuda.empty_cache()
+
+    # -- Lemma 2 on the LM tree: one step of each rule from one state -------
+    tc1 = TrainerConfig(**dict(base, steps=1), **runs["moniqua-8bit"])
+    tr1 = Trainer(model, tc1, shape)
+    s1 = tr1.run()["state"]
+    X1 = s1["params"]
+    batch = tr1.batch_fn(1)
+    grads, _ = torch.func.vmap(torch.func.grad_and_value(model.loss))(
+        X1, batch)
+    dirs, _, _ = optim.direction(tr1.tcfg.sgd, grads, X1, s1["mom"])
+    del grads, s1["mom"]
+    torch.cuda.empty_cache()
+    Xm, _ = get_algorithm("moniqua").step(X1, s1["extra"], dirs, 0.1, 1,
+                                          0x5EED, tr1.hp)
+    Xd, _ = get_algorithm("dpsgd").step(X1, {}, dirs, 0.1, 1, None, tr1.hp)
+    del dirs
+    topo = tr1.hp.topo
+    w_self = sum(w for o, w in zip(topo.offsets, topo.weights)
+                 if o % topo.n == 0)
+    dB = delta_for_bits(8, True) * float(modulo.b_theta(
+        2.0, delta_for_bits(8, True), dev))
+    lemma = 2 * (1 - w_self) * dB
+    worst = worst_ratio = 0.0
+    ok = True
+    for a, b in zip(tree.leaves(Xm), tree.leaves(Xd)):
+        for w in range(LM_WORKERS):
+            af, bf = a[w].float(), b[w].float()
+            err = (af - bf).abs()
+            tol = lemma + kfa.bf16_ulp(af) + kfa.bf16_ulp(bf)
+            ok = ok and bool((err <= tol).all())
+            worst = max(worst, float(err.max()))
+            worst_ratio = max(worst_ratio, float((err / tol).max()))
+    check(ok, f"LM Lemma 2: |X_moniqua - X_dpsgd| {worst:.6g} above "
+          f"2 (1 - w_ii) delta B = {lemma:.6g} plus two bf16 ulps")
+    print(f"phase 21: Lemma 2 on the LM tree (one step of each rule from one "
+          f"state and one direction): max |X_moniqua - X_dpsgd| {worst:.6g} "
+          f"<= 2 (1 - w_ii) delta B = {lemma:.6g} (w_ii {w_self:.6g}, "
+          f"delta B {dB:.6g}) plus two bf16 ulps of |X| (worst "
+          f"{worst_ratio:.4f} of the bound)", flush=True)
+    del Xm, Xd
+
+    # -- one worker's loss and gradients, flash route vs plain --------------
+    plain = Model(lm_config(LM_ARCH, flash_attention=False), "cuda")
+    p0 = tree.map(lambda a: a[0].clone(), X1)
+    b0 = {k: v[0] for k, v in batch.items()}
+    del X1, s1, tr1
+    torch.cuda.empty_cache()
+    zero()
+    gf, lf = torch.func.grad_and_value(model.loss)(p0, b0)
+    check(read()["flash_attention_tc"] == cfg.num_layers,
+          "LM flash-route gradient did not launch the kernel a layer")
+    gp, lp = torch.func.grad_and_value(plain.loss)(p0, b0)
+    loss_gap = abs(float(lf) - float(lp)) / abs(float(lp))
+    grad_gap = max(float((a.float() - b.float()).abs().max())
+                   / float(b.float().abs().max())
+                   for a, b in zip(tree.leaves(gf), tree.leaves(gp)))
+    check(loss_gap <= LM_LOSS_RTOL and grad_gap <= BF16_GAP_BOUND,
+          f"LM flash vs plain: loss {loss_gap:.4g} (bound {LM_LOSS_RTOL}), "
+          f"gradients {grad_gap:.4g} of a leaf's max (bound "
+          f"{BF16_GAP_BOUND})")
+    print(f"phase 21: one worker's loss and gradients, flash route vs plain "
+          f"(flash_attention=False): loss {float(lf):.6f} vs "
+          f"{float(lp):.6f} ({loss_gap:.3g} relative, bound "
+          f"{LM_LOSS_RTOL}); worst gradient leaf {grad_gap:.4g} of its max "
+          f"(bound {BF16_GAP_BOUND})", flush=True)
+    del gf, gp, p0, plain
+    torch.cuda.empty_cache()
+
+    # -- the flash kernel at the training step's shape ---------------------
+    hk = cfg.num_kv_heads * LM_WORKERS
+    bh = cfg.num_heads * LM_WORKERS
+    gen = torch.Generator(device=dev).manual_seed(21)
+    qt = torch.randn((bh, LM_SEQ, cfg.hd), generator=gen, device=dev
+                     ).to(torch.bfloat16)
+    kt, vt = (torch.randn((hk, LM_SEQ, cfg.hd), generator=gen, device=dev
+                          ).to(torch.bfloat16) for _ in range(2))
+    kw = dict(scale=1.0 / math.sqrt(cfg.hd), causal=True, window=0)
+    ok_t, err_t, _ = kfa.flash_close(
+        kfa.flash_attention_tc(qt, kt, vt, **kw),
+        kfa.flash_attention_plain(qt.float(), kt.float(), vt.float(), **kw))
+    check(ok_t, f"flash at the LM training shape: max abs err {err_t}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4 * cfg.hd * bh * causal_pairs(LM_SEQ)
+    nbytes = 2 * (2 * bh + 2 * hk) * LM_SEQ * cfg.hd
+    train_flash = dict(
+        shape=[bh, LM_SEQ, cfg.hd], kv_blocks=hk, max_abs_err=err_t,
+        ms=timer(lambda: kfa.flash_attention_tc(qt, kt, vt, **kw), reps=20,
+                 warmup=2),
+        plain_ms=timer(lambda: kfa.flash_attention_plain(qt, kt, vt, **kw),
+                       reps=5, warmup=1),
+        bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                           flops / BF16_OPS_PER_S),
+        bound_by="operations" if flops / BF16_OPS_PER_S
+        > nbytes / HBM_BYTES_PER_S else "bytes",
+        library_ms=timer(lambda: sdpa(qt[None], kt[None], vt[None],
+                                      is_causal=True, enable_gqa=True),
+                         reps=20, warmup=2))
+    print(f"time: flash_attention_tc at the LM training shape "
+          f"{train_flash['shape']} bf16, {hk} KV blocks, causal: kernel "
+          f"{train_flash['ms']:.4f} ms | plain {train_flash['plain_ms']:.3f} "
+          f"ms | SDPA {train_flash['library_ms']:.4f} ms | bound "
+          f"{train_flash['bound_ms']:.4f} ms ({train_flash['bound_by']}) "
+          f"{card}", flush=True)
+    del qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # -- the three new dense configs, served at published widths -----------
+    for arch in ZOO_ARCHS:
+        mz = Model(lm_config(arch), "cuda")
+        zcfg = mz.cfg
+        params = mz.init(mz.generator(0))
+        if zcfg.qkv_bias:              # zeros at init: exercise the path
+            attn = params["blocks"]["attn"]
+            for name in ("bq", "bk", "bv"):
+                attn[name] = 0.1 * torch.randn(
+                    attn[name].shape, generator=gen, device=dev
+                ).to(attn[name].dtype)
+        n_params = sum(a.numel() for a in tree.leaves(params))
+        batch = SyntheticLMPipeline(mz, InputShape(
+            "zoo_prefill", ZOO_PROMPT, SERVE_BATCH, "prefill"), 1,
+            seed=1).global_batch(0)
+        prefill = make_prefill_step(mz)
+        zero()
+        logits = prefill(params, batch)
+        got = read()
+        add(got)
+        check(got["flash_attention_tc"] == zcfg.num_layers
+              and got["flash_attention_f32tc"] == 0
+              and got["flash_attention_simt"] == 0,
+              f"{arch} prefill flash launches {got}")
+        check(bool(torch.isfinite(logits).all()), f"{arch} prefill logits")
+        ref = make_prefill_step(Model(lm_config(arch, flash_attention=False),
+                                      "cuda"))(params, batch)
+        gap = float((logits - ref).abs().max()) / float(ref.abs().max())
+        check(gap <= BF16_GAP_BOUND, f"{arch} flash vs plain prefill "
+              f"{gap:.4g} x max|logit| > {BF16_GAP_BOUND}")
+        del ref
+        pre_ms = host_ms(lambda: prefill(params, batch), reps=3)
+        serve = make_serve_step(mz)
+        cache = mz.init_cache(SERVE_BATCH, InputShape(
+            "zoo_decode", ZOO_PROMPT, SERVE_BATCH, "decode"))
+        tok = logits[:, -1, :zcfg.vocab_size].argmax(-1, keepdim=True).int()
+        out_d, cache = serve(params, cache, tok)
+        torch.cuda.synchronize()
+        greedy = [tok]
+        t0 = time.perf_counter()
+        for _ in range(ZOO_GREEDY - 1):
+            tok = out_d[:, -1, :zcfg.vocab_size].argmax(-1, keepdim=True
+                                                        ).int()
+            greedy.append(tok)
+            out_d, cache = serve(params, cache, tok)
+        torch.cuda.synchronize()
+        dec_ms = 1e3 * (time.perf_counter() - t0) / (ZOO_GREEDY - 1)
+        check(bool(torch.isfinite(out_d).all()), f"{arch} decode")
+        check(int(cache["pos"]) == ZOO_GREEDY, f"{arch} cache pos")
+        g = zcfg.num_heads // zcfg.num_kv_heads
+        print(f"phase 21: {arch} at published widths, {zcfg.num_layers} "
+              f"layers ({n_params / 1e9:.3f} B params, GQA group {g}, "
+              f"rope_fraction {zcfg.rope_fraction}, qkv_bias "
+              f"{zcfg.qkv_bias}), {SERVE_BATCH} x {ZOO_PROMPT} prompt: "
+              f"tensor-core flash launched {got['flash_attention_tc']} "
+              f"times in one prefill; flash vs plain prefill {gap:.4g} x "
+              f"max|logit| (bound {BF16_GAP_BOUND}); {ZOO_GREEDY} greedy "
+              f"tokens at a {cache['layers']['k'].shape[2]}-slot cache: "
+              f"{torch.cat(greedy, 1).tolist()}", flush=True)
+        print(f"time: {arch} ({zcfg.num_layers} layers) prefill "
+              f"{SERVE_BATCH} x {ZOO_PROMPT} {pre_ms:.2f} ms "
+              f"({SERVE_BATCH * ZOO_PROMPT / pre_ms * 1e3:.0f} tokens/s), "
+              f"decode {dec_ms:.3f} ms a token (host clock) {card}",
+              flush=True)
+        del params, cache, logits, out_d, batch
+        torch.cuda.empty_cache()
+    print(f"phase 21: LM training and the dense zoo passed in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches on its paths "
+          f"{counted}", flush=True)
+    return counted, train_flash
+
+
 def main() -> int:
+    # phase 21's LM training allocates and frees tensors of many GB in
+    # varied sizes; without expandable segments the caching allocator
+    # fragments, and a step runs out of memory with much of the card
+    # reserved but free.  Read when the allocator starts, at the first
+    # allocation on the card.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA GPU", file=sys.stderr)
@@ -3291,9 +3641,15 @@ def main() -> int:
                              main_run[1]["params"])):
         for name, n in counts.items():
             extra[name] = extra.get(name, 0) + n
+    torch.cuda.empty_cache()
+    lm_counts, train_flash = lm_phase(dev, timer, card)
+    for name, n in lm_counts.items():
+        extra[name] = extra.get(name, 0) + n
     for k in kernels:
         k["launches"] += extra.get(k["name"], 0)
-    print(f"launches on phases 17-20's paths, added to the kernels line: "
+        if k["name"] == "flash_attention_tc":
+            k["train"] = train_flash
+    print(f"launches on phases 17-21's paths, added to the kernels line: "
           f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))

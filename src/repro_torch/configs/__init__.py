@@ -12,21 +12,22 @@ from repro_torch.configs.base import (ArchConfig, InputShape, INPUT_SHAPES,
                                       get_input_shape)
 
 ARCH_MODULES = {
+    "chatglm3-6b": "chatglm3_6b",
     "llama3.2-3b": "llama3_2_3b",
+    "internlm2-20b": "internlm2_20b",
+    "qwen2-72b": "qwen2_72b",
+    # the paper's own experimental model (Sec. 6, CIFAR10)
+    "resnet20": "resnet20",
 }
 
 # architectures of the reference not ported yet -> the ROADMAP item
 UNPORTED = {
     "dbrx-132b": "ROADMAP Queue 1 #12 (MoE)",
     "grok-1-314b": "ROADMAP Queue 1 #12 (MoE)",
-    "chatglm3-6b": "ROADMAP Queue 1 #12 (dense, partial RoPE)",
-    "internlm2-20b": "ROADMAP Queue 1 #12 (dense)",
-    "qwen2-72b": "ROADMAP Queue 1 #12 (dense, qkv bias)",
     "xlstm-125m": "ROADMAP Queue 1 #12 (xlstm)",
     "zamba2-1.2b": "ROADMAP Queue 1 #12 (zamba / mamba2)",
     "whisper-base": "ROADMAP Queue 1 #12 (whisper)",
     "phi-3-vision-4.2b": "ROADMAP Queue 1 #12 (vlm)",
-    "resnet20": "repro_torch.models.resnet (not a registry entry yet)",
 }
 
 

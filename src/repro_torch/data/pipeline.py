@@ -2,10 +2,12 @@
 
 ``SyntheticLMPipeline.global_batch(step)`` draws the tensors of
 ``Model.batch_spec``: uniform tokens in ``[0, vocab_size)`` and Gaussian
-float inputs.  It is a pure function of ``(seed, step)``: each call seeds
-its own ``torch.Generator``.  The draws differ from the reference's
-``jax.random`` streams; tests that compare the two frameworks hand both the
-same numpy inputs.
+float inputs; ``worker_batch(step)`` lays the same batch out as the
+decentralized trainer reads it, ``[n_workers, GB / n_workers, ...]``.  It
+is a pure function of ``(seed, step)``: each call seeds its own
+``torch.Generator``.  The draws differ from the reference's ``jax.random``
+streams; tests that compare the two frameworks hand both the same numpy
+inputs.
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ from repro_torch.models.model_factory import Model
 
 @dataclasses.dataclass
 class SyntheticLMPipeline:
-    """Batch factory for one (model, shape) combination.  Batches land on
-    the model's device."""
+    """Batch factory for one (model, shape, n_workers) combination.
+    Batches land on the model's device."""
     model: Model
     shape: InputShape
+    n_workers: int
     seed: int = 0
 
     def global_batch(self, step: int) -> Dict[str, torch.Tensor]:
@@ -43,3 +46,15 @@ class SyntheticLMPipeline:
             out[name] = arr.to(dev)
         return out
 
+    def worker_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """Stacked ``[n, GB / n, ...]`` layout for the decentralized
+        trainer: worker ``w`` takes rows ``w GB/n .. (w + 1) GB/n - 1`` of
+        the global batch."""
+        n = self.n_workers
+
+        def stack(a):
+            if a.shape[0] % n:
+                raise ValueError(f"global batch {a.shape[0]} does not split "
+                                 f"over {n} workers")
+            return a.reshape(n, a.shape[0] // n, *a.shape[1:])
+        return {k: stack(v) for k, v in self.global_batch(step).items()}

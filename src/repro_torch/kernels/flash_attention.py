@@ -25,9 +25,9 @@ launches.  CPU tensors take :func:`flash_attention_plain`.
 :func:`sdpa` with :func:`causal_mask` is the one masked-softmax oracle of
 the port: ``models.layers`` runs it as the plain attention path and for
 cached decode, and :func:`sdpa_ref` runs it on ``[BH, S, D]`` (the
-reference's ``ops._sdpa_ref``), in the inputs' dtype, for the backward of
-``ops.flash_sdpa``, which recomputes through it as the reference's
-``custom_vjp`` does.
+reference's ``ops._sdpa_ref``), in the inputs' dtype; :func:`sdpa_ref_vjp`
+is its VJP written out as tensor ops, the backward of ``ops.flash_sdpa``,
+which recomputes as the reference's ``custom_vjp`` does.
 """
 from __future__ import annotations
 
@@ -74,6 +74,39 @@ def sdpa_ref(q, k, v, scale: float, causal: bool, window: int):
             torch.ones((sq, sk), dtype=torch.bool, device=q.device))
     return sdpa(q[:, :, None], k[:, :, None], v[:, :, None], mask,
                 scale)[:, :, 0]
+
+
+def sdpa_ref_vjp(q, k, v, g, scale: float, causal: bool, window: int):
+    """The VJP of :func:`sdpa_ref` at ``q [BH, Sq, D]``, ``k, v [BH/G, Sk,
+    D]`` (KV blocks read by groups of G query blocks) for the cotangent
+    ``g [BH, Sq, D]`` -> ``(dq, dk, dv)`` at the inputs' shapes and dtypes.
+
+    Written out as tensor ops, step for step what the reference's
+    ``jax.vjp(_sdpa_ref)`` computes: P recomputed (scores in the inputs'
+    dtype, then float32 times ``scale``, masked, softmax), cast to v's
+    dtype for ``dV = P^T dO``; ``dP = dO V^T`` in float32; the softmax VJP
+    ``dS = P * (dP - rowsum(P * dP))`` with masked entries zero; ``dq =
+    scale dS K``, ``dk = scale dS^T Q`` in the inputs' dtype; dk and dv
+    summed over each group of G query blocks (the VJP of the KV expansion).
+    No ``torch.autograd`` inside, so it runs under ``torch.func``
+    transforms as well as in a plain backward."""
+    group = q.shape[0] // k.shape[0] if k.shape[0] else 1
+    ke, ve = expand_kv(k, group), expand_kv(v, group)
+    sq, sk = q.shape[1], k.shape[1]
+    mask = (causal_mask(sq, sk, window, device=q.device) if causal else
+            torch.ones((sq, sk), dtype=torch.bool, device=q.device))
+    scores = torch.einsum("bqd,bkd->bqk", q, ke).float() * scale
+    p = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    dv = torch.einsum("bqk,bqd->bkd", p.to(v.dtype), g)
+    dp = torch.einsum("bqd,bkd->bqk", g, ve).float()
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    ds = (torch.where(mask, ds, 0.0) * scale).to(q.dtype)
+    dq = torch.einsum("bqk,bkd->bqd", ds, ke)
+    dk = torch.einsum("bqk,bqd->bkd", ds, q)
+
+    def fold(t):
+        return t if group == 1 else t.unflatten(0, (-1, group)).sum(1)
+    return dq, fold(dk), fold(dv)
 
 
 def expand_kv(t: torch.Tensor, group: int) -> torch.Tensor:

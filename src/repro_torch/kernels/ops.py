@@ -194,27 +194,48 @@ moniqua_recover = modulo.recover
 class _FlashSDPA(torch.autograd.Function):
     """Forward through the flash kernel (scores never leave the chip; K/V
     at KV-head count); backward recomputes through the masked-softmax
-    oracle, as the reference's ``custom_vjp`` does, with the KV expansion
-    inside autograd, so dK and dV come back summed over each group at
-    KV-head shape."""
+    oracle, as the reference's ``custom_vjp`` does, by the VJP written out
+    as tensor ops (``flash_attention.sdpa_ref_vjp``), so dK and dV come back
+    summed over each group at KV-head shape.
+
+    In the ``forward`` / ``setup_context`` form with its own ``vmap`` rule,
+    so that ``torch.func.vmap(torch.func.grad(loss))`` (the train step's
+    per-worker gradients) runs through it: the rule folds the vmapped dim
+    into the kernel's leading ``[BH]`` dim, one launch for all workers.
+    The backward needs no rule: its tensor ops batch under ``vmap``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, window):
-        ctx.save_for_backward(q, k, v)
-        ctx.cfg = (scale, causal, window)
+    def forward(q, k, v, scale, causal, window):
         return _fa.flash_attention(q, k, v, scale=scale, causal=causal,
                                    window=window)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, causal, window = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (scale, causal, window)
+
+    @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        group = q.shape[0] // k.shape[0] if k.shape[0] else 1
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = _fa.sdpa_ref(qkv[0], _fa.expand_kv(qkv[1], group),
-                               _fa.expand_kv(qkv[2], group), *ctx.cfg)
-            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        dq, dk, dv = _fa.sdpa_ref_vjp(q, k, v, g, *ctx.cfg)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale, causal, window):
+        """``q [n, BH, S, D]``, ``k, v [n, BHkv, Sk, D]`` -> one launch on
+        ``[n BH, S, D]`` and ``[n BHkv, Sk, D]`` (an unbatched operand is
+        expanded first).  Query block ``w BH + b`` reads KV block ``(w BH +
+        b) // G = w BHkv + b // G``: worker ``w``'s own, as in the loop."""
+        n = info.batch_size
+
+        def fold(t, d):
+            t = t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+            return t.reshape(-1, *t.shape[2:]).contiguous()
+
+        o = _FlashSDPA.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                             fold(v, in_dims[2]), scale, causal, window)
+        return o.unflatten(0, (n, -1)), 0
 
 
 def flash_sdpa(q, k, v, *, scale: float, causal: bool = True,

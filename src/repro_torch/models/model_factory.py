@@ -3,6 +3,7 @@
 A ``Model`` bundles, for one ``ArchConfig`` of a ported family (``dense``):
 
   init(gen)                        -> params on the model's device
+  loss(params, batch)              -> scalar training loss
   prefill_logits(params, batch)    -> forward at full length
   init_cache(batch, shape)         -> decode cache
   decode_step(params, cache, tok)  -> (logits, cache)
@@ -56,6 +57,15 @@ class Model:
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
         return T.init_lm(gen, self.cfg)
+
+    # ---------------- training loss ----------------
+    def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """Mean token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (``batch_spec``'s ``train`` kind), attention
+        windowed by ``cfg.sliding_window``."""
+        return T.lm_loss(params, self.cfg, batch["tokens"], batch["labels"],
+                         window=self.cfg.sliding_window)
 
     # ---------------- serving ----------------
     def prefill_logits(self, params, batch, *, last_only: bool = False

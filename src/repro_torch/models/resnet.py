@@ -128,6 +128,11 @@ class ResNetModel:
     num_classes: int = 10
     device: str = "cuda"
 
+    def generator(self, seed: int) -> torch.Generator:
+        """A CPU ``torch.Generator`` seeded with ``seed``: ResNet weights
+        are drawn on the host and moved to the model's device."""
+        return torch.Generator().manual_seed(seed)
+
     def init(self, gen: torch.Generator) -> Dict:
         dev = resolve_device(self.device)
         return tree.map(lambda a: a.to(dev),

@@ -4,7 +4,12 @@ The counterpart of the reference's ``repro.models.transformer`` for the
 dense family.  Layer parameters are stacked along a leading layer dim, as
 the reference's ``vmap``'d init leaves them, so a converted tree matches leaf
 for leaf; the reference's ``lax.scan`` over the stack is a Python loop over
-layer views here (``remat`` has no meaning without a backward).
+layer views here.  ``remat`` is not honoured: the backward keeps every
+layer's activations instead of recomputing them, which costs memory only,
+not numbers.
+
+Training: ``lm_loss`` / ``xent``, the mean token cross-entropy over the
+valid labels, which ``Model.loss`` differentiates.
 
 Serving: ``init_cache`` / ``decode_step`` over a ring-buffer KV cache.  The
 cache's K/V tensors are updated in place (see ``layers.attention_decode``).
@@ -105,6 +110,25 @@ def lm_logits(p, cfg, tokens, *, window=0):
     h, aux = hidden_states(p, cfg, embed_tokens(p, cfg, tokens), positions,
                            window=window)
     return logits_from_hidden(p, cfg, h), aux
+
+
+def lm_loss(p, cfg, tokens, labels, *, window=0):
+    """Mean token cross-entropy of the dense LM (no MoE aux term)."""
+    logits, _ = lm_logits(p, cfg, tokens, window=window)
+    return xent(logits, labels, cfg.vocab_size)
+
+
+def xent(logits, labels, vocab_size):
+    """Mean token cross-entropy; positions with label < 0 are masked.  The
+    padded vocabulary columns (``>= vocab_size``) are set to ``-1e30``
+    before the float32 ``log_softmax``; the sum over valid positions is
+    divided by ``max(#valid, 1)``."""
+    V = logits.shape[-1]
+    pad = torch.arange(V, device=logits.device) < vocab_size
+    lp = torch.log_softmax(torch.where(pad, logits, -1e30), dim=-1)
+    valid = labels >= 0
+    ll = torch.gather(lp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return -torch.where(valid, ll, 0.0).sum() / valid.sum().clamp(min=1)
 
 
 # ---------------------------------------------------------------------------

@@ -33,16 +33,21 @@ def init_momentum(params: PyTree) -> PyTree:
 
 def direction(cfg: SGDConfig, grads: PyTree, params: PyTree,
               mom: PyTree) -> Tuple[PyTree, PyTree, torch.Tensor]:
-    """Returns (direction, new momentum, ||g||_inf over the whole tree)."""
+    """Returns (direction, new momentum, ||g||_inf over the whole tree).
+
+    The reference's float32 operations in its order, with one float32
+    temporary a leaf besides the new momentum (``g + wd p`` formed in
+    place on a float32 copy of ``p``; IEEE addition commutes): an LM's
+    head and embedding are billions of values."""
     flat_g, treedef = tree.flatten(grads)
     g_inf = torch.zeros((), dtype=torch.float32, device=flat_g[0].device)
-    for g in flat_g:
-        g_inf = torch.maximum(g_inf, torch.max(torch.abs(g.float())))
+    for g in flat_g:                  # |g| and its max are exact in g's dtype
+        g_inf = torch.maximum(g_inf, torch.max(torch.abs(g)).float())
 
     ds, ms = [], []
     for g, p, m in zip(flat_g, tree.leaves(params), tree.leaves(mom)):
-        gf = g.float() + cfg.weight_decay * p.float()
-        mn = cfg.momentum * m + gf
+        gf = p.to(torch.float32, copy=True).mul_(cfg.weight_decay).add_(g)
+        mn = (cfg.momentum * m).add_(gf)
         ds.append((gf + cfg.momentum * mn) if cfg.nesterov else mn)
         ms.append(mn)
     return (tree.unflatten(treedef, ds), tree.unflatten(treedef, ms), g_inf)

@@ -35,9 +35,11 @@ PyTree = Any
 def init_state(model, algo: Algorithm, hp: AlgoHyper, n_workers: int,
                seed: int = 0) -> Dict[str, Any]:
     """All workers start from identical weights (assumption A4), drawn from
-    a generator seeded with ``seed`` that then yields the per-step seeds."""
+    ``model.generator(seed)`` (on the model's device for an LM, so a
+    full-width model is drawn there).  The per-step seeds come from a CPU
+    generator seeded with ``seed``."""
     gen = torch.Generator().manual_seed(seed)
-    params = model.init(gen)
+    params = model.init(model.generator(seed))
     X = tree.map(lambda a: a.unsqueeze(0).expand((n_workers,) + a.shape)
                  .clone(), params)
     return {
@@ -77,6 +79,7 @@ def make_train_step(model, hp: AlgoHyper, tcfg: TrainStepConfig
 
         grads, losses = grad_fn(X, batch)
         dirs, mom, g_inf_now = optim.direction(tcfg.sgd, grads, X, mom)
+        del grads                       # freed before the gossip round
         g_inf = torch.maximum(0.9 * state["g_inf"], g_inf_now)
 
         alpha = sched(step)

@@ -1,9 +1,12 @@
 """Host-side training loop: batch source, step function, history.
 
-The batch source is a callable ``step -> stacked batch`` (leaves
-``[n, batch, ...]``); for ResNet-20 that is
-``data.synthetic.stacked_cifar_like``.  Checkpoints (``checkpoint/ckpt.py``)
-hold the params and the full state, so a cut run resumes bit for bit.
+The batch source is an ``InputShape``, from which the trainer builds the
+reference's ``SyntheticLMPipeline(model, shape, n_workers, seed=seed)`` and
+reads its ``worker_batch`` (an LM: ``Trainer(model, tc, shape)``), or a
+callable ``step -> stacked batch`` (leaves ``[n, batch, ...]``); for
+ResNet-20 that is ``data.synthetic.stacked_cifar_like``.  Checkpoints
+(``checkpoint/ckpt.py``) hold the params and the full state, so a cut run
+resumes bit for bit.
 
 Observability (``repro_torch.obs``): ``telemetry`` adds the round-health
 ``obs_*`` metrics; ``log_jsonl`` writes a ``repro.obs.runlog/v1`` run log
@@ -15,16 +18,18 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.configs.base import InputShape
 from repro_torch.core.algorithms import AlgoHyper, get_algorithm
 from repro_torch.core.moniqua import MoniquaCodec
 from repro_torch.core.quantizers import QuantSpec
 from repro_torch.core.theta import ThetaSchedule
 from repro_torch.core.topology import get_topology
+from repro_torch.data.pipeline import SyntheticLMPipeline
 from repro_torch.obs.runlog import RunLogWriter
 from repro_torch.obs.trace import SpanRecorder
 from repro_torch.optim.sgd import SGDConfig
@@ -104,8 +109,15 @@ def drain_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
 
 class Trainer:
     def __init__(self, model, tc: TrainerConfig,
-                 batch_fn: Callable[[int], Dict[str, torch.Tensor]]):
-        self.model, self.tc, self.batch_fn = model, tc, batch_fn
+                 data: Union[InputShape,
+                             Callable[[int], Dict[str, torch.Tensor]]]):
+        """``data``: an ``InputShape`` of the ``train`` kind (synthetic LM
+        batches of the model's ``batch_spec``, ``global_batch / n_workers``
+        sequences a worker) or a callable ``step -> stacked batch``."""
+        self.model, self.tc = model, tc
+        self.batch_fn = (SyntheticLMPipeline(model, data, tc.n_workers,
+                                             seed=tc.seed).worker_batch
+                         if isinstance(data, InputShape) else data)
         self.hp = build_hyper(tc)
         self.algo = get_algorithm(tc.algo)
         self.tcfg = TS.TrainStepConfig(

@@ -30,6 +30,8 @@ def test_port_imports_without_jax_or_repro():
     assert "repro_torch.kernels.moniqua_encode" in res["modules"]
     assert "repro_torch.train.trainer" in res["modules"]
     for name in ("configs", "configs.base", "configs.llama3_2_3b",
+                 "configs.chatglm3_6b", "configs.internlm2_20b",
+                 "configs.qwen2_72b", "configs.resnet20", "train.train_step",
                  "models.layers", "models.transformer",
                  "models.model_factory", "train.serve_step", "data.pipeline",
                  "kernels.flash_attention", "kernels.moniqua_decode",

@@ -188,7 +188,7 @@ def test_configs_match_reference():
 def test_pipeline_batches():
     _, tcfg = _cfgs()
     tm = tbuild(tcfg, device="cpu")
-    pipe = SyntheticLMPipeline(tm, TShape("p", 32, 4, "prefill"), seed=5)
+    pipe = SyntheticLMPipeline(tm, TShape("p", 32, 4, "prefill"), 1, seed=5)
     b0, b0b, b1 = pipe.global_batch(0), pipe.global_batch(0), \
         pipe.global_batch(1)
     assert set(b0) == {"tokens"} and b0["tokens"].shape == (4, 32)
@@ -197,9 +197,9 @@ def test_pipeline_batches():
     assert not torch.equal(b0["tokens"], b1["tokens"])
     assert 0 <= int(b0["tokens"].min()) and \
         int(b0["tokens"].max()) < tcfg.vocab_size
-    train = SyntheticLMPipeline(tm, TShape("t", 16, 2, "train"))
+    train = SyntheticLMPipeline(tm, TShape("t", 16, 2, "train"), 1)
     assert set(train.global_batch(0)) == {"tokens", "labels"}
-    dec = SyntheticLMPipeline(tm, TShape("d", 16, 2, "decode"))
+    dec = SyntheticLMPipeline(tm, TShape("d", 16, 2, "decode"), 1)
     assert dec.global_batch(0)["token"].shape == (2, 1)
 
 
@@ -226,4 +226,5 @@ def test_serving_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError):
         tm.init_cache(1, TShape("d", 8, 1, "decode"))
     with pytest.raises(RuntimeError):
-        SyntheticLMPipeline(tm, TShape("p", 8, 1, "prefill")).global_batch(0)
+        SyntheticLMPipeline(tm, TShape("p", 8, 1, "prefill"),
+                            1).global_batch(0)
