@@ -213,6 +213,25 @@ Phases (any failure exits non-zero, and the result line is not printed):
    a 2 x 2048 prefill through the flash kernel (GQA groups 16, 6 and 8)
    within phase 10's bound of the plain path, and 8 greedy decode tokens
    at a 2048-slot cache.  Its launches are added to the kernels line.
+22. The MoE family and the Mamba2 hybrid, through the same entry points:
+   (a) dbrx-132b and grok-1-314b at published widths (d 6144, 48 query and
+   8 KV heads of 128, E 16 top-4 and E 8 top-2, capacity factor 1.25,
+   dispatch groups of 256), bf16, cut to 2 layers, one after the other: a
+   2 x 2048 prefill (2 flash launches, GQA group 6) within phase 10's
+   bound of the plain route over the tokens routed alike in both
+   (top-k experts and kept slots read from ``models.moe.route``; the share
+   rerouted printed), 8 greedy tokens at a 2048-slot cache; (b) dbrx-132b
+   trained, routing and attention at published widths, depth 40 -> 1,
+   d_ff 10752 -> 1344, ring(2), 2048 tokens a worker: 3 steps of moniqua
+   8-bit and 3 of dpsgd as in phase 21 (one flash launch a step, the
+   loss's xent and aux parts at step 0, Lemma 2); (c) zamba2-1.2b as
+   published (38 layers, the shared attention block 6 times a prefill: 32
+   heads of 64, window 8192): a 2 x 4096 prefill within phase 10's bound
+   of the plain route, 32 greedy tokens at a 4096-slot cache; (d)
+   zamba2-1.2b at 12 layers (2 calls of the shared block) on ring(4) as
+   in (b), and one worker's loss and gradients, flash route against plain
+   (phase 21's bounds).  The flash kernel timed at both training
+   shapes; the launches added to the kernels line.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -2926,74 +2945,71 @@ ZOO_PROMPT, ZOO_GREEDY = 2048, 8
 LM_LOSS_RTOL = 1e-2
 
 
-def lm_config(arch, **over):
-    """The published config of ``arch`` cut to ``LM_LAYERS`` layers, with
-    ``over`` replaced."""
+def lm_config(arch, layers=LM_LAYERS, **over):
+    """The published config of ``arch`` cut to ``layers`` layers (``None``:
+    its published depth), with ``over`` replaced."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch), num_layers=LM_LAYERS,
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
                                **over)
 
 
-def lm_phase(dev, timer, card):
-    """Phase 21: decentralized LM training through ``Trainer(model, tc,
-    shape)`` (llama3.2-3b at its published widths, 2 layers, ring(4), the
-    flash kernel in the vmapped step), Lemma 2 on the LM tree, flash vs
-    plain gradients, then the three new dense configs served at published
-    widths.  Returns the launches on these paths by kernels-line entry and
-    the flash kernel's times at the training shape."""
-    from repro_torch import tree
-    from repro_torch.configs.base import InputShape
-    from repro_torch.core import modulo
-    from repro_torch.core.algorithms import get_algorithm
-    from repro_torch.core.quantizers import delta_for_bits
-    from repro_torch.data.pipeline import SyntheticLMPipeline
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import moniqua_decode_reduce as kdr
-    from repro_torch.kernels import moniqua_encode as kenc
-    from repro_torch.models.model_factory import Model
-    from repro_torch.optim import sgd as optim
-    from repro_torch.train.serve_step import make_prefill_step, make_serve_step
-    from repro_torch.train.trainer import Trainer, TrainerConfig
+class Launches:
+    """Launch counts of the three flash routes and the two codec wrappers:
+    ``zero()`` just before a path, ``read()`` just after it; ``add(got)``
+    sums a reading into ``counted``, by kernels-line entry."""
 
-    routes = (kfa.flash_attention_tc, kfa.flash_attention_f32tc,
-              kfa.flash_attention_simt)
+    KEYS = ("flash_attention_tc", "moniqua_encode", "moniqua_decode_reduce")
 
-    def zero():
+    def __init__(self):
+        from repro_torch.kernels import flash_attention as kfa
+        from repro_torch.kernels import moniqua_decode_reduce as kdr
+        from repro_torch.kernels import moniqua_encode as kenc
+        self.routes = (kfa.flash_attention_tc, kfa.flash_attention_f32tc,
+                       kfa.flash_attention_simt)
+        self.codec = {"moniqua_encode": kenc.encode,
+                      "moniqua_decode_reduce": kdr.decode_reduce}
+        self.counted = {}
+
+    def zero(self):
         torch.cuda.synchronize()
-        kenc.encode.launches = kdr.decode_reduce.launches = 0
-        for r in routes:
-            r.launches = 0
+        for f in self.routes + tuple(self.codec.values()):
+            f.launches = 0
 
-    def read():
+    def read(self) -> dict:
         torch.cuda.synchronize()
-        got = {r.__name__: r.launches for r in routes}
-        got.update(moniqua_encode=kenc.encode.launches,
-                   moniqua_decode_reduce=kdr.decode_reduce.launches)
+        got = {r.__name__: r.launches for r in self.routes}
+        got.update({k: f.launches for k, f in self.codec.items()})
         return got
 
-    counted = {}
+    def add(self, got):
+        for k in self.KEYS:
+            self.counted[k] = self.counted.get(k, 0) + got[k]
 
-    def add(got):
-        for k in ("flash_attention_tc", "moniqua_encode",
-                  "moniqua_decode_reduce"):
-            counted[k] = counted.get(k, 0) + got[k]
 
-    t_phase = time.perf_counter()
-    cfg = lm_config(LM_ARCH)
-    check(cfg.dtype == "bfloat16" and cfg.flash_attention,
-          f"{LM_ARCH}: dtype {cfg.dtype}, flash {cfg.flash_attention}")
-    model = Model(cfg, "cuda")
-    shape = InputShape("lm_train", LM_SEQ, LM_WORKERS, "train")
-    base = dict(topology="ring", n_workers=LM_WORKERS, theta=2.0, lr=0.1,
-                momentum=0.9, weight_decay=5e-4, steps=LM_STEPS,
-                log_every=1, seed=0)
-    runs = {"moniqua-8bit": dict(algo="moniqua", bits=8),
-            "dpsgd": dict(algo="dpsgd")}
+def train_runs(model, shape, base, runs, launches, card, what,
+               flash_per_step, before=None):
+    """Each of ``runs`` through ``Trainer(model, tc, shape)`` from one seed
+    (``Trainer.run`` owns each run's state: the card holds one): finite
+    losses, step 0's within 10% of ln V, the bf16 tensor-core flash kernel
+    ``flash_per_step`` times a step, the codec kernels as ``path="auto"``
+    resolves for the tree, bytes a step equal to the shape-only
+    accounting; step time, tokens/s, peak memory, and a profile of two
+    steps after the Moniqua run.  ``before(params)`` sees one worker's
+    initial parameters first."""
+    from repro_torch import tree
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = model.cfg
+    n, steps = base["n_workers"], base["steps"]
+    p0 = model.init(model.generator(base["seed"]))
+    if before is not None:
+        before(p0)
     # the stacked tree from its shapes alone (meta tensors), for the
     # port's shape-only accounting of the wire's bytes
-    meta = tree.map(lambda a: torch.empty((LM_WORKERS,) + a.shape,
-                                          dtype=a.dtype, device="meta"),
-                    model.init(model.generator(0)))
+    meta = tree.map(lambda a: torch.empty((n,) + a.shape, dtype=a.dtype,
+                                          device="meta"), p0)
+    del p0
     n_leaves = len(tree.leaves(meta))
     n_params = sum(a[0].numel() for a in tree.leaves(meta))
     for name, kw in runs.items():
@@ -3002,61 +3018,75 @@ def lm_phase(dev, timer, card):
         path = tr.hp.engine().resolved_path(meta)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        zero()
+        launches.zero()
         res = tr.run()              # holds no other state: the peak is a run's
-        got = read()
+        got = launches.read()
         peak = torch.cuda.max_memory_allocated()
-        add(got)
+        launches.add(got)
         hist = res["history"]
         losses = [h["loss"] for h in hist]
         walls = [h["wall"] for h in hist]
         step_ms = 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1)
         per_step = 1 if path == "bucketed" else n_leaves
-        n_codec = LM_STEPS * per_step if kw["algo"] == "moniqua" else 0
-        check(all(map(math.isfinite, losses)), f"LM {name}: losses {losses}")
+        n_codec = steps * per_step if kw["algo"] == "moniqua" else 0
+        check(all(map(math.isfinite, losses)), f"{what} {name}: losses "
+              f"{losses}")
         check(abs(losses[0] - math.log(cfg.vocab_size))
               <= 0.1 * math.log(cfg.vocab_size),
-              f"LM {name}: step 0's loss {losses[0]} not within 10% of "
+              f"{what} {name}: step 0's loss {losses[0]} not within 10% of "
               f"ln V = {math.log(cfg.vocab_size):.4f}")
-        check(got["flash_attention_tc"] == LM_STEPS * cfg.num_layers
+        check(got["flash_attention_tc"] == steps * flash_per_step
               and got["flash_attention_f32tc"] == 0
               and got["flash_attention_simt"] == 0,
-              f"LM {name}: flash launches {got}, want "
-              f"{cfg.num_layers} a step on the bf16 tensor-core kernel")
+              f"{what} {name}: flash launches {got}, want "
+              f"{flash_per_step} a step on the bf16 tensor-core kernel")
         check(got["moniqua_encode"] == n_codec
               and got["moniqua_decode_reduce"] == n_codec,
-              f"LM {name}: codec launches {got}, want {n_codec} each "
+              f"{what} {name}: codec launches {got}, want {n_codec} each "
               f"({path} path, {n_leaves} leaves)")
         check(res["bytes_per_step"] == want_bytes,
-              f"LM {name}: bytes/step {res['bytes_per_step']} != the "
+              f"{what} {name}: bytes/step {res['bytes_per_step']} != the "
               f"shape-only {want_bytes}")
-        print(f"run LM {name}: {LM_ARCH} {cfg.num_layers} layers at "
-              f"published widths, {n_params / 1e6:.1f} M params a worker, "
-              f"ring({LM_WORKERS}), {LM_SEQ} tokens a worker; path {path}; "
-              f"losses {[round(v, 5) for v in losses]}; launches {got}; "
+        print(f"run {what} {name}: {cfg.name} {cfg.num_layers} layers, "
+              f"{n_params / 1e6:.1f} M params a worker, ring({n}), "
+              f"{shape.seq_len} tokens a worker; path {path}; losses "
+              f"{[round(v, 5) for v in losses]}; launches {got}; "
               f"bytes/step {res['bytes_per_step']}", flush=True)
-        print(f"time: LM step {name} {step_ms:.3f} ms (host clock, card "
-              f"synchronised, mean of steps 1-{LM_STEPS - 1}), "
-              f"{LM_WORKERS * LM_SEQ / step_ms * 1e3:.0f} tokens/s; "
+        print(f"time: {what} step {name} {step_ms:.3f} ms (host clock, card "
+              f"synchronised, mean of steps 1-{steps - 1}), "
+              f"{n * shape.seq_len / step_ms * 1e3:.0f} tokens/s; "
               f"max_memory_allocated {peak / 2 ** 30:.2f} GiB {card}",
               flush=True)
-        if name == "moniqua-8bit":
+        if kw["algo"] == "moniqua":
             state = res["state"]
             del res
-            batches = [tr.batch_fn(k) for k in (LM_STEPS, LM_STEPS + 1)]
+            batches = [tr.batch_fn(k) for k in (steps, steps + 1)]
 
             def two_steps():
                 nonlocal state
                 for b in batches:
                     state, _ = tr.step_fn(state, b)
-            profile_device(two_steps, f"2 LM {name} steps", card)
+            profile_device(two_steps, f"2 {what} {name} steps", card)
             del state, batches
         else:
             del res
         del tr
         torch.cuda.empty_cache()
 
-    # -- Lemma 2 on the LM tree: one step of each rule from one state -------
+
+def lemma2_check(model, shape, base, runs, dev, what):
+    """Lemma 2 on an LM tree: one step of each rule from one state and one
+    direction, ``|X_moniqua - X_dpsgd| <= 2 (1 - w_ii) delta B`` plus two
+    bf16 ulps.  Returns worker 0's parameters after one Moniqua step and
+    its next batch, for ``flash_vs_plain``."""
+    from repro_torch import tree
+    from repro_torch.core import modulo
+    from repro_torch.core.algorithms import get_algorithm
+    from repro_torch.core.quantizers import delta_for_bits
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.optim import sgd as optim
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
     tc1 = TrainerConfig(**dict(base, steps=1), **runs["moniqua-8bit"])
     tr1 = Trainer(model, tc1, shape)
     s1 = tr1.run()["state"]
@@ -3080,67 +3110,75 @@ def lm_phase(dev, timer, card):
     worst = worst_ratio = 0.0
     ok = True
     for a, b in zip(tree.leaves(Xm), tree.leaves(Xd)):
-        for w in range(LM_WORKERS):
+        for w in range(base["n_workers"]):
             af, bf = a[w].float(), b[w].float()
             err = (af - bf).abs()
             tol = lemma + kfa.bf16_ulp(af) + kfa.bf16_ulp(bf)
             ok = ok and bool((err <= tol).all())
             worst = max(worst, float(err.max()))
             worst_ratio = max(worst_ratio, float((err / tol).max()))
-    check(ok, f"LM Lemma 2: |X_moniqua - X_dpsgd| {worst:.6g} above "
+    check(ok, f"{what} Lemma 2: |X_moniqua - X_dpsgd| {worst:.6g} above "
           f"2 (1 - w_ii) delta B = {lemma:.6g} plus two bf16 ulps")
-    print(f"phase 21: Lemma 2 on the LM tree (one step of each rule from one "
+    print(f"{what}: Lemma 2 on the LM tree (one step of each rule from one "
           f"state and one direction): max |X_moniqua - X_dpsgd| {worst:.6g} "
           f"<= 2 (1 - w_ii) delta B = {lemma:.6g} (w_ii {w_self:.6g}, "
           f"delta B {dB:.6g}) plus two bf16 ulps of |X| (worst "
           f"{worst_ratio:.4f} of the bound)", flush=True)
-    del Xm, Xd
+    return (tree.map(lambda a: a[0].clone(), X1),
+            {k: v[0] for k, v in batch.items()})
 
-    # -- one worker's loss and gradients, flash route vs plain --------------
-    plain = Model(lm_config(LM_ARCH, flash_attention=False), "cuda")
-    p0 = tree.map(lambda a: a[0].clone(), X1)
-    b0 = {k: v[0] for k, v in batch.items()}
-    del X1, s1, tr1
+
+def flash_vs_plain(model, plain, p0, b0, launches, flash_per_call,
+                   loss_rtol, grad_bound, what):
+    """One worker's loss and gradients through the flash route against the
+    plain one (``flash_attention=False``)."""
+    from repro_torch import tree
+
     torch.cuda.empty_cache()
-    zero()
+    launches.zero()
     gf, lf = torch.func.grad_and_value(model.loss)(p0, b0)
-    check(read()["flash_attention_tc"] == cfg.num_layers,
-          "LM flash-route gradient did not launch the kernel a layer")
+    check(launches.read()["flash_attention_tc"] == flash_per_call,
+          f"{what} flash-route gradient: flash launches, want "
+          f"{flash_per_call}")
     gp, lp = torch.func.grad_and_value(plain.loss)(p0, b0)
     loss_gap = abs(float(lf) - float(lp)) / abs(float(lp))
     grad_gap = max(float((a.float() - b.float()).abs().max())
                    / float(b.float().abs().max())
                    for a, b in zip(tree.leaves(gf), tree.leaves(gp)))
-    check(loss_gap <= LM_LOSS_RTOL and grad_gap <= BF16_GAP_BOUND,
-          f"LM flash vs plain: loss {loss_gap:.4g} (bound {LM_LOSS_RTOL}), "
-          f"gradients {grad_gap:.4g} of a leaf's max (bound "
-          f"{BF16_GAP_BOUND})")
-    print(f"phase 21: one worker's loss and gradients, flash route vs plain "
+    check(loss_gap <= loss_rtol and grad_gap <= grad_bound,
+          f"{what} flash vs plain: loss {loss_gap:.4g} (bound {loss_rtol}), "
+          f"gradients {grad_gap:.4g} of a leaf's max (bound {grad_bound})")
+    print(f"{what}: one worker's loss and gradients, flash route vs plain "
           f"(flash_attention=False): loss {float(lf):.6f} vs "
           f"{float(lp):.6f} ({loss_gap:.3g} relative, bound "
-          f"{LM_LOSS_RTOL}); worst gradient leaf {grad_gap:.4g} of its max "
-          f"(bound {BF16_GAP_BOUND})", flush=True)
-    del gf, gp, p0, plain
+          f"{loss_rtol}); worst gradient leaf {grad_gap:.4g} of its max "
+          f"(bound {grad_bound})", flush=True)
+    del gf, gp
     torch.cuda.empty_cache()
 
-    # -- the flash kernel at the training step's shape ---------------------
-    hk = cfg.num_kv_heads * LM_WORKERS
-    bh = cfg.num_heads * LM_WORKERS
+
+def flash_times(dev, timer, card, bh, hk, s, d, what, window=0):
+    """The bf16 tensor-core flash kernel at ``[bh, s, d]`` against ``hk``
+    KV blocks, causal (a window, if any, no shorter than ``s``): checked
+    against the plain version, timed beside it, SDPA and the bound."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    check(window == 0 or window >= s, f"flash_times: window {window} < {s}")
     gen = torch.Generator(device=dev).manual_seed(21)
-    qt = torch.randn((bh, LM_SEQ, cfg.hd), generator=gen, device=dev
+    qt = torch.randn((bh, s, d), generator=gen, device=dev
                      ).to(torch.bfloat16)
-    kt, vt = (torch.randn((hk, LM_SEQ, cfg.hd), generator=gen, device=dev
+    kt, vt = (torch.randn((hk, s, d), generator=gen, device=dev
                           ).to(torch.bfloat16) for _ in range(2))
-    kw = dict(scale=1.0 / math.sqrt(cfg.hd), causal=True, window=0)
+    kw = dict(scale=1.0 / math.sqrt(d), causal=True, window=window)
     ok_t, err_t, _ = kfa.flash_close(
         kfa.flash_attention_tc(qt, kt, vt, **kw),
         kfa.flash_attention_plain(qt.float(), kt.float(), vt.float(), **kw))
-    check(ok_t, f"flash at the LM training shape: max abs err {err_t}")
+    check(ok_t, f"flash at {what} [{bh}, {s}, {d}]: max abs err {err_t}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    flops = 4 * cfg.hd * bh * causal_pairs(LM_SEQ)
-    nbytes = 2 * (2 * bh + 2 * hk) * LM_SEQ * cfg.hd
-    train_flash = dict(
-        shape=[bh, LM_SEQ, cfg.hd], kv_blocks=hk, max_abs_err=err_t,
+    flops = 4 * d * bh * causal_pairs(s)
+    nbytes = 2 * (2 * bh + 2 * hk) * s * d
+    out = dict(
+        shape=[bh, s, d], kv_blocks=hk, window=window, max_abs_err=err_t,
         ms=timer(lambda: kfa.flash_attention_tc(qt, kt, vt, **kw), reps=20,
                  warmup=2),
         plain_ms=timer(lambda: kfa.flash_attention_plain(qt, kt, vt, **kw),
@@ -3152,16 +3190,122 @@ def lm_phase(dev, timer, card):
         library_ms=timer(lambda: sdpa(qt[None], kt[None], vt[None],
                                       is_causal=True, enable_gqa=True),
                          reps=20, warmup=2))
-    print(f"time: flash_attention_tc at the LM training shape "
-          f"{train_flash['shape']} bf16, {hk} KV blocks, causal: kernel "
-          f"{train_flash['ms']:.4f} ms | plain {train_flash['plain_ms']:.3f} "
-          f"ms | SDPA {train_flash['library_ms']:.4f} ms | bound "
-          f"{train_flash['bound_ms']:.4f} ms ({train_flash['bound_by']}) "
-          f"{card}", flush=True)
+    print(f"time: flash_attention_tc at {what} {out['shape']} bf16, {hk} KV "
+          f"blocks, causal, window {window}: kernel {out['ms']:.4f} ms | "
+          f"plain {out['plain_ms']:.3f} ms | SDPA {out['library_ms']:.4f} ms "
+          f"| bound {out['bound_ms']:.4f} ms ({out['bound_by']}) {card}",
+          flush=True)
     del qt, kt, vt
     torch.cuda.empty_cache()
+    return out
+
+
+def serve_cell(model, params, prompt, greedy, launches, flash_per_prefill,
+               gap_bound, what, card, detail="", gap_fn=None):
+    """A ``SERVE_BATCH x prompt`` prefill through ``make_prefill_step``
+    (the bf16 tensor-core flash kernel ``flash_per_prefill`` times, finite
+    logits, within ``gap_bound`` x max|logit| of the plain route), its
+    host time, then ``greedy`` tokens through ``make_serve_step`` against a
+    ``prompt``-slot cache.  ``gap_fn(batch) -> (gap, note)`` replaces the
+    last-position comparison with the plain route.  Returns the greedy
+    tokens."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train.serve_step import make_prefill_step, make_serve_step
+
+    cfg = model.cfg
+    batch = SyntheticLMPipeline(model, InputShape(
+        "serve_prefill", prompt, SERVE_BATCH, "prefill"), 1,
+        seed=1).global_batch(0)
+    prefill = make_prefill_step(model)
+    launches.zero()
+    logits = prefill(params, batch)
+    got = launches.read()
+    launches.add(got)
+    check(got["flash_attention_tc"] == flash_per_prefill
+          and got["flash_attention_f32tc"] == 0
+          and got["flash_attention_simt"] == 0,
+          f"{what} prefill flash launches {got}, want {flash_per_prefill}")
+    check(bool(torch.isfinite(logits).all()), f"{what} prefill logits")
+    if gap_fn is None:
+        plain = Model(dataclasses.replace(cfg, flash_attention=False),
+                      model.device)
+        ref = make_prefill_step(plain)(params, batch)
+        gap = float((logits - ref).abs().max()) / float(ref.abs().max())
+        note = ""
+        del ref
+    else:
+        gap, note = gap_fn(batch)
+    check(gap <= gap_bound, f"{what} flash vs plain prefill {gap:.4g} x "
+          f"max|logit| > {gap_bound}")
+    pre_ms = host_ms(lambda: prefill(params, batch), reps=3)
+    serve = make_serve_step(model)
+    cache = model.init_cache(SERVE_BATCH, InputShape(
+        "serve_decode", prompt, SERVE_BATCH, "decode"))
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True).int()
+    out_d, cache = serve(params, cache, tok)
+    torch.cuda.synchronize()
+    tokens = [tok]
+    t0 = time.perf_counter()
+    for _ in range(greedy - 1):
+        tok = out_d[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True).int()
+        tokens.append(tok)
+        out_d, cache = serve(params, cache, tok)
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / (greedy - 1)
+    check(bool(torch.isfinite(out_d).all()), f"{what} decode")
+    check(int(cache["pos"]) == greedy, f"{what} cache pos")
+    print(f"{what}{detail}, {SERVE_BATCH} x {prompt} prompt: tensor-core flash "
+          f"launched {got['flash_attention_tc']} times in one prefill; "
+          f"flash vs plain prefill {gap:.4g} x max|logit| (bound "
+          f"{gap_bound}){note}; {greedy} greedy tokens at a {prompt}-slot "
+          f"cache: {torch.cat(tokens, 1).tolist()}", flush=True)
+    print(f"time: {what} prefill {SERVE_BATCH} x {prompt} {pre_ms:.2f} ms "
+          f"({SERVE_BATCH * prompt / pre_ms * 1e3:.0f} tokens/s), decode "
+          f"{dec_ms:.3f} ms a token (host clock) {card}", flush=True)
+    del cache, logits, out_d, batch
+    torch.cuda.empty_cache()
+    return tokens
+
+
+def lm_phase(dev, timer, card):
+    """Phase 21: decentralized LM training through ``Trainer(model, tc,
+    shape)`` (llama3.2-3b at its published widths, 2 layers, ring(4), the
+    flash kernel in the vmapped step), Lemma 2 on the LM tree, flash vs
+    plain gradients, then the three new dense configs served at published
+    widths.  Returns the launches on these paths by kernels-line entry and
+    the flash kernel's times at the training shape."""
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models.model_factory import Model
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    cfg = lm_config(LM_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.flash_attention,
+          f"{LM_ARCH}: dtype {cfg.dtype}, flash {cfg.flash_attention}")
+    model = Model(cfg, "cuda")
+    shape = InputShape("lm_train", LM_SEQ, LM_WORKERS, "train")
+    base = dict(topology="ring", n_workers=LM_WORKERS, theta=2.0, lr=0.1,
+                momentum=0.9, weight_decay=5e-4, steps=LM_STEPS,
+                log_every=1, seed=0)
+    runs = {"moniqua-8bit": dict(algo="moniqua", bits=8),
+            "dpsgd": dict(algo="dpsgd")}
+    train_runs(model, shape, base, runs, launches, card, "LM",
+               cfg.num_layers)
+    p0, b0 = lemma2_check(model, shape, base, runs, dev, "phase 21")
+    flash_vs_plain(model, Model(lm_config(LM_ARCH, flash_attention=False),
+                                "cuda"), p0, b0, launches,
+                   cfg.num_layers, LM_LOSS_RTOL, BF16_GAP_BOUND, "phase 21")
+    del p0, b0
+    torch.cuda.empty_cache()
+    train_flash = flash_times(dev, timer, card, cfg.num_heads * LM_WORKERS,
+                              cfg.num_kv_heads * LM_WORKERS, LM_SEQ, cfg.hd,
+                              "the LM training shape")
 
     # -- the three new dense configs, served at published widths -----------
+    gen = torch.Generator(device=dev).manual_seed(21)
     for arch in ZOO_ARCHS:
         mz = Model(lm_config(arch), "cuda")
         zcfg = mz.cfg
@@ -3173,64 +3317,236 @@ def lm_phase(dev, timer, card):
                     attn[name].shape, generator=gen, device=dev
                 ).to(attn[name].dtype)
         n_params = sum(a.numel() for a in tree.leaves(params))
-        batch = SyntheticLMPipeline(mz, InputShape(
-            "zoo_prefill", ZOO_PROMPT, SERVE_BATCH, "prefill"), 1,
-            seed=1).global_batch(0)
-        prefill = make_prefill_step(mz)
-        zero()
-        logits = prefill(params, batch)
-        got = read()
-        add(got)
-        check(got["flash_attention_tc"] == zcfg.num_layers
-              and got["flash_attention_f32tc"] == 0
-              and got["flash_attention_simt"] == 0,
-              f"{arch} prefill flash launches {got}")
-        check(bool(torch.isfinite(logits).all()), f"{arch} prefill logits")
-        ref = make_prefill_step(Model(lm_config(arch, flash_attention=False),
-                                      "cuda"))(params, batch)
-        gap = float((logits - ref).abs().max()) / float(ref.abs().max())
-        check(gap <= BF16_GAP_BOUND, f"{arch} flash vs plain prefill "
-              f"{gap:.4g} x max|logit| > {BF16_GAP_BOUND}")
-        del ref
-        pre_ms = host_ms(lambda: prefill(params, batch), reps=3)
-        serve = make_serve_step(mz)
-        cache = mz.init_cache(SERVE_BATCH, InputShape(
-            "zoo_decode", ZOO_PROMPT, SERVE_BATCH, "decode"))
-        tok = logits[:, -1, :zcfg.vocab_size].argmax(-1, keepdim=True).int()
-        out_d, cache = serve(params, cache, tok)
-        torch.cuda.synchronize()
-        greedy = [tok]
-        t0 = time.perf_counter()
-        for _ in range(ZOO_GREEDY - 1):
-            tok = out_d[:, -1, :zcfg.vocab_size].argmax(-1, keepdim=True
-                                                        ).int()
-            greedy.append(tok)
-            out_d, cache = serve(params, cache, tok)
-        torch.cuda.synchronize()
-        dec_ms = 1e3 * (time.perf_counter() - t0) / (ZOO_GREEDY - 1)
-        check(bool(torch.isfinite(out_d).all()), f"{arch} decode")
-        check(int(cache["pos"]) == ZOO_GREEDY, f"{arch} cache pos")
         g = zcfg.num_heads // zcfg.num_kv_heads
-        print(f"phase 21: {arch} at published widths, {zcfg.num_layers} "
-              f"layers ({n_params / 1e9:.3f} B params, GQA group {g}, "
-              f"rope_fraction {zcfg.rope_fraction}, qkv_bias "
-              f"{zcfg.qkv_bias}), {SERVE_BATCH} x {ZOO_PROMPT} prompt: "
-              f"tensor-core flash launched {got['flash_attention_tc']} "
-              f"times in one prefill; flash vs plain prefill {gap:.4g} x "
-              f"max|logit| (bound {BF16_GAP_BOUND}); {ZOO_GREEDY} greedy "
-              f"tokens at a {cache['layers']['k'].shape[2]}-slot cache: "
-              f"{torch.cat(greedy, 1).tolist()}", flush=True)
-        print(f"time: {arch} ({zcfg.num_layers} layers) prefill "
-              f"{SERVE_BATCH} x {ZOO_PROMPT} {pre_ms:.2f} ms "
-              f"({SERVE_BATCH * ZOO_PROMPT / pre_ms * 1e3:.0f} tokens/s), "
-              f"decode {dec_ms:.3f} ms a token (host clock) {card}",
-              flush=True)
-        del params, cache, logits, out_d, batch
+        serve_cell(mz, params, ZOO_PROMPT, ZOO_GREEDY, launches,
+                   zcfg.num_layers, BF16_GAP_BOUND,
+                   f"phase 21: {arch} ({zcfg.num_layers} layers)", card,
+                   f" at published widths ({n_params / 1e9:.3f} B params, "
+                   f"GQA group {g}, rope_fraction {zcfg.rope_fraction}, "
+                   f"qkv_bias {zcfg.qkv_bias})")
+        del params
         torch.cuda.empty_cache()
     print(f"phase 21: LM training and the dense zoo passed in "
           f"{time.perf_counter() - t_phase:.1f} s; launches on its paths "
-          f"{counted}", flush=True)
-    return counted, train_flash
+          f"{launches.counted}", flush=True)
+    return launches.counted, train_flash
+
+
+# -- the MoE family and the Mamba2 hybrid (phase 22) -------------------------
+
+MOE_ARCHS = ("dbrx-132b", "grok-1-314b")
+MOE_SERVE_LAYERS = 2           # depths 40 and 64 -> 2; every width as published
+# MoE training: dbrx-132b's routing and attention at published widths, cut
+# only in depth (40 -> 1) and expert width (d_ff 10752 -> 1344), which
+# leaves 1.72 B parameters a worker: two workers' params, float32 momentum,
+# gradients and update passes fit one card, where d_ff 10752 would not
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_DFF = "dbrx-132b", 1, 1344
+MOE_WORKERS = 2                # ring(2), one 2048-token sequence a worker
+HYB_ARCH = "zamba2-1.2b"
+HYB_PROMPT, HYB_GREEDY = 4096, 32
+HYB_TRAIN_LAYERS = 12          # 38 -> 12: two calls of the shared block
+HYB_WORKERS = 4                # ring(4), one 2048-token sequence a worker
+P22_STEPS = 3
+# bytes a parameter-worker that phase 21's llama training peaked at (its
+# max_memory_allocated over 4 workers x 989.3 M parameters): the reckoning
+# of the MoE training peak before it runs
+PEAK_BYTES_PER_PARAM = 16.5
+# Phase 22 holds the flash route to the plain one with phase 21's bounds:
+# prefill logits within BF16_GAP_BOUND x max|logit| (for MoE over the
+# tokens routed alike in both routes), one worker's loss within
+# LM_LOSS_RTOL and its gradients within BF16_GAP_BOUND of each leaf's max.
+# The routes part through bf16 rounding alone (the plain path rounds the
+# scores and softmax weights to bf16, the kernel keeps them in float32),
+# and the gap grows with depth: 38 bf16 Mamba2 layers follow zamba's first
+# shared-attention call.
+
+
+class RouteRecorder:
+    """While active, records each ``models.moe.route`` call's routing:
+    per token (rows in ``[B * S]`` order), its top-k experts and whether
+    each choice kept its capacity slot, ``[tokens, 2K]``."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self.M, self.orig, self.seen = M, M.route, []
+
+        def spy(p, xg, moe_cfg):
+            out = self.orig(p, xg, moe_cfg)
+            topi, dispatch = out[1], out[2]
+            kept = dispatch.sum(-1).gather(-1, topi) > 0          # [G, g, K]
+            self.seen.append(torch.cat([topi, kept.long()], -1)
+                             .reshape(-1, 2 * topi.shape[-1]))
+            return out
+        M.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.M.route = self.orig
+
+
+def moe_gap(model, params):
+    """``serve_cell``'s comparison for MoE: full prefill logits of the flash
+    and the plain route, over the tokens whose routing (top-k experts and
+    kept slots, every layer) is the same in both."""
+    from repro_torch.models.model_factory import Model
+
+    plain = Model(dataclasses.replace(model.cfg, flash_attention=False),
+                  model.device)
+
+    def gap_fn(batch):
+        with torch.no_grad():
+            with RouteRecorder() as rf:
+                lf = model.prefill_logits(params, batch)
+            with RouteRecorder() as rp:
+                lp = plain.prefill_logits(params, batch)
+        same = torch.stack([(a == b).all(-1) for a, b in
+                            zip(rf.seen, rp.seen)]).all(0)
+        same = same.reshape(lf.shape[:2])
+        n_same, n = int(same.sum()), same.numel()
+        check(n_same > 0, "MoE prefill: no token routed alike in both routes")
+        gap = float((lf - lp).abs()[same].max()) / float(lp.abs().max())
+        del lf, lp
+        return gap, (f" over the {n_same} of {n} tokens routed alike at every "
+                     f"layer ({100 * (n - n_same) / n:.4f}% rerouted)")
+    return gap_fn
+
+
+def moe_hybrid_phase(dev, timer, card):
+    """Phase 22: the MoE family (dbrx-132b, grok-1-314b) and the Mamba2
+    hybrid (zamba2-1.2b) through the port's entry points: (a) both MoE
+    configs served at published widths, 2 layers; (b) dbrx-132b trained
+    (1 layer, d_ff 1344, ring(2)); (c) zamba2-1.2b served as published;
+    (d) zamba2-1.2b trained (12 layers, ring(4)).  Returns the launches on
+    these paths by kernels-line entry and the flash kernel's times at the
+    two training shapes."""
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.models import zamba as Z
+    from repro_torch.models.model_factory import Model
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    runs = {"moniqua-8bit": dict(algo="moniqua", bits=8),
+            "dpsgd": dict(algo="dpsgd")}
+
+    def base(n):
+        return dict(topology="ring", n_workers=n, theta=2.0, lr=0.1,
+                    momentum=0.9, weight_decay=5e-4, steps=P22_STEPS,
+                    log_every=1, seed=0)
+
+    # -- (a) MoE serving at published widths ------------------------------
+    for arch in MOE_ARCHS:
+        model = Model(lm_config(arch, MOE_SERVE_LAYERS), "cuda")
+        cfg = model.cfg
+        check(cfg.family == "moe" and cfg.dtype == "bfloat16"
+              and cfg.flash_attention, f"{arch}: {cfg.family} {cfg.dtype}")
+        params = model.init(model.generator(0))
+        n_params = sum(a.numel() for a in tree.leaves(params))
+        moe = cfg.moe
+        serve_cell(model, params, ZOO_PROMPT, ZOO_GREEDY, launches,
+                   cfg.num_layers, BF16_GAP_BOUND,
+                   f"phase 22 (a): {arch} ({cfg.num_layers} layers)", card,
+                   f" at published widths ({n_params / 1e9:.3f} B params, "
+                   f"d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+                   f"of {cfg.hd}: GQA group "
+                   f"{cfg.num_heads // cfg.num_kv_heads}; E {moe.num_experts} "
+                   f"top-{moe.top_k}, cf {moe.capacity_factor}, group "
+                   f"{moe.group_size}, d_ff {cfg.d_ff}; depth "
+                   f"{lm_config(arch, None).num_layers} -> {cfg.num_layers})",
+                   gap_fn=moe_gap(model, params))
+        del params, model
+        torch.cuda.empty_cache()
+
+    # -- (b) MoE training --------------------------------------------------
+    cfg = lm_config(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, d_ff=MOE_TRAIN_DFF)
+    model = Model(cfg, "cuda")
+    shape = InputShape("moe_train", LM_SEQ, MOE_WORKERS, "train")
+    n_params = cfg.param_count()
+    reckoned = PEAK_BYTES_PER_PARAM * n_params * MOE_WORKERS
+    print(f"phase 22 (b): {MOE_TRAIN_ARCH} cut: depth "
+          f"{lm_config(MOE_TRAIN_ARCH, None).num_layers} -> {cfg.num_layers}, "
+          f"d_ff {lm_config(MOE_TRAIN_ARCH, None).d_ff} -> {cfg.d_ff}; "
+          f"{MOE_WORKERS} workers on ring({MOE_WORKERS}), {LM_SEQ} tokens a "
+          f"worker ({LM_SEQ // cfg.moe.group_size} dispatch groups); "
+          f"{n_params / 1e9:.4f} B params a worker, reckoned peak "
+          f"{reckoned / 1e9:.1f} GB at {PEAK_BYTES_PER_PARAM} bytes a "
+          f"parameter-worker", flush=True)
+    check(reckoned < 75e9, f"MoE training reckoned at {reckoned / 1e9:.1f} "
+          f"GB: cut d_ff further")
+
+    def loss_parts(p0):
+        b = SyntheticLMPipeline(model, shape, MOE_WORKERS,
+                                seed=0).worker_batch(0)
+        with torch.no_grad():
+            logits, aux = T.lm_logits(p0, cfg, b["tokens"][0])
+            xe = T.xent(logits, b["labels"][0], cfg.vocab_size)
+        w = cfg.moe.aux_loss_weight
+        check(math.isfinite(float(xe)) and 0 < float(aux) < math.inf,
+              f"MoE step 0 loss parts: xent {float(xe)}, aux {float(aux)}")
+        print(f"phase 22 (b): step 0's loss on worker 0 = xent "
+              f"{float(xe):.6f} + {w} x aux {float(aux):.6f} = "
+              f"{float(xe + w * aux):.6f}", flush=True)
+        del logits
+    train_runs(model, shape, base(MOE_WORKERS), runs, launches, card, "MoE",
+               cfg.num_layers, before=loss_parts)
+    p0, b0 = lemma2_check(model, shape, base(MOE_WORKERS), runs, dev,
+                          "phase 22 (b)")
+    del p0, b0, model
+    torch.cuda.empty_cache()
+    moe_flash = flash_times(dev, timer, card, cfg.num_heads * MOE_WORKERS,
+                            cfg.num_kv_heads * MOE_WORKERS, LM_SEQ, cfg.hd,
+                            "the MoE training (and prefill) shape")
+
+    # -- (c) zamba2-1.2b served as published -------------------------------
+    model = Model(lm_config(HYB_ARCH, None), "cuda")
+    cfg = model.cfg
+    check(cfg.family == "hybrid" and cfg.dtype == "bfloat16"
+          and cfg.flash_attention, f"{HYB_ARCH}: {cfg.family} {cfg.dtype}")
+    params = model.init(model.generator(0))
+    n_params = sum(a.numel() for a in tree.leaves(params))
+    n_inv = Z.n_shared_invocations(cfg)
+    serve_cell(model, params, HYB_PROMPT, HYB_GREEDY, launches, n_inv,
+               BF16_GAP_BOUND, f"phase 22 (c): {HYB_ARCH} ({cfg.num_layers} "
+               f"layers)", card,
+               f" as published ({n_params / 1e9:.4f} B params, d "
+               f"{cfg.d_model}, SSM state {cfg.ssm.state_dim}, expand "
+               f"{cfg.ssm.expand}, chunk {cfg.ssm.chunk}; the shared block "
+               f"once every {cfg.shared_attn_every} layers: {n_inv} calls, "
+               f"{cfg.num_heads} heads of {cfg.hd}, window "
+               f"{cfg.long_context_window})")
+    del params, model
+    torch.cuda.empty_cache()
+
+    # -- (d) zamba2-1.2b training ------------------------------------------
+    cfg = lm_config(HYB_ARCH, HYB_TRAIN_LAYERS)
+    model = Model(cfg, "cuda")
+    shape = InputShape("hybrid_train", LM_SEQ, HYB_WORKERS, "train")
+    n_inv = Z.n_shared_invocations(cfg)
+    print(f"phase 22 (d): {HYB_ARCH} cut: depth "
+          f"{lm_config(HYB_ARCH, None).num_layers} -> {cfg.num_layers} "
+          f"({n_inv} calls of the shared block); {HYB_WORKERS} workers on "
+          f"ring({HYB_WORKERS}), {LM_SEQ} tokens a worker "
+          f"({LM_SEQ // cfg.ssm.chunk} SSD chunks)", flush=True)
+    train_runs(model, shape, base(HYB_WORKERS), runs, launches, card,
+               "zamba", n_inv)
+    p0, b0 = lemma2_check(model, shape, base(HYB_WORKERS), runs, dev,
+                          "phase 22 (d)")
+    flash_vs_plain(model, Model(lm_config(HYB_ARCH, HYB_TRAIN_LAYERS,
+                                          flash_attention=False), "cuda"),
+                   p0, b0, launches, n_inv, LM_LOSS_RTOL, BF16_GAP_BOUND,
+                   "phase 22 (d)")
+    del p0, b0, model
+    torch.cuda.empty_cache()
+    hyb_flash = flash_times(dev, timer, card, cfg.num_heads * HYB_WORKERS,
+                            cfg.num_kv_heads * HYB_WORKERS, LM_SEQ, cfg.hd,
+                            "the zamba training shape",
+                            window=cfg.long_context_window)
+    print(f"phase 22: the MoE family and the Mamba2 hybrid passed in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches on its paths "
+          f"{launches.counted} {card}", flush=True)
+    return launches.counted, [moe_flash, hyb_flash]
 
 
 def main() -> int:
@@ -3643,13 +3959,17 @@ def main() -> int:
             extra[name] = extra.get(name, 0) + n
     torch.cuda.empty_cache()
     lm_counts, train_flash = lm_phase(dev, timer, card)
-    for name, n in lm_counts.items():
-        extra[name] = extra.get(name, 0) + n
+    torch.cuda.empty_cache()
+    p22_counts, p22_flash = moe_hybrid_phase(dev, timer, card)
+    for counts in (lm_counts, p22_counts):
+        for name, n in counts.items():
+            extra[name] = extra.get(name, 0) + n
     for k in kernels:
         k["launches"] += extra.get(k["name"], 0)
         if k["name"] == "flash_attention_tc":
             k["train"] = train_flash
-    print(f"launches on phases 17-21's paths, added to the kernels line: "
+            k["phase22"] = p22_flash
+    print(f"launches on phases 17-22's paths, added to the kernels line: "
           f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))

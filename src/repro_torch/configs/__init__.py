@@ -16,16 +16,16 @@ ARCH_MODULES = {
     "llama3.2-3b": "llama3_2_3b",
     "internlm2-20b": "internlm2_20b",
     "qwen2-72b": "qwen2_72b",
+    "dbrx-132b": "dbrx_132b",
+    "grok-1-314b": "grok_1_314b",
+    "zamba2-1.2b": "zamba2_1_2b",
     # the paper's own experimental model (Sec. 6, CIFAR10)
     "resnet20": "resnet20",
 }
 
 # architectures of the reference not ported yet -> the ROADMAP item
 UNPORTED = {
-    "dbrx-132b": "ROADMAP Queue 1 #12 (MoE)",
-    "grok-1-314b": "ROADMAP Queue 1 #12 (MoE)",
     "xlstm-125m": "ROADMAP Queue 1 #12 (xlstm)",
-    "zamba2-1.2b": "ROADMAP Queue 1 #12 (zamba / mamba2)",
     "whisper-base": "ROADMAP Queue 1 #12 (whisper)",
     "phi-3-vision-4.2b": "ROADMAP Queue 1 #12 (vlm)",
 }

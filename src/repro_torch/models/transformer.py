@@ -1,7 +1,8 @@
-"""Decoder-only transformer LM (dense) over a stacked layer tree.
+"""Decoder-only transformer LM (dense and MoE) over a stacked layer tree.
 
-The counterpart of the reference's ``repro.models.transformer`` for the
-dense family.  Layer parameters are stacked along a leading layer dim, as
+The counterpart of the reference's ``repro.models.transformer``.  A block
+holds an MLP (``dense``) or an MoE layer (``moe``, ``models/moe.py``),
+whose router adds a load-balancing aux term to the loss.  Layer parameters are stacked along a leading layer dim, as
 the reference's ``vmap``'d init leaves them, so a converted tree matches leaf
 for leaf; the reference's ``lax.scan`` over the stack is a Python loop over
 layer views here.  ``remat`` is not honoured: the backward keeps every
@@ -9,7 +10,8 @@ layer's activations instead of recomputing them, which costs memory only,
 not numbers.
 
 Training: ``lm_loss`` / ``xent``, the mean token cross-entropy over the
-valid labels, which ``Model.loss`` differentiates.
+valid labels (plus ``aux_loss_weight`` times the summed MoE aux for the
+``moe`` family), which ``Model.loss`` differentiates.
 
 Serving: ``init_cache`` / ``decode_step`` over a ring-buffer KV cache.  The
 cache's K/V tensors are updated in place (see ``layers.attention_decode``).
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def padded_vocab(cfg) -> int:
@@ -37,26 +40,41 @@ def dtype_of(cfg) -> torch.dtype:
 def init_block(gen, cfg, stack=()):
     dt = dtype_of(cfg)
     ones = torch.ones((*stack, cfg.d_model), dtype=dt, device=gen.device)
-    return {"ln1": ones, "ln2": ones.clone(),
-            "attn": L.init_attention(gen, cfg, dtype=dt, stack=stack),
-            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dt,
-                              stack=stack)}
+    p = {"ln1": ones, "ln2": ones.clone(),
+         "attn": L.init_attention(gen, cfg, dtype=dt, stack=stack)}
+    if cfg.family == "moe":
+        p["moe"] = M.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.moe,
+                              cfg.gated_mlp, dt, stack=stack)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dt,
+                              stack=stack)
+    return p
 
 
 def block_apply(p, cfg, x, positions, *, window=0):
-    """Pre-norm block.  (The reference also returns an MoE aux loss; a
-    dense block has none.)"""
+    """Pre-norm block.  Returns ``(x, aux)``: the MoE router's aux loss, a
+    float32 scalar, or ``None`` for a dense block (which has none)."""
     h = L.attention(p["attn"], cfg, L.rms_norm(x, p["ln1"]), positions,
                     window=window)
     x = x + h
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.gated_mlp)
+    if cfg.family == "moe":
+        y, aux = M.moe_layer(p["moe"], L.rms_norm(x, p["ln2"]), cfg.moe,
+                             cfg.gated_mlp)
+        return x + y, aux
+    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.gated_mlp), None
 
 
 def block_decode(p, cfg, x, cache, pos, *, window=0):
+    """One token through a block.  An MoE block routes it alone (a group of
+    one token, capacity 1 for every shipped config)."""
     h, cache = L.attention_decode(p["attn"], cfg, L.rms_norm(x, p["ln1"]),
                                   cache, pos, window=window)
     x = x + h
-    y = L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.gated_mlp)
+    if cfg.family == "moe":
+        y, _ = M.moe_layer(p["moe"], L.rms_norm(x, p["ln2"]), cfg.moe,
+                           cfg.gated_mlp)
+    else:
+        y = L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.gated_mlp)
     return x + y, cache
 
 
@@ -86,12 +104,15 @@ def layer(blocks, i: int):
 
 def hidden_states(p, cfg, x, positions, *, window=0):
     """Run embedded inputs through the stack.  x: [B, S, d].  Returns
-    ``(h, aux)`` as the reference does; aux (MoE load balance) is 0."""
+    ``(h, aux)`` as the reference does: aux is the MoE load balance summed
+    over the layers in float32, 0 for a dense stack."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x = block_apply(layer(p["blocks"], i), cfg, x, positions,
-                        window=window)
-    return (L.rms_norm(x, p["ln_f"]),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+        x, a = block_apply(layer(p["blocks"], i), cfg, x, positions,
+                           window=window)
+        if a is not None:
+            aux = aux + a
+    return L.rms_norm(x, p["ln_f"]), aux
 
 
 def logits_from_hidden(p, cfg, h):
@@ -113,9 +134,13 @@ def lm_logits(p, cfg, tokens, *, window=0):
 
 
 def lm_loss(p, cfg, tokens, labels, *, window=0):
-    """Mean token cross-entropy of the dense LM (no MoE aux term)."""
-    logits, _ = lm_logits(p, cfg, tokens, window=window)
-    return xent(logits, labels, cfg.vocab_size)
+    """Mean token cross-entropy, plus ``cfg.moe.aux_loss_weight`` times
+    the summed router aux for the ``moe`` family."""
+    logits, aux = lm_logits(p, cfg, tokens, window=window)
+    loss = xent(logits, labels, cfg.vocab_size)
+    if cfg.family == "moe":
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss
 
 
 def xent(logits, labels, vocab_size):

@@ -126,7 +126,9 @@ def test_train_step_loss_and_grads_match_reference(arch):
                                    atol=1e-4 * float(np.abs(a).max()))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("llama3.2-3b", "resnet20"))
+@pytest.mark.parametrize("arch", ARCHS + ("llama3.2-3b", "resnet20",
+                                          "dbrx-132b", "grok-1-314b",
+                                          "zamba2-1.2b"))
 def test_registry_matches_reference(arch):
     """Field for field (but for the port's flash default, which serves
     through its kernel unless the plain oracle is asked for by name), the
@@ -143,7 +145,11 @@ def test_registry_matches_reference(arch):
 def test_unported_archs_raise_with_their_roadmap_item():
     assert set(T_ARCHS) | set(UNPORTED) == set(J_ARCHS)
     assert not set(T_ARCHS) & set(UNPORTED)
-    assert set(T_ARCHS) == set(ARCHS) | {"llama3.2-3b", "resnet20"}
+    assert set(T_ARCHS) == set(ARCHS) | {"llama3.2-3b", "resnet20",
+                                         "dbrx-132b", "grok-1-314b",
+                                         "zamba2-1.2b"}
+    assert set(UNPORTED) == {"xlstm-125m", "whisper-base",
+                             "phi-3-vision-4.2b"}
     for name in UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #12"):
             tget_config(name)

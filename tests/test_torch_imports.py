@@ -31,7 +31,10 @@ def test_port_imports_without_jax_or_repro():
     assert "repro_torch.train.trainer" in res["modules"]
     for name in ("configs", "configs.base", "configs.llama3_2_3b",
                  "configs.chatglm3_6b", "configs.internlm2_20b",
-                 "configs.qwen2_72b", "configs.resnet20", "train.train_step",
+                 "configs.qwen2_72b", "configs.resnet20", "configs.dbrx_132b",
+                 "configs.grok_1_314b", "configs.zamba2_1_2b",
+                 "models.moe", "models.mamba2", "models.zamba",
+                 "train.train_step",
                  "models.layers", "models.transformer",
                  "models.model_factory", "train.serve_step", "data.pipeline",
                  "kernels.flash_attention", "kernels.moniqua_decode",

@@ -177,12 +177,12 @@ def test_configs_match_reference():
     assert jcfg.param_count() == tcfg.param_count()
     assert {k: dataclasses.asdict(v) for k, v in J_SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in T_SHAPES.items()}
-    for name in ("dbrx-132b", "xlstm-125m", "whisper-base"):
+    for name in ("phi-3-vision-4.2b", "xlstm-125m", "whisper-base"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tget_config(name)
-    moe = dataclasses.replace(tcfg, family="moe")
+    ssm = dataclasses.replace(tcfg, family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(moe, device="cpu")
+        tbuild(ssm, device="cpu")
 
 
 def test_pipeline_batches():
