@@ -232,6 +232,31 @@ Phases (any failure exits non-zero, and the result line is not printed):
    in (b), and one worker's loss and gradients, flash route against plain
    (phase 21's bounds).  The flash kernel timed at both training
    shapes; the launches added to the kernels line.
+23. The rest of the zoo, through the same entry points: (a) xlstm-125m as
+   published (12 layers, d 768, 4 heads of 192, sLSTM at layers 0, 4 and
+   8, chunk 128, vocab 50,304, bf16): a 2 x 2048 prefill (no attention,
+   no flash launch), 32 greedy tokens, and a float32 copy whose 256-token
+   prompt fed token by token matches its prefill's last position within
+   phase 9's 1e-3 x max|logit|; (b) xlstm-125m trained as published on
+   ring(8), one 2048-token sequence a worker, 3 steps of moniqua 8-bit
+   and 3 of dpsgd as in phase 21 (finite gradients at chunk 128, Lemma
+   2); (c) whisper-base as published (6 + 6 layers, d 512, 8 heads of
+   64, vocab 51,865 tied), 16 windows of 30 s (1500 frames, 375 decoder
+   tokens): a prefill that launches flash 6 times (the decoder's
+   self-attention; the encoder's and the cross attention take the plain
+   route, as in the reference) within phase 10's bound of the plain
+   route, ``whisper_prefill_cross`` and 32 greedy tokens (3000 self
+   slots, 1500 cross), and a float32 check of decode against prefill at
+   64 tokens; (d) whisper-base trained on ring(8), one window a worker (6
+   flash launches a step, flash vs plain gradients); (e)
+   phi-3-vision-4.2b as published (32 layers, d 3072, 32 heads of 96,
+   bf16; 576 patch embeddings of 1024, the CLIP tower a stub): a 2 x (576
+   + 3520) prefill (32 flash launches) within phase 10's bound, 32 greedy
+   tokens at a 4096-slot cache; (f) phi-3-vision-4.2b cut to 2 layers on
+   ring(4), 576 patches + 1472 text tokens a worker, the loss over the
+   text (2 flash launches a step, flash vs plain gradients).  The flash
+   kernel timed at ``[128, 375, 64]`` and ``[64, 4096, 96]``; the
+   launches added to the kernels line.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -245,6 +270,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -466,13 +492,27 @@ PROFILER_PRIME = 256
 SPIN_KERNEL = "spin_kernel"        # torch.cuda._sleep's kernel
 
 
+class Kernel(NamedTuple):
+    key: str                       # the kernel's name
+    count: int                     # its launches in the window
+    self_device_time_total: float  # its device time, µs
+
+
 def device_kernels(prof) -> list:
-    """The profiler's device events that are kernels, not label ranges or
-    the window's priming spin kernels."""
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(ANNOTATIONS)
-            and SPIN_KERNEL not in e.key]
+    """The kernels a profile recorded, by name, not label ranges or the
+    window's priming spin kernels.  Read from the raw Kineto records:
+    ``key_averages`` first builds an event object a record, and phase
+    23's profile of two xlstm-125m training steps (273 k kernels) took
+    170.6 s through it, 35.1 s this way, recording included."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or name.startswith(ANNOTATIONS) or SPIN_KERNEL in name):
+            continue
+        n, us = out.get(name, (0, 0.0))
+        out[name] = (n + 1, us + e.duration_ns() / 1e3)
+    return [Kernel(k, n, us) for k, (n, us) in out.items()]
 
 
 def profiler_prime() -> None:
@@ -2959,7 +2999,8 @@ class Launches:
     ``zero()`` just before a path, ``read()`` just after it; ``add(got)``
     sums a reading into ``counted``, by kernels-line entry."""
 
-    KEYS = ("flash_attention_tc", "moniqua_encode", "moniqua_decode_reduce")
+    KEYS = ("flash_attention_tc", "flash_attention_f32tc", "moniqua_encode",
+            "moniqua_decode_reduce")
 
     def __init__(self):
         from repro_torch.kernels import flash_attention as kfa
@@ -3012,6 +3053,11 @@ def train_runs(model, shape, base, runs, launches, card, what,
     del p0
     n_leaves = len(tree.leaves(meta))
     n_params = sum(a[0].numel() for a in tree.leaves(meta))
+    # sequence positions a worker: tokens, and whisper's encoder frames or
+    # the VLM's patch embeddings beside them
+    positions = sum(shp[1] for name, (shp, _) in
+                    model.batch_spec(shape).items()
+                    if name != "labels") * shape.global_batch // n
     for name, kw in runs.items():
         tr = Trainer(model, TrainerConfig(**base, **kw), shape)
         want_bytes = tr.algo.bytes_per_step(meta, tr.hp)
@@ -3049,12 +3095,12 @@ def train_runs(model, shape, base, runs, launches, card, what,
               f"shape-only {want_bytes}")
         print(f"run {what} {name}: {cfg.name} {cfg.num_layers} layers, "
               f"{n_params / 1e6:.1f} M params a worker, ring({n}), "
-              f"{shape.seq_len} tokens a worker; path {path}; losses "
+              f"{positions} positions a worker; path {path}; losses "
               f"{[round(v, 5) for v in losses]}; launches {got}; "
               f"bytes/step {res['bytes_per_step']}", flush=True)
         print(f"time: {what} step {name} {step_ms:.3f} ms (host clock, card "
               f"synchronised, mean of steps 1-{steps - 1}), "
-              f"{n * shape.seq_len / step_ms * 1e3:.0f} tokens/s; "
+              f"{n * positions / step_ms * 1e3:.0f} positions/s; "
               f"max_memory_allocated {peak / 2 ** 30:.2f} GiB {card}",
               flush=True)
         if kw["algo"] == "moniqua":
@@ -3066,7 +3112,11 @@ def train_runs(model, shape, base, runs, launches, card, what,
                 nonlocal state
                 for b in batches:
                     state, _ = tr.step_fn(state, b)
+            t_prof = time.perf_counter()
             profile_device(two_steps, f"2 {what} {name} steps", card)
+            print(f"time: the profile of 2 {what} {name} steps took "
+                  f"{time.perf_counter() - t_prof:.1f} s of host time, "
+                  f"recording and reading included", flush=True)
             del state, batches
         else:
             del res
@@ -3094,6 +3144,8 @@ def lemma2_check(model, shape, base, runs, dev, what):
     batch = tr1.batch_fn(1)
     grads, _ = torch.func.vmap(torch.func.grad_and_value(model.loss))(
         X1, batch)
+    check(all(bool(torch.isfinite(g).all()) for g in tree.leaves(grads)),
+          f"{what}: a gradient leaf is not finite")
     dirs, _, _ = optim.direction(tr1.tcfg.sgd, grads, X1, s1["mom"])
     del grads, s1["mom"]
     torch.cuda.empty_cache()
@@ -3123,7 +3175,8 @@ def lemma2_check(model, shape, base, runs, dev, what):
           f"state and one direction): max |X_moniqua - X_dpsgd| {worst:.6g} "
           f"<= 2 (1 - w_ii) delta B = {lemma:.6g} (w_ii {w_self:.6g}, "
           f"delta B {dB:.6g}) plus two bf16 ulps of |X| (worst "
-          f"{worst_ratio:.4f} of the bound)", flush=True)
+          f"{worst_ratio:.4f} of the bound); every gradient leaf finite",
+          flush=True)
     return (tree.map(lambda a: a[0].clone(), X1),
             {k: v[0] for k, v in batch.items()})
 
@@ -3201,14 +3254,17 @@ def flash_times(dev, timer, card, bh, hk, s, d, what, window=0):
 
 
 def serve_cell(model, params, prompt, greedy, launches, flash_per_prefill,
-               gap_bound, what, card, detail="", gap_fn=None):
-    """A ``SERVE_BATCH x prompt`` prefill through ``make_prefill_step``
-    (the bf16 tensor-core flash kernel ``flash_per_prefill`` times, finite
-    logits, within ``gap_bound`` x max|logit| of the plain route), its
-    host time, then ``greedy`` tokens through ``make_serve_step`` against a
+               gap_bound, what, card, detail="", gap_fn=None,
+               n_batch=SERVE_BATCH, prime=None):
+    """An ``n_batch x prompt`` prefill (``batch_spec`` at ``seq_len =
+    prompt``) through ``make_prefill_step`` (the bf16 tensor-core flash
+    kernel ``flash_per_prefill`` times, finite logits, within
+    ``gap_bound`` x max|logit| of the plain route), its host time, then
+    ``greedy`` tokens through ``make_serve_step`` against a
     ``prompt``-slot cache.  ``gap_fn(batch) -> (gap, note)`` replaces the
-    last-position comparison with the plain route.  Returns the greedy
-    tokens."""
+    last-position comparison with the plain route; ``prime(batch, cache)
+    -> cache`` fills the cache first (whisper's cross K/V).  Returns the
+    greedy tokens."""
     from repro_torch.configs.base import InputShape
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.models.model_factory import Model
@@ -3216,8 +3272,10 @@ def serve_cell(model, params, prompt, greedy, launches, flash_per_prefill,
 
     cfg = model.cfg
     batch = SyntheticLMPipeline(model, InputShape(
-        "serve_prefill", prompt, SERVE_BATCH, "prefill"), 1,
+        "serve_prefill", prompt, n_batch, "prefill"), 1,
         seed=1).global_batch(0)
+    positions = n_batch * sum(v.shape[1] for v in batch.values())
+    shapes = {k: list(v.shape) for k, v in batch.items()}
     prefill = make_prefill_step(model)
     launches.zero()
     logits = prefill(params, batch)
@@ -3241,8 +3299,11 @@ def serve_cell(model, params, prompt, greedy, launches, flash_per_prefill,
           f"max|logit| > {gap_bound}")
     pre_ms = host_ms(lambda: prefill(params, batch), reps=3)
     serve = make_serve_step(model)
-    cache = model.init_cache(SERVE_BATCH, InputShape(
-        "serve_decode", prompt, SERVE_BATCH, "decode"))
+    cache = model.init_cache(n_batch, InputShape(
+        "serve_decode", prompt, n_batch, "decode"))
+    if prime is not None:
+        with torch.no_grad():
+            cache = prime(batch, cache)
     tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True).int()
     out_d, cache = serve(params, cache, tok)
     torch.cuda.synchronize()
@@ -3256,13 +3317,14 @@ def serve_cell(model, params, prompt, greedy, launches, flash_per_prefill,
     dec_ms = 1e3 * (time.perf_counter() - t0) / (greedy - 1)
     check(bool(torch.isfinite(out_d).all()), f"{what} decode")
     check(int(cache["pos"]) == greedy, f"{what} cache pos")
-    print(f"{what}{detail}, {SERVE_BATCH} x {prompt} prompt: tensor-core flash "
+    print(f"{what}{detail}, {n_batch} x {prompt} prompt ({shapes}): "
+          f"tensor-core flash "
           f"launched {got['flash_attention_tc']} times in one prefill; "
           f"flash vs plain prefill {gap:.4g} x max|logit| (bound "
           f"{gap_bound}){note}; {greedy} greedy tokens at a {prompt}-slot "
           f"cache: {torch.cat(tokens, 1).tolist()}", flush=True)
-    print(f"time: {what} prefill {SERVE_BATCH} x {prompt} {pre_ms:.2f} ms "
-          f"({SERVE_BATCH * prompt / pre_ms * 1e3:.0f} tokens/s), decode "
+    print(f"time: {what} prefill {n_batch} x {prompt} {pre_ms:.2f} ms "
+          f"({positions / pre_ms * 1e3:.0f} positions/s), decode "
           f"{dec_ms:.3f} ms a token (host clock) {card}", flush=True)
     del cache, logits, out_d, batch
     torch.cuda.empty_cache()
@@ -3547,6 +3609,225 @@ def moe_hybrid_phase(dev, timer, card):
           f"{time.perf_counter() - t_phase:.1f} s; launches on its paths "
           f"{launches.counted} {card}", flush=True)
     return launches.counted, [moe_flash, hyb_flash]
+
+
+# -- the rest of the zoo: xlstm, whisper, phi-3-vision (phase 23) ------------
+
+XL_ARCH, WH_ARCH, VLM_ARCH = "xlstm-125m", "whisper-base", "phi-3-vision-4.2b"
+XL_PROMPT, XL_F32_PROMPT = 2048, 256
+# xlstm training: ring(8), the paper's topology, 2048 tokens a worker
+XL_WORKERS = 8
+# whisper: 16 windows of 30 s, the reference's batch_spec at seq_len 3000:
+# 1500 encoder frames and min(448, 3000 / 8) = 375 decoder tokens a window
+WH_BATCH, WH_SEQ = 16, 3000
+WH_F32_SEQ = 512               # float32 check: 256 frames, 64 decoder tokens
+WH_WORKERS = 8                 # ring(8), one window a worker
+VLM_PROMPT = 4096              # 576 patches + 3520 text tokens
+VLM_TRAIN_LAYERS = 2           # depth 32 -> 2; every width as published
+VLM_WORKERS, VLM_SEQ = 4, 2048  # ring(4), 576 patches + 1472 text tokens
+P23_GREEDY = 32
+
+
+def f32_decode_check(model, params, shape, launches, flash_f32, what,
+                     prime=None):
+    """A float32 model's prefill of ``shape``'s batch (the float32
+    tensor-core flash kernel ``flash_f32`` times) against the prompt fed
+    token by token through ``make_serve_step``: the last position within
+    ``F32_LOGIT_TOL`` x max|logit| (phase 9's bound).  ``prime(batch,
+    cache) -> cache`` fills the cache first."""
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.train.serve_step import make_prefill_step, make_serve_step
+
+    batch = SyntheticLMPipeline(model, shape, 1, seed=2).global_batch(0)
+    tokens = batch["tokens"]
+    launches.zero()
+    want = make_prefill_step(model)(params, batch)
+    got = launches.read()
+    launches.add(got)
+    check(got["flash_attention_f32tc"] == flash_f32
+          and got["flash_attention_tc"] == 0
+          and got["flash_attention_simt"] == 0,
+          f"{what} float32 prefill flash launches {got}, want {flash_f32}")
+    cache = model.init_cache(shape.global_batch, shape)
+    serve = make_serve_step(model)
+    with torch.no_grad():
+        if prime is not None:
+            cache = prime(batch, cache)
+        for t in range(tokens.shape[1]):
+            logits, cache = serve(params, cache, tokens[:, t:t + 1])
+    scale = float(want.abs().max())
+    gap = float((logits - want).abs().max()) / scale
+    check(bool(torch.isfinite(logits).all()) and gap <= F32_LOGIT_TOL,
+          f"{what} float32 decode vs prefill {gap:.3g} x max|logit| > "
+          f"{F32_LOGIT_TOL}")
+    print(f"{what}: float32, {list(tokens.shape)} tokens fed one at a time "
+          f"through make_serve_step vs prefill's last position: {gap:.3g} x "
+          f"max|logit| (bound {F32_LOGIT_TOL}); float32 flash launches in "
+          f"the prefill {got['flash_attention_f32tc']}", flush=True)
+
+
+def zoo_phase(dev, timer, card):
+    """Phase 23: the rest of the zoo through the port's entry points: (a)
+    xlstm-125m served as published, and a float32 copy's decode against
+    its prefill; (b) xlstm-125m trained on ring(8); (c) whisper-base served
+    as published (16 windows), and a float32 check; (d) whisper-base
+    trained on ring(8); (e) phi-3-vision-4.2b served as published; (f)
+    phi-3-vision-4.2b trained (2 layers, ring(4)).  Returns the launches on
+    these paths by kernels-line entry and the flash kernel's times at
+    whisper's and phi-3-vision's prefill shapes."""
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import whisper as WH
+    from repro_torch.models.model_factory import Model
+
+    t_phase = t_part = time.perf_counter()
+    launches = Launches()
+    runs = {"moniqua-8bit": dict(algo="moniqua", bits=8),
+            "dpsgd": dict(algo="dpsgd")}
+
+    def base(n):
+        return dict(topology="ring", n_workers=n, theta=2.0, lr=0.1,
+                    momentum=0.9, weight_decay=5e-4, steps=P22_STEPS,
+                    log_every=1, seed=0)
+
+    def part_done(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"phase 23 ({part}) took {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    def published(arch, **over):
+        model = Model(lm_config(arch, None, **over), "cuda")
+        params = model.init(model.generator(0))
+        n_params = sum(a.numel() for a in tree.leaves(params))
+        return model, params, n_params
+
+    # -- (a) xlstm-125m served as published ---------------------------------
+    model, params, n_params = published(XL_ARCH)
+    cfg = model.cfg
+    check(cfg.family == "ssm" and cfg.dtype == "bfloat16",
+          f"{XL_ARCH}: {cfg.family} {cfg.dtype}")
+    n_s = sum(model._is_slstm(i) for i in range(cfg.num_layers))
+    serve_cell(model, params, XL_PROMPT, P23_GREEDY, launches, 0,
+               BF16_GAP_BOUND, f"phase 23 (a): {XL_ARCH}", card,
+               f" as published ({n_params:,} params, d {cfg.d_model}, "
+               f"{cfg.num_heads} heads of {cfg.d_model // cfg.num_heads}; "
+               f"{n_s} sLSTM and {cfg.num_layers - n_s} mLSTM blocks, chunk "
+               f"{cfg.ssm.chunk})",
+               gap_fn=lambda batch: (0.0, " (no attention layer: the flash "
+                                     "and plain routes are one path)"))
+    del params, model
+    m32, p32, _ = published(XL_ARCH, dtype="float32")
+    f32_decode_check(m32, p32, InputShape("xl_f32", XL_F32_PROMPT,
+                                          SERVE_BATCH, "prefill"),
+                     launches, 0, "phase 23 (a)")
+    del m32, p32
+    torch.cuda.empty_cache()
+    part_done("a")
+
+    # -- (b) xlstm-125m trained as published --------------------------------
+    model = Model(lm_config(XL_ARCH, None), "cuda")
+    shape = InputShape("xlstm_train", LM_SEQ, XL_WORKERS, "train")
+    print(f"phase 23 (b): {XL_ARCH} as published on ring({XL_WORKERS}), "
+          f"{LM_SEQ} tokens a worker ({LM_SEQ // model.cfg.ssm.chunk} "
+          f"mLSTM chunks of {model.cfg.ssm.chunk})", flush=True)
+    train_runs(model, shape, base(XL_WORKERS), runs, launches, card,
+               "xlstm", 0)
+    p0, b0 = lemma2_check(model, shape, base(XL_WORKERS), runs, dev,
+                          "phase 23 (b)")
+    del p0, b0, model
+    torch.cuda.empty_cache()
+    part_done("b")
+
+    # -- (c) whisper-base served as published --------------------------------
+    model, params, n_params = published(WH_ARCH)
+    cfg = model.cfg
+    check(cfg.family == "audio" and cfg.dtype == "bfloat16"
+          and cfg.flash_attention, f"{WH_ARCH}: {cfg.family} {cfg.dtype}")
+    serve_cell(model, params, WH_SEQ, P23_GREEDY, launches, cfg.num_layers,
+               BF16_GAP_BOUND, f"phase 23 (c): {WH_ARCH}", card,
+               f" as published ({n_params:,} params, {cfg.encoder_layers} + "
+               f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} "
+               f"heads of {cfg.hd}, tied head; encoder and cross attention "
+               f"on the plain route)", n_batch=WH_BATCH,
+               prime=lambda b, c: WH.whisper_prefill_cross(
+                   params, cfg, b["enc_embeds"], c))
+    del params, model
+    m32, p32, _ = published(WH_ARCH, dtype="float32")
+    f32_decode_check(m32, p32, InputShape("wh_f32", WH_F32_SEQ, SERVE_BATCH,
+                                          "prefill"),
+                     launches, m32.cfg.num_layers, "phase 23 (c)",
+                     prime=lambda b, c: WH.whisper_prefill_cross(
+                         p32, m32.cfg, b["enc_embeds"], c))
+    del m32, p32
+    torch.cuda.empty_cache()
+    part_done("c")
+
+    # -- (d) whisper-base trained as published -------------------------------
+    model = Model(lm_config(WH_ARCH, None), "cuda")
+    shape = InputShape("whisper_train", WH_SEQ, WH_WORKERS, "train")
+    print(f"phase 23 (d): {WH_ARCH} as published on ring({WH_WORKERS}), one "
+          f"30 s window a worker ({WH_SEQ // 2} frames, "
+          f"{min(448, WH_SEQ // 8)} decoder tokens)", flush=True)
+    train_runs(model, shape, base(WH_WORKERS), runs, launches, card,
+               "whisper", model.cfg.num_layers)
+    p0, b0 = lemma2_check(model, shape, base(WH_WORKERS), runs, dev,
+                          "phase 23 (d)")
+    flash_vs_plain(model, Model(lm_config(WH_ARCH, None,
+                                          flash_attention=False), "cuda"),
+                   p0, b0, launches, model.cfg.num_layers, LM_LOSS_RTOL,
+                   BF16_GAP_BOUND, "phase 23 (d)")
+    del p0, b0, model
+    torch.cuda.empty_cache()
+    part_done("d")
+
+    # -- (e) phi-3-vision-4.2b served as published ---------------------------
+    model, params, n_params = published(VLM_ARCH)
+    cfg = model.cfg
+    check(cfg.family == "vlm" and cfg.dtype == "bfloat16"
+          and cfg.flash_attention, f"{VLM_ARCH}: {cfg.family} {cfg.dtype}")
+    serve_cell(model, params, VLM_PROMPT, P23_GREEDY, launches,
+               cfg.num_layers, BF16_GAP_BOUND, f"phase 23 (e): {VLM_ARCH}",
+               card, f" as published ({n_params:,} params, d "
+               f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.hd}, d_ff "
+               f"{cfg.d_ff}; {cfg.vision_tokens} patch embeddings of "
+               f"{cfg.vision_embed_dim} projected before the text)")
+    del params, model
+    torch.cuda.empty_cache()
+    part_done("e")
+
+    # -- (f) phi-3-vision-4.2b trained at 2 layers ---------------------------
+    cfg = lm_config(VLM_ARCH, VLM_TRAIN_LAYERS)
+    model = Model(cfg, "cuda")
+    shape = InputShape("vlm_train", VLM_SEQ, VLM_WORKERS, "train")
+    print(f"phase 23 (f): {VLM_ARCH} cut: depth "
+          f"{lm_config(VLM_ARCH, None).num_layers} -> {cfg.num_layers}; "
+          f"{VLM_WORKERS} workers on ring({VLM_WORKERS}), "
+          f"{cfg.vision_tokens} patches + {VLM_SEQ - cfg.vision_tokens} text "
+          f"tokens a worker (the loss over the text)", flush=True)
+    train_runs(model, shape, base(VLM_WORKERS), runs, launches, card, "vlm",
+               cfg.num_layers)
+    p0, b0 = lemma2_check(model, shape, base(VLM_WORKERS), runs, dev,
+                          "phase 23 (f)")
+    flash_vs_plain(model, Model(lm_config(VLM_ARCH, VLM_TRAIN_LAYERS,
+                                          flash_attention=False), "cuda"),
+                   p0, b0, launches, cfg.num_layers, LM_LOSS_RTOL,
+                   BF16_GAP_BOUND, "phase 23 (f)")
+    del p0, b0, model
+    torch.cuda.empty_cache()
+    part_done("f")
+
+    wh = lm_config(WH_ARCH, None)
+    times = [flash_times(dev, timer, card, WH_BATCH * wh.num_heads,
+                         WH_BATCH * wh.num_kv_heads, min(448, WH_SEQ // 8),
+                         wh.hd, "whisper's decoder prefill"),
+             flash_times(dev, timer, card, SERVE_BATCH * cfg.num_heads,
+                         SERVE_BATCH * cfg.num_kv_heads, VLM_PROMPT, cfg.hd,
+                         "phi-3-vision's prefill")]
+    print(f"phase 23: xlstm, whisper and phi-3-vision passed in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches on its paths "
+          f"{launches.counted} {card}", flush=True)
+    return launches.counted, times
 
 
 def main() -> int:
@@ -3961,7 +4242,9 @@ def main() -> int:
     lm_counts, train_flash = lm_phase(dev, timer, card)
     torch.cuda.empty_cache()
     p22_counts, p22_flash = moe_hybrid_phase(dev, timer, card)
-    for counts in (lm_counts, p22_counts):
+    torch.cuda.empty_cache()
+    p23_counts, p23_flash = zoo_phase(dev, timer, card)
+    for counts in (lm_counts, p22_counts, p23_counts):
         for name, n in counts.items():
             extra[name] = extra.get(name, 0) + n
     for k in kernels:
@@ -3969,7 +4252,8 @@ def main() -> int:
         if k["name"] == "flash_attention_tc":
             k["train"] = train_flash
             k["phase22"] = p22_flash
-    print(f"launches on phases 17-22's paths, added to the kernels line: "
+            k["phase23"] = p23_flash
+    print(f"launches on phases 17-23's paths, added to the kernels line: "
           f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,22 @@
-"""Building blocks of the dense decoder LM, as plain functions on tensors.
+"""Building blocks of the port's models, as plain functions on tensors.
 
-The counterpart of the reference's ``repro.models.layers`` (its dense
-parts).  Parameters are nested dicts of tensors with the reference's keys
-and leaf shapes (QKV weights ``[d, heads, head_dim]``, O ``[heads,
-head_dim, d]``), so ``repro_torch.convert`` carries a tree across leaf for
-leaf.  Every ``init_*`` draws from an explicit ``torch.Generator`` on the
-generator's device and takes ``stack=``: leading dims of a layer stack,
-drawn in one go (the reference ``vmap``s its init over the layer keys).
+The counterpart of the reference's ``repro.models.layers``.  Parameters
+are nested dicts of tensors with the reference's keys and leaf shapes (QKV
+weights ``[d, heads, head_dim]``, O ``[heads, head_dim, d]``), so
+``repro_torch.convert`` carries a tree across leaf for leaf.  Every
+``init_*`` draws from an explicit ``torch.Generator`` on the generator's
+device and takes ``stack=``: leading dims of a layer stack, drawn in one go
+(the reference ``vmap``s its init over the layer keys).
 
-Not here: ``_banded_sdpa`` (the reference's band-wise evaluation of the
-same windowed mask; the plain path below computes the full masked matrix),
-cross and bidirectional attention and ``layer_norm``, which wait for the
-families that use them, and ``_context_parallel_kv``, a sharding constraint
-that is a no-op outside a JAX mesh.
+Attention routes as the reference's does: causal self-attention through
+the flash kernel (``cfg.flash_attention``, the port's default); cross and
+bidirectional attention (whisper) through the plain masked softmax with an
+all-true mask; with ``flash_attention=False`` a windowed self-attention
+longer than twice its window band-wise (``_banded_sdpa``), the rest
+through the full masked matrix.
+
+Not here: ``_context_parallel_kv``, a sharding constraint that is a no-op
+outside a JAX mesh.
 """
 from __future__ import annotations
 
@@ -59,6 +63,16 @@ def rms_norm(x, scale, eps=1e-6):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm with float32 statistics (population variance), cast back
+    to ``x``'s dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embedding (the reference's interleaved pair layout)
 # ---------------------------------------------------------------------------
@@ -91,7 +105,7 @@ def apply_rope(x, cos, sin, rot):
 
 
 # ---------------------------------------------------------------------------
-# Attention (causal / sliding window, cached decode)
+# Attention (causal / sliding window, cross, bidirectional, cached decode)
 # ---------------------------------------------------------------------------
 
 def init_attention(gen, cfg, dtype=torch.bfloat16, stack=()):
@@ -146,30 +160,76 @@ def _gqa_expand(k, nh):
     return torch.repeat_interleave(k, nh // nkv, dim=-2)
 
 
-def attention(p, cfg, x, positions, *, window=0):
-    """Causal (optionally windowed) self-attention.  x: [..., S, d];
-    positions: [..., S] absolute.  ``cfg.flash_attention`` (the port's
-    default) routes it through the flash kernel (``kernels.ops.flash_sdpa``);
-    ``flash_attention=False`` asks for the plain masked softmax, the oracle."""
+def _banded_sdpa(q, k, v, window, scale, q_chunk=1024):
+    """Causal sliding-window attention evaluated band-wise: the query chunk
+    ``[q0, q0 + c)`` can attend only keys in ``(q0 - window, q0 + c)``, so
+    each chunk's scores are ``[c, window + c]`` instead of ``[c, S]``.  The
+    same mask as ``causal_mask(S, S, window)``; falls back to it where the
+    chunks do not tile ``S`` or the band would cover it.
+
+    q, k, v: [.., S, H, D] self-attention at aligned positions.
+    """
+    S = q.shape[-3]
+    c = min(q_chunk, S)
+    if S % c or window <= 0 or S <= window + c:
+        return _sdpa(q, k, v, causal_mask(S, S, window, device=q.device),
+                     scale)
+    band = window + c
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    # query t = q0 + ti attends key j = q0 - window + ki iff ki <= ti +
+    # window (causal), ki > ti (window) and j >= 0 (not left padding)
+    ti = torch.arange(c, device=q.device)[:, None]
+    ki = torch.arange(band, device=q.device)[None, :]
+    rel_ok = (ki <= ti + window) & (ki > ti)
+    outs = []
+    for i in range(S // c):
+        q0 = i * c
+        valid = rel_ok & (ki + q0 - window >= 0)
+        outs.append(_sdpa(q[..., q0:q0 + c, :, :], kp[..., q0:q0 + band, :, :],
+                          vp[..., q0:q0 + band, :, :], valid, scale))
+    return torch.cat(outs, dim=-3)
+
+
+def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
+    """Self (causal, windowed or bidirectional) or cross attention.
+    x: [..., S, d]; positions: [..., S] absolute (unused without RoPE);
+    ``cross_kv``: ``(k, v)`` already projected from the encoder (whisper's
+    decoder).  Causal self-attention goes through the flash kernel
+    (``kernels.ops.flash_sdpa``) when ``cfg.flash_attention`` (the port's
+    default); ``flash_attention=False`` asks for the plain masked softmax,
+    the oracle.  Cross and bidirectional attention take the plain route
+    with an all-true mask, as in the reference."""
     nh, hd = cfg.num_heads, cfg.hd
     q, k, v = _project_qkv(p, cfg, x)
-    if cfg.rope_fraction > 0:
+    if cross_kv is not None:
+        k, v = cross_kv
+    elif cfg.rope_fraction > 0:
         cos, sin, rot = rope_cos_sin(positions, hd, cfg.rope_theta,
                                      cfg.rope_fraction)
         q = apply_rope(q, cos, sin, rot)
         k = apply_rope(k, cos, sin, rot)
     sq, sk = q.shape[-3], k.shape[-3]
     scale = 1.0 / math.sqrt(hd)
-    if cfg.flash_attention:            # the kernel reads the KV heads itself
+    if cfg.flash_attention and cross_kv is None and not bidir:
+        # the kernel reads the KV heads itself
         out = kops.flash_sdpa(q, k, v, scale=scale, causal=True,
                               window=window)
+        return _out_proj(out, p["wo"])
+    k, v = _gqa_expand(k, nh), _gqa_expand(v, nh)
+    if cross_kv is not None or bidir:
+        out = _sdpa(q, k, v, torch.ones((sq, sk), dtype=torch.bool,
+                                        device=x.device), scale)
+    elif window and sq == sk and sq > 2 * window:
+        out = _banded_sdpa(q, k, v, window, scale,
+                           q_chunk=max(min(window, 1024), 128))
     else:
-        out = _sdpa(q, _gqa_expand(k, nh), _gqa_expand(v, nh),
-                    causal_mask(sq, sk, window, device=x.device), scale)
+        out = _sdpa(q, k, v, causal_mask(sq, sk, window, device=x.device),
+                    scale)
     return _out_proj(out, p["wo"])
 
 
-def attention_decode(p, cfg, x, cache, pos, *, window=0):
+def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
     """Single-token cached decode.  x: [..., 1, d]; pos: 0-dim int tensor
     on x's device (count of tokens already in the cache; the new token's
     absolute position).
@@ -178,27 +238,33 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0):
     the reference, which returns a new cache, the new token's K/V are
     written into ``cache`` IN PLACE (``index_copy_`` at slot ``pos % W``,
     a device index, so there is no host sync): copying a multi-GB cache per
-    token is not affordable.  Returns ``(out, cache)``, the same dict.
+    token is not affordable.  ``cross=True``: attend over a pre-filled
+    cache and write nothing (whisper's cross-attention; ``pos`` is then the
+    encoder length, slots ``>= pos`` masked).  Returns ``(out, cache)``,
+    the same dict.
     """
     nh, hd = cfg.num_heads, cfg.hd
     q, k, v = _project_qkv(p, cfg, x)
-    if cfg.rope_fraction > 0:
-        cos, sin, rot = rope_cos_sin(pos.reshape(1), hd, cfg.rope_theta,
-                                     cfg.rope_fraction)
-        q = apply_rope(q, cos, sin, rot)
-        k = apply_rope(k, cos, sin, rot)
     ck, cv = cache["k"], cache["v"]
     W = ck.shape[-3]
-    dim = ck.dim() - 3
-    slot = torch.remainder(pos, W).reshape(1).long()
-    ck.index_copy_(dim, slot, k.to(ck.dtype))
-    cv.index_copy_(dim, slot, v.to(cv.dtype))
-    # absolute position currently stored in each slot
     slot_ids = torch.arange(W, device=ck.device)
-    slot_pos = pos - torch.remainder(pos - slot_ids, W)
-    valid = (slot_pos >= 0) & (slot_pos <= pos)
-    if window:
-        valid &= slot_pos > pos - window
+    if cross:
+        valid = slot_ids < pos
+    else:
+        if cfg.rope_fraction > 0:
+            cos, sin, rot = rope_cos_sin(pos.reshape(1), hd, cfg.rope_theta,
+                                         cfg.rope_fraction)
+            q = apply_rope(q, cos, sin, rot)
+            k = apply_rope(k, cos, sin, rot)
+        dim = ck.dim() - 3
+        slot = torch.remainder(pos, W).reshape(1).long()
+        ck.index_copy_(dim, slot, k.to(ck.dtype))
+        cv.index_copy_(dim, slot, v.to(cv.dtype))
+        # absolute position currently stored in each slot
+        slot_pos = pos - torch.remainder(pos - slot_ids, W)
+        valid = (slot_pos >= 0) & (slot_pos <= pos)
+        if window:
+            valid &= slot_pos > pos - window
     kk = _gqa_expand(ck, nh)
     vv = _gqa_expand(cv, nh)
     out = _sdpa(q, kk, vv, valid[None, None, :], 1.0 / math.sqrt(hd))

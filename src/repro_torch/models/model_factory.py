@@ -1,8 +1,9 @@
 """Uniform Model interface, the counterpart of ``repro.models.model_factory``.
 
-A ``Model`` bundles, for one ``ArchConfig`` of a ported family (``dense``
-and ``moe``: ``models/transformer.py``; ``hybrid``: ``models/zamba.py``,
-a Mamba2 stack with a shared attention block):
+A ``Model`` bundles, for one ``ArchConfig`` of any family of the reference
+(``dense`` and ``moe``: ``models/transformer.py``; ``vlm``:
+``models/vlm.py``; ``audio``: ``models/whisper.py``; ``ssm``:
+``models/xlstm.py``; ``hybrid``: ``models/zamba.py``):
 
   init(gen)                        -> params on the model's device
   loss(params, batch)              -> scalar training loss
@@ -11,7 +12,9 @@ a Mamba2 stack with a shared attention block):
   decode_step(params, cache, tok)  -> (logits, cache)
   batch_spec(shape)                -> {name: (shape, torch dtype)}
 
-Other families raise with the ROADMAP item that ports them.
+whisper's decode reads its cross caches, which
+``whisper.whisper_prefill_cross`` fills from the encoder first, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -24,19 +27,15 @@ from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models import vlm as VLM
+from repro_torch.models import whisper as WH
+from repro_torch.models import xlstm as XL
 from repro_torch.models import zamba as ZB
 
 PyTree = Any
 
-
-def _unported(cfg) -> NotImplementedError:
-    return NotImplementedError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet "
-        f"(ROADMAP Queue 1 #12)")
-
-
 LM_FAMILIES = ("dense", "moe")
-PORTED_FAMILIES = LM_FAMILIES + ("hybrid",)
+FAMILIES = LM_FAMILIES + ("vlm", "audio", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +44,9 @@ class Model:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.cfg.family not in PORTED_FAMILIES:
-            raise _unported(self.cfg)
+        if self.cfg.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.cfg.family!r} "
+                             f"({self.cfg.name}); the port has {FAMILIES}")
 
     @property
     def dev(self) -> torch.device:
@@ -64,19 +64,33 @@ class Model:
         dev = self.dev
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
-        if self.cfg.family in LM_FAMILIES:
-            return T.init_lm(gen, self.cfg)
-        return self._init_zamba(gen)
-
-    def _init_zamba(self, gen):
         cfg = self.cfg
+        if cfg.family in LM_FAMILIES:
+            return T.init_lm(gen, cfg)
+        if cfg.family == "vlm":
+            return VLM.init_vlm(gen, cfg)
+        if cfg.family == "audio":
+            return WH.init_whisper(gen, cfg)
         dt = T.dtype_of(cfg)
         V = T.padded_vocab(cfg)
-        return {"embed": L.truncated_normal(gen, (V, cfg.d_model), 0.02, dt),
-                "body": ZB.init_zamba(gen, cfg),
+        embed = L.truncated_normal(gen, (V, cfg.d_model), 0.02, dt)
+        if cfg.family == "ssm":
+            body = {"layers": [
+                {"slstm": XL.init_slstm(gen, cfg)} if self._is_slstm(i)
+                else {"mlstm": XL.init_mlstm(gen, cfg)}
+                for i in range(cfg.num_layers)]}
+        else:
+            body = {"body": ZB.init_zamba(gen, cfg)}
+        return {"embed": embed, **body,
                 "ln_f": torch.ones((cfg.d_model,), dtype=dt,
                                    device=gen.device),
                 "head": L.dense_init(gen, cfg.d_model, V, dt)}
+
+    def _is_slstm(self, i: int) -> bool:
+        """xlstm: layer ``i`` is an sLSTM block iff ``i % slstm_every ==
+        0`` (``slstm_every > 0``), else an mLSTM block."""
+        k = self.cfg.ssm.slstm_every if self.cfg.ssm else 0
+        return bool(k) and i % k == 0
 
     # ---------------- training loss ----------------
     def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]
@@ -84,27 +98,43 @@ class Model:
         """Mean token cross-entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (``batch_spec``'s ``train`` kind), attention
         windowed by ``cfg.sliding_window``; plus the router aux term for
-        ``moe``."""
+        ``moe``.  ``vlm`` also reads ``patch_embeds`` (its loss over the
+        text positions only), ``audio`` ``enc_embeds``."""
         cfg = self.cfg
         if cfg.family in LM_FAMILIES:
             return T.lm_loss(params, cfg, batch["tokens"], batch["labels"],
                              window=cfg.sliding_window)
+        if cfg.family == "vlm":
+            return VLM.vlm_loss(params, cfg, batch["tokens"], batch["labels"],
+                                batch["patch_embeds"],
+                                window=cfg.sliding_window)
+        if cfg.family == "audio":
+            return WH.whisper_loss(params, cfg, batch["enc_embeds"],
+                                   batch["tokens"], batch["labels"])
         h = self._body_hidden(params, batch["tokens"])
-        return T.xent((h @ params["head"]).float(), batch["labels"],
+        return T.xent(T.logits_from_hidden(params, cfg, h), batch["labels"],
                       cfg.vocab_size)
 
     def _body_hidden(self, params, tokens):
-        """The hybrid stack's final hidden state.  Its shared attention
-        windows as decode does, by ``long_context_window`` (the window
-        ``zamba_hidden`` falls back to when given none)."""
+        """The ``ssm`` or ``hybrid`` stack's final hidden state.  The
+        hybrid's shared attention windows as decode does, by
+        ``long_context_window`` (the window ``zamba_hidden`` falls back to
+        when given none)."""
         cfg = self.cfg
+        x = params["embed"][tokens]
+        if cfg.family == "ssm":
+            for i, bp in enumerate(params["layers"]):
+                if self._is_slstm(i):
+                    x = XL.slstm_block(bp["slstm"], cfg, x)
+                else:
+                    x = XL.mlstm_block(bp["mlstm"], cfg, x)
+            return L.rms_norm(x, params["ln_f"])
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         window = cfg.sliding_window
         if cfg.long_context_window and S > cfg.long_context_window:
             window = cfg.long_context_window
-        x = ZB.zamba_hidden(params["body"], cfg, params["embed"][tokens],
-                            positions, window=window)
+        x = ZB.zamba_hidden(params["body"], cfg, x, positions, window=window)
         return L.rms_norm(x, params["ln_f"])
 
     # ---------------- serving ----------------
@@ -115,55 +145,107 @@ class Model:
         head (``[B, 1, V]``), what a next-token sampler needs."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        if cfg.family not in LM_FAMILIES:
+        if cfg.family in ("ssm", "hybrid"):
             h = self._body_hidden(params, tokens)
-            if last_only:
-                h = h[:, -1:]
-            return (h @ params["head"]).float()
-        B, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
-        h, _ = T.hidden_states(params, cfg, T.embed_tokens(params, cfg, tokens),
-                               positions, window=cfg.sliding_window)
+        elif cfg.family == "audio":
+            h = WH.decoder_hidden(params, cfg, tokens, WH.encode(
+                params, cfg, batch["enc_embeds"]))
+        elif cfg.family == "vlm":
+            h, _ = VLM.vlm_hidden(params, cfg, tokens, batch["patch_embeds"],
+                                  window=cfg.sliding_window)
+        else:
+            B, S = tokens.shape
+            positions = torch.arange(S, device=tokens.device).expand(B, S)
+            h, _ = T.hidden_states(params, cfg,
+                                   T.embed_tokens(params, cfg, tokens),
+                                   positions, window=cfg.sliding_window)
         if last_only:
             h = h[:, -1:]
+        if cfg.family == "audio":               # the head tied to tok_embed
+            return WH.whisper_logits(params, h)
         return T.logits_from_hidden(params, cfg, h)
 
     def init_cache(self, batch: int, shape: InputShape) -> PyTree:
         cfg = self.cfg
-        if cfg.family in LM_FAMILIES:
+        if cfg.family in LM_FAMILIES + ("vlm",):
             return T.init_cache(cfg, batch, T.cache_len(cfg, shape),
                                 self.dev)
+        if cfg.family == "audio":
+            enc_len = min(shape.seq_len // cfg.encoder_downsample, 8192)
+            return WH.init_whisper_cache(cfg, batch, shape.seq_len, enc_len,
+                                         self.dev)
+        pos = torch.zeros((), dtype=torch.int32, device=self.dev)
+        if cfg.family == "ssm":
+            return {"layers": [
+                {"slstm": XL.init_slstm_state(batch, cfg, self.dev)}
+                if self._is_slstm(i)
+                else {"mlstm": XL.init_mlstm_state(batch, cfg, self.dev)}
+                for i in range(cfg.num_layers)], "pos": pos}
         attn_len = min(shape.seq_len, cfg.long_context_window)
         return {"body": ZB.init_zamba_cache(cfg, batch, attn_len, self.dev),
-                "pos": torch.zeros((), dtype=torch.int32, device=self.dev)}
+                "pos": pos}
 
     def decode_step(self, params, cache, token) -> Tuple[torch.Tensor,
                                                          PyTree]:
-        """One token against ``cache``, whose tensors are written in place;
-        returns the logits and the cache with ``pos + 1``."""
+        """One token against ``cache``; returns the logits and the cache
+        with ``pos + 1``.  K/V caches and the hybrid's Mamba states are
+        written in place; xlstm's recurrent states come back as new
+        tensors, as in the reference."""
         cfg = self.cfg
-        if cfg.family in LM_FAMILIES:
+        if cfg.family in LM_FAMILIES + ("vlm",):
             # ring-buffer semantics: a cache shorter than the context is a
             # sliding window of exactly its own length
             ring = cache["layers"]["k"].shape[-3]
             return T.decode_step(params, cfg, cache, token, window=ring)
+        if cfg.family == "audio":
+            return WH.whisper_decode_step(params, cfg, cache, token)
+        x = params["embed"][token]
+        if cfg.family == "ssm":
+            states = []
+            for i, (bp, st) in enumerate(zip(params["layers"],
+                                             cache["layers"])):
+                kind = "slstm" if self._is_slstm(i) else "mlstm"
+                fn = XL.slstm_decode if kind == "slstm" else XL.mlstm_decode
+                x, new = fn(bp[kind], cfg, x, st[kind])
+                states.append({kind: new})
+            h = L.rms_norm(x, params["ln_f"])
+            return T.logits_from_hidden(params, cfg, h), {
+                "layers": states, "pos": cache["pos"] + 1}
         body = cache["body"]
         attn_len = body["attn"]["k"].shape[-3] if "attn" in body else 0
-        x, body = ZB.zamba_decode(params["body"], cfg, params["embed"][token],
-                                  body, cache["pos"], window=attn_len)
+        x, body = ZB.zamba_decode(params["body"], cfg, x, body, cache["pos"],
+                                  window=attn_len)
         h = L.rms_norm(x, params["ln_f"])
-        return (h @ params["head"]).float(), {"body": body,
-                                              "pos": cache["pos"] + 1}
+        return T.logits_from_hidden(params, cfg, h), {
+            "body": body, "pos": cache["pos"] + 1}
 
     # ---------------- batch specs ----------------
     def batch_spec(self, shape: InputShape) -> Dict[str, Tuple[tuple,
                                                                torch.dtype]]:
+        """The reference's: tokens (and labels to train); ``vlm`` text of
+        ``max(S - vision_tokens, 8)`` tokens beside the patch embeddings;
+        ``audio`` frame embeddings ``[GB, S / encoder_downsample, d]`` and
+        ``min(decoder_len_cap, max(S / 8, 16))`` decoder tokens."""
+        cfg = self.cfg
         GB, S = shape.global_batch, shape.seq_len
+        dt = T.dtype_of(cfg)
+        i32 = torch.int32
         if shape.kind == "decode":
-            return {"token": ((GB, 1), torch.int32)}
-        spec = {"tokens": ((GB, S), torch.int32)}
+            return {"token": ((GB, 1), i32)}
+        if cfg.family == "vlm":
+            S = max(S - cfg.vision_tokens, 8)
+            spec = {"tokens": ((GB, S), i32),
+                    "patch_embeds": ((GB, cfg.vision_tokens,
+                                      cfg.vision_embed_dim), dt)}
+        elif cfg.family == "audio":
+            enc_len = S // cfg.encoder_downsample
+            S = min(cfg.decoder_len_cap, max(S // 8, 16))
+            spec = {"enc_embeds": ((GB, enc_len, cfg.d_model), dt),
+                    "tokens": ((GB, S), i32)}
+        else:
+            spec = {"tokens": ((GB, S), i32)}
         if shape.kind == "train":
-            spec["labels"] = ((GB, S), torch.int32)
+            spec["labels"] = ((GB, S), i32)
         return spec
 
 

@@ -29,7 +29,6 @@ from repro.configs.base import InputShape as JShape
 from repro.models.model_factory import build_model as jbuild
 from repro_torch import convert, tree
 from repro_torch.configs import ARCH_MODULES as T_ARCHS
-from repro_torch.configs import UNPORTED
 from repro_torch.configs import get_config as tget_config
 from repro_torch.configs.base import InputShape as TShape
 from repro_torch.models.model_factory import build_model as tbuild
@@ -126,9 +125,7 @@ def test_train_step_loss_and_grads_match_reference(arch):
                                    atol=1e-4 * float(np.abs(a).max()))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("llama3.2-3b", "resnet20",
-                                          "dbrx-132b", "grok-1-314b",
-                                          "zamba2-1.2b"))
+@pytest.mark.parametrize("arch", sorted(J_ARCHS))
 def test_registry_matches_reference(arch):
     """Field for field (but for the port's flash default, which serves
     through its kernel unless the plain oracle is asked for by name), the
@@ -143,15 +140,17 @@ def test_registry_matches_reference(arch):
 
 
 def test_unported_archs_raise_with_their_roadmap_item():
-    assert set(T_ARCHS) | set(UNPORTED) == set(J_ARCHS)
-    assert not set(T_ARCHS) & set(UNPORTED)
-    assert set(T_ARCHS) == set(ARCHS) | {"llama3.2-3b", "resnet20",
-                                         "dbrx-132b", "grok-1-314b",
-                                         "zamba2-1.2b"}
-    assert set(UNPORTED) == {"xlstm-125m", "whisper-base",
-                             "phi-3-vision-4.2b"}
-    for name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #12"):
-            tget_config(name)
-    with pytest.raises(ValueError):
+    """Nothing is left unported: the port's registry is the reference's,
+    and ``Model`` builds every family of it.  A name or a family the port
+    lacks still raises."""
+    assert set(T_ARCHS) == set(J_ARCHS)
+    families = {tget_config(a).family for a in T_ARCHS if a != "resnet20"}
+    assert families == {"dense", "moe", "hybrid", "ssm", "audio", "vlm"}
+    for name in T_ARCHS:
+        if name != "resnet20":
+            assert tbuild(tget_config(name), device="cpu").cfg.name == name
+    with pytest.raises(ValueError, match="unknown arch"):
         tget_config("no-such-arch")
+    with pytest.raises(ValueError, match="unknown family"):
+        tbuild(dataclasses.replace(tget_config("llama3.2-3b"),
+                                   family="no-such-family"), device="cpu")

@@ -33,7 +33,10 @@ def test_port_imports_without_jax_or_repro():
                  "configs.chatglm3_6b", "configs.internlm2_20b",
                  "configs.qwen2_72b", "configs.resnet20", "configs.dbrx_132b",
                  "configs.grok_1_314b", "configs.zamba2_1_2b",
+                 "configs.xlstm_125m", "configs.whisper_base",
+                 "configs.phi_3_vision_4_2b",
                  "models.moe", "models.mamba2", "models.zamba",
+                 "models.xlstm", "models.whisper", "models.vlm",
                  "train.train_step",
                  "models.layers", "models.transformer",
                  "models.model_factory", "train.serve_step", "data.pipeline",

@@ -178,11 +178,10 @@ def test_configs_match_reference():
     assert {k: dataclasses.asdict(v) for k, v in J_SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in T_SHAPES.items()}
     for name in ("phi-3-vision-4.2b", "xlstm-125m", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tget_config(name)
-    ssm = dataclasses.replace(tcfg, family="ssm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbuild(ssm, device="cpu")
+        assert tget_config(name).name == name
+    with pytest.raises(ValueError, match="unknown family"):
+        tbuild(dataclasses.replace(tcfg, family="no-such-family"),
+               device="cpu")
 
 
 def test_pipeline_batches():
