@@ -257,6 +257,26 @@ Phases (any failure exits non-zero, and the result line is not printed):
    text (2 flash launches a step, flash vs plain gradients).  The flash
    kernel timed at ``[128, 375, 64]`` and ``[64, 4096, 96]``; the
    launches added to the kernels line.
+24. The launch layer: (a) ``repro_torch.launch.train.main`` in this
+   process with ``--arch whisper-base --full-size --workers 8 --batch 8
+   --seq 3000 --steps 3 --algo moniqua --bits 8`` (phase 23 (d)'s cell
+   through the user's entry point): finite losses, 32 encodes and 32
+   decode-reduces a step (per-leaf) and 6 bf16 flash launches, the printed
+   ``bytes/step/worker`` equal to the shape-only accounting; step time
+   and peak memory; (b) the CLI's default, ``--arch llama3.2-3b --steps
+   5`` (reduced, float32: the float32 flash kernel once a layer a step,
+   the codec as ``path="auto"`` resolves the tree); (c) the dry run of
+   (a)'s step on ``meta`` (``dryrun_one``): its peak within 0.8-1.25x of
+   (a)'s measured one, its FLOPs equal to the same counters' around one
+   real step on the card (the kernels charged by the same formulas), and
+   the step's MFU beside the dry run's bound; (d) the dry run's sweep,
+   ``dryrun.main`` over the ten assigned architectures x the four input
+   shapes in processes of its own beside (a)-(c) (xlstm-125m x
+   prefill_32k left out, ROADMAP): no error row, whisper-base x long_500k
+   skipped with the reference's reason, each combination's seconds and
+   peak against the card's 80 GB; and ``calibrate_one`` for llama3.2-3b x
+   train_4k against the sweep's direct count.  The CLI runs' launches are
+   added to the kernels line.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -298,14 +318,6 @@ RULE_ULPS = 2
 ADPSGD_ITERS, ADPSGD_DELAY, ADPSGD_CHECK = 200, 4, 8
 SPLIT_COLS = 2 ** 31 + 4100    # phase 14's row
 SPLIT_WIN = 2 ** 20            # the columns of each window it is checked on
-# float32 operations per element, counted from the kernels' code
-ENCODE_OPS = 11                # div add floor sub add mul sub add floor max min
-
-
-def decode_reduce_ops(m: int) -> int:
-    """self: value (4) + cmod (5) + 2; each neighbor: value (4) + sub +
-    cmod (5) + add + sub + mul + add; then one add."""
-    return 11 + 14 * m + 1
 
 
 def nvidia_smi() -> str:
@@ -362,7 +374,8 @@ def bound_ms(nbytes: int, ops: int) -> float:
 def decode_bound_ms(elems: int, bits: int) -> float:
     """Point decode of ``elems`` float32 values: y read and out written
     once, the payload read once."""
-    return bound_ms(elems * 8 + elems * bits // 8, elems * DECODE_OPS)
+    from repro_torch.kernels import cost
+    return bound_ms(elems * 8 + elems * bits // 8, elems * cost.DECODE_OPS)
 
 
 def offset_view(t, k=1):
@@ -375,15 +388,18 @@ def offset_view(t, k=1):
 
 
 def encode_bound_ms(elems: int, bits: int) -> float:
-    """Encode of ``elems`` float32 values: each read once, its code written."""
-    return bound_ms(elems * 4 + elems * bits // 8, elems * ENCODE_OPS)
+    """Encode of ``elems`` float32 values: each read once, its code written
+    (the operations a value: ``kernels/cost.py``, the dry run's)."""
+    from repro_torch.kernels import cost
+    return bound_ms(elems * 4 + elems * bits // 8, elems * cost.ENCODE_OPS)
 
 
 def decode_reduce_bound_ms(elems: int, bits: int, m: int) -> float:
     """Decode-reduce of ``elems`` float32 values with ``m`` neighbors: y read
     and out written once, the own and m neighbor payloads read once."""
+    from repro_torch.kernels import cost
     return bound_ms(elems * 8 + (m + 1) * elems * bits // 8,
-                    elems * decode_reduce_ops(m))
+                    elems * cost.decode_reduce_ops(m))
 
 
 def codec_times(timer, dev, card, flat, bits, stochastic, what, offsets):
@@ -585,7 +601,6 @@ F32_LOGIT_TOL = 1e-3
 # 28 layers such gaps grow to a few percent of the largest logit.  The
 # bound allows 0.1.
 BF16_GAP_BOUND = 0.1
-DECODE_OPS = 11                # value (4) + sub + cmod (5) + add
 
 
 def serve_config(**over):
@@ -597,8 +612,10 @@ def serve_config(**over):
 
 
 def causal_pairs(s: int) -> int:
-    """(query, key) pairs that s causal query rows attend."""
-    return s * (s + 1) // 2
+    """(query, key) pairs that s causal query rows attend (the dry run's
+    count, ``kernels/cost.py``)."""
+    from repro_torch.kernels import cost
+    return cost.attended_pairs(s, s, True, 0)
 
 
 def profile_device(fn, what, card):
@@ -3829,6 +3846,355 @@ def zoo_phase(dev, timer, card):
           f"{launches.counted} {card}", flush=True)
     return launches.counted, times
 
+# -- phase 24: the launch layer: the CLI, the dry run, the calibration -------
+
+# (a): phase 23 (d)'s cell through the user's entry point, one 30 s window a
+# worker on ring(8); (b): the CLI's default run (reduced llama3.2-3b, float32)
+CLI_WH = ("--arch", "whisper-base", "--full-size", "--workers", "8",
+          "--batch", "8", "--seq", "3000", "--steps", "3", "--algo",
+          "moniqua", "--bits", "8", "--log-every", "1")
+CLI_LM = ("--arch", "llama3.2-3b", "--steps", "5", "--log-every", "1")
+CLI_WH_CODEC, CLI_WH_FLASH = 32, 6     # (a)'s launches a step: per-leaf on
+                                       # whisper's 32 leaves; its 6 decoder
+                                       # layers' self-attention
+CARD_BYTES = 80e9              # the H100's HBM (data sheet)
+PEAK_RATIO = (0.8, 1.25)       # dry-run peak / measured peak
+# (d): dryrun.main's sweep on meta, one process a part, run beside (a)-(c).
+# xlstm-125m x prefill_32k is left out: its sLSTM loop is 3 x 32768 steps
+# of ~14 ops through the Python dispatch modes (~1.4 M ops, several
+# minutes); ROADMAP lists it.
+SWEEP_PARTS = ((("--shape", "train_4k"),),
+               (("--shape", "decode_32k"), ("--shape", "long_500k")),
+               tuple(("--arch", a, "--shape", "prefill_32k") for a in (
+                   "dbrx-132b", "grok-1-314b", "chatglm3-6b", "llama3.2-3b",
+                   "phi-3-vision-4.2b", "internlm2-20b", "qwen2-72b",
+                   "whisper-base", "zamba2-1.2b")))
+SWEEP_TIMEOUT = 600
+
+
+class StepLines:
+    """A stdout that passes everything on and keeps each line with the
+    host time it was written at (the CLI's step lines: each is printed
+    after the step's metrics came back from the card)."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._buf = out, [], ""
+
+    def write(self, text):
+        self.out.write(text)
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(argv, launches, what):
+    """``repro_torch.launch.train.main(argv)`` in this process, on the
+    card: -> (losses, bytes/step/worker, mean step ms over steps 1.., peak
+    bytes, launches by kernel)."""
+    import contextlib
+    import re
+    from repro_torch.launch import train as LT
+    tee = StepLines(sys.stdout)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches.zero()
+    with contextlib.redirect_stdout(tee):
+        rc = LT.main(list(argv))
+    got = launches.read()
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"{what}: the CLI exited {rc}")
+    steps = [(t, float(m.group(1))) for t, line in tee.lines
+             for m in [re.match(r"step\s+\d+\s+loss (\S+)", line)] if m]
+    bps = [int(m.group(1)) for _, line in tee.lines
+           for m in [re.match(r"bytes/step/worker = (\d+)$", line)] if m]
+    check(len(bps) == 1 and len(steps) >= 2, f"{what}: CLI output "
+          f"{[line for _, line in tee.lines][-4:]}")
+    step_ms = 1e3 * (steps[-1][0] - steps[0][0]) / (len(steps) - 1)
+    return [v for _, v in steps], bps[0], step_ms, peak, got
+
+
+def cli_config(args):
+    """The config the CLI builds for ``args`` (``launch.train.parse_args``)
+    and the dry run's ``override`` that gives it (None at full size)."""
+    from repro_torch.configs import get_config
+    full = get_config(args.arch)
+    if args.full_size:
+        return full, None
+    red = full.reduced()
+    return red, {f.name: getattr(red, f.name)
+                 for f in dataclasses.fields(red)
+                 if getattr(red, f.name) != getattr(full, f.name)}
+
+
+def cli_expect(cfg, n, bits, algo):
+    """The CLI's tree on ``meta``: (shape-only bytes a step a worker, the
+    codec launches a Moniqua step as ``path="auto"`` resolves it, the
+    leaves)."""
+    from repro_torch import tree
+    from repro_torch.core.algorithms import get_algorithm
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import TrainerConfig, build_hyper
+    hp = build_hyper(TrainerConfig(algo=algo, topology="ring", n_workers=n,
+                                   bits=bits))
+    X = TS.abstract_state(Model(cfg, "meta"), get_algorithm(algo), hp,
+                          n)["params"]
+    leaves = len(tree.leaves(X))
+    per_step = 1 if hp.engine().resolved_path(X) == "bucketed" else leaves
+    return get_algorithm(algo).bytes_per_step(X, hp), per_step, leaves
+
+
+def start_sweep(out_dir):
+    """Start ``dryrun.main`` over ``SWEEP_PARTS`` on ``meta``, one process a
+    part (no card: ``CUDA_VISIBLE_DEVICES`` empty), each appending its rows
+    to a JSONL file of its own and its output to a log beside it ->
+    [(process, rows path, log path)]."""
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for i, part in enumerate(SWEEP_PARTS):
+        path = os.path.join(out_dir, f"sweep{i}.jsonl")
+        log = os.path.join(out_dir, f"sweep{i}.log")
+        if os.path.exists(path):
+            os.remove(path)
+        calls = [list(a) + ["--out", path] for a in part]
+        code = ("import sys\nfrom repro_torch.launch import dryrun\n"
+                f"sys.exit(max(dryrun.main(a) for a in {calls!r}))\n")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", code], env=env, cwd=ROOT, stdout=f,
+                stderr=subprocess.STDOUT), path, log))
+    return procs
+
+
+def launch_phase(dev, card):
+    """Phase 24: the launch layer on one card.  (a) whisper-base at full
+    width trained 3 steps through ``repro_torch.launch.train.main``; (b) the
+    CLI's default (reduced llama3.2-3b); (c) the dry run of (a)'s step on
+    ``meta``: its peak against (a)'s, its FLOPs against the same counters
+    around a real step on the card, the step's MFU; (d) the dry run's
+    sweep (``dryrun.main``, run beside (a)-(c) in processes of its own) and
+    ``calibrate_one`` for llama3.2-3b x train_4k against the sweep's
+    direct count.  Returns the launches on the CLI runs by kernels-line
+    entry."""
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.configs import assigned_archs, get_config
+    from repro_torch.configs.base import INPUT_SHAPES, InputShape
+    from repro_torch.launch import calibrate as CAL
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model_factory import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    sweep_dir = os.path.join(ROOT, "build", "dryrun")
+    procs = start_sweep(sweep_dir)
+    try:
+        launches = Launches()
+
+        # -- (a) whisper-base at full width through the CLI ------------------
+        args = LT.parse_args(list(CLI_WH))
+        wh, over = cli_config(args)
+        n, steps = args.workers, args.steps
+        shape = InputShape("cli", args.seq, args.batch, "train")
+        losses, bps, step_ms, peak, got = run_cli(CLI_WH, launches,
+                                                  "phase 24 (a)")
+        launches.add(got)
+        want_bytes, per_step, leaves = cli_expect(wh, n, args.bits,
+                                                  args.algo)
+        check(all(map(math.isfinite, losses)), f"phase 24 (a): losses "
+              f"{losses}")
+        check(bps == want_bytes, f"phase 24 (a): bytes/step/worker {bps} != "
+              f"the shape-only {want_bytes}")
+        check(got["moniqua_encode"] == got["moniqua_decode_reduce"]
+              == steps * per_step == steps * CLI_WH_CODEC,
+              f"phase 24 (a): codec launches {got}, want {CLI_WH_CODEC} a "
+              f"step ({per_step} a step on {leaves} leaves)")
+        check(got["flash_attention_tc"] == steps * wh.num_layers
+              == steps * CLI_WH_FLASH
+              and got["flash_attention_f32tc"] == 0
+              and got["flash_attention_simt"] == 0,
+              f"phase 24 (a): flash launches {got}, want {CLI_WH_FLASH} a "
+              f"step on the bf16 tensor-core kernel")
+        print(f"phase 24 (a): python -m repro_torch.launch.train "
+              f"{' '.join(CLI_WH)}: losses {[round(v, 5) for v in losses]}; "
+              f"bytes/step/worker {bps} (= the shape-only accounting); "
+              f"launches {got}", flush=True)
+        print(f"time: phase 24 (a) whisper-base step through the CLI "
+              f"{step_ms:.3f} ms (host clock between step lines, mean of "
+              f"steps 1-{steps - 1}); max_memory_allocated "
+              f"{peak / 2 ** 30:.2f} GiB ({peak} bytes) {card}", flush=True)
+
+        # -- (b) the CLI's default: reduced llama3.2-3b, float32 -------------
+        args_b = LT.parse_args(list(CLI_LM))
+        lm, _ = cli_config(args_b)
+        lm_steps = args_b.steps
+        losses_b, bps_b, ms_b, peak_b, got_b = run_cli(CLI_LM, launches,
+                                                       "phase 24 (b)")
+        launches.add(got_b)
+        want_b, per_b, leaves_b = cli_expect(lm, args_b.workers,
+                                             args_b.bits, args_b.algo)
+        check(all(map(math.isfinite, losses_b)), f"phase 24 (b): losses "
+              f"{losses_b}")
+        check(bps_b == want_b, f"phase 24 (b): bytes/step/worker {bps_b} != "
+              f"{want_b}")
+        check(got_b["flash_attention_f32tc"] == lm_steps * lm.num_layers
+              and got_b["flash_attention_tc"] == 0
+              and got_b["flash_attention_simt"] == 0,
+              f"phase 24 (b): flash launches {got_b}, want one float32 "
+              f"launch a layer a step")
+        check(got_b["moniqua_encode"] == got_b["moniqua_decode_reduce"]
+              == lm_steps * per_b, f"phase 24 (b): codec launches {got_b}, "
+              f"want {per_b} a step ({leaves_b} leaves)")
+        print(f"phase 24 (b): python -m repro_torch.launch.train "
+              f"{' '.join(CLI_LM)} (reduced, {lm.dtype}, "
+              f"ring({args_b.workers}), {args_b.batch // args_b.workers} x "
+              f"{args_b.seq} tokens a worker): path "
+              f"{'bucketed' if per_b == 1 else 'per-leaf'} on {leaves_b} "
+              f"leaves; losses {[round(v, 5) for v in losses_b]}; "
+              f"bytes/step/worker {bps_b}; launches {got_b}; step "
+              f"{ms_b:.3f} ms; max_memory_allocated "
+              f"{peak_b / 2 ** 30:.3f} GiB {card}", flush=True)
+
+        # -- (c) the dry run of (a)'s step on meta, and on the card ---------
+        row = DR.dryrun_one(args.arch, shape, n_workers=n, bits=args.bits,
+                            override=over, verbose=False)
+        check(row.status == "ok", f"phase 24 (c): dry run {row.error}")
+        ratio = row.memory["peak_estimate_gb"] * 1e9 / peak
+        check(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+              f"phase 24 (c): dry-run peak {row.memory['peak_estimate_gb']} "
+              f"GB vs measured {peak / 1e9:.3f} GB (ratio {ratio:.4f})")
+        model = build_model(wh, "cuda")
+        tr = Trainer(model, TrainerConfig(algo=args.algo, topology="ring",
+                                          n_workers=n, bits=args.bits,
+                                          steps=1, log_every=1), shape)
+        state = tr.init_state()
+        b0 = tr.batch_fn(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with DR.StepCounters((state, b0)) as ctr:
+            new_state, _ = tr.step_fn(state, b0)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated()
+        c = ctr.counts
+        del new_state, state, b0, tr, model
+        torch.cuda.empty_cache()
+        meta_c, _, _, _, _ = DR.count_step(build_model(wh, "meta"), shape, n,
+                                           args.algo, args.bits)
+        check(c.flops == row.roofline["flops_per_chip"] == meta_c.flops,
+              f"phase 24 (c): FLOPs on the card {c.flops} != on meta "
+              f"{row.roofline['flops_per_chip']}")
+        check(c.kernel.calls == meta_c.kernel.calls
+              and c.bytes_accessed == meta_c.bytes_accessed
+              and c.peak_bytes == meta_c.peak_bytes,
+              f"phase 24 (c): card {c} != meta {meta_c}")
+        mf = RL.model_flops_for(wh, shape)
+        mfu = mf / (step_ms * 1e-3 * RL.HW["peak_flops"])
+        r = row.roofline
+        print(f"phase 24 (c): dry run of (a)'s step on meta: peak "
+              f"{row.memory['peak_estimate_gb']:.4f} GB vs measured "
+              f"{peak / 1e9:.4f} GB (ratio {ratio:.4f}); FLOPs "
+              f"{r['flops_per_chip']:.6e} (kernels "
+              f"{meta_c.kernel.total_flops:.6e}) == the same counters "
+              f"around one step on the card {c.flops:.6e}; bytes accessed "
+              f"meta {meta_c.bytes_accessed:.6e}, card "
+              f"{c.bytes_accessed:.6e}; the tracker's peak meta "
+              f"{meta_c.peak_bytes / 1e9:.4f} GB, card "
+              f"{c.peak_bytes / 1e9:.4f} GB, max_memory_allocated of the "
+              f"counted step {step_peak / 1e9:.4f} GB; roofline "
+              f"compute {r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.4f} ms ({r['dominant']})", flush=True)
+        print(f"phase 24 (c): MFU of (a)'s step: model FLOPs {mf:.6e} / "
+              f"({step_ms:.3f} ms x 989 TFLOP/s) = {mfu:.5f}; the dry run's "
+              f"mfu_upper_bound {r['mfu_upper_bound']:.5f} {card}",
+              flush=True)
+
+        # -- (d) the sweep, and the depth-probe calibration -----------------
+        cal = CAL.calibrate_one("llama3.2-3b", "train_4k")
+        check(cal["status"] == "ok", f"phase 24 (d): calibrate {cal}")
+        probe3 = DR.dryrun_one("llama3.2-3b", "train_4k", verbose=False,
+                               override={"num_layers": 3})
+        check(probe3.status == "ok", f"phase 24 (d): {probe3.error}")
+        rows, fails = [], []
+        t_wait = time.perf_counter()
+        for proc, path, log in procs:
+            proc.wait(timeout=SWEEP_TIMEOUT)
+            if proc.returncode:
+                with open(log) as f:
+                    fails.append(f.read()[-3000:])
+            with open(path) as f:
+                rows += [json.loads(line) for line in f]
+        print(f"phase 24 (d): waited {time.perf_counter() - t_wait:.1f} s "
+              f"for the sweep's processes", flush=True)
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    errors = [(r["arch"], r["shape"], r["error"][:300]) for r in rows
+              if r["status"] == "error"]
+    check(not errors and not fails, f"phase 24 (d): error rows {errors} "
+          f"{fails}")
+    want = {(a, s) for a in assigned_archs() for s in INPUT_SHAPES}
+    want.discard(("xlstm-125m", "prefill_32k"))
+    check({(r["arch"], r["shape"]) for r in rows} == want and
+          len(rows) == len(want), f"phase 24 (d): {len(rows)} rows, want "
+          f"{len(want)}")
+    skipped = [r for r in rows if r["status"] == "skipped"]
+    check([(r["arch"], r["shape"]) for r in skipped]
+          == [("whisper-base", "long_500k")]
+          and skipped[0]["error"] == DR.skip_reason(
+              get_config("whisper-base"), InputShape("long_500k", 524288, 1,
+                                                     "decode")),
+          f"phase 24 (d): skipped {skipped}")
+    for r in sorted(rows, key=lambda r: (r["shape"], r["arch"])):
+        if r["status"] != "ok":
+            print(f"  sweep {r['arch']} x {r['shape']}: {r['status']} "
+                  f"({r['error'][:60]})")
+            continue
+        m, f = r["memory"], r["roofline"]
+        print(f"  sweep {r['arch']} x {r['shape']}: {r['seconds']:.2f} s; "
+              f"peak_estimate_gb {m['peak_estimate_gb']:.3f} of the card's "
+              f"{CARD_BYTES / 1e9:.0f} GB ({'fits' if m['peak_estimate_gb'] * 1e9 <= CARD_BYTES else 'does not fit'}); "
+              f"flops {f['flops_per_chip']:.4e}, bytes "
+              f"{f['bytes_per_chip']:.4e}, {f['dominant']} "
+              f"{f['bound_s'] * 1e3:.3f} ms, mfu<= {f['mfu_upper_bound']:.4f}; "
+              f"{r['collectives']['summary']}")
+    direct = next(r for r in rows if (r["arch"], r["shape"])
+                  == ("llama3.2-3b", "train_4k"))["roofline"]
+    calr = cal["roofline_calibrated"]
+    L = cal["probe"]["num_layers"]
+    b1, b2 = cal["probe"]["L1"]["bytes"], cal["probe"]["L2"]["bytes"]
+    second = probe3.roofline["bytes_per_chip"] - 2 * b2 + b1
+    check(calr["flops_per_chip"] == direct["flops_per_chip"]
+          and calr["collective_bytes_per_chip"]
+          == direct["collective_bytes_per_chip"],
+          f"phase 24 (d): calibrated {calr} != the sweep's {direct}")
+    check(direct["bytes_per_chip"] == calr["bytes_per_chip"]
+          + (L - 1) * (L - 2) // 2 * second,
+          f"phase 24 (d): bytes direct {direct['bytes_per_chip']} != "
+          f"calibrated {calr['bytes_per_chip']} + the stacked-gradient "
+          f"term ({second} a layer pair)")
+    print(f"phase 24 (d): {len(rows)} dry-run rows, 0 errors, 1 skipped "
+          f"(whisper-base x long_500k: the reference's reason); "
+          f"llama3.2-3b x train_4k calibrated from depth 1 and 2 to {L}: "
+          f"FLOPs {calr['flops_per_chip']:.6e} == the sweep's direct "
+          f"count; bytes {calr['bytes_per_chip']:.6e} + "
+          f"{(L - 1) * (L - 2) // 2} x {second:.6e} (the backward's "
+          f"zero-filled stacked gradients) == the direct "
+          f"{direct['bytes_per_chip']:.6e}", flush=True)
+    print(f"phase 24: the launch layer passed in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches on the CLI's "
+          f"paths {launches.counted} {card}", flush=True)
+    return launches.counted
+
 
 def main() -> int:
     # phase 21's LM training allocates and frees tensors of many GB in
@@ -4244,7 +4610,9 @@ def main() -> int:
     p22_counts, p22_flash = moe_hybrid_phase(dev, timer, card)
     torch.cuda.empty_cache()
     p23_counts, p23_flash = zoo_phase(dev, timer, card)
-    for counts in (lm_counts, p22_counts, p23_counts):
+    torch.cuda.empty_cache()
+    p24_counts = launch_phase(dev, card)
+    for counts in (lm_counts, p22_counts, p23_counts, p24_counts):
         for name, n in counts.items():
             extra[name] = extra.get(name, 0) + n
     for k in kernels:
@@ -4253,7 +4621,7 @@ def main() -> int:
             k["train"] = train_flash
             k["phase22"] = p22_flash
             k["phase23"] = p23_flash
-    print(f"launches on phases 17-23's paths, added to the kernels line: "
+    print(f"launches on phases 17-24's paths, added to the kernels line: "
           f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))

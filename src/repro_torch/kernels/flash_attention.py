@@ -20,7 +20,10 @@ into two TF32 parts, which keeps float32's tolerance where one TF32 pass
 cannot).  Every other head dim up to :data:`MAX_HEAD_DIM`, which no config
 has, goes to :func:`flash_attention_simt` (``csrc/flash_attention.cu``:
 CUDA cores).  Each keeps its own count of
-launches.  CPU tensors take :func:`flash_attention_plain`.
+launches.  CPU tensors take :func:`flash_attention_plain`.  Under
+``kernels.cost.counting`` every route charges its kernel's FLOPs (causal
+work halved: the attended pairs only) and bytes, and takes ``meta``
+tensors.
 
 :func:`sdpa` with :func:`causal_mask` is the one masked-softmax oracle of
 the port: ``models.layers`` runs it as the plain attention path and for
@@ -36,6 +39,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -169,6 +173,23 @@ def _check(q, k, v):
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
 
 
+def _off_card(name, q, k, v, scale, causal, window):
+    """The part of every route before its launch: charge kernel ``name``'s
+    FLOPs (two matmuls over the attended pairs) and bytes to the active
+    cost context, then the output of a ``meta`` (an empty one) or CPU call
+    (the plain version); None for a CUDA tensor."""
+    bh, sq, d = q.shape
+    pairs = cost.attended_pairs(sq, k.shape[1], causal, window)
+    cost.charge(name, 4 * bh * d * pairs, cost.nbytes(q, k, v, q))
+    if q.device.type == "meta":
+        return cost.meta_output(name, q.shape, q.dtype)
+    if q.device.type == "cpu":
+        with cost.plain():
+            return flash_attention_plain(q, k, v, scale=scale, causal=causal,
+                                         window=window)
+    return None
+
+
 def _check_cuda(q, k, v):
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
@@ -203,9 +224,9 @@ def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention_tc.launches``) or raises; CPU tensors take
     :func:`flash_attention_plain`."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     window=window)
+    out = _off_card("flash_attention_tc", q, k, v, scale, causal, window)
+    if out is not None:
+        return out
     _check_cuda(q, k, v)
     bh, sq, d = q.shape
     if q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
@@ -233,9 +254,9 @@ def flash_attention_f32tc(q: torch.Tensor, k: torch.Tensor,
     ``flash_attention_f32tc.launches``) or raises; CPU tensors take
     :func:`flash_attention_plain`."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     window=window)
+    out = _off_card("flash_attention_f32tc", q, k, v, scale, causal, window)
+    if out is not None:
+        return out
     _check_cuda(q, k, v)
     bh, sq, d = q.shape
     if q.dtype != torch.float32 or d not in TC_HEAD_DIMS:
@@ -260,9 +281,9 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (counted in ``flash_attention_simt.launches``); CPU tensors take
     :func:`flash_attention_plain`."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     window=window)
+    out = _off_card("flash_attention_simt", q, k, v, scale, causal, window)
+    if out is not None:
+        return out
     _check_cuda(q, k, v)
     bh, sq, d = q.shape
     out = _launch("flash_attention", q, k, v,

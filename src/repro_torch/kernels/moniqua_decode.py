@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref as kref
 
 MODES = ("remote", "self")
@@ -42,7 +43,9 @@ def decode(packed: torch.Tensor, y: torch.Tensor, B: torch.Tensor, *,
     """Decode ``packed [rows, ceil(cols/vpb)]`` against ``y [rows, cols]``.
 
     A CUDA tensor launches the kernel (one launch, counted in
-    ``decode.launches``); CPU tensors take :func:`decode_plain`."""
+    ``decode.launches``); CPU tensors take :func:`decode_plain`.  Under
+    ``cost.counting`` each call charges the kernel's FLOPs and bytes, and
+    ``meta`` tensors get an empty output."""
     if bits not in (1, 2, 4, 8):
         raise ValueError(f"unpackable bit width {bits}")
     if mode not in MODES:
@@ -58,8 +61,13 @@ def decode(packed: torch.Tensor, y: torch.Tensor, B: torch.Tensor, *,
         raise TypeError("payload must be uint8")
     if y.dtype not in _DTYPES:
         raise TypeError(f"y must be float32 or bfloat16, got {y.dtype}")
+    cost.charge("moniqua_decode", cost.DECODE_OPS * y.numel(),
+                cost.nbytes(packed, y) + cost.nbytes(y))
+    if y.device.type == "meta":
+        return cost.meta_output("moniqua_decode", y.shape, y.dtype)
     if y.device.type == "cpu":
-        return decode_plain(packed, y, B, bits=bits, mode=mode)
+        with cost.plain():
+            return decode_plain(packed, y, B, bits=bits, mode=mode)
     if y.device.type != "cuda":
         raise ValueError(f"no decode for device {y.device}")
     for name, t in (("packed", packed), ("y", y)):

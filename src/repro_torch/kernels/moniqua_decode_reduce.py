@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.modulo import _scalar
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref as kref
 
 MAX_NEIGHBORS = 8
@@ -85,7 +86,9 @@ def decode_reduce(p_self: torch.Tensor, p_nbrs: torch.Tensor,
     ``weights`` are the neighbor weights in topology offset order, matching
     ``p_nbrs``.  A CUDA tensor launches the kernel (one launch, counted in
     ``decode_reduce.launches``); CPU tensors take
-    :func:`decode_reduce_plain`."""
+    :func:`decode_reduce_plain`.  Under ``cost.counting`` each call charges
+    the kernel's FLOPs and bytes, and ``meta`` tensors get an empty
+    output."""
     if bits not in (1, 2, 4, 8):
         raise ValueError(f"unpackable bit width {bits}")
     if y.dim() != 3:
@@ -101,9 +104,14 @@ def decode_reduce(p_self: torch.Tensor, p_nbrs: torch.Tensor,
         raise TypeError("payloads must be uint8")
     if y.dtype not in _DTYPES:
         raise TypeError(f"y must be float32 or bfloat16, got {y.dtype}")
+    cost.charge("moniqua_decode_reduce", cost.decode_reduce_ops(m) * y.numel(),
+                cost.nbytes(p_self, p_nbrs, y) + cost.nbytes(y))
+    if y.device.type == "meta":
+        return cost.meta_output("moniqua_decode_reduce", y.shape, y.dtype)
     if y.device.type == "cpu":
-        return decode_reduce_plain(p_self, p_nbrs, y, B, bits=bits,
-                                   weights=weights)
+        with cost.plain():
+            return decode_reduce_plain(p_self, p_nbrs, y, B, bits=bits,
+                                       weights=weights)
     if y.device.type != "cuda":
         raise ValueError(f"no decode_reduce for device {y.device}")
     if not 1 <= m <= MAX_NEIGHBORS:

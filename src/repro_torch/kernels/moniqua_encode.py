@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.quantizers import _U32, pack_codes
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref as kref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -45,26 +46,31 @@ def encode(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
     the 0-dim float32 ``B`` on ``x``'s device.  Returns packed uint8
     ``[n, rows, ceil(cols / vpb)]``.  A CUDA tensor launches the kernel (one
     launch, counted in ``encode.launches``); a CPU tensor takes
-    :func:`encode_plain`."""
+    :func:`encode_plain`.  Under ``cost.counting`` each call charges the
+    kernel's FLOPs and bytes, and a ``meta`` tensor gets an empty payload."""
     if bits not in (1, 2, 4, 8):
         raise ValueError(f"unpackable bit width {bits}")
     if x.dim() != 3:
         raise ValueError(f"encode takes [workers, rows, cols], got {x.shape}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"encode takes float32 or bfloat16, got {x.dtype}")
+    n, rows, cols = x.shape
+    pshape = (n, rows, -(-cols // (8 // bits)))
+    cost.charge("moniqua_encode", cost.ENCODE_OPS * x.numel(),
+                cost.nbytes(x) + n * rows * pshape[2])
+    if x.device.type == "meta":
+        return cost.meta_output("moniqua_encode", pshape, torch.uint8)
     if x.device.type == "cpu":
-        return encode_plain(x, B, seed, bits=bits, stochastic=stochastic,
-                            idx_base=idx_base)
+        with cost.plain():
+            return encode_plain(x, B, seed, bits=bits, stochastic=stochastic,
+                                idx_base=idx_base)
     if x.device.type != "cuda":
         raise ValueError(f"no encode for device {x.device}")
     if not x.is_contiguous():
         raise ValueError("encode needs a contiguous x")
     if (B.device != x.device or B.dtype != torch.float32 or B.numel() != 1):
         raise ValueError("B must be one float32 on x's device")
-    n, rows, cols = x.shape
-    vpb = 8 // bits
-    out = torch.empty((n, rows, -(-cols // vpb)), dtype=torch.uint8,
-                      device=x.device)
+    out = torch.empty(pshape, dtype=torch.uint8, device=x.device)
     lib = build.load("moniqua_encode")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

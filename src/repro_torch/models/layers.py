@@ -83,8 +83,10 @@ def rope_cos_sin(positions, head_dim, theta, fraction=1.0):
     rot -= rot % 2
     exps = -torch.arange(0, rot, 2, dtype=torch.float32,
                          device=positions.device) / rot
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # torch.full, not torch.tensor: under a dispatch mode (the dry run's
+    # counters) torch.tensor detaches in place, which grad transforms refuse
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=positions.device), exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang), rot
 

@@ -38,6 +38,18 @@ LM_FAMILIES = ("dense", "moe")
 FAMILIES = LM_FAMILIES + ("vlm", "audio", "ssm", "hybrid")
 
 
+class MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is ``meta``.  The inits build their
+    leaves on ``gen.device`` and draw into them from ``gen``; a draw into a
+    ``meta`` tensor accepts a CPU generator and reads nothing from it, so
+    with this one a whole init runs on ``meta`` and allocates nothing (the
+    dry run's ``abstract_state``)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
@@ -53,7 +65,12 @@ class Model:
         return resolve_device(self.device)
 
     def generator(self, seed: int) -> torch.Generator:
-        """A ``torch.Generator`` on the model's device, seeded."""
+        """A ``torch.Generator`` on the model's device, seeded.  The
+        ``meta`` device has no generator: a meta model gets a CPU one that
+        reports ``meta`` (:class:`MetaGenerator`), so ``init`` builds every
+        leaf on ``meta`` and draws nothing."""
+        if self.dev.type == "meta":
+            return MetaGenerator().manual_seed(seed)
         return torch.Generator(device=self.dev).manual_seed(seed)
 
     # ---------------- init ----------------

@@ -9,10 +9,12 @@ under ``torch.no_grad`` inside a profiler range (``serve.prefill`` /
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Tuple
 
 import torch
 
+from repro_torch.configs.base import InputShape
 from repro_torch.models.model_factory import Model
 
 PyTree = Any
@@ -34,3 +36,11 @@ def make_serve_step(model: Model
         with torch.no_grad(), torch.profiler.record_function("serve.decode"):
             return model.decode_step(params, cache, token)
     return serve_step
+
+
+def abstract_cache(model: Model, shape: InputShape) -> PyTree:
+    """``model.init_cache(shape.global_batch, shape)`` on
+    ``torch.device("meta")``: the KV or recurrent caches at their shapes
+    and dtypes, nothing allocated."""
+    return dataclasses.replace(model, device="meta").init_cache(
+        shape.global_batch, shape)

@@ -53,6 +53,18 @@ def init_state(model, algo: Algorithm, hp: AlgoHyper, n_workers: int,
     }
 
 
+def abstract_state(model, algo: Algorithm, hp: AlgoHyper, n_workers: int
+                   ) -> Dict[str, Any]:
+    """The full state of :func:`init_state` (params, momentum, the rule's
+    ``extra`` with any WireState, ``g_inf``) on ``torch.device("meta")``:
+    every leaf at its shape and dtype, nothing allocated.  Built by
+    ``init_state`` itself on a meta copy of ``model``, so the shapes cannot
+    drift from a real state's (the reference's ``jax.eval_shape`` of
+    ``init_state``)."""
+    return init_state(dataclasses.replace(model, device="meta"), algo, hp,
+                      n_workers)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
     algo: str = "moniqua"

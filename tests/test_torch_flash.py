@@ -109,6 +109,35 @@ def test_flash_bfloat16(causal, Sk):
     np.testing.assert_allclose(_np(out), _np(ref), rtol=0, atol=0.03)
 
 
+@pytest.mark.parametrize("causal,Sk", [(True, None), (False, 200)])
+def test_bfloat16_flash_vs_plain_gap_is_the_references(causal, Sk):
+    """The gap between the flash route and the plain masked-softmax route
+    in bfloat16 is bfloat16's, not the port's: on the same inputs as
+    ``test_flash_bfloat16``, the port's flash function (what the card's
+    kernel is held to) is no farther from its plain bfloat16 route
+    (``sdpa_ref``: scores and softmax weights rounded to bfloat16) than the
+    reference's interpret-mode kernel is from its ``_sdpa_ref``."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(256, Sk=Sk), "bfloat16")
+
+    def fold(t):                           # [B, S, H, D] -> [B H, S, D]
+        return t.movedim(2, 1).reshape(-1, t.shape[1], t.shape[3])
+
+    def jfold(a):
+        return jnp.moveaxis(a, 2, 1).reshape(-1, a.shape[1], a.shape[3])
+    tq, tk, tv = map(fold, (tq, tk, tv))
+    jq, jk, jv = map(jfold, (jq, jk, jv))
+    scale = 0.125
+    ref_gap = np.abs(_np(jflash(jq, jk, jv, scale=scale, causal=causal,
+                                window=0, interpret=True))
+                     - _np(jops._sdpa_ref(jq, jk, jv, scale, causal, 0))
+                     ).max()
+    port_gap = np.abs(_np(tfa.flash_attention(tq, tk, tv, scale=scale,
+                                              causal=causal))
+                      - _np(tfa.sdpa_ref(tq, tk, tv, scale, causal, 0))
+                      ).max()
+    assert 0 < port_gap <= ref_gap
+
+
 @pytest.mark.parametrize("g,causal,sq,sk,window", [
     (1, True, 256, 256, 0), (4, True, 384, 384, 100), (1, True, 130, 130, 0),
     (4, False, 130, 200, 0)])

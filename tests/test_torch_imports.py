@@ -46,7 +46,16 @@ def test_port_imports_without_jax_or_repro():
                  "sim", "sim.network", "sim.cluster", "sim.faults",
                  "sim.contention", "sim.events", "sim.scenarios",
                  "sim.calibrate", "obs", "obs.metrics", "obs.runlog",
-                 "obs.trace"):
+                 "obs.trace", "kernels.cost", "analysis",
+                 "analysis.roofline", "launch", "launch.train",
+                 "launch.dryrun", "launch.calibrate"):
         assert f"repro_torch.{name}" in res["modules"], name
     assert len(res["modules"]) >= 50
     assert res["bad"] == [], f"repro_torch pulled in: {res['bad']}"
+
+
+def test_assigned_archs_equal_the_reference():
+    from repro.configs import assigned_archs as j_assigned
+    from repro_torch.configs import assigned_archs
+    assert assigned_archs() == j_assigned()
+    assert "resnet20" not in assigned_archs() and len(assigned_archs()) == 10
