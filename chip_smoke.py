@@ -277,6 +277,16 @@ Phases (any failure exits non-zero, and the result line is not printed):
    peak against the card's 80 GB; and ``calibrate_one`` for llama3.2-3b x
    train_4k against the sweep's direct count.  The CLI runs' launches are
    added to the kernels line.
+25. The meshes (``launch/mesh.py``, ``models/sharding.py``): a one-rank
+   NCCL process group and a ``(data=1, model=1)`` ``DeviceMesh`` on the
+   card; phase 21's cell (llama3.2-3b at published widths, 2 layers,
+   ring(4), Moniqua 8-bit, bfloat16, 2048 tokens a worker) trained 3 steps
+   by ``Trainer(model, tc, shape, mesh=, rules=)`` and by the same trainer
+   without a mesh: the final params, momentum and ``g_inf`` and the
+   losses bitwise equal; the encode, decode-reduce and bf16 flash kernels
+   launched on the mesh path as on the other (the launches added to the
+   kernels line); both step times and peak memories.  The process group
+   is destroyed after.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -4196,6 +4206,101 @@ def launch_phase(dev, card):
     return launches.counted
 
 
+# -- phase 25: the meshes and sharding rules ---------------------------------
+
+MESH_STEPS = 3
+
+
+def mesh_phase(dev, card):
+    """Phase 25: phase 21's llama3.2-3b cell trained through a one-rank
+    mesh (NCCL on the card) and without one, bitwise equal; returns the
+    mesh run's launches by kernels-line entry."""
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_host_mesh, mesh_shape_dict
+    from repro_torch.models.model_factory import Model
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    cfg = lm_config(LM_ARCH)
+    model = Model(cfg, "cuda")
+    shape = InputShape("lm_train", LM_SEQ, LM_WORKERS, "train")
+    tc = TrainerConfig(algo="moniqua", bits=8, topology="ring",
+                       n_workers=LM_WORKERS, theta=2.0, lr=0.1, momentum=0.9,
+                       weight_decay=5e-4, steps=MESH_STEPS, log_every=1,
+                       seed=0)
+    meta = tree.map(lambda a: torch.empty((LM_WORKERS,) + a.shape,
+                                          dtype=a.dtype, device="meta"),
+                    TS.abstract_params(model))
+    torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(data=1, model=1, device_type=dev.type)
+        rules = ShardingRules("decentralized")
+        runs, ref = {}, None
+        for name, kw in (("no mesh", {}),
+                         ("mesh", dict(mesh=mesh, rules=rules))):
+            tr = Trainer(model, tc, shape, **kw)
+            path = tr.hp.engine().resolved_path(meta)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            launches.zero()
+            res = tr.run()
+            got = launches.read()
+            peak = torch.cuda.max_memory_allocated()
+            walls = [h["wall"] for h in res["history"]]
+            per_step = 1 if path == "bucketed" else len(tree.leaves(meta))
+            n_codec = MESH_STEPS * per_step
+            check(got["flash_attention_tc"] == MESH_STEPS * cfg.num_layers
+                  and got["moniqua_encode"] == n_codec
+                  and got["moniqua_decode_reduce"] == n_codec,
+                  f"phase 25 {name}: launches {got}, want "
+                  f"{cfg.num_layers} bf16 flash and {per_step} encode and "
+                  f"decode-reduce a step ({path} path)")
+            runs[name] = dict(
+                losses=[h["loss"] for h in res["history"]], launches=got,
+                step_ms=1e3 * (walls[-1] - walls[0]) / (len(walls) - 1),
+                peak=peak, bytes=res["bytes_per_step"])
+            mine = {k: res["state"][k] for k in ("params", "mom", "g_inf")}
+            if ref is None:         # on the host: the card holds one state
+                ref = tree.map(lambda a: a.detach().cpu(), mine)
+            else:
+                same = all(torch.equal(a.to(dev), b) for a, b in
+                           zip(tree.leaves(ref), tree.leaves(mine)))
+                check(same, "phase 25: the mesh run's final state != the "
+                      "run without a mesh")
+                launches.add(got)
+            del res, tr, mine
+            torch.cuda.empty_cache()
+        check(runs["mesh"]["losses"] == runs["no mesh"]["losses"]
+              and all(map(math.isfinite, runs["mesh"]["losses"])),
+              f"phase 25: losses {runs}")
+        for name, r in runs.items():
+            print(f"time: phase 25 {LM_ARCH} ({cfg.num_layers} layers, "
+                  f"ring({LM_WORKERS}), moniqua 8-bit) step {name} "
+                  f"{r['step_ms']:.3f} ms (host clock, card synchronised, "
+                  f"mean of steps 1-{MESH_STEPS - 1}); max_memory_allocated "
+                  f"{r['peak'] / 2 ** 30:.2f} GiB {card}", flush=True)
+        print(f"phase 25: {backend} group of 1 rank, mesh "
+              f"{mesh_shape_dict(mesh)}, rules {rules}: {MESH_STEPS} steps "
+              f"bitwise the run without a mesh (params, momentum, g_inf, "
+              f"losses {[round(v, 5) for v in runs['mesh']['losses']]}); "
+              f"launches {runs['mesh']['launches']}; bytes/step "
+              f"{runs['mesh']['bytes']}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 25: the meshes passed in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches on the mesh "
+          f"path {launches.counted} {card}", flush=True)
+    return launches.counted
+
+
 def main() -> int:
     # phase 21's LM training allocates and frees tensors of many GB in
     # varied sizes; without expandable segments the caching allocator
@@ -4612,7 +4717,10 @@ def main() -> int:
     p23_counts, p23_flash = zoo_phase(dev, timer, card)
     torch.cuda.empty_cache()
     p24_counts = launch_phase(dev, card)
-    for counts in (lm_counts, p22_counts, p23_counts, p24_counts):
+    torch.cuda.empty_cache()
+    p25_counts = mesh_phase(dev, card)
+    for counts in (lm_counts, p22_counts, p23_counts, p24_counts,
+                   p25_counts):
         for name, n in counts.items():
             extra[name] = extra.get(name, 0) + n
     for k in kernels:
@@ -4621,7 +4729,7 @@ def main() -> int:
             k["train"] = train_flash
             k["phase22"] = p22_flash
             k["phase23"] = p23_flash
-    print(f"launches on phases 17-24's paths, added to the kernels line: "
+    print(f"launches on phases 17-25's paths, added to the kernels line: "
           f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))

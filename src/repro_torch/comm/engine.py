@@ -94,7 +94,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
-from repro_torch.comm import bucket, gossip
+from repro_torch.comm import bucket, gossip, workers
 from repro_torch.comm.gossip import BytesLedger
 from repro_torch.core import modulo
 from repro_torch.core.quantizers import (_U32, QuantSpec,
@@ -334,35 +334,49 @@ def _normalize_presence(presence, n: int) -> Optional[Tuple[int, ...]]:
 
 @functools.lru_cache(maxsize=256)
 def _present_cols(presence: Tuple[int, ...], device: torch.device,
-                  ndim: int = 2) -> torch.Tensor:
-    """Bool ``[n, 1, ..]`` mask of the present workers, on ``device``.
-    Cached per (mask, device, ndim), so a round copies nothing to the card
-    after its first; the cached tensors are shared, so nothing writes them."""
-    pb = torch.tensor(presence, dtype=torch.bool, device=device)
+                  ndim: int = 2, lo: int = 0,
+                  hi: Optional[int] = None) -> torch.Tensor:
+    """Bool ``[hi - lo, 1, ..]`` mask of the present workers among rows
+    ``[lo, hi)`` (a rank's block of a split worker dim; all of them in one
+    process), on ``device``.  Cached per (mask, device, ndim, rows), so a
+    round copies nothing to the card after its first; the cached tensors
+    are shared, so nothing writes them."""
+    pb = torch.tensor(presence[lo:hi], dtype=torch.bool, device=device)
     return pb.reshape((-1,) + (1,) * (ndim - 1))
 
 
 @functools.lru_cache(maxsize=256)
 def _alive_cols(presence: Tuple[int, ...], offset: int, device: torch.device,
-                ndim: int = 2) -> torch.Tensor:
-    """Bool ``[n, 1, ..]`` mask: worker ``i`` True iff both endpoints of its
-    edge to ``i + offset`` showed up (row ``i`` of ``_roll(x, o)`` is
-    ``x[i + o]``)."""
-    pb = _present_cols(presence, device, ndim)
-    return torch.logical_and(pb, gossip._roll(pb, offset))
+                ndim: int = 2, lo: int = 0,
+                hi: Optional[int] = None) -> torch.Tensor:
+    """Bool mask of rows ``[lo, hi)``: worker ``i`` True iff both endpoints
+    of its edge to ``i + offset`` showed up (row ``i`` of ``_roll(x, o)``
+    is ``x[i + o]``).  The mask is a host tuple every rank holds whole, so
+    its roll is an index on the host."""
+    n = len(presence)
+    alive = tuple(int(presence[i] and presence[(i + offset) % n])
+                  for i in range(n))
+    return _present_cols(alive, device, ndim, lo, hi)
+
+
+def _rows(t: torch.Tensor) -> Tuple[int, int]:
+    """Global rows ``[lo, hi)`` of ``t``'s leading dim (this rank's under
+    a worker split)."""
+    lo = workers.row_base(t.shape[0])
+    return lo, lo + t.shape[0]
 
 
 def _gate(presence: Tuple[int, ...], offset: int,
           t: torch.Tensor) -> torch.Tensor:
     """``t`` where the edge to ``i + offset`` survived the mask, else 0."""
-    return torch.where(_alive_cols(presence, offset, t.device, t.dim()), t,
-                       0.0)
+    return torch.where(_alive_cols(presence, offset, t.device, t.dim(),
+                                   *_rows(t)), t, 0.0)
 
 
 def _if_present(presence: Tuple[int, ...], new: torch.Tensor, old):
     """``new`` on the present workers' rows, ``old`` on the absent ones'."""
-    return torch.where(_present_cols(presence, new.device, new.dim()), new,
-                       old)
+    return torch.where(_present_cols(presence, new.device, new.dim(),
+                                     *_rows(new)), new, old)
 
 
 def _masked_circulant(x: torch.Tensor, topo: Topology,
@@ -416,6 +430,14 @@ class RoundPlan:
     encode's ``idx_base``), so windows are sliced at ``c.offset - base``.
     The defaults (``base=0``, ``topo`` the engine's gossip topology) are
     the single-tier round.
+
+    Under a worker split (``comm/workers.py``) ``flat`` holds this rank's
+    rows only: by default its block of the worker dim; a tiered shard plan
+    passes ``bounds``, every rank's range of the inter-tier rows it holds,
+    which ``run`` puts in force (``workers.row_bounds``).  The permute
+    sends the rows each rank reads, and the gates and the qsgd hash read
+    global row indices, so every row is computed as in one
+    process.
     """
     engine: "CommEngine"
     layout: bucket.BucketLayout
@@ -428,6 +450,7 @@ class RoundPlan:
     presence: Optional[Tuple[int, ...]] = None
     base: int = 0
     topo: Optional[Topology] = None
+    bounds: Optional[workers.Bounds] = None
 
     def __post_init__(self):
         if self.topo is None:
@@ -458,7 +481,8 @@ class RoundPlan:
             return qsgd_encode_segmented(
                 self._win(self.flat, c), codec.spec, self.seed,
                 c.segment_sizes, idx_base=c.offset,
-                idx_stride=self.layout.padded_elems)
+                idx_stride=self.layout.padded_elems,
+                row_base=workers.row_base(self.flat.shape[0]))
         v = self._win(self.flat, c) + self._win(self.residual, c)
         if name == "ef_qsgd":
             packed, scales = ef_qsgd_encode_segmented(
@@ -548,19 +572,20 @@ class RoundPlan:
         # onebit: full-precision gossip during warmup, sign codes + EF
         # after.  Both are computed and selected with torch.where: a Python
         # branch on the step would wait for the card.
-        packed, lo, hi, v = enc
+        packed, levels_lo, levels_hi, v = enc
         rwin = self._win(self.residual, c)
         warm = self.step < eng.codec.warmup
         out_warm = (gossip.mix(win, topo) if p is None
                     else _masked_circulant(win, topo, p))
-        d_self = onebit_decode_segmented(packed, lo, hi, seg)
+        d_self = onebit_decode_segmented(packed, levels_lo, levels_hi, seg)
         acc = _weighted_diffs(
             d_self, (onebit_decode_segmented(q, l, h, seg)
                      for q, l, h in nbrs), weights, p, offsets)
         out = torch.where(warm, out_warm, win + acc)
         res = torch.where(warm, rwin, v - d_self)
         if p is not None:
-            out, res = _if_present(p, out, win), _if_present(p, res, rwin)
+            out = _if_present(p, out, win)
+            res = _if_present(p, res, rwin)
         return out, res
 
     def run(self, with_payload: bool = False):
@@ -575,23 +600,25 @@ class RoundPlan:
         enc, nbr = {}, {}
         outs, ress = [None] * K, [None] * K
         payload = None
-        for t in range(K + 2):
-            if t < K:
-                with obs_trace.chunk_phase("comm.encode", t, K):
-                    enc[t] = self.encode_chunk(t)
-                if with_payload and K == 1:
-                    payload = enc[t][0]
-            if 0 <= t - 1 < K:
-                with obs_trace.chunk_phase("comm.permute", t - 1, K):
-                    nbr[t - 1] = self.permute(t - 1, enc[t - 1])
-            if 0 <= t - 2 < K:
-                with obs_trace.chunk_phase("comm.decode_reduce", t - 2, K):
-                    r = self.decode_reduce(t - 2, enc.pop(t - 2),
-                                           nbr.pop(t - 2))
-                if stateful:
-                    outs[t - 2], ress[t - 2] = r
-                else:
-                    outs[t - 2] = r
+        with workers.row_bounds(self.bounds):
+            for t in range(K + 2):
+                if t < K:
+                    with obs_trace.chunk_phase("comm.encode", t, K):
+                        enc[t] = self.encode_chunk(t)
+                    if with_payload and K == 1:
+                        payload = enc[t][0]
+                if 0 <= t - 1 < K:
+                    with obs_trace.chunk_phase("comm.permute", t - 1, K):
+                        nbr[t - 1] = self.permute(t - 1, enc[t - 1])
+                if 0 <= t - 2 < K:
+                    with obs_trace.chunk_phase("comm.decode_reduce",
+                                               t - 2, K):
+                        r = self.decode_reduce(t - 2, enc.pop(t - 2),
+                                               nbr.pop(t - 2))
+                    if stateful:
+                        outs[t - 2], ress[t - 2] = r
+                    else:
+                        outs[t - 2] = r
         out = outs[0] if K == 1 else torch.cat(outs, dim=1)
         if stateful:
             out = out, (ress[0] if K == 1 else torch.cat(ress, dim=1))
@@ -639,64 +666,101 @@ class TieredPlan:
 
     def intra_reduce(self) -> torch.Tensor:
         """Stage 1: the intra tier's circulant mix along the node axis
-        (rolled by ``-o``, each term times its weight rounded to the
-        buffer's dtype, added in offset order); ``[n_inter, n_intra, D]``."""
+        (each node member's row moved by ``o`` inside its node, times its
+        weight rounded to the buffer's dtype, added in offset order):
+        ``[n_inter, n_intra, D]``, or under a worker split this rank's
+        rows ``[n / R, D]``, the rows a node's members on other ranks read
+        sent by ``workers.permute``."""
         intra = self.topo.intra
         g, k = self.topo.n_inter, self.topo.n_intra
-        stage = self.flat.reshape(g, k, self.flat.shape[-1])
-        if k == 1:
-            return stage
-        out = None
-        for o, w in zip(intra.offsets, intra.weights):
-            t = ((torch.roll(stage, -o, 1) if o % k else stage)
-                 * gossip.as_weight(w, stage.dtype))
-            out = t if out is None else out + t
-        return out.to(stage.dtype)
+        stage = out = self.flat
+        if k > 1:
+            out = None
+            for o, w in zip(intra.offsets, intra.weights):
+                r = stage if o % k == 0 else workers.permute(
+                    stage, [(d // k) * k + (d % k + o) % k
+                            for d in range(self.topo.n)])
+                t = r * gossip.as_weight(w, stage.dtype)
+                out = t if out is None else out + t
+            out = out.to(stage.dtype)
+        return out.reshape(g, k, -1) if workers.blocks() == 1 else out
+
+    def _owner_rows(self, j: int, rows: int) -> Tuple[int, int]:
+        """This rank's rows of shard ``j``'s owners (workers ``g k + j``)
+        among its ``rows`` local workers: the first local index and the
+        count (inter-tier node ``g`` for each, in order)."""
+        k = self.topo.n_intra
+        i0 = (j - workers.row_base(rows)) % k
+        return i0, max(0, -(-(rows - i0) // k))
+
+    def _node_bounds(self, j: int) -> workers.Bounds:
+        """Every rank's range of the inter-tier nodes whose shard-``j``
+        owner it holds (contiguous, possibly empty; all ``n_inter`` in one
+        process)."""
+        k, g = self.topo.n_intra, self.topo.n_inter
+        return tuple((min(g, max(0, -(-(lo - j) // k))),
+                      min(g, max(0, -(-(hi - j) // k))))
+                     for lo, hi in workers.even_bounds(self.flat.shape[0]))
 
     def shard_plan(self, j: int, z: torch.Tensor) -> RoundPlan:
         """Stage 2 for shard ``j``: the owner rows' window as a RoundPlan
-        over the ``n_inter`` nodes on the inter tier."""
+        over the ``n_inter`` nodes on the inter tier (under a worker split,
+        over the nodes whose owner this rank holds, with their rows of the
+        residual)."""
         shard = self.layout.shard(self.topo.n_intra, j)
         k = self.chunks
         if not self.engine._shard_bucketed(shard):
             # the shard's own census says per-leaf: one chunk a slot
             k = max(k, len(shard.slots))
         win = slice(shard.offset, shard.offset + shard.size)
-        res = None if self.residual is None else self.residual[:, win]
+        z2 = z.reshape(-1, z.shape[-1])
+        i0, count = self._owner_rows(j, z2.shape[0])
+        lo = (workers.row_base(z2.shape[0]) + i0) // self.topo.n_intra
+        res = (None if self.residual is None
+               else self.residual[lo:lo + count, win])
         return RoundPlan(engine=self.engine, layout=self.layout,
-                         chunks=shard.chunks(k), flat=z[:, j, win], B=self.B,
+                         chunks=shard.chunks(k),
+                         flat=z2[i0::self.topo.n_intra, win], B=self.B,
                          seed=self.seed, residual=res, step=self.step,
                          presence=self.presence, base=shard.offset,
-                         topo=self.topo.inter)
+                         topo=self.topo.inter, bounds=self._node_bounds(j))
 
     def run(self):
         """Run the tiered round: the mixed ``[n, D]`` buffer, or for the
-        EF wires ``(mixed buffer, new [n_inter, D] residual)``."""
-        g, k = self.topo.n_inter, self.topo.n_intra
+        EF wires ``(mixed buffer, new [n_inter, D] residual)``.  Under a
+        worker split: this rank's rows and the whole residual (every rank
+        holds it, as the reference's specs replicate it); a rank that holds
+        no owner of a shard takes no part in its gossip, the all-gather
+        sends each node member its owners' windows (``workers.permute``),
+        and each owner's new residual rows go to every rank."""
+        k = self.topo.n_intra
         stateful = self.engine.stateful
         with obs_trace.named_phase("comm.intra_reduce"):
-            z = self.intra_reduce()
-        res = self.residual
+            z = self.intra_reduce().reshape(-1, self.flat.shape[-1])
         if not self.topo.inter.neighbor_offsets():
-            out = z                 # a single node: its intra average
-        else:
-            outs, ress = [], []
-            for j in range(k):
-                if self.layout.shard(k, j).size == 0:
-                    continue        # more workers than slots: empty window
+            # a single node: its intra average
+            return (z, self.residual) if stateful else z
+        out = torch.empty_like(z)
+        res = torch.empty_like(self.residual) if stateful else None
+        for j in range(k):
+            shard = self.layout.shard(k, j)
+            if shard.size == 0:
+                continue            # more workers than slots: empty window
+            win = slice(shard.offset, shard.offset + shard.size)
+            i0, count = self._owner_rows(j, z.shape[0])
+            buf = torch.empty_like(z[:, win])
+            mine = None if res is None else res.new_empty((0, shard.size))
+            if count:
                 r = self.shard_plan(j, z).run()
                 if stateful:
-                    outs.append(r[0])
-                    ress.append(r[1])
-                else:
-                    outs.append(r)
-            # the mixed shards cover [0, D) slot-aligned, in order
-            out = (outs[0] if len(outs) == 1
-                   else torch.cat(outs, dim=1))[:, None, :]
+                    r, mine = r
+                buf[i0::k] = r
             if stateful:
-                res = ress[0] if len(ress) == 1 else torch.cat(ress, dim=1)
-        D = self.flat.shape[-1]
-        out = out.expand(g, k, D).reshape(g * k, D)
+                with workers.row_bounds(self._node_bounds(j)):
+                    res[:, win] = workers.gather_rows(mine)
+            # every member of node g takes the window from owner g k + j
+            out[:, win] = workers.permute(
+                buf, [(d // k) * k + j for d in range(self.topo.n)])
         return (out, res) if stateful else out
 
 
@@ -1143,8 +1207,11 @@ class CommEngine:
                     h["alias_count"] = obs_metrics.moniqua_alias_count(
                         payload, flat, B, theta_t, spec, offsets)
             if new_state is not None:
-                h["ef_residual_l2"] = torch.sqrt(torch.sum(torch.square(
-                    new_state["residual"].float())))
+                # across ranks the sum of squares is all-reduced, in the
+                # collective's order: within float32 rounding of one
+                # process's sum
+                h["ef_residual_l2"] = torch.sqrt(workers.all_sum(torch.sum(
+                    torch.square(new_state["residual"].float()))))
                 if self.codec.name == "onebit":
                     # the counter was already bumped: -1 recovers the flag
                     # the round just ran under
@@ -1275,7 +1342,8 @@ class CommEngine:
                 out = out + _gate(presence, o, mixed_o.float() - f)
             return out.to(x.dtype)
         # qsgd: reference-free decode; each worker ships (codes, own scale)
-        packed, scale = qsgd_encode(x, spec, seed)
+        packed, scale = qsgd_encode(x, spec, seed,
+                                    row_base=workers.row_base(x.shape[0]))
         last = x.shape[-1]
         acc = _weighted_diffs(
             qsgd_decode(packed, scale, spec, last),

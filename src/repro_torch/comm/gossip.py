@@ -1,9 +1,12 @@
 """Circulant gossip over a stacked worker axis.
 
 All decentralized state is a pytree whose leaves carry a leading worker dim
-``[n, ...]``.  ``torch.roll(leaf, -o, 0)`` brings worker ``i + o``'s value to
-row ``i``; on one card it stands for the collective-permute of a mesh, as
-``jnp.roll`` does in the reference's CPU runs.  Weighted circulant mixing is
+``[n, ...]``.  ``_roll(leaf, o)`` brings worker ``i + o``'s value to row
+``i``: in one process ``torch.roll(leaf, -o, 0)``, as ``jnp.roll`` is in
+the reference's CPU runs; with the worker dim split over ranks (a mesh
+context, ``comm/workers.py``) the rows a rank needs from its peers, sent
+point to point, the collective-permute of the reference's mesh.  Weighted
+circulant mixing is
 
     (X W)[i] = sum_o  w_o * X[(i + o) mod n]  = sum_o w_o * roll(X, -o)[i]
 """
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import workers
 from repro_torch.core.topology import Topology
 
 PyTree = Any
@@ -51,7 +55,9 @@ def as_weight(w: float, dtype: torch.dtype) -> float:
 
 
 def _roll(leaf: torch.Tensor, offset: int) -> torch.Tensor:
-    return torch.roll(leaf, -offset, 0) if offset % leaf.shape[0] else leaf
+    """Row ``i`` of the result is row ``(i + offset) mod n`` of the global
+    stacked leaf (under a worker split, ``leaf`` is this rank's block)."""
+    return workers.roll(leaf, offset)
 
 
 def mix(X: PyTree, topo: Topology) -> PyTree:

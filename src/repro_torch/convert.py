@@ -18,6 +18,14 @@ cross as their raw 16-bit words (a ``uint16`` view), so the bits are kept.
 The way back gives float32 numpy arrays for bfloat16 tensors (exact: every
 bfloat16 is a float32); the JAX side casts them back with
 ``.astype(jnp.bfloat16)``, again exactly.
+
+A trainer state also crosses between one process and a worker dim split
+over ranks (``comm/workers.py``): ``shard_state`` cuts a rank's block out
+of a whole state, ``gather_state`` puts the whole state back together from
+every rank's block.  On a whole state a leaf is on the worker dim when its
+leading dim is the worker count, the reference's ``state_pspecs`` rule; on
+a block, which leaves are is a tree of bools beside it, read off the
+resolved specs (``sharding.on_worker_dim``).
 """
 from __future__ import annotations
 
@@ -43,6 +51,43 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def _n_workers(state) -> int:
+    """The worker count of a trainer state: its params' leading dim."""
+    return tree.leaves(state["params"])[0].shape[0]
+
+
+def shard_state(state: PyTree, rank: int, R: int) -> PyTree:
+    """Block ``rank`` of ``R`` of a whole trainer state: every tensor leaf
+    whose leading dim is the worker count ``n`` keeps rows ``[rank n/R,
+    (rank + 1) n/R)``; the other leaves are shared, except a
+    ``torch.Generator``, copied, so blocks cut in one process draw the same
+    seeds as the whole state."""
+    n = _n_workers(state)
+    if n % R:
+        raise ValueError(f"{n} workers do not split into {R} blocks")
+    b = n // R
+
+    def leaf(a):
+        if isinstance(a, torch.Generator):
+            g = torch.Generator(device=a.device)
+            g.set_state(a.get_state())
+            return g
+        if isinstance(a, torch.Tensor) and a.dim() >= 1 and a.shape[0] == n:
+            return a[rank * b:(rank + 1) * b]
+        return a
+    return tree.map(leaf, state)
+
+
+def gather_state(state: PyTree, on_workers: PyTree) -> PyTree:
+    """The whole trainer state from this rank's block of it: every leaf
+    that ``on_workers`` marks is all-gathered over the worker split in
+    force, in block order (a collective: every rank calls it).  The
+    identity in one process."""
+    from repro_torch.comm import workers
+    return tree.map(lambda a, w: workers.gather_rows(a) if w else a,
+                    state, on_workers)
 
 
 def to_numpy(params: PyTree) -> PyTree:

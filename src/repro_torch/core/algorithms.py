@@ -36,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import workers
 from repro_torch.comm.engine import CommEngine, FullPrecisionWire, make_wire
 from repro_torch.comm.gossip import as_weight
 from repro_torch.core.modulo import _scalar
@@ -127,14 +128,33 @@ def _sgd(X: PyTree, g: PyTree, alpha) -> PyTree:
     return tree.map(lambda x, d: (x - alpha * d).to(x.dtype), X, g)
 
 
+def _row_seed(seed: int, row: int) -> int:
+    """A 64-bit generator seed for worker ``row`` of the draw ``seed``
+    (splitmix64 of the pair), so each worker's uniforms come from a
+    generator of its own."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + row + 1) % 2 ** 64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % 2 ** 64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % 2 ** 64
+    return z ^ (z >> 31)
+
+
 def draw_uniforms(X: PyTree, seed: int) -> PyTree:
-    """Uniforms in [0, 1), one float32 per element of each leaf of ``X``,
-    from a ``torch.Generator`` on ``X``'s device seeded with ``seed``."""
+    """Uniforms in [0, 1), one float32 per element of each leaf of the
+    stacked ``X``: worker ``i``'s rows of every leaf, in leaf order, from a
+    ``torch.Generator`` on ``X``'s device seeded with ``_row_seed(seed,
+    i)``.  Under a worker split a rank draws its own workers' rows only,
+    the bits one process draws for them."""
     leaves, td = tree.flatten(X)
     dev = leaves[0].device
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    return tree.unflatten(td, [torch.rand(l.shape, generator=gen, device=dev)
-                               for l in leaves])
+    out = [torch.empty(l.shape, dtype=torch.float32, device=dev)
+           for l in leaves]
+    b = leaves[0].shape[0]
+    lo = workers.row_base(b)
+    for r in range(b):
+        gen = torch.Generator(device=dev).manual_seed(_row_seed(seed, lo + r))
+        for u in out:
+            u[r].uniform_(0.0, 1.0, generator=gen)
+    return tree.unflatten(td, out)
 
 
 def _uniform_leaves(X: PyTree, seed: Optional[int],
@@ -245,8 +265,13 @@ class AllReduce(Algorithm):
 
     def step(self, X, extra, g, alpha, k, seed, hp, uniforms=None):
         Xh = _sgd(X, g, alpha)
-        Xm = tree.map(lambda x: torch.mean(x.float(), dim=0, keepdim=True)
-                      .expand(x.shape).to(x.dtype), Xh)
+        n = tree.leaves(X)[0].shape[0] * workers.blocks()
+        # the workers' sum, all-reduced across ranks, over n: one
+        # process's torch.mean; across ranks the partial sums add in the
+        # collective's order
+        Xm = tree.map(lambda x: (workers.all_sum(torch.sum(
+            x.float(), dim=0, keepdim=True)) / n)
+            .expand(x.shape).to(x.dtype), Xh)
         return Xm, extra
 
     def bytes_per_step(self, X, hp):

@@ -196,12 +196,13 @@ def _lattice_codes(lat: torch.Tensor, levels: int, u) -> torch.Tensor:
 
 
 def qsgd_encode(x: torch.Tensor, spec: QuantSpec, seed=None,
-                worker_axis: bool = True):
+                worker_axis: bool = True, row_base: int = 0):
     """Encode ``x`` -> (packed codes, scale).  With ``worker_axis`` the
     leading dim indexes workers and each row gets its own max-norm scale
     (shape ``[n, 1, ..., 1]``); otherwise one scale covers the tensor.  The
     uniform of element ``e`` (row-major over the whole tensor) hashes
-    ``(seed, e)``."""
+    ``(seed, e)``; ``row_base`` is the global index of ``x``'s first row
+    when ``x`` is a rank's block of the worker dim."""
     xf = x.float()
     a = torch.abs(xf)
     if worker_axis and x.dim() > 1:
@@ -216,6 +217,8 @@ def qsgd_encode(x: torch.Tensor, spec: QuantSpec, seed=None,
             raise ValueError("stochastic QSGD rounding needs a seed")
         idx = torch.arange(x.numel(), dtype=torch.int64,
                            device=x.device).reshape(x.shape)
+        if row_base:
+            idx = idx + row_base * (x.numel() // max(x.shape[0], 1))
         u = _counter_uniform(seed, idx)
     return pack_codes(_lattice_codes(lat, spec.levels, u), spec.bits), scale
 
@@ -257,7 +260,8 @@ def _segment_max_abs(xf: torch.Tensor, segments) -> torch.Tensor:
 
 def qsgd_encode_segmented(x: torch.Tensor, spec: QuantSpec, seed,
                           segments: Tuple[int, ...], idx_base: int = 0,
-                          idx_stride: Optional[int] = None):
+                          idx_stride: Optional[int] = None,
+                          row_base: int = 0):
     """QSGD on a flat ``[n, D]`` bucket with one scale per *segment* (the
     tensors' contiguous ranges, ``BucketLayout.segment_sizes``).  Returns
     (packed codes ``[n, D*bits/8]``, scales ``[n, L]``).
@@ -265,7 +269,9 @@ def qsgd_encode_segmented(x: torch.Tensor, spec: QuantSpec, seed,
     The uniform of element ``(w, e)`` hashes the counter
     ``w * idx_stride + idx_base + e`` mod 2^32; a chunked encode passes the
     chunk's buffer offset and the whole buffer's width, so every element
-    hashes the pair it hashes in the one-shot encode."""
+    hashes the pair it hashes in the one-shot encode.  ``w`` counts from
+    ``row_base``, the global index of ``x``'s first row (a rank's block of
+    a split worker dim)."""
     xf = x.float()
     scales = _segment_max_abs(xf, segments)
     smap = _segment_scale_map(scales, segments)
@@ -277,7 +283,8 @@ def qsgd_encode_segmented(x: torch.Tensor, spec: QuantSpec, seed,
         n, d = x.shape
         stride = d if idx_stride is None else int(idx_stride)
         dev = x.device
-        idx = (torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+        idx = ((torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+                + int(row_base))
                * stride + torch.arange(d, dtype=torch.int64, device=dev)
                + (int(idx_base) & _U32)) & _U32
         u = _counter_uniform(seed, idx)

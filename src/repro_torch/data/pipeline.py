@@ -12,7 +12,7 @@ inputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,31 +30,39 @@ class SyntheticLMPipeline:
     n_workers: int
     seed: int = 0
 
-    def global_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        """Unstacked ``[GB, ...]`` batch."""
-        dev = self.model.dev
+    def _draw(self, step: int) -> Dict[str, torch.Tensor]:
+        """The unstacked batch on the host."""
         words = [self.seed, step]
         g = torch.Generator().manual_seed(
             int(np.random.SeedSequence(words).generate_state(1)[0]))
         out = {}
         for name, (shp, dt) in self.model.batch_spec(self.shape).items():
             if dt.is_floating_point:
-                arr = torch.randn(shp, generator=g).to(dt)
+                out[name] = torch.randn(shp, generator=g).to(dt)
             else:
-                arr = torch.randint(0, self.model.cfg.vocab_size, shp,
-                                    generator=g).to(dt)
-            out[name] = arr.to(dev)
+                out[name] = torch.randint(0, self.model.cfg.vocab_size, shp,
+                                          generator=g).to(dt)
         return out
 
-    def worker_batch(self, step: int) -> Dict[str, torch.Tensor]:
+    def global_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """Unstacked ``[GB, ...]`` batch."""
+        dev = self.model.dev
+        return {k: v.to(dev) for k, v in self._draw(step).items()}
+
+    def worker_batch(self, step: int, rows: Optional[Tuple[int, int]] = None
+                     ) -> Dict[str, torch.Tensor]:
         """Stacked ``[n, GB / n, ...]`` layout for the decentralized
         trainer: worker ``w`` takes rows ``w GB/n .. (w + 1) GB/n - 1`` of
-        the global batch."""
+        the global batch.  ``rows = (lo, hi)``: only workers ``[lo, hi)``
+        (a rank's block), cut on the host before the copy to the device;
+        the draws are the whole batch's."""
         n = self.n_workers
+        dev = self.model.dev
+        lo, hi = (0, n) if rows is None else rows
 
         def stack(a):
             if a.shape[0] % n:
                 raise ValueError(f"global batch {a.shape[0]} does not split "
                                  f"over {n} workers")
-            return a.reshape(n, a.shape[0] // n, *a.shape[1:])
-        return {k: stack(v) for k, v in self.global_batch(step).items()}
+            return a.reshape(n, a.shape[0] // n, *a.shape[1:])[lo:hi].to(dev)
+        return {k: stack(v) for k, v in self._draw(step).items()}

@@ -11,17 +11,20 @@ The published config at a given batch and length —
 ``--device cpu`` runs the plain PyTorch versions of the kernels (the
 tests); without a card, ``--device cuda`` raises.  ``--mesh cpu`` (the
 default) keeps the reference's meaning: the workers are a tensor axis on
-one device.  ``--mesh production`` and ``--multi-pod`` need the port's
-meshes, which are not written yet (ROADMAP #13d): they exit non-zero.
+one device.  ``--mesh production`` and ``--multi-pod`` exit non-zero: the
+port has the meshes and runs their worker axes across processes (ROADMAP
+#13d, ``launch/mesh.py``), but both meshes also shard the weights over a
+``model`` axis of 16, which is ROADMAP #13e.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-MESH_TODO = ("--mesh production and --multi-pod need repro_torch's meshes "
-             "(launch/mesh.py, models/sharding.py), not ported yet: ROADMAP "
-             "Queue 1 #13d")
+MESH_TODO = ("--mesh production and --multi-pod shard the weights over the "
+             "mesh's model axis of 16; the port's meshes (ROADMAP #13d, "
+             "launch/mesh.py) run only the worker axes so far: tensor-"
+             "parallel and FSDP weights are ROADMAP Queue 1 #13e")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -45,9 +48,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--mesh", choices=["cpu", "production"], default="cpu",
                     help="cpu: the workers are a tensor axis on one device "
-                         "(production: ROADMAP #13d)")
+                         "(production: ROADMAP #13e)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported yet (ROADMAP #13d)")
+                    help="not ported yet (ROADMAP #13e)")
     ap.add_argument("--shape", default=None,
                     help="assigned input shape name (production mesh)")
     ap.add_argument("--full-size", action="store_true",

@@ -15,8 +15,11 @@ all-true mask; with ``flash_attention=False`` a windowed self-attention
 longer than twice its window band-wise (``_banded_sdpa``), the rest
 through the full masked matrix.
 
-Not here: ``_context_parallel_kv``, a sharding constraint that is a no-op
-outside a JAX mesh.
+Each ``*_pspecs`` gives the tree of *logical axis tuples* of the matching
+``init_*`` tree, leaf for leaf the reference's; ``models/sharding.py``
+resolves them into mesh axes.  ``_context_parallel_kv`` is the reference's
+sharding constraint on K/V: the identity outside a launcher's constraint
+context.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import sharding as SH
 # the masked-softmax oracle (the reference's ``_sdpa`` and ``causal_mask``)
 # lives beside the kernel it checks, so that the plain path and the oracle
 # are one function
@@ -132,6 +136,28 @@ def init_attention(gen, cfg, dtype=torch.bfloat16, stack=()):
     return p
 
 
+def attention_pspecs(cfg):
+    s = {"wq": ("embed", "heads", None), "wk": ("embed", "kv", None),
+         "wv": ("embed", "kv", None), "wo": ("heads", None, "embed")}
+    if cfg.qkv_bias:
+        s.update({"bq": ("heads", None), "bk": ("kv", None),
+                  "bv": ("kv", None)})
+    return s
+
+
+def _context_parallel_kv(k, v, nh):
+    """The reference's fallback when the heads do not divide the model
+    axis: K/V's sequence dim constrained onto it (context-parallel
+    attention).  The identity outside a launcher's constraint context and
+    on a model axis of 1; over a larger one ``constrain`` raises (ROADMAP
+    #13e)."""
+    if nh % max(SH.mesh_axis_size("model"), 1) == 0:
+        return k, v                       # heads shard cleanly: leave it
+    k = SH.constrain(k, None, "kv_seq", None, None)
+    v = SH.constrain(v, None, "kv_seq", None, None)
+    return k, v
+
+
 def _proj_heads(x, w):
     """``einsum("...d,dnh->...nh", x, w)`` as one matrix product."""
     d, n, h = w.shape
@@ -215,10 +241,12 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
     scale = 1.0 / math.sqrt(hd)
     if cfg.flash_attention and cross_kv is None and not bidir:
         # the kernel reads the KV heads itself
+        k, v = _context_parallel_kv(k, v, nh)
         out = kops.flash_sdpa(q, k, v, scale=scale, causal=True,
                               window=window)
         return _out_proj(out, p["wo"])
     k, v = _gqa_expand(k, nh), _gqa_expand(v, nh)
+    k, v = _context_parallel_kv(k, v, nh)
     if cross_kv is not None or bidir:
         out = _sdpa(q, k, v, torch.ones((sq, sk), dtype=torch.bool,
                                         device=x.device), scale)
@@ -269,6 +297,7 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
             valid &= slot_pos > pos - window
     kk = _gqa_expand(ck, nh)
     vv = _gqa_expand(cv, nh)
+    kk, vv = _context_parallel_kv(kk, vv, nh)
     out = _sdpa(q, kk, vv, valid[None, None, :], 1.0 / math.sqrt(hd))
     return _out_proj(out, p["wo"]), cache
 
@@ -290,6 +319,13 @@ def init_mlp(gen, d, f, gated, dtype, stack=()):
     if gated:
         p["w_gate"] = dense_init(gen, d, f, dtype, stack=stack)
     return p
+
+
+def mlp_pspecs(gated):
+    s = {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+    if gated:
+        s["w_gate"] = ("embed", "mlp")
+    return s
 
 
 def mlp(p, x, gated):

@@ -69,6 +69,14 @@ def init_mamba(gen, cfg, stack=()):
     }
 
 
+def mamba_pspecs():
+    return {"ln": (None,), "w_z": ("embed", "ssm_inner"),
+            "w_xbc": ("embed", "ssm_inner"), "w_dt": ("embed", None),
+            "conv": (None, None),
+            "a_log": (None,), "d_skip": (None,), "dt_bias": (None,),
+            "w_out": ("ssm_inner", "embed")}
+
+
 def _causal_conv(u, w, state=None):
     """Depthwise causal conv.  u: [B, S, C]; w: [K, C]; state: [B, K-1, C]
     or None (zeros).  Returns (out [B, S, C], new_state [B, K-1, C])."""

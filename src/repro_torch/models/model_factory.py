@@ -11,6 +11,8 @@ A ``Model`` bundles, for one ``ArchConfig`` of any family of the reference
   init_cache(batch, shape)         -> decode cache
   decode_step(params, cache, tok)  -> (logits, cache)
   batch_spec(shape)                -> {name: (shape, torch dtype)}
+  param_logical()                  -> tree of logical-axis tuples
+  cache_logical(kv_div)            -> logical axes of the cache
 
 whisper's decode reads its cross caches, which
 ``whisper.whisper_prefill_cross`` fills from the encoder first, as in the
@@ -108,6 +110,53 @@ class Model:
         0`` (``slstm_every > 0``), else an mLSTM block."""
         k = self.cfg.ssm.slstm_every if self.cfg.ssm else 0
         return bool(k) and i % k == 0
+
+    # ---------------- logical specs ----------------
+    def param_logical(self) -> PyTree:
+        """The logical axes of every leaf of ``init``'s tree
+        (``models/sharding.py`` resolves them), the reference's."""
+        cfg = self.cfg
+        if cfg.family in LM_FAMILIES:
+            return T.lm_pspecs(cfg)
+        if cfg.family == "vlm":
+            return VLM.vlm_pspecs(cfg)
+        if cfg.family == "audio":
+            return WH.whisper_pspecs(cfg)
+        body = ({"layers": [{"slstm": XL.slstm_pspecs()}
+                            if self._is_slstm(i)
+                            else {"mlstm": XL.mlstm_pspecs()}
+                            for i in range(cfg.num_layers)]}
+                if cfg.family == "ssm" else {"body": ZB.zamba_pspecs(cfg)})
+        return {"embed": ("vocab", "embed"), **body, "ln_f": (None,),
+                "head": ("embed", "vocab")}
+
+    def cache_logical(self, kv_div: bool = True) -> PyTree:
+        """The logical axes of ``init_cache``'s tree.  ``kv_div``: the KV
+        heads divide the model mesh axis, so the caches shard on heads;
+        otherwise on their sequence dim (the context-parallel placement
+        ``layers._context_parallel_kv`` constrains K/V to)."""
+        cfg = self.cfg
+        kv_spec = (("stack", "global_batch", None, "kv", None) if kv_div
+                   else ("stack", "global_batch", "kv_seq", None, None))
+        attn_cache = {"k": kv_spec, "v": kv_spec}
+        if cfg.family in LM_FAMILIES + ("vlm",):
+            return {"layers": attn_cache, "pos": ()}
+        if cfg.family == "audio":
+            return {"self": dict(attn_cache), "cross": dict(attn_cache),
+                    "pos": (), "enc_len": ()}
+        if cfg.family == "ssm":
+            v = ("global_batch", "heads", None)
+            return {"layers": [
+                {"slstm": {"h": v, "c": v, "n": v}} if self._is_slstm(i)
+                else {"mlstm": {"C": ("global_batch", "heads", None, None),
+                                "n": v}}
+                for i in range(cfg.num_layers)], "pos": ()}
+        body = {"mamba": {
+            "h": ("stack", "global_batch", "heads", None, None),
+            "conv": ("stack", "global_batch", None, "ssm_inner")}}
+        if cfg.shared_attn_every:
+            body["attn"] = dict(attn_cache)
+        return {"body": body, "pos": ()}
 
     # ---------------- training loss ----------------
     def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]

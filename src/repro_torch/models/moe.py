@@ -55,6 +55,15 @@ def init_moe(gen, d, f, moe_cfg, gated, dtype, stack=()):
     return p
 
 
+def moe_pspecs(gated):
+    s = {"router": ("embed", None),
+         "w_up": ("experts", "embed", "mlp"),
+         "w_down": ("experts", "mlp", "embed")}
+    if gated:
+        s["w_gate"] = ("experts", "embed", "mlp")
+    return s
+
+
 def capacity(group_size: int, top_k: int, cf: float, E: int) -> int:
     return max(1, int(math.ceil(group_size * top_k * cf / E)))
 

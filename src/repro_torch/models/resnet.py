@@ -141,3 +141,10 @@ class ResNetModel:
 
     def loss(self, params, batch) -> torch.Tensor:
         return resnet_loss(params, batch)
+
+    def param_logical(self) -> Dict:
+        """Every leaf of ``init``'s tree whole on each worker: no dim of a
+        ResNet is tensor-parallel (the reference gives it no logical
+        tree; its mesh runs LMs)."""
+        return tree.map(lambda a: (None,) * a.dim(), init_resnet(
+            torch.Generator(), self.depth, self.num_classes, self.width))

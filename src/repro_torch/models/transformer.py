@@ -23,6 +23,7 @@ import torch
 from repro_torch import tree
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import sharding as SH
 
 
 def padded_vocab(cfg) -> int:
@@ -95,6 +96,24 @@ def init_lm(gen, cfg):
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, cfg.d_model, V, dt)
     return p
+
+
+def block_pspecs(cfg):
+    s = {"ln1": (None,), "ln2": (None,),
+         "attn": L.attention_pspecs(cfg)}
+    if cfg.family == "moe":
+        s["moe"] = M.moe_pspecs(cfg.gated_mlp)
+    else:
+        s["mlp"] = L.mlp_pspecs(cfg.gated_mlp)
+    return s
+
+
+def lm_pspecs(cfg):
+    s = {"embed": ("vocab", "embed"),
+         "blocks": SH.stacked(block_pspecs(cfg), "stack"), "ln_f": (None,)}
+    if not cfg.tie_embeddings:
+        s["head"] = ("embed", "vocab")
+    return s
 
 
 def layer(blocks, i: int):
@@ -174,6 +193,12 @@ def init_cache(cfg, batch, length, device):
     return {"layers": L.init_attn_cache((batch,), cfg, length, dtype_of(cfg),
                                         dev, stack=(cfg.num_layers,)),
             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def cache_pspecs(cfg):
+    return {"layers": {"k": ("stack", "batch", None, "kv", None),
+                       "v": ("stack", "batch", None, "kv", None)},
+            "pos": ()}
 
 
 def decode_step(p, cfg, cache, token, *, window=0):

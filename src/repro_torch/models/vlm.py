@@ -27,6 +27,12 @@ def init_vlm(gen, cfg):
     return p
 
 
+def vlm_pspecs(cfg):
+    s = T.lm_pspecs(cfg)
+    s["projector"] = (None, "embed")
+    return s
+
+
 def vlm_hidden(p, cfg, tokens, patch_embeds, *, window=0):
     """tokens: [B, S_text]; patch_embeds: [B, Nv, vision_dim] -> (hidden
     [B, Nv + S_text, d], aux), at positions ``0 .. Nv + S_text - 1``."""

@@ -25,6 +25,7 @@ import math
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as SH
 from repro_torch.models import transformer as T
 
 
@@ -80,6 +81,21 @@ def init_whisper(gen, cfg):
                                       dt),
         **_norms(("ln_enc", "ln_f"), d, dt, gen.device, ()),
     }
+
+
+def whisper_pspecs(cfg):
+    norm = (None,)
+    eb = SH.stacked({"ln1": norm, "ln1b": norm, "ln2": norm, "ln2b": norm,
+                     "attn": L.attention_pspecs(cfg),
+                     "mlp": L.mlp_pspecs(False)}, "stack")
+    db = SH.stacked({"ln1": norm, "ln1b": norm, "lnx": norm, "lnxb": norm,
+                     "ln2": norm, "ln2b": norm,
+                     "self_attn": L.attention_pspecs(cfg),
+                     "cross_attn": L.attention_pspecs(cfg),
+                     "mlp": L.mlp_pspecs(False)}, "stack")
+    return {"enc_blocks": eb, "dec_blocks": db,
+            "tok_embed": ("vocab", "embed"), "dec_pos": (None, "embed"),
+            "ln_enc": norm, "ln_encb": norm, "ln_f": norm, "ln_fb": norm}
 
 
 def _enc_block(bp, cfg, x):

@@ -64,6 +64,12 @@ def init_mlstm(gen, cfg):
     }
 
 
+def mlstm_pspecs():
+    return {"ln": (None,), "w_up": ("embed", "mlp"), "wq": ("embed", "heads"),
+            "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+            "w_if": ("embed", None), "w_down": ("heads", "embed")}
+
+
 def _mlstm_scan_chunks(q, k, v, log_f, log_i, chunk):
     """q, k, v: [B, S, H, D]; log_f, log_i: [B, S, H] float32 (<= 0).
     Returns h [B, S, H, D] in q's dtype."""
@@ -192,6 +198,11 @@ def init_slstm(gen, cfg):
         "r": r.div_(math.sqrt(hd)).to(dt),             # recurrent, per head
         "w_down": L.dense_init(gen, d, d, dt, scale=1.0 / math.sqrt(d)),
     }
+
+
+def slstm_pspecs():
+    return {"ln": (None,), "w": ("embed", None), "r": ("heads", None, None),
+            "w_down": ("embed", "embed")}
 
 
 def _slstm_step(p, cfg, wx_t, state):

@@ -22,6 +22,7 @@ import torch
 from repro_torch import tree
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as MB
+from repro_torch.models import sharding as SH
 
 
 def n_shared_invocations(cfg) -> int:
@@ -41,6 +42,15 @@ def init_zamba(gen, cfg):
             "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dt),
         }
     return p
+
+
+def zamba_pspecs(cfg):
+    s = {"mamba": SH.stacked(MB.mamba_pspecs(), "stack")}
+    if cfg.shared_attn_every:
+        s["shared_attn"] = {"ln1": (None,), "ln2": (None,),
+                            "attn": L.attention_pspecs(cfg),
+                            "mlp": L.mlp_pspecs(cfg.gated_mlp)}
+    return s
 
 
 def _shared_block(p, cfg, x, positions, window):

@@ -47,6 +47,11 @@ The health dict (``round_health_zero`` fixes its keys and dtypes):
     presence.
 
 Counts are int32, everything else float32, on the device of the inputs.
+
+Under a worker split (``comm/workers.py``) each rank reads its block of
+rows; the maxima and the alias count are reduced over the ranks
+(``workers.all_max`` / ``all_sum``), so every rank reports the
+single-process value, bit for bit.
 """
 from __future__ import annotations
 
@@ -54,7 +59,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from repro_torch.comm import gossip
+from repro_torch.comm import gossip, workers
 from repro_torch.core import modulo
 from repro_torch.core.quantizers import QuantSpec
 
@@ -122,7 +127,7 @@ def consensus_inf(flat: torch.Tensor, offsets: Sequence[int]
     m = scalar_f32(0.0, x.device)
     for o in offsets:
         m = torch.maximum(m, torch.max(torch.abs(x - gossip._roll(x, o))))
-    return m
+    return workers.all_max(m)
 
 
 def consensus_inf_segments(flat: torch.Tensor, offsets: Sequence[int],
@@ -137,7 +142,7 @@ def consensus_inf_segments(flat: torch.Tensor, offsets: Sequence[int],
     for s in segments:
         out.append(torch.max(d[:, off:off + s]))
         off += s
-    return torch.stack(out)
+    return workers.all_max(torch.stack(out))
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +170,7 @@ def moniqua_alias_count(packed: torch.Tensor, flat: torch.Tensor, B, theta,
         qb = _dr.unpack_values(gossip._roll(packed, o), spec.bits, B)
         mask = _dr.alias_band_mask(qb, y, B, theta)
         count = count + torch.sum(mask, dtype=torch.int32)
-    return count
+    return workers.all_sum(count)
 
 
 # ---------------------------------------------------------------------------

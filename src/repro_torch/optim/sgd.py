@@ -16,6 +16,7 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import workers
 
 PyTree = Any
 
@@ -38,11 +39,13 @@ def direction(cfg: SGDConfig, grads: PyTree, params: PyTree,
     The reference's float32 operations in its order, with one float32
     temporary a leaf besides the new momentum (``g + wd p`` formed in
     place on a float32 copy of ``p``; IEEE addition commutes): an LM's
-    head and embedding are billions of values."""
+    head and embedding are billions of values.  Under a worker split the
+    norm is all-reduced over the ranks (a max: exact)."""
     flat_g, treedef = tree.flatten(grads)
     g_inf = torch.zeros((), dtype=torch.float32, device=flat_g[0].device)
     for g in flat_g:                  # |g| and its max are exact in g's dtype
         g_inf = torch.maximum(g_inf, torch.max(torch.abs(g)).float())
+    g_inf = workers.all_max(g_inf)
 
     ds, ms = [], []
     for g, p, m in zip(flat_g, tree.leaves(params), tree.leaves(mom)):

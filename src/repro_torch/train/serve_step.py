@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import InputShape
 from repro_torch.models.model_factory import Model
+from repro_torch.models.sharding import ShardingRules, resolve_tree, safe_pspec
 
 PyTree = Any
 
@@ -44,3 +45,14 @@ def abstract_cache(model: Model, shape: InputShape) -> PyTree:
     and dtypes, nothing allocated."""
     return dataclasses.replace(model, device="meta").init_cache(
         shape.global_batch, shape)
+
+
+def cache_pspecs(model: Model, shape: InputShape, rules: ShardingRules,
+                 mesh_shape) -> PyTree:
+    """The cache's resolved specs: KV heads on the model axis when they
+    divide it, else the sequence dim (``Model.cache_logical``)."""
+    kv_div = model.cfg.num_kv_heads % max(mesh_shape.get("model", 1), 1) == 0
+    def resolve(names, leaf):
+        return safe_pspec(tuple(leaf.shape), rules.pspec(*names), mesh_shape)
+    return resolve_tree(model.cache_logical(kv_div=kv_div),
+                        abstract_cache(model, shape), resolve)

@@ -16,6 +16,14 @@ The step size comes from ``TrainStepConfig.lr_schedule`` (a callable of the
 step index, e.g. ``optim.sgd.step_decay``), or the constant ``lr``.  With
 ``AlgoHyper.telemetry`` the rule's accumulated round health
 (``extra["health"]``) comes back as ``obs_*`` step metrics.
+
+Across ranks (``launch.mesh.mesh_context``): the state holds this rank's
+block of workers.  The seed generator is the same on every rank, the
+gossip exchanges rows point to point, and ``g_inf`` and the logged loss
+are reduced over the ranks, so each worker's numbers are those of one
+process given the same gradients.  ``state_pspecs`` / ``batch_pspecs``
+resolve the logical-axis trees into ``PartitionSpec`` s, the reference's,
+for the trainer and the tests.
 """
 from __future__ import annotations
 
@@ -25,11 +33,23 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import workers
 from repro_torch.core.algorithms import AlgoHyper, Algorithm, get_algorithm
 from repro_torch.core.theta import ThetaSchedule
+from repro_torch.models.sharding import (P, ShardingRules, resolve_tree,
+                                         safe_pspec)
 from repro_torch.optim import sgd as optim
 
 PyTree = Any
+
+
+def n_workers_for(cfg, rules: ShardingRules, mesh_shape: Dict[str, int]
+                  ) -> int:
+    """The worker count a mesh gives: the product of the worker axes."""
+    n = 1
+    for a in rules.worker_axes:
+        n *= mesh_shape.get(a, 1)
+    return max(n, 1)
 
 
 def init_state(model, algo: Algorithm, hp: AlgoHyper, n_workers: int,
@@ -63,6 +83,67 @@ def abstract_state(model, algo: Algorithm, hp: AlgoHyper, n_workers: int
     ``init_state``)."""
     return init_state(dataclasses.replace(model, device="meta"), algo, hp,
                       n_workers)
+
+
+# ---------------------------------------------------------------------------
+# Logical -> PartitionSpec resolution
+# ---------------------------------------------------------------------------
+
+def abstract_params(model) -> PyTree:
+    """``model.init``'s tree on ``meta``: shapes and dtypes only."""
+    meta = dataclasses.replace(model, device="meta")
+    return meta.init(meta.generator(0))
+
+
+def params_pspecs(model, rules: ShardingRules, mesh_shape,
+                  stacked: bool = True) -> PyTree:
+    """Each parameter's resolved spec; ``stacked`` puts the worker dim in
+    front, its size the product of the worker axes."""
+    wn = n_workers_for(None, rules, mesh_shape)
+
+    def resolve(names, leaf):
+        sizes = list(leaf.shape)
+        if stacked:
+            names = ("worker",) + names
+            sizes = [wn] + sizes
+        return safe_pspec(sizes, rules.pspec(*names), mesh_shape)
+
+    return resolve_tree(model.param_logical(), abstract_params(model),
+                        resolve)
+
+
+def batch_pspecs(batch: PyTree, rules: ShardingRules, mesh_shape,
+                 stacked: bool = True) -> PyTree:
+    def resolve(leaf):
+        if stacked:
+            names = ("worker", "batch") + (None,) * (leaf.dim() - 2)
+        else:
+            names = ("batch",) + (None,) * (leaf.dim() - 1)
+        return safe_pspec(tuple(leaf.shape), rules.pspec(*names),
+                          mesh_shape)
+    return tree.map(resolve, batch)
+
+
+def state_pspecs(model, algo: Algorithm, hp: AlgoHyper,
+                 rules: ShardingRules, mesh_shape, n_workers: int) -> PyTree:
+    """Specs of :func:`init_state`'s tree: params and momentum as the
+    stacked params; an ``extra`` leaf whose leading dim is ``n_workers``
+    (replicas, error buffers, the WireState residual, the stale carry)
+    on the worker axes, the rest (and ``step``, ``g_inf``, ``gen``)
+    replicated."""
+    pp = params_pspecs(model, rules, mesh_shape, stacked=True)
+    ab = abstract_state(model, algo, hp, n_workers)
+
+    def extra_spec(leaf):
+        if leaf.dim() >= 1 and leaf.shape[0] == n_workers:
+            names = ("worker",) + (None,) * (leaf.dim() - 1)
+            return safe_pspec(tuple(leaf.shape), rules.pspec(*names),
+                              mesh_shape)
+        return P()
+
+    return {"params": pp, "mom": pp,
+            "extra": tree.map(extra_spec, ab["extra"]),
+            "step": P(), "g_inf": P(), "gen": P()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +182,10 @@ def make_train_step(model, hp: AlgoHyper, tcfg: TrainStepConfig
 
         new_state = {"params": X, "mom": mom, "extra": extra,
                      "step": step + 1, "g_inf": g_inf, "gen": state["gen"]}
-        metrics = {"loss": torch.mean(losses), "alpha": alpha,
+        # the mean over every worker: under a worker split the per-worker
+        # losses are gathered first, so it is one process's mean bit for bit
+        metrics = {"loss": torch.mean(workers.gather_rows(losses)),
+                   "alpha": alpha,
                    "theta": theta, "g_inf": g_inf,
                    "wire_bytes": algo.bytes_per_step(X, hp)}
         if isinstance(extra, dict) and "health" in extra:

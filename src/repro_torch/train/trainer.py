@@ -12,6 +12,15 @@ Observability (``repro_torch.obs``): ``telemetry`` adds the round-health
 ``obs_*`` metrics; ``log_jsonl`` writes a ``repro.obs.runlog/v1`` run log
 (header, drained step metrics, host spans, result); ``trace_path`` a Chrome
 trace of the host spans (``train.step``, ``train.checkpoint``).
+
+Across processes: ``Trainer(model, tc, data, mesh=, rules=)`` (the
+reference's ``mesh`` / ``rules``) splits the worker dim over the mesh's
+worker axes (``launch/mesh.py``).  Each rank builds its block of the state
+from the same seeded init, takes its workers' rows of every batch and runs
+each step under ``mesh_context``; checkpoints hold the whole state (the
+file one process writes), and ``restore_state`` cuts this rank's block
+out of it.  A state spec over any other mesh axis of size > 1 raises
+``NotImplementedError`` (ROADMAP #13e): nothing is replicated silently.
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
+from repro_torch import convert, tree
 from repro_torch.checkpoint import ckpt
+from repro_torch.comm import workers
 from repro_torch.configs.base import InputShape
 from repro_torch.core.algorithms import AlgoHyper, get_algorithm
 from repro_torch.core.moniqua import MoniquaCodec
@@ -30,6 +41,9 @@ from repro_torch.core.quantizers import QuantSpec
 from repro_torch.core.theta import ThetaSchedule
 from repro_torch.core.topology import get_topology
 from repro_torch.data.pipeline import SyntheticLMPipeline
+from repro_torch.launch.mesh import mesh_context, mesh_shape_dict
+from repro_torch.models.sharding import (ShardingRules, check_runnable,
+                                         on_worker_dim)
 from repro_torch.obs.runlog import RunLogWriter
 from repro_torch.obs.trace import SpanRecorder
 from repro_torch.optim.sgd import SGDConfig
@@ -110,16 +124,31 @@ def drain_metrics(metrics: Dict[str, Any]) -> Dict[str, float]:
 class Trainer:
     def __init__(self, model, tc: TrainerConfig,
                  data: Union[InputShape,
-                             Callable[[int], Dict[str, torch.Tensor]]]):
+                             Callable[[int], Dict[str, torch.Tensor]]],
+                 mesh=None, rules: Optional[ShardingRules] = None):
         """``data``: an ``InputShape`` of the ``train`` kind (synthetic LM
         batches of the model's ``batch_spec``, ``global_batch / n_workers``
-        sequences a worker) or a callable ``step -> stacked batch``."""
+        sequences a worker) or a callable ``step -> stacked batch``.
+        ``mesh`` (a ``DeviceMesh`` of ``launch/mesh.py``) with its
+        ``rules``: the worker dim split over the mesh's worker axes, this
+        rank holding its block (module docstring)."""
         self.model, self.tc = model, tc
-        self.batch_fn = (SyntheticLMPipeline(model, data, tc.n_workers,
-                                             seed=tc.seed).worker_batch
-                         if isinstance(data, InputShape) else data)
         self.hp = build_hyper(tc)
         self.algo = get_algorithm(tc.algo)
+        self.mesh, self.rules = mesh, rules
+        self.workers = None if mesh is None else self._worker_group()
+        b = tc.n_workers // (1 if mesh is None else self.workers.size)
+        lo, hi = self.rows = (0, b) if mesh is None else (
+            self.workers.index * b, (self.workers.index + 1) * b)
+        if isinstance(data, InputShape):
+            pipe = SyntheticLMPipeline(model, data, tc.n_workers,
+                                       seed=tc.seed)
+            self.batch_fn = lambda k: pipe.worker_batch(k, rows=(lo, hi))
+        elif mesh is not None:
+            self.batch_fn = lambda k: {name: v[lo:hi]
+                                       for name, v in data(k).items()}
+        else:
+            self.batch_fn = data
         self.tcfg = TS.TrainStepConfig(
             algo=tc.algo,
             sgd=SGDConfig(momentum=tc.momentum, weight_decay=tc.weight_decay),
@@ -129,9 +158,42 @@ class Trainer:
                                 rho=self.hp.comm_topo().rho))
         self.step_fn = TS.make_train_step(model, self.hp, self.tcfg)
 
+    def _worker_group(self) -> workers.WorkerGroup:
+        """This rank's split of the worker dim, once the mesh and the rules
+        are checked: the workers divide over the worker axes, and no state
+        spec shards another axis of size > 1 (#13e)."""
+        tc, rules = self.tc, self.rules
+        if rules is None:
+            raise ValueError("Trainer(mesh=...) needs its ShardingRules")
+        shape = mesh_shape_dict(self.mesh)
+        if tc.n_workers % TS.n_workers_for(None, rules, shape):
+            raise ValueError(f"{tc.n_workers} workers do not split over the "
+                             f"worker axes {rules.worker_axes} of {shape}")
+        specs = TS.state_pspecs(self.model, self.algo, self.hp, rules,
+                                shape, tc.n_workers)
+        check_runnable(specs, rules, shape)
+        # the state leaves held in blocks of rows (gathered, restored)
+        self.on_workers = tree.map(lambda s: on_worker_dim(s, rules), specs)
+        return workers.WorkerGroup.of(self.mesh, rules.worker_axes)
+
+    def _context(self):
+        return (mesh_context(self.mesh, self.rules) if self.mesh is not None
+                else contextlib.nullcontext())
+
+    def gather_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The whole state (one process's) from this rank's block: a
+        collective, every rank calls it.  The identity without a mesh."""
+        if self.mesh is None:
+            return state
+        with self._context():
+            return convert.gather_state(state, self.on_workers)
+
     def init_state(self) -> Dict[str, Any]:
-        return TS.init_state(self.model, self.algo, self.hp,
-                             self.tc.n_workers, seed=self.tc.seed)
+        """A fresh state; with a mesh this rank's block of it (the rows of
+        one process's state: every worker starts from the same weights)."""
+        lo, hi = self.rows
+        return TS.init_state(self.model, self.algo, self.hp, hi - lo,
+                             seed=self.tc.seed)
 
     def bytes_per_step(self, state) -> int:
         return self.algo.bytes_per_step(state["params"], self.hp)
@@ -146,7 +208,20 @@ class Trainer:
         if not path:
             raise ValueError("restore_state needs a checkpoint path "
                              "(argument or TrainerConfig.checkpoint_path)")
-        return ckpt.restore(path + ".state", self.init_state())
+        like = self.init_state()
+        if self.mesh is None:
+            return ckpt.restore(path + ".state", like)
+        # the file holds every worker: restore it on the host at full
+        # size, cut this rank's rows, then move them to the devices
+        n = self.tc.n_workers
+        host = tree.map(lambda a, w: torch.empty(
+            (n,) + tuple(a.shape[1:]), dtype=a.dtype) if w else a,
+            like, self.on_workers)
+        full = ckpt.restore(path + ".state", host)
+        block = convert.shard_state(full, self.workers.index,
+                                    self.workers.size)
+        return tree.map(lambda a, l: a.to(l.device)
+                        if isinstance(a, torch.Tensor) else a, block, like)
 
     def run(self, state: Optional[Dict[str, Any]] = None,
             callback: Optional[Callable[[int, Dict], None]] = None
@@ -161,14 +236,19 @@ class Trainer:
         steps the params go to ``checkpoint_path`` and the full state to
         ``<checkpoint_path>.state``.  ``log_jsonl`` / ``trace_path`` write
         the run log and the Chrome trace of the ``train.step`` /
-        ``train.checkpoint`` host spans."""
+        ``train.checkpoint`` host spans.  With a mesh, ``state`` is this
+        rank's block; the checkpoints are gathered (every rank takes part)
+        and written, like the run log and the trace, by the rank of the
+        first block."""
         tc = self.tc
         state = state if state is not None else self.init_state()
         k0 = state["step"]
         history: List[Dict] = []
-        rec = SpanRecorder() if (tc.trace_path or tc.log_jsonl) else None
+        lead = self.workers is None or self.workers.index == 0
+        rec = (SpanRecorder() if lead and (tc.trace_path or tc.log_jsonl)
+               else None)
         writer = None
-        if tc.log_jsonl:
+        if tc.log_jsonl and lead:
             run_meta = dataclasses.asdict(tc)
             run_meta["theta_mode"] = self.tcfg.theta.mode
             writer = RunLogWriter(tc.log_jsonl, run=run_meta, tool="trainer")
@@ -181,7 +261,7 @@ class Trainer:
         try:
             for k in range(k0, k0 + tc.steps):
                 batch = self.batch_fn(k)
-                with span("train.step", k):
+                with span("train.step", k), self._context():
                     state, metrics = self.step_fn(state, batch)
                 if (k - k0) % tc.log_every == 0 or k == k0 + tc.steps - 1:
                     m = drain_metrics(metrics)
@@ -197,10 +277,15 @@ class Trainer:
                 if (tc.checkpoint_path and tc.checkpoint_every
                         and (k + 1) % tc.checkpoint_every == 0):
                     meta = {"step": k + 1, "algo": tc.algo, "wire": tc.wire}
-                    with span("train.checkpoint", k + 1):
-                        ckpt.save(tc.checkpoint_path, state["params"], meta)
-                        ckpt.save(tc.checkpoint_path + ".state", state,
-                                  meta)
+                    with span("train.checkpoint", k + 1), self._context():
+                        whole = self.gather_state(state)
+                        if lead:
+                            ckpt.save(tc.checkpoint_path, whole["params"],
+                                      meta)
+                            ckpt.save(tc.checkpoint_path + ".state", whole,
+                                      meta)
+                        workers.barrier()       # the file is whole for all
+                        del whole
             bps = self.bytes_per_step(state)
             if writer is not None:
                 writer.spans_from(rec)

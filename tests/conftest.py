@@ -22,6 +22,11 @@ if os.environ.get("CI") and importlib.util.find_spec("hypothesis") is None:
         "requirements-ci.txt — fix the install instead of skipping.")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs CUDA cards; skips on a machine without them")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)

@@ -48,10 +48,33 @@ def test_port_imports_without_jax_or_repro():
                  "sim.calibrate", "obs", "obs.metrics", "obs.runlog",
                  "obs.trace", "kernels.cost", "analysis",
                  "analysis.roofline", "launch", "launch.train",
-                 "launch.dryrun", "launch.calibrate"):
+                 "launch.dryrun", "launch.calibrate", "launch.mesh",
+                 "models.sharding", "comm.workers"):
         assert f"repro_torch.{name}" in res["modules"], name
     assert len(res["modules"]) >= 50
     assert res["bad"] == [], f"repro_torch pulled in: {res['bad']}"
+
+
+_MESH_PROBE = r"""
+import json, sys
+import torch.distributed as dist
+import repro_torch.launch.mesh, repro_torch.models.sharding
+import repro_torch.comm.workers
+print(json.dumps({"initialized": dist.is_initialized(),
+                  "jax": any(m == "jax" or m.startswith("jax.")
+                             for m in sys.modules)}))
+"""
+
+
+def test_importing_the_meshes_makes_no_process_group():
+    """``launch/mesh.py`` builds meshes in functions: importing it (and the
+    sharding rules) starts no process group and touches no device."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", _MESH_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"initialized": False, "jax": False}
 
 
 def test_assigned_archs_equal_the_reference():
