@@ -287,6 +287,24 @@ Phases (any failure exits non-zero, and the result line is not printed):
    launched on the mesh path as on the other (the launches added to the
    kernels line); both step times and peak memories.  The process group
    is destroyed after.
+26. Tensor-parallel weights over the mesh's ``model`` axis
+   (``comm/tensor_parallel.py``): (c) every shard view of phase 21's tree
+   at model 2 and 4, bits 1/2/4/8, stochastic and nearest, through the
+   encode with the whole leaf's counter offset and row stride, counters
+   wrapping past 2^32: ``torch.equal`` to the plain version on the card
+   and, on each view's corners, on the CPU, the codes equal to the
+   one-process payload's; then two child processes (``--tp-rank``) over a
+   gloo group on the one card, the mesh ``(data=1, model=2)``: (a) the
+   published llama3.2-3b in bfloat16, a 2 x 4096 prefill (within phase
+   10's bound of one process) and 32 greedy tokens, the time to the
+   first token and per token a rank; (b) phase 21's cell, 3 steps, held
+   to phase 25's run without a mesh: losses within ``rtol=1e-3``, every
+   parameter within 3 x (one bf16 ulp + lr 5e-2 max|d|) or Lemma 2's
+   bound beyond it (counted), the replicated leaves bitwise equal on both
+   ranks, 12 encodes, 12 decode-reduces and 2 bf16 flash launches a step
+   a rank (added to the kernels line), step time and peak memory a rank.
+   Phase 2's encode sweep also holds two row strides (one skipping
+   columns, one wrapping the counter within a worker).
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -4214,7 +4232,9 @@ MESH_STEPS = 3
 def mesh_phase(dev, card):
     """Phase 25: phase 21's llama3.2-3b cell trained through a one-rank
     mesh (NCCL on the card) and without one, bitwise equal; returns the
-    mesh run's launches by kernels-line entry."""
+    mesh run's launches by kernels-line entry, and the run without a mesh
+    (its final params, momentum and ``g_inf`` on the host, its losses),
+    which phase 26 holds its two ranks to."""
     import torch.distributed as dist
     from repro_torch import tree
     from repro_torch.configs.base import InputShape
@@ -4298,7 +4318,380 @@ def mesh_phase(dev, card):
     print(f"phase 25: the meshes passed in "
           f"{time.perf_counter() - t_phase:.1f} s; launches on the mesh "
           f"path {launches.counted} {card}", flush=True)
-    return launches.counted
+    ref["losses"] = runs["no mesh"]["losses"]
+    ref["step_ms"] = runs["no mesh"]["step_ms"]
+    ref["peak"] = runs["no mesh"]["peak"]
+    return launches.counted, ref
+
+
+# -- phase 26: tensor-parallel weights over the mesh's model axis ------------
+
+TP_MODEL = 2                   # the model axis of phase 26's mesh (data=1)
+TP_TIMEOUT = 600               # seconds the two ranks may take together
+# phase 26 (c): counters offset so that the later leaves of the tree wrap
+# past 2^32 (a 2-layer llama3.2-3b tree has ~1.0e9 elements a worker)
+TP_WRAP_BASE = 2 ** 32 - 2 ** 28
+# phase 26 (c): the corners of each shard view held against the CPU, rows
+# and columns at each end (a whole view is up to 2e8 elements)
+TP_CPU_ROWS, TP_CPU_COLS = 2, 4096
+
+
+def tp_encode_phase(dev, card):
+    """Phase 26 (c): every shard view of phase 21's tree (llama3.2-3b
+    widths, 2 layers, bfloat16, one worker) at model 2 and 4, bits 1/2/4/8,
+    stochastic and nearest, encoded with its whole leaf's counter offset
+    and row stride: the kernel ``torch.equal`` to its plain version on the
+    card, and on its four corners (``TP_CPU_ROWS`` x ``TP_CPU_COLS``) to the
+    plain version on the CPU; the unpacked codes equal to the one-process payload's codes
+    at the same elements.  Returns the number of shards checked."""
+    from repro_torch import tree
+    from repro_torch.comm import bucket
+    from repro_torch.comm import tensor_parallel as TP
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import delta_for_bits, unpack_codes
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.models.model_factory import Model
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.train import train_step as TS
+
+    model = Model(lm_config(LM_ARCH), "cuda")
+    X1 = tree.map(lambda a: a[None], model.init(model.generator(0)))
+    leaves = tree.leaves(X1)
+    rules = ShardingRules("decentralized")
+    seed, n = 0xC0FFEE, 0
+    for bits in (1, 2, 4, 8):
+        for stochastic in (True, False):
+            if bits == 1 and stochastic:     # delta = 1/2: no B_theta
+                B = torch.tensor(0.7, device=dev)
+            else:
+                B = modulo.b_theta(2.0, delta_for_bits(bits, stochastic),
+                                   dev)
+            B_cpu = B.cpu()
+            offsets = bucket.layout_of(X1, 8 // bits).offsets
+            kw = dict(bits=bits, stochastic=stochastic)
+            for m in (2, 4):
+                dims = TP.dims_of(TS.params_pspecs(
+                    model, rules, {"data": 1, "model": m}, stacked=True))
+                for i, (x, d) in enumerate(zip(leaves, dims)):
+                    if d is None:            # gossiped whole (phase 2)
+                        continue
+                    base = TP_WRAP_BASE + offsets[i]
+                    whole, _, _ = TP.counter_view(x, None, 0, None)
+                    codes = unpack_codes(kenc.encode(
+                        whole, B, seed, idx_base=base, **kw), bits,
+                        x.shape[-1]).reshape(x.shape)
+                    for r in range(m):
+                        sh = TP.shard(x, d, r, m)
+                        view, off, stride = TP.counter_view(
+                            sh, d, r * sh.shape[d], x.shape[d])
+                        kws = dict(kw, idx_row_stride=stride)
+                        got = kenc.encode(view, B, seed, idx_base=base + off,
+                                          **kws)
+                        what = (f"phase 26 (c): leaf {i} {list(x.shape)} "
+                                f"dim {d} shard {r}/{m} bits={bits} "
+                                f"stochastic={stochastic}")
+                        check(torch.equal(got, kenc.encode_plain(
+                            view, B, seed, idx_base=base + off, **kws)),
+                            what + " != plain (card)")
+                        rows, cols = view.shape[1:]
+                        c = min(cols, TP_CPU_COLS)
+                        vpb = 8 // bits
+                        for lo in {0, max(rows - TP_CPU_ROWS, 0)}:
+                            hi = min(lo + TP_CPU_ROWS, rows)
+                            for c0 in {0, cols - c}:
+                                cpu = kenc.encode_plain(
+                                    view[:, lo:hi, c0:c0 + c].cpu(), B_cpu,
+                                    seed, idx_base=base + off + lo * stride
+                                    + c0, **kws)
+                                check(torch.equal(got[:, lo:hi, c0 // vpb:(
+                                    c0 + c) // vpb].cpu(), cpu),
+                                    what + f" rows {lo}-{hi} columns "
+                                    f"{c0}-{c0 + c} != plain (CPU)")
+                        mine = unpack_codes(got, bits, view.shape[-1])
+                        check(torch.equal(mine.reshape(sh.shape),
+                                          TP.shard(codes, d, r, m)),
+                              what + " codes != the whole leaf's")
+                        n += 1
+                    del codes
+    del X1, leaves
+    torch.cuda.empty_cache()
+    return n
+
+
+def tp_child(rank: int, store_path: str, out_dir: str) -> int:
+    """One rank of phase 26 (``chip_smoke.py --tp-rank RANK STORE DIR``):
+    a gloo group of two ranks on the one card, the mesh ``(data=1,
+    model=2)``.  (a) serving: the published llama3.2-3b in bfloat16, its
+    whole weights drawn and cut to this rank's shards, a 2 x 4096 prefill
+    and 32 greedy tokens; rank 0 also serves the whole weights in one
+    process first and compares the last position's logits.  (b) training:
+    phase 21's cell for ``MESH_STEPS`` steps through ``Trainer(model, tc,
+    shape, mesh=, rules=)``.  Writes ``rank<R>.json`` (times, launches,
+    losses, peak memory) and ``rank<R>.pt`` (the final params shard) to
+    ``out_dir``."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model_factory import Model
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.train import serve_step as SS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {"rank": rank}
+    launches = Launches()
+    try:
+        # the groups are gloo's (their ranks share the card): the mesh's
+        # device type is the CPU, the tensors the card's
+        mesh = make_host_mesh(data=1, model=TP_MODEL, device_type="cpu")
+        rules = ShardingRules("decentralized")
+        # -- (a) serving -------------------------------------------------
+        model = Model(serve_config(), "cuda")
+        full = model.init(model.generator(0))
+        batch = SyntheticLMPipeline(model, InputShape(
+            "serve_prefill", BF16_PROMPT, SERVE_BATCH, "prefill"), 1,
+            seed=1).global_batch(0)
+        ref = (SS.make_prefill_step(model)(full, batch) if rank == 0
+               else None)
+        P = SS.shard_serving_params(model, full, mesh, rules)
+        del full
+        torch.cuda.empty_cache()
+        prefill = SS.make_prefill_step(model, mesh=mesh, rules=rules)
+        launches.zero()
+        logits = prefill(P, batch)
+        res["prefill_launches"] = launches.read()
+        check(bool(torch.isfinite(logits).all()), "phase 26 (a) logits")
+        if ref is not None:
+            res["prefill_gap"] = float((logits - ref).abs().max()
+                                       / ref.abs().max())
+            res["first_token_one_process"] = ref[:, -1].argmax(-1).tolist()
+            del ref
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()             # the first token, again
+        logits = prefill(P, batch)
+        tok = logits[:, -1, :model.cfg.vocab_size].argmax(
+            -1, keepdim=True).int()
+        torch.cuda.synchronize()
+        res["ttft_ms"] = 1e3 * (time.perf_counter() - t0)
+        cache = SS.make_cache(model, SERVE_BATCH, InputShape(
+            "serve_decode", BF16_PROMPT, SERVE_BATCH, "decode"), mesh=mesh,
+            rules=rules)
+        serve = SS.make_serve_step(model, mesh=mesh, rules=rules)
+        res["cache_k"] = list(cache["layers"]["k"].shape)
+        tokens = [tok]
+        out_d, cache = serve(P, cache, tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BF16_GREEDY - 1):
+            tok = out_d[:, -1, :model.cfg.vocab_size].argmax(
+                -1, keepdim=True).int()
+            tokens.append(tok)
+            out_d, cache = serve(P, cache, tok)
+        torch.cuda.synchronize()
+        res["token_ms"] = 1e3 * (time.perf_counter() - t0) / (
+            BF16_GREEDY - 1)
+        check(bool(torch.isfinite(out_d).all())
+              and int(cache["pos"]) == BF16_GREEDY, "phase 26 (a) decode")
+        res["tokens"] = torch.cat(tokens, 1).tolist()
+        del P, cache, logits, out_d, batch, prefill, serve
+        torch.cuda.empty_cache()
+        # -- (b) training ------------------------------------------------
+        tc = TrainerConfig(algo="moniqua", bits=8, topology="ring",
+                           n_workers=LM_WORKERS, theta=2.0, lr=0.1,
+                           momentum=0.9, weight_decay=5e-4,
+                           steps=MESH_STEPS, log_every=1, seed=0)
+        tr = Trainer(Model(lm_config(LM_ARCH), "cuda"), tc,
+                     InputShape("lm_train", LM_SEQ, LM_WORKERS, "train"),
+                     mesh=mesh, rules=rules)
+        torch.cuda.reset_peak_memory_stats()
+        launches.zero()
+        out = tr.run()
+        res["train_launches"] = launches.read()
+        res["peak"] = torch.cuda.max_memory_allocated()
+        walls = [h["wall"] for h in out["history"]]
+        res["step_ms"] = 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1)
+        res["losses"] = [h["loss"] for h in out["history"]]
+        res["g_inf"] = float(out["state"]["g_inf"])
+        res["bytes_per_step"] = out["bytes_per_step"]
+        torch.save({"params": tree_cpu(out["state"]["params"])},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def tree_cpu(t):
+    from repro_torch import tree
+    return tree.map(lambda a: a.detach().cpu(), t)
+
+
+def tp_phase(dev, card, ref25):
+    """Phase 26: tensor-parallel weights over the mesh's ``model`` axis on
+    the one card: (c) the strided encode (``tp_encode_phase``), then two
+    ranks in child processes over a gloo group (``tp_child``): serving, and
+    phase 21's training cell held to phase 25's run without a mesh
+    (``ref25``): losses within ``rtol=1e-3``, each parameter within
+    ``MESH_STEPS`` x (one bfloat16 ulp of |x| + lr 5e-2 max|d|), or beyond
+    that by at most Lemma 2's ``2 (1 - w_ii) delta B`` a step (counted),
+    the replicated leaves bitwise equal on both ranks, 12 encodes, 12
+    decode-reduces and 2 bf16 flash launches a step a rank.  Returns the
+    ranks' launches by kernels-line entry."""
+    import shutil
+    import subprocess
+    from repro_torch import tree
+    from repro_torch.comm import tensor_parallel as TP
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import delta_for_bits
+    from repro_torch.kernels.flash_attention import bf16_ulp
+    from repro_torch.models.model_factory import Model
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.train import train_step as TS
+
+    t_phase = time.perf_counter()
+    n_enc = tp_encode_phase(dev, card)
+    print(f"phase 26 (c): {n_enc} shard views of the {LM_ARCH} "
+          f"({LM_LAYERS} layers) tree at model 2 and 4, bits 1/2/4/8, "
+          f"stochastic and nearest, counters from 2^32 - 2^28 (wrapping): "
+          f"the strided encode == its plain version (card, and its "
+          f"{TP_CPU_ROWS} x {TP_CPU_COLS} corners on the CPU), codes == the "
+          f"one-process payload's, torch.equal; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    out_dir = os.path.join(ROOT, "build", "tp26")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    store = os.path.join(out_dir, "store")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--tp-rank", str(r), store, out_dir])
+             for r in range(TP_MODEL)]
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_ranks = time.perf_counter() - t0
+    check(rcs == [0] * TP_MODEL, f"phase 26: the ranks exited {rcs}")
+    res = []
+    for r in range(TP_MODEL):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+
+    cfg = lm_config(LM_ARCH)
+    counted = {}
+    for r, x in enumerate(res):
+        pre, trn = x["prefill_launches"], x["train_launches"]
+        n_leaves = len(tree.leaves(ref25["params"]))
+        check(pre["flash_attention_tc"] == serve_config().num_layers
+              and pre["flash_attention_f32tc"] == 0
+              and pre["flash_attention_simt"] == 0,
+              f"phase 26 (a) rank {r}: prefill launches {pre}")
+        check(trn["flash_attention_tc"] == MESH_STEPS * cfg.num_layers
+              and trn["moniqua_encode"] == MESH_STEPS * n_leaves
+              and trn["moniqua_decode_reduce"] == MESH_STEPS * n_leaves,
+              f"phase 26 (b) rank {r}: training launches {trn}, want "
+              f"{cfg.num_layers} bf16 flash and {n_leaves} encode and "
+              f"decode-reduce a step")
+        for k in Launches.KEYS:
+            counted[k] = counted.get(k, 0) + trn[k] + (
+                pre[k] if k.startswith("flash") else 0)
+        check(x["losses"] == res[0]["losses"] and x["tokens"]
+              == res[0]["tokens"], f"phase 26: rank {r} != rank 0")
+        check(x["bytes_per_step"] == res[0]["bytes_per_step"],
+              "phase 26 (b): bytes/step differ between the ranks")
+    check(res[0]["prefill_gap"] <= BF16_GAP_BOUND,
+          f"phase 26 (a): split vs one-process prefill "
+          f"{res[0]['prefill_gap']:.4g} x max|logit| > {BF16_GAP_BOUND}")
+    losses = res[0]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ref25["losses"])]
+    check(max(gaps) <= 1e-3, f"phase 26 (b): losses {losses} vs phase "
+          f"25's {ref25['losses']} (rtol 1e-3)")
+
+    # the parameters: each rank's shards against phase 25's run cut alike
+    model = Model(cfg, "cuda")
+    dims = TP.dims_of(TS.params_pspecs(model, ShardingRules(
+        "decentralized"), {"data": 1, "model": TP_MODEL}, stacked=True))
+    dB = delta_for_bits(8, True) * float(modulo.b_theta(
+        2.0, delta_for_bits(8, True), dev))
+    lemma2 = MESH_STEPS * 2 * (1 - 1 / 3) * dB
+    shards = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                         mmap=True)["params"] for r in range(TP_MODEL)]
+    n_off = n_total = 0
+    worst = 0.0
+    for i, (want, mom, d) in enumerate(zip(tree.leaves(ref25["params"]),
+                                           tree.leaves(ref25["mom"]), dims)):
+        lr_d = 0.1 * 5e-2 * float(mom.abs().max())
+        for r in range(TP_MODEL):
+            got = tree.leaves(shards[r])[i].to(dev)
+            w = TP.shard(want, d, r, TP_MODEL).to(dev)
+            check(got.shape == w.shape, f"phase 26 (b): leaf {i} shape")
+            err = (got.float() - w.float()).abs()
+            tol = MESH_STEPS * (bf16_ulp(w.float()) + lr_d)
+            over = err > tol
+            check(bool((err <= tol + lemma2).all()),
+                  f"phase 26 (b): leaf {i} rank {r} off by "
+                  f"{float(err.max()):.4g}, beyond the bound + Lemma 2's "
+                  f"{lemma2:.4g}")
+            n_off += int(over.sum())
+            n_total += err.numel()
+            worst = max(worst, float((err - tol).max()))
+            if d is None and r:
+                check(torch.equal(got, tree.leaves(shards[0])[i].to(dev)),
+                      f"phase 26 (b): replicated leaf {i} differs between "
+                      f"the ranks")
+            del got, w, err, tol, over
+    del shards
+    torch.cuda.empty_cache()
+    # a wrong counter base or stride rounds most stochastic codes the
+    # other way, each within Lemma 2's allowance: hold their count to the
+    # CPU test's bound (tests/test_torch_tensor_parallel.py)
+    check(n_off <= 1e-4 * n_total, f"phase 26 (b): {n_off} of {n_total} "
+          f"elements past the bf16 bound, more than 1e-4 of them")
+    print(f"phase 26 (b): {LM_ARCH} ({cfg.num_layers} layers, ring("
+          f"{LM_WORKERS}), moniqua 8-bit, bf16, {LM_SEQ} tokens a worker) "
+          f"on 2 ranks over model: losses {[round(v, 5) for v in losses]} "
+          f"vs phase 25's {[round(v, 5) for v in ref25['losses']]} "
+          f"(largest relative gap {max(gaps):.3g}); params within "
+          f"{MESH_STEPS} x (one bf16 ulp + lr 5e-2 max|d|) but {n_off} of "
+          f"{n_total} elements ({n_off / n_total:.3g}), those within Lemma "
+          f"2's {MESH_STEPS} x 2 (1 - w_ii) delta B = {lemma2:.4g} beyond "
+          f"it (largest excess {worst:.4g}); replicated leaves bitwise "
+          f"equal on both ranks; bytes/step {res[0]['bytes_per_step']}",
+          flush=True)
+    for x in res:
+        print(f"time: phase 26 rank {x['rank']}: (a) {SERVE_ARCH} bf16 "
+              f"{SERVE_BATCH} x {BF16_PROMPT} prefill (time to the first "
+              f"token) {x['ttft_ms']:.2f} ms, decode {x['token_ms']:.3f} ms "
+              f"a token (host clock); (b) step {x['step_ms']:.3f} ms (mean "
+              f"of steps 1-{MESH_STEPS - 1}) beside phase 25's one-process "
+              f"{ref25['step_ms']:.3f} ms; max_memory_allocated "
+              f"{x['peak'] / 2 ** 30:.2f} GiB (phase 25's one process "
+              f"{ref25['peak'] / 2 ** 30:.2f} GiB) {card}", flush=True)
+    print(f"phase 26 (a): split prefill vs one process "
+          f"{res[0]['prefill_gap']:.4g} x max|logit| (bound "
+          f"{BF16_GAP_BOUND}); cache k {res[0]['cache_k']} a rank; first "
+          f"tokens {[t[0] for t in res[0]['tokens']]} (one process "
+          f"{res[0]['first_token_one_process']}); {BF16_GREEDY} greedy "
+          f"tokens equal on both ranks: {res[0]['tokens']}", flush=True)
+    print(f"phase 26: tensor parallelism passed in "
+          f"{time.perf_counter() - t_phase:.1f} s ({t_ranks:.1f} s of "
+          f"ranks); launches on its paths {counted} {card}", flush=True)
+    return counted
 
 
 def main() -> int:
@@ -4404,8 +4797,9 @@ def main() -> int:
             return torch.tensor(0.7, device=device)
         return modulo.b_theta(2.0, delta_for_bits(bits, stochastic), device)
 
-    def check_encode(x_cpu, x, bits, stochastic, what):
-        kw = dict(bits=bits, stochastic=stochastic, idx_base=12345)
+    def check_encode(x_cpu, x, bits, stochastic, what, stride=None):
+        kw = dict(bits=bits, stochastic=stochastic, idx_base=12345,
+                  idx_row_stride=stride)
         B = B_for(bits, stochastic, dev)
         got = kenc.encode(x, B, 0xC0FFEE, **kw)
         plain = kenc.encode_plain(x, B, 0xC0FFEE, **kw)
@@ -4451,6 +4845,19 @@ def main() -> int:
                         check_encode(x_cpu, x, bits, stochastic,
                                      f"{list(shape)} {tag}")
                         n_checks += 1
+    # the counter row stride of a tensor-parallel shard (phase 26): a step
+    # from one row to the next that skips columns, and one that wraps the
+    # counter past 2^32 within a worker
+    for shape, stride in (((2, 3, 4096), 4 * 4096 + 64),
+                          ((3, 5, 1008), 2 ** 32 - 1000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x_cpu = rand(*shape, scale=3.0).to(dtype)
+            for bits in (1, 2, 4, 8):
+                for stochastic in (True, False):
+                    check_encode(x_cpu, x_cpu.to(dev), bits, stochastic,
+                                 f"{list(shape)} row stride {stride}",
+                                 stride=stride)
+                    n_checks += 1
     topos = [ring(8), exponential(8), torus(3, 3)]
     for topo in topos:
         weights = tuple(w for o, w in zip(topo.offsets, topo.weights)
@@ -4718,9 +5125,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     p24_counts = launch_phase(dev, card)
     torch.cuda.empty_cache()
-    p25_counts = mesh_phase(dev, card)
+    p25_counts, ref25 = mesh_phase(dev, card)
+    torch.cuda.empty_cache()
+    p26_counts = tp_phase(dev, card, ref25)
+    del ref25
     for counts in (lm_counts, p22_counts, p23_counts, p24_counts,
-                   p25_counts):
+                   p25_counts, p26_counts):
         for name, n in counts.items():
             extra[name] = extra.get(name, 0) + n
     for k in kernels:
@@ -4729,7 +5139,7 @@ def main() -> int:
             k["train"] = train_flash
             k["phase22"] = p22_flash
             k["phase23"] = p23_flash
-    print(f"launches on phases 17-25's paths, added to the kernels line: "
+    print(f"launches on phases 17-26's paths, added to the kernels line: "
           f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))
@@ -4741,4 +5151,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -78,6 +78,18 @@ on or off.  The phases of a round run under ``obs.trace`` labels
 (``comm.encode`` / ``comm.permute`` / ``comm.decode_reduce`` /
 ``comm.intra_reduce`` / ``comm.telemetry``) for ``torch.profiler``.
 
+Tensor-parallel rounds (``comm/tensor_parallel.py``, a ``model`` split with
+the params' specs): each rank gossips its shard of every split leaf and
+every replicated leaf whole, per leaf, on the ``moniqua`` and ``full``
+wires.  The layout, the counter offsets and the byte ledger are those of
+one process's tree (``tensor_parallel.whole``); a shard hashes the
+``(seed, index)`` pairs its elements have in the whole leaf (the encode's
+``idx_row_stride``), so the round is the shard of one process's round bit
+for bit, and a replicated leaf comes out the same on every rank.  Other
+wires, the bucketed path, presence masks, telemetry and two tiers under a
+split raise ``NotImplementedError`` (``CommEngine.model_split_refusal``,
+ROADMAP #13e).
+
 Randomness: the reference takes a JAX key; the port takes the uint32 hash
 ``seed`` the reference derives from it (``kops._key_to_seed``).
 """
@@ -95,6 +107,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.comm import bucket, gossip, workers
+from repro_torch.comm import tensor_parallel as TP
 from repro_torch.comm.gossip import BytesLedger
 from repro_torch.core import modulo
 from repro_torch.core.quantizers import (_U32, QuantSpec,
@@ -858,11 +871,14 @@ class CommEngine:
         takes for ``X``: the configured one, or under ``"auto"`` the
         reference's crossover for the layout and wire; stateful wires
         always bucket.  With ``shard`` (a ``BucketLayout.shard`` window)
-        ``"auto"`` resolves on the shard's own leaf census."""
+        ``"auto"`` resolves on the shard's own leaf census.  Under a
+        ``model`` split ``X`` resolves at one process's shapes."""
         if self.path != "auto":
             return self.path
         if self.stateful:
             return "bucketed"
+        if X is not None:
+            X = TP.whole(X)
         if shard is not None:
             slots, elems = shard.slots, max(shard.size, 1)
         else:
@@ -966,6 +982,9 @@ class CommEngine:
         """
         if self.stateful:
             self._check_wire_state(state)
+        dims = TP.leaf_dims(X)
+        if dims is not None:
+            self.check_model_split(X, presence)
         if self.tiered:
             return self._mix_tiered(X, theta, seed, ledger, state, presence)
         presence = _normalize_presence(presence, self.topo.n)
@@ -980,7 +999,7 @@ class CommEngine:
             Xm, new_state = self._mix_stateful(X, state, seed, presence)
             return MixResult(Xm, new_state, self._round_health(
                 X, theta, seed, new_state, presence))
-        layout = self.layout(X)
+        layout = self.layout(TP.whole(X))
         full_mixed_dtype = name == "full" and not layout.uniform_dtype
         flat = payload = None
         if self._use_bucketed(X) and not full_mixed_dtype:
@@ -1005,10 +1024,13 @@ class CommEngine:
             if name == "moniqua":
                 # global counter indices: leaf i's elements hash
                 # (seed, layout.offset_i + e), the SAME pairs the bucketed
-                # one-shot encode hashes: the bucketed-vs-per-leaf parity
+                # one-shot encode hashes: the bucketed-vs-per-leaf parity;
+                # a split leaf's shard hashes its elements' pairs in the
+                # whole leaf (tensor_parallel.counter_view)
+                dims = dims or (None,) * len(leaves)
                 out = [self._mix_leaf(l, theta, base_seed,
                                       idx_base=layout.offsets[i],
-                                      presence=presence)
+                                      presence=presence, model_dim=dims[i])
                        for i, l in enumerate(leaves)]
             else:
                 out = [self._mix_leaf(l, theta, _leaf_seed(base_seed, i),
@@ -1017,6 +1039,34 @@ class CommEngine:
             Xm = tree.unflatten(td, out)
         return MixResult(Xm, {}, self._round_health(
             X, theta, seed, None, presence, flat=flat, payload=payload))
+
+    def model_split_refusal(self, X: PyTree, presence=None
+                            ) -> Optional[str]:
+        """Why a round on ``X`` (one process's shapes, or the shards under
+        a ``model`` split) does not run with the weights split over
+        ``model``, or ``None`` (module docstring): the one list of what
+        the split leaves out, read by ``mix`` and at ``Trainer``
+        construction."""
+        name = self.codec.name
+        if self.tiered or self.stateful or name not in ("moniqua", "full"):
+            return (f"the {name} wire"
+                    + (" on a two-tier topology" if self.tiered else ""))
+        if _normalize_presence(presence, self.topo.n) is not None:
+            return "a presence mask"
+        if self.telemetry:
+            return "round telemetry"
+        if self.resolved_path(X) == "bucketed":
+            return f"the bucketed path (path={self.path!r})"
+        return None
+
+    def check_model_split(self, X: PyTree, presence=None) -> None:
+        """Raise ``NotImplementedError`` naming #13e where
+        :meth:`model_split_refusal` gives a reason."""
+        from repro_torch.models.sharding import TODO_13E
+        why = self.model_split_refusal(X, presence)
+        if why is not None:
+            raise NotImplementedError(
+                f"{why} with the weights split over 'model': {TODO_13E}")
 
     def _mix_tiered(self, X: PyTree, theta, seed: Optional[int],
                     ledger: Optional[BytesLedger], state: Optional[dict],
@@ -1318,17 +1368,31 @@ class CommEngine:
 
     def _mix_leaf(self, x: torch.Tensor, theta, seed: int,
                   idx_base: int = 0,
-                  presence: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+                  presence: Optional[Tuple[int, ...]] = None,
+                  idx_row_stride: Optional[int] = None,
+                  model_dim: Optional[int] = None) -> torch.Tensor:
         if x.dim() == 1:     # scalar-per-worker leaf: give it a unit last axis
             return self._mix_leaf(x[:, None], theta, seed, idx_base,
                                   presence)[:, 0]
+        if model_dim is not None:      # a shard of a leaf split over model
+            k, vpb = x.shape[model_dim], self._align()
+            view, off, stride = TP.counter_view(
+                x, model_dim, TP.rank() * k, TP.size() * k)
+            if view.shape[-1] % vpb or x.shape[-1] % vpb:
+                from repro_torch.models.sharding import TODO_13E
+                raise NotImplementedError(
+                    f"shard {tuple(x.shape)}: a split leaf's last dim must "
+                    f"fill whole code bytes ({vpb} values): {TODO_13E}")
+            return self._mix_leaf(view, theta, seed, idx_base + off,
+                                  presence, stride).reshape(x.shape)
         spec = self.codec.spec
         offsets = self.topo.neighbor_offsets()
         weights = _neighbor_weights_of(self.topo)
         if self.codec.name == "moniqua":
             B = modulo.b_theta(theta, spec.delta, x.device)
-            packed = kops.moniqua_encode_stacked(x, B, spec, seed,
-                                                 idx_base=idx_base)
+            packed = kops.moniqua_encode_stacked(
+                x, B, spec, seed, idx_base=idx_base,
+                idx_row_stride=idx_row_stride)
             p_nbrs = torch.stack([gossip._roll(packed, o) for o in offsets])
             if presence is None:
                 return kops.moniqua_decode_reduce_stacked(
@@ -1516,7 +1580,10 @@ class CommEngine:
         path never changes this number.  The EF wires gossip packed flat
         segments on both paths; onebit reports its steady state.  A tiered
         worker broadcasts only its owned shard on the slow axis: the ceil'd
-        ``n_intra``-th of the staged payload."""
+        ``n_intra``-th of the staged payload.  Under a ``model`` split the
+        one-process figure: each split leaf once in total, each replicated
+        leaf once, not once a rank."""
+        X = TP.whole(X)
         leaves = tree.leaves(X)
         if not leaves:
             return 0
@@ -1554,6 +1621,7 @@ class CommEngine:
         for the EF wires).  0 on a flat engine or a trivial intra tier."""
         if not self.tiered or not tree.leaves(X):
             return 0
+        X = TP.whole(X)
         k = self.topo.n_intra
         if k == 1:
             return 0

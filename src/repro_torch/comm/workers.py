@@ -55,25 +55,36 @@ class WorkerGroup:
     @classmethod
     def of(cls, mesh, axes: Sequence[str]) -> "WorkerGroup":
         """This rank's split of the worker dim over ``axes`` of ``mesh``
-        (axes the mesh lacks count as size 1).  Raises
-        ``NotImplementedError`` (ROADMAP #13e) if another mesh dim has size
-        > 1: then several ranks would share a block of workers, each
-        holding a shard of its weights."""
+        (axes the mesh lacks count as size 1).  Ranks that differ only in
+        their ``model`` coordinate hold the same block of workers, each its
+        shard of the tensor-parallel weights (``comm/tensor_parallel.py``);
+        the blocks are those of this rank's ``model`` coordinate.  Raises
+        ``NotImplementedError`` (ROADMAP #13e) if a mesh dim other than the
+        worker axes and ``model`` has size > 1 (the hierarchical rules'
+        FSDP ``data``)."""
         import torch.distributed as dist
         from repro_torch.models.sharding import TODO_13E
         names = tuple(mesh.mesh_dim_names)
         axes = tuple(a for a in axes if a in names)
         others = {a: s for a, s in zip(names, mesh.shape)
-                  if a not in axes and s > 1}
+                  if a not in axes and a != "model" and s > 1}
         if others:
             raise NotImplementedError(
                 f"mesh {dict(zip(names, mesh.shape))}: the dims {others} "
                 f"besides the worker axes {axes} split each worker's "
                 f"weights; {TODO_13E}")
-        order = [names.index(a) for a in axes] + [
-            i for i, a in enumerate(names) if a not in axes]
-        ranks = tuple(int(r) for r in mesh.mesh.permute(order).reshape(-1))
-        return cls(ranks=ranks, index=ranks.index(dist.get_rank()),
+        grid = mesh.mesh
+        me = dist.get_rank()
+        coord = [int(c[0]) for c in torch.nonzero(grid == me,
+                                                  as_tuple=True)]
+        # this rank's coordinate on every other dim, the worker axes free
+        index = tuple(slice(None) if a in axes else coord[i]
+                      for i, a in enumerate(names))
+        sub = grid[index]
+        kept = [a for a in names if a in axes]
+        order = [kept.index(a) for a in axes]
+        ranks = tuple(int(r) for r in sub.permute(order).reshape(-1))
+        return cls(ranks=ranks, index=ranks.index(me),
                    groups=tuple(mesh.get_group(a) for a in axes))
 
 

@@ -6,14 +6,17 @@ tensor and runs :func:`encode_plain` for a CPU tensor.
 
 The buffer is ``[workers, rows, cols]``: the worker axis is written out (the
 reference vmaps its tile layout over it).  The counter index of element
-``(r, c)`` is ``idx_base + r * cols_padded + c`` for every worker, where
-``cols_padded`` rounds ``cols`` up to values-per-byte: each worker's row is
-zero-padded to a byte boundary, and all workers share one uniform per
-element (Supp. C).
+``(r, c)`` is ``idx_base + r * idx_row_stride + c (mod 2^32)`` for every
+worker; the stride defaults to ``cols_padded``, ``cols`` rounded up to
+values-per-byte: each worker's row is zero-padded to a byte boundary, and
+all workers share one uniform per element (Supp. C).  Another stride lets
+a shard of a leaf hash the indices the whole leaf hashes in one process
+(``comm/tensor_parallel.counter_view``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -26,7 +29,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def encode_plain(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
-                 stochastic: bool, idx_base: int = 0) -> torch.Tensor:
+                 stochastic: bool, idx_base: int = 0,
+                 idx_row_stride: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch encode of ``x [n, rows, cols]`` -> uint8
     ``[n, rows, ceil(cols / vpb)]`` (the kernel's exact semantics)."""
     n, rows, cols = x.shape
@@ -34,19 +38,24 @@ def encode_plain(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
     pad = (-cols) % vpb
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
-    idx = ((int(idx_base) + torch.arange(rows * (cols + pad),
-                                         dtype=torch.int64, device=x.device))
-           & _U32).reshape(rows, cols + pad)
+    stride = cols + pad if idx_row_stride is None else int(idx_row_stride)
+    idx = (int(idx_base)
+           + stride * torch.arange(rows, dtype=torch.int64,
+                                   device=x.device)[:, None]
+           + torch.arange(cols + pad, dtype=torch.int64,
+                          device=x.device)) & _U32
     return pack_codes(kref.codes_ref(x, B, bits, stochastic, seed, idx), bits)
 
 
 def encode(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
-           stochastic: bool, idx_base: int = 0) -> torch.Tensor:
+           stochastic: bool, idx_base: int = 0,
+           idx_row_stride: Optional[int] = None) -> torch.Tensor:
     """Encode ``x [n, rows, cols]`` (float32 or bfloat16, contiguous) with
-    the 0-dim float32 ``B`` on ``x``'s device.  Returns packed uint8
-    ``[n, rows, ceil(cols / vpb)]``.  A CUDA tensor launches the kernel (one
-    launch, counted in ``encode.launches``); a CPU tensor takes
-    :func:`encode_plain`.  Under ``cost.counting`` each call charges the
+    the 0-dim float32 ``B`` on ``x``'s device; ``idx_row_stride`` (default
+    ``cols_padded``) is the counter step from one row to the next.
+    Returns packed uint8 ``[n, rows, ceil(cols / vpb)]``.  A CUDA tensor
+    launches the kernel (one launch, counted in ``encode.launches``); a CPU
+    tensor takes :func:`encode_plain`.  Under ``cost.counting`` each call charges the
     kernel's FLOPs and bytes, and a ``meta`` tensor gets an empty payload."""
     if bits not in (1, 2, 4, 8):
         raise ValueError(f"unpackable bit width {bits}")
@@ -63,13 +72,16 @@ def encode(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
     if x.device.type == "cpu":
         with cost.plain():
             return encode_plain(x, B, seed, bits=bits, stochastic=stochastic,
-                                idx_base=idx_base)
+                                idx_base=idx_base,
+                                idx_row_stride=idx_row_stride)
     if x.device.type != "cuda":
         raise ValueError(f"no encode for device {x.device}")
     if not x.is_contiguous():
         raise ValueError("encode needs a contiguous x")
     if (B.device != x.device or B.dtype != torch.float32 or B.numel() != 1):
         raise ValueError("B must be one float32 on x's device")
+    stride = (pshape[2] * (8 // bits) if idx_row_stride is None
+              else int(idx_row_stride))
     out = torch.empty(pshape, dtype=torch.uint8, device=x.device)
     lib = build.load("moniqua_encode")
     with torch.cuda.device(x.device):
@@ -78,8 +90,8 @@ def encode(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
             ctypes.c_void_p(x.data_ptr()), int(x.dtype == torch.bfloat16),
             ctypes.c_void_p(out.data_ptr()), n * rows, rows, cols,
             ctypes.c_void_p(B.data_ptr()), int(seed) & _U32,
-            int(idx_base) & _U32, bits, int(bool(stochastic)),
-            ctypes.c_void_p(stream))
+            int(idx_base) & _U32, stride & _U32, bits,
+            int(bool(stochastic)), ctypes.c_void_p(stream))
     build.check(err, "moniqua_encode")
     encode.launches += 1
     return out

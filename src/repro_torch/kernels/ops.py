@@ -60,29 +60,35 @@ def _pwin(a: int, b: int, vpb: int) -> slice:
 
 
 def moniqua_encode_stacked(x: torch.Tensor, B, spec: QuantSpec, seed: int, *,
-                           idx_base: int = 0) -> torch.Tensor:
+                           idx_base: int = 0,
+                           idx_row_stride: Optional[int] = None
+                           ) -> torch.Tensor:
     """Encode a stacked ``[n, ...]`` leaf -> packed uint8
     ``[n, ..., ceil(last / vpb)]``, in one launch unless a row is too long.
-    ``idx_base`` is shared by every worker.  Each window of a long row is
-    launched with the counter base its first column has in the whole row,
-    ``idx_base + r * cols_padded + a`` (the kernel takes it mod 2^32), so
-    the payload bits are those of one launch over the row."""
+    ``idx_base`` is shared by every worker; ``idx_row_stride`` (default
+    ``cols_padded``) is the counter step from one row of the ``[n, rows,
+    last]`` view to the next.  Each window of a long row is launched with
+    the counter base its first column has in the whole row, ``idx_base +
+    r * stride + a`` (the kernel takes it mod 2^32), so the payload bits
+    are those of one launch over the row."""
     x3 = _rows_view(x)
     n, rows, cols = x3.shape
     vpb = spec.values_per_byte
     kw = dict(bits=spec.bits, stochastic=spec.stochastic)
     if cols < _MAX_COLS:
-        p = _enc.encode(x3, B, seed, idx_base=idx_base, **kw)
+        p = _enc.encode(x3, B, seed, idx_base=idx_base,
+                        idx_row_stride=idx_row_stride, **kw)
     else:
         p = torch.empty((n, rows, -(-cols // vpb)), dtype=torch.uint8,
                         device=x.device)
-        cols_padded = -(-cols // vpb) * vpb
+        stride = (-(-cols // vpb) * vpb if idx_row_stride is None
+                  else int(idx_row_stride))
         for w in range(n):
             for r in range(rows):
                 for a, b in _windows(cols, vpb):
                     p[w, r, _pwin(a, b, vpb)] = _enc.encode(
                         x3[w:w + 1, r:r + 1, a:b], B, seed,
-                        idx_base=int(idx_base) + r * cols_padded + a,
+                        idx_base=int(idx_base) + r * stride + a,
                         **kw)[0, 0]
     return p.reshape(*x.shape[:-1], p.shape[-1])
 

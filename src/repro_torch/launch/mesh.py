@@ -8,10 +8,12 @@ initialises first (``torch.distributed.init_process_group``, or
 ``torchrun``); the mesh may not be larger than that group.  The device
 type is ``"cuda"`` (NCCL) unless the caller asks for ``"cpu"`` (gloo).
 
-``mesh_context(mesh, rules)`` is the ambient mesh of a training step: it
-installs the constraint context of ``models/sharding.py`` and the split of
-the decentralized worker dim over the mesh's worker axes
-(``comm/workers.py``), so the gossip rounds run across the ranks.
+``mesh_context(mesh, rules)`` is the ambient mesh of a training or serving
+step: it installs the constraint context of ``models/sharding.py``, the
+split of the decentralized worker dim over the mesh's worker axes
+(``comm/workers.py``), so the gossip rounds run across the ranks, and the
+``model`` axis of the tensor-parallel weights
+(``comm/tensor_parallel.py``).
 """
 from __future__ import annotations
 
@@ -59,14 +61,21 @@ def mesh_shape_dict(mesh) -> dict:
 
 
 @contextlib.contextmanager
-def mesh_context(mesh, rules):
+def mesh_context(mesh, rules, params=None):
     """Run the body on ``mesh`` under ``rules`` (a ``ShardingRules``):
-    ``models.sharding.constrain`` resolves against the mesh, and the
-    stacked worker dim is split over ``rules.worker_axes``, this rank
-    holding its block of workers (``comm.workers.WorkerGroup``)."""
+    ``models.sharding.constrain`` resolves against the mesh, the stacked
+    worker dim is split over ``rules.worker_axes``, this rank holding its
+    block of workers (``comm.workers.WorkerGroup``), and the ``model`` axis
+    is installed (``comm.tensor_parallel.ModelGroup``): the Megatron
+    operators all-reduce over it.  ``params``: the resolved specs of the
+    stacked params tree, which leaves the gossip takes as shards of
+    ``model`` (``Trainer`` passes them)."""
+    from repro_torch.comm import tensor_parallel as tp
     from repro_torch.comm import workers
     from repro_torch.models import sharding
+    dims = None if params is None else tp.dims_of(params)
     with sharding.constraint_context(rules, mesh_shape_dict(mesh)), \
             workers.worker_context(workers.WorkerGroup.of(
-                mesh, rules.worker_axes)):
+                mesh, rules.worker_axes)), \
+            tp.model_context(tp.ModelGroup.of(mesh, dims)):
         yield mesh

@@ -20,6 +20,15 @@ Each ``*_pspecs`` gives the tree of *logical axis tuples* of the matching
 resolves them into mesh axes.  ``_context_parallel_kv`` is the reference's
 sharding constraint on K/V: the identity outside a launcher's constraint
 context.
+
+Tensor parallelism (``comm/tensor_parallel.py``, the mesh's ``model``
+axis): a rank's attention weights hold its share of the query and KV heads
+(Q/K/V column-parallel, O row-parallel) and its MLP weights its share of
+``d_ff`` (up and gate column-parallel, down row-parallel).  The head counts
+are read from the tensors, never from ``cfg``; the input goes through
+``copy_to_model`` and the output through ``reduce_from_model``, both the
+identity without a ``model`` split.  GQA's head mapping stays local
+because ``model`` divides the KV heads.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import tensor_parallel as TP
 from repro_torch.kernels import ops as kops
 from repro_torch.models import sharding as SH
 # the masked-softmax oracle (the reference's ``_sdpa`` and ``causal_mask``)
@@ -227,9 +237,11 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
     (``kernels.ops.flash_sdpa``) when ``cfg.flash_attention`` (the port's
     default); ``flash_attention=False`` asks for the plain masked softmax,
     the oracle.  Cross and bidirectional attention take the plain route
-    with an all-true mask, as in the reference."""
-    nh, hd = cfg.num_heads, cfg.hd
-    q, k, v = _project_qkv(p, cfg, x)
+    with an all-true mask, as in the reference.  Under a ``model`` split
+    the heads are this rank's, the output its partial sum all-reduced."""
+    hd = cfg.hd
+    q, k, v = _project_qkv(p, cfg, TP.copy_to_model(x))
+    nh = q.shape[-2]                     # this rank's query heads
     if cross_kv is not None:
         k, v = cross_kv
     elif cfg.rope_fraction > 0:
@@ -241,12 +253,12 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
     scale = 1.0 / math.sqrt(hd)
     if cfg.flash_attention and cross_kv is None and not bidir:
         # the kernel reads the KV heads itself
-        k, v = _context_parallel_kv(k, v, nh)
+        k, v = _context_parallel_kv(k, v, cfg.num_heads)
         out = kops.flash_sdpa(q, k, v, scale=scale, causal=True,
                               window=window)
-        return _out_proj(out, p["wo"])
+        return TP.reduce_from_model(_out_proj(out, p["wo"]))
     k, v = _gqa_expand(k, nh), _gqa_expand(v, nh)
-    k, v = _context_parallel_kv(k, v, nh)
+    k, v = _context_parallel_kv(k, v, cfg.num_heads)
     if cross_kv is not None or bidir:
         out = _sdpa(q, k, v, torch.ones((sq, sk), dtype=torch.bool,
                                         device=x.device), scale)
@@ -256,7 +268,7 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
     else:
         out = _sdpa(q, k, v, causal_mask(sq, sk, window, device=x.device),
                     scale)
-    return _out_proj(out, p["wo"])
+    return TP.reduce_from_model(_out_proj(out, p["wo"]))
 
 
 def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
@@ -271,10 +283,12 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
     token is not affordable.  ``cross=True``: attend over a pre-filled
     cache and write nothing (whisper's cross-attention; ``pos`` is then the
     encoder length, slots ``>= pos`` masked).  Returns ``(out, cache)``,
-    the same dict.
+    the same dict.  Under a ``model`` split the cache holds this rank's KV
+    heads.
     """
-    nh, hd = cfg.num_heads, cfg.hd
-    q, k, v = _project_qkv(p, cfg, x)
+    hd = cfg.hd
+    q, k, v = _project_qkv(p, cfg, TP.copy_to_model(x))
+    nh = q.shape[-2]
     ck, cv = cache["k"], cache["v"]
     W = ck.shape[-3]
     slot_ids = torch.arange(W, device=ck.device)
@@ -297,13 +311,16 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
             valid &= slot_pos > pos - window
     kk = _gqa_expand(ck, nh)
     vv = _gqa_expand(cv, nh)
-    kk, vv = _context_parallel_kv(kk, vv, nh)
+    kk, vv = _context_parallel_kv(kk, vv, cfg.num_heads)
     out = _sdpa(q, kk, vv, valid[None, None, :], 1.0 / math.sqrt(hd))
-    return _out_proj(out, p["wo"]), cache
+    return TP.reduce_from_model(_out_proj(out, p["wo"])), cache
 
 
 def init_attn_cache(batch_dims, cfg, length, dtype, device, stack=()):
-    shape = (*stack, *batch_dims, length, cfg.num_kv_heads, cfg.hd)
+    """Zeroed K/V ``[*stack, *batch_dims, length, nkv, hd]``; under a
+    ``model`` split ``nkv`` is this rank's share of the KV heads."""
+    shape = (*stack, *batch_dims, length, cfg.num_kv_heads // TP.size(),
+             cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -329,9 +346,12 @@ def mlp_pspecs(gated):
 
 
 def mlp(p, x, gated):
+    """Under a ``model`` split: this rank's columns of ``d_ff``, the output
+    its partial sum all-reduced."""
+    x = TP.copy_to_model(x)
     h = x @ p["w_up"]
     if gated:
         h = F.silu(x @ p["w_gate"]) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w_down"]
+    return TP.reduce_from_model(h @ p["w_down"])

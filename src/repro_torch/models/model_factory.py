@@ -17,6 +17,11 @@ A ``Model`` bundles, for one ``ArchConfig`` of any family of the reference
 whisper's decode reads its cross caches, which
 ``whisper.whisper_prefill_cross`` fills from the encoder first, as in the
 reference.
+
+Under a ``model`` split (``launch.mesh.mesh_context``, the dense family
+only) ``params`` are this rank's shards, ``init_cache`` holds its KV heads,
+``loss`` is the vocab-parallel cross-entropy (the same value on every
+rank), and the serving logits come back whole on every rank.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.comm import tensor_parallel as TP
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -229,7 +235,8 @@ class Model:
             h = h[:, -1:]
         if cfg.family == "audio":               # the head tied to tok_embed
             return WH.whisper_logits(params, h)
-        return T.logits_from_hidden(params, cfg, h)
+        # under a model split: every rank's columns, gathered whole
+        return TP.gather_dim(T.logits_from_hidden(params, cfg, h), -1)
 
     def init_cache(self, batch: int, shape: InputShape) -> PyTree:
         cfg = self.cfg
@@ -262,7 +269,9 @@ class Model:
             # ring-buffer semantics: a cache shorter than the context is a
             # sliding window of exactly its own length
             ring = cache["layers"]["k"].shape[-3]
-            return T.decode_step(params, cfg, cache, token, window=ring)
+            logits, cache = T.decode_step(params, cfg, cache, token,
+                                          window=ring)
+            return TP.gather_dim(logits, -1), cache
         if cfg.family == "audio":
             return WH.whisper_decode_step(params, cfg, cache, token)
         x = params["embed"][token]

@@ -18,10 +18,14 @@ that does not divide its mesh axes.  ``placements`` turns a resolved spec
 into the DTensor placements of a ``DeviceMesh``.
 
 What the port runs of it: the worker axes, as blocks of workers on ranks
-(``comm/workers.py``).  A resolved spec that puts any other mesh axis of
-size > 1 on a tensor (``model``, or the hierarchical ``embed -> data``)
-raises ``NotImplementedError`` (:func:`check_runnable`): tensor-parallel
-and FSDP weights under ``vmap(grad)`` are ROADMAP Queue 1 #13e.
+(``comm/workers.py``), and the ``model`` axis for the dense decoder family
+under the decentralized rules (``comm/tensor_parallel.py``: heads, MLP and
+vocabulary split, Megatron's all-reduces).  Any other spec over a mesh
+axis of size > 1 (the hierarchical ``embed -> data``, ``model`` on another
+family, a ``model`` axis that does not divide the heads, which the
+reference meets with context-parallel ``kv_seq``) raises
+``NotImplementedError`` (:func:`check_runnable`,
+:func:`tensor_parallel_refusal`): those are ROADMAP Queue 1 #13e.
 """
 from __future__ import annotations
 
@@ -200,22 +204,74 @@ def on_worker_dim(spec: PartitionSpec, rules: ShardingRules) -> bool:
 
 
 def unrunnable_axes(spec: PartitionSpec, rules: ShardingRules,
-                    mesh_shape: dict) -> Tuple[str, ...]:
+                    mesh_shape: dict, allowed: Tuple[str, ...] = ()
+                    ) -> Tuple[str, ...]:
     """The mesh axes of size > 1 that ``spec`` shards a dim over and that
-    are not worker axes of ``rules``: what this port cannot run yet."""
-    workers = set(rules.worker_axes)
+    are neither worker axes of ``rules`` nor ``allowed``: what this port
+    cannot run."""
+    ok = set(rules.worker_axes) | set(allowed)
     return tuple(a for entry in spec for a in _axes(entry)
-                 if a not in workers and mesh_shape.get(a, 1) > 1)
+                 if a not in ok and mesh_shape.get(a, 1) > 1)
+
+
+def tensor_parallel_refusal(cfg, rules: ShardingRules,
+                            mesh_shape: dict) -> Optional[str]:
+    """Why the port cannot split ``cfg``'s weights over the mesh's
+    ``model`` axis (a message naming #13e), or ``None`` when it can: the
+    dense decoder family under the decentralized rules, with ``model``
+    dividing the query and KV heads, the MLP and the padded vocabulary,
+    and every split leaf's last dim a whole number of code bytes at any
+    width (a multiple of 8; the padded vocabulary is one of 256).  ``cfg`` may be ``None`` (a model without an
+    ``ArchConfig``, such as the ResNet)."""
+    m = mesh_shape.get("model", 1)
+    if m <= 1:
+        return None
+    why = None
+    if rules.mode != "decentralized":
+        why = (f"the {rules.mode} rules shard 'embed' over 'data' (FSDP "
+               f"weights)")
+    elif cfg is None or getattr(cfg, "family", None) != "dense":
+        why = (f"tensor parallelism is ported for the dense family only, "
+               f"not {getattr(cfg, 'family', type(cfg).__name__)!r}")
+    elif cfg.num_heads % m:
+        why = (f"{cfg.num_heads} heads do not split over model={m} (the "
+               f"reference falls back to context-parallel 'kv_seq')")
+    elif cfg.num_kv_heads % m:
+        why = (f"{cfg.num_kv_heads} KV heads do not split over model={m} "
+               f"(replicated-KV GQA)")
+    else:
+        vocab = -(-cfg.vocab_size // 256) * 256
+        for name, v in (("d_ff", cfg.d_ff), ("padded vocabulary", vocab)):
+            if v % m:
+                why = f"{name} {v} does not split over model={m}"
+                break
+        for name, v in (("head_dim", cfg.hd), ("d_model", cfg.d_model),
+                        ("d_ff", cfg.d_ff)):
+            if why is None and v % 8:
+                why = (f"{name} {v} is not a multiple of 8: a split leaf's "
+                       f"codes would not fill whole bytes")
+    if why is None:
+        return None
+    return f"{getattr(cfg, 'name', cfg)!s} on mesh {mesh_shape}: {why}; " \
+        f"{TODO_13E}"
 
 
 def check_runnable(specs, rules: ShardingRules, mesh_shape: dict,
-                   what: str = "state") -> None:
+                   what: str = "state", cfg=None) -> None:
     """Raise ``NotImplementedError`` (ROADMAP #13e) if any spec in the tree
-    ``specs`` shards a non-worker mesh axis of size > 1; never replicate
-    such a leaf silently."""
+    ``specs`` shards a mesh axis of size > 1 that the port does not run:
+    the worker axes always run; ``model`` runs when
+    :func:`tensor_parallel_refusal` admits ``cfg`` (the model's
+    ``ArchConfig``, or ``None``).  A ``model`` axis > 1 with a refused
+    ``cfg`` raises even where no spec names it: nothing is replicated
+    silently."""
     from repro_torch import tree
+    refusal = tensor_parallel_refusal(cfg, rules, mesh_shape)
+    if refusal is not None:
+        raise NotImplementedError(f"{what}: {refusal}")
+    allowed = ("model",) if mesh_shape.get("model", 1) > 1 else ()
     for i, spec in enumerate(tree.leaves(specs)):
-        bad = unrunnable_axes(spec, rules, mesh_shape)
+        bad = unrunnable_axes(spec, rules, mesh_shape, allowed)
         if bad:
             raise NotImplementedError(
                 f"{what} leaf {i} resolves to {spec!r}, sharded over "
@@ -275,7 +331,10 @@ def constrain(x, *logical: Optional[str]):
     non-worker axis of size > 1 raises (ROADMAP #13e); a DTensor is
     redistributed to the spec's placements on its own mesh; a plain tensor
     is already the rank's block of the worker axes (or, inside the vmapped
-    step, one worker's) and comes back as it is."""
+    step, one worker's) and comes back as it is.  The tensor-parallel
+    layers call no ``constrain`` over ``model``: their collectives are
+    written out (``comm/tensor_parallel.py``), and a constraint over it,
+    such as the context-parallel ``kv_seq``, still raises."""
     ctx = _CONSTRAINT_CTX.get()
     if ctx is None:
         return x

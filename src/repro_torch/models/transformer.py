@@ -15,12 +15,22 @@ valid labels (plus ``aux_loss_weight`` times the summed MoE aux for the
 
 Serving: ``init_cache`` / ``decode_step`` over a ring-buffer KV cache.  The
 cache's K/V tensors are updated in place (see ``layers.attention_decode``).
+
+Tensor parallelism (``comm/tensor_parallel.py``): a rank's ``embed`` holds
+its rows of the padded vocabulary and its ``head`` the same columns.  The
+embedding looks up the tokens it owns, zeroes the rest and all-reduces;
+the logits are this rank's columns (column-parallel); ``xent`` is
+vocab-parallel: a max all-reduced without gradient, the sum of exponentials
+all-reduced, the target logit taken from the rank that owns it, the padded
+columns masked by their global index.  Serving gathers the logits whole
+(``Model.prefill_logits`` / ``decode_step``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import sharding as SH
@@ -135,13 +145,26 @@ def hidden_states(p, cfg, x, positions, *, window=0):
 
 
 def logits_from_hidden(p, cfg, h):
-    """``(h @ w)`` in the working dtype, then float32."""
+    """``(h @ w)`` in the working dtype, then float32: under a ``model``
+    split this rank's columns of the padded vocabulary."""
     w = p["embed"].T if cfg.tie_embeddings else p["head"]
-    return (h @ w).float()
+    return (TP.copy_to_model(h) @ w).float()
 
 
 def embed_tokens(p, cfg, tokens):
-    return p["embed"][tokens]
+    """``embed[tokens]``; under a ``model`` split the rows this rank owns
+    (the others zero), summed over the ranks: exact, one rank adds each
+    row to zeros."""
+    E = p["embed"]
+    if TP.current() is None:
+        return E[tokens]
+    n = E.shape[0]
+    local = tokens.long() - TP.rank() * n
+    own = (local >= 0) & (local < n)
+    x = E[local.clamp(0, n - 1)]
+    x = torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    return TP.reduce_from_model(x)
 
 
 def lm_logits(p, cfg, tokens, *, window=0):
@@ -166,12 +189,36 @@ def xent(logits, labels, vocab_size):
     """Mean token cross-entropy; positions with label < 0 are masked.  The
     padded vocabulary columns (``>= vocab_size``) are set to ``-1e30``
     before the float32 ``log_softmax``; the sum over valid positions is
-    divided by ``max(#valid, 1)``."""
+    divided by ``max(#valid, 1)``.  Under a ``model`` split ``logits`` are
+    this rank's columns (:func:`_xent_vocab_parallel`)."""
+    if TP.current() is not None:
+        return _xent_vocab_parallel(logits, labels, vocab_size)
     V = logits.shape[-1]
     pad = torch.arange(V, device=logits.device) < vocab_size
     lp = torch.log_softmax(torch.where(pad, logits, -1e30), dim=-1)
     valid = labels >= 0
     ll = torch.gather(lp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return -torch.where(valid, ll, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def _xent_vocab_parallel(logits, labels, vocab_size):
+    """``xent`` over this rank's columns ``[r n, (r + 1) n)`` of the padded
+    vocabulary: ``log p_t = z_t - m - log sum exp(z - m)`` with ``m`` the
+    max over every rank (no gradient), the sum of exponentials and the
+    target logit ``z_t`` (from the rank that owns the label) each summed
+    over the ranks.  The same loss on every rank."""
+    n = logits.shape[-1]
+    v0 = TP.rank() * n
+    cols = v0 + torch.arange(n, device=logits.device)
+    z = torch.where(cols < vocab_size, logits, -1e30)
+    m = TP.max_over_model(z.detach().amax(dim=-1, keepdim=True))
+    sumexp = TP.reduce_from_model(torch.exp(z - m).sum(-1))
+    valid = labels >= 0
+    local = labels.long() - v0
+    own = (local >= 0) & (local < n)
+    zt = torch.gather(z, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    zt = TP.reduce_from_model(torch.where(own, zt, 0.0))
+    ll = zt - m[..., 0] - torch.log(sumexp)
     return -torch.where(valid, ll, 0.0).sum() / valid.sum().clamp(min=1)
 
 

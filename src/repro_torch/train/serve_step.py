@@ -6,37 +6,97 @@ Prefill returns logits and fills no cache, as in the reference; decode runs
 ONE new token against a cache from ``Model.init_cache``.  Each step runs
 under ``torch.no_grad`` inside a profiler range (``serve.prefill`` /
 ``serve.decode``), the reference's named scopes.
+
+With ``mesh=`` and ``rules=`` the steps run under ``mesh_context``: the
+params are this rank's shards over ``model`` (``shard_serving_params``),
+the cache holds its KV heads (``make_cache``), and the logits come back
+whole on every rank.  The batch is the caller's rows: serving sends
+nothing over the other mesh axes.  What the port does not run over
+``model`` (``models.sharding.tensor_parallel_refusal``) raises
+``NotImplementedError`` naming #13e when the step is built.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import convert
 from repro_torch.configs.base import InputShape
+from repro_torch.launch.mesh import mesh_context, mesh_shape_dict
 from repro_torch.models.model_factory import Model
-from repro_torch.models.sharding import ShardingRules, resolve_tree, safe_pspec
+from repro_torch.models.sharding import (ShardingRules, check_runnable,
+                                         resolve_tree, safe_pspec)
 
 PyTree = Any
 
 
-def make_prefill_step(model: Model, *, last_only: bool = True
+def _mesh(model: Model, mesh, rules: Optional[ShardingRules]
+          ) -> Callable[[], Any]:
+    """Check the model runnable on the mesh (#13e otherwise), once, and
+    return what makes the context a step runs under: ``mesh_context``, or
+    none without a mesh."""
+    if mesh is None:
+        return contextlib.nullcontext
+    if rules is None:
+        raise ValueError("a serving step on a mesh needs its ShardingRules")
+    shape = mesh_shape_dict(mesh)
+    check_runnable(serving_pspecs(model, rules, shape), rules, shape,
+                   what="serving params", cfg=model.cfg)
+    return lambda: mesh_context(mesh, rules)
+
+
+def make_prefill_step(model: Model, *, last_only: bool = True, mesh=None,
+                      rules: Optional[ShardingRules] = None
                       ) -> Callable[[PyTree, PyTree], torch.Tensor]:
     """Prefill forward.  last_only=True returns ``[B, 1, V]`` logits for the
     final position only, what a serving sampler consumes."""
+    context = _mesh(model, mesh, rules)
+
     def prefill_step(params, batch):
-        with torch.no_grad(), torch.profiler.record_function("serve.prefill"):
+        with context(), torch.no_grad(), \
+                torch.profiler.record_function("serve.prefill"):
             return model.prefill_logits(params, batch, last_only=last_only)
     return prefill_step
 
 
-def make_serve_step(model: Model
+def make_serve_step(model: Model, *, mesh=None,
+                    rules: Optional[ShardingRules] = None
                     ) -> Callable[..., Tuple[torch.Tensor, PyTree]]:
+    context = _mesh(model, mesh, rules)
+
     def serve_step(params, cache, token):
-        with torch.no_grad(), torch.profiler.record_function("serve.decode"):
+        with context(), torch.no_grad(), \
+                torch.profiler.record_function("serve.decode"):
             return model.decode_step(params, cache, token)
     return serve_step
+
+
+def make_cache(model: Model, batch: int, shape: InputShape, *, mesh=None,
+               rules: Optional[ShardingRules] = None) -> PyTree:
+    """``model.init_cache(batch, shape)``, on a mesh this rank's KV heads."""
+    with _mesh(model, mesh, rules)():
+        return model.init_cache(batch, shape)
+
+
+def serving_pspecs(model: Model, rules: ShardingRules, mesh_shape) -> PyTree:
+    """The resolved specs of the (unstacked) serving params."""
+    from repro_torch.train.train_step import params_pspecs
+    return params_pspecs(model, rules, mesh_shape, stacked=False)
+
+
+def shard_serving_params(model: Model, params: PyTree, mesh,
+                         rules: ShardingRules) -> PyTree:
+    """This rank's shards over ``model`` of a whole serving params tree
+    (every rank draws or loads the whole tree and keeps its cut)."""
+    from repro_torch.comm import tensor_parallel as TP
+    shape = mesh_shape_dict(mesh)
+    _mesh(model, mesh, rules)                   # refuses what is not run
+    g = TP.ModelGroup.of(mesh)
+    return convert.shard_params(params, serving_pspecs(model, rules, shape),
+                                g.rank, g.size)
 
 
 def abstract_cache(model: Model, shape: InputShape) -> PyTree:

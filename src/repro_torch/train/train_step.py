@@ -21,9 +21,13 @@ Across ranks (``launch.mesh.mesh_context``): the state holds this rank's
 block of workers.  The seed generator is the same on every rank, the
 gossip exchanges rows point to point, and ``g_inf`` and the logged loss
 are reduced over the ranks, so each worker's numbers are those of one
-process given the same gradients.  ``state_pspecs`` / ``batch_pspecs``
-resolve the logical-axis trees into ``PartitionSpec`` s, the reference's,
-for the trainer and the tests.
+process given the same gradients.  Under a ``model`` split
+(``comm/tensor_parallel.py``) a rank holds its shard of each
+tensor-parallel leaf of its workers; its per-worker losses are the
+replicated loss (taken from this rank, not summed over ``model``), and
+``g_inf`` is a max over the shards as well.  ``state_pspecs`` /
+``batch_pspecs`` resolve the logical-axis trees into ``PartitionSpec`` s,
+the reference's, for the trainer and the tests.
 """
 from __future__ import annotations
 
@@ -53,13 +57,18 @@ def n_workers_for(cfg, rules: ShardingRules, mesh_shape: Dict[str, int]
 
 
 def init_state(model, algo: Algorithm, hp: AlgoHyper, n_workers: int,
-               seed: int = 0) -> Dict[str, Any]:
+               seed: int = 0, cut: Optional[Callable] = None
+               ) -> Dict[str, Any]:
     """All workers start from identical weights (assumption A4), drawn from
     ``model.generator(seed)`` (on the model's device for an LM, so a
     full-width model is drawn there).  The per-step seeds come from a CPU
-    generator seeded with ``seed``."""
+    generator seeded with ``seed``.  ``cut(params)``, if given, takes the
+    one-process draw to this rank's shards before it is stacked (a
+    ``model`` split: every rank draws the whole init and keeps its cut)."""
     gen = torch.Generator().manual_seed(seed)
     params = model.init(model.generator(seed))
+    if cut is not None:
+        params = cut(params)
     X = tree.map(lambda a: a.unsqueeze(0).expand((n_workers,) + a.shape)
                  .clone(), params)
     return {

@@ -19,13 +19,23 @@ worker axes (``launch/mesh.py``).  Each rank builds its block of the state
 from the same seeded init, takes its workers' rows of every batch and runs
 each step under ``mesh_context``; checkpoints hold the whole state (the
 file one process writes), and ``restore_state`` cuts this rank's block
-out of it.  A state spec over any other mesh axis of size > 1 raises
-``NotImplementedError`` (ROADMAP #13e): nothing is replicated silently.
+out of it.  A ``model`` axis > 1 splits the weights of the dense family
+(``comm/tensor_parallel.py``): the ranks that differ only in ``model``
+share a block of workers and its batch rows, each rank's state is its cut
+of the one-process init (every rank draws the whole init), the gossip is
+the per-leaf round on the shards, and checkpoints are gathered whole.
+Everything else on a ``model`` axis > 1 (other families, the hierarchical
+rules, heads or KV heads the axis does not divide, other wires or update
+rules, the bucketed path, two tiers, the stale overlap, presence masks,
+telemetry) and any state spec over another mesh axis of size > 1 raise
+``NotImplementedError`` (ROADMAP #13e) at construction: nothing is
+replicated silently.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
@@ -33,6 +43,7 @@ import torch
 
 from repro_torch import convert, tree
 from repro_torch.checkpoint import ckpt
+from repro_torch.comm import tensor_parallel as TP
 from repro_torch.comm import workers
 from repro_torch.configs.base import InputShape
 from repro_torch.core.algorithms import AlgoHyper, get_algorithm
@@ -136,6 +147,8 @@ class Trainer:
         self.hp = build_hyper(tc)
         self.algo = get_algorithm(tc.algo)
         self.mesh, self.rules = mesh, rules
+        self.param_specs = self.model_dims = None
+        self.tp = TP.ModelGroup()
         self.workers = None if mesh is None else self._worker_group()
         b = tc.n_workers // (1 if mesh is None else self.workers.size)
         lo, hi = self.rows = (0, b) if mesh is None else (
@@ -171,14 +184,50 @@ class Trainer:
                              f"worker axes {rules.worker_axes} of {shape}")
         specs = TS.state_pspecs(self.model, self.algo, self.hp, rules,
                                 shape, tc.n_workers)
-        check_runnable(specs, rules, shape)
+        check_runnable(specs, rules, shape,
+                       cfg=getattr(self.model, "cfg", None))
+        if shape.get("model", 1) > 1:
+            self._check_tensor_parallel()
+            self.param_specs = specs["params"]
+            self.model_dims = TP.dims_of(self.param_specs)
+            self.tp = TP.ModelGroup.of(self.mesh, self.model_dims)
         # the state leaves held in blocks of rows (gathered, restored)
         self.on_workers = tree.map(lambda s: on_worker_dim(s, rules), specs)
         return workers.WorkerGroup.of(self.mesh, rules.worker_axes)
 
+    def _check_tensor_parallel(self) -> None:
+        """Refuse, naming #13e, what the slice does not run over a
+        ``model`` axis > 1: rules other than Moniqua and D-PSGD and the
+        stale overlap here, the rest as the rule's engine refuses it on
+        one process's tree (``CommEngine.model_split_refusal``)."""
+        from repro_torch.models.sharding import TODO_13E
+        tc, hp = self.tc, self.hp
+        why = None
+        if tc.algo not in ("moniqua", "dpsgd"):
+            why = f"the {tc.algo} rule"
+        elif tc.overlap != "none":
+            why = f"the {tc.overlap} overlap"
+        if why is not None:
+            raise NotImplementedError(
+                f"{why} with the weights split over 'model': {TODO_13E}")
+        n = tc.n_workers
+        whole = tree.map(lambda a: torch.empty(
+            (n,) + tuple(a.shape), dtype=a.dtype, device="meta"),
+            TS.abstract_params(self.model))
+        eng = (hp.engine() if tc.algo == "moniqua"
+               else hp.exact_engine(telemetry=hp.telemetry))
+        eng.check_model_split(whole, presence=hp.presence)
+
     def _context(self):
-        return (mesh_context(self.mesh, self.rules) if self.mesh is not None
-                else contextlib.nullcontext())
+        return (mesh_context(self.mesh, self.rules, params=self.param_specs)
+                if self.mesh is not None else contextlib.nullcontext())
+
+    @property
+    def lead(self) -> bool:
+        """Whether this process writes the files: the one process, or the
+        rank of the first block of workers and the first ``model`` shard."""
+        return self.workers is None or (self.workers.index == 0
+                                        and self.tp.rank == 0)
 
     def gather_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """The whole state (one process's) from this rank's block: a
@@ -190,13 +239,23 @@ class Trainer:
 
     def init_state(self) -> Dict[str, Any]:
         """A fresh state; with a mesh this rank's block of it (the rows of
-        one process's state: every worker starts from the same weights)."""
+        one process's state: every worker starts from the same weights),
+        under a ``model`` split its shards of them."""
         lo, hi = self.rows
+        cut = None
+        if self.model_dims is not None:
+            # the specs are the stacked ones: a worker's dim d is d - 1
+            dims = tuple(None if d is None else d - 1
+                         for d in self.model_dims)
+            cut = functools.partial(TP.shard_tree, dims=dims,
+                                    r=self.tp.rank, m=self.tp.size)
         return TS.init_state(self.model, self.algo, self.hp, hi - lo,
-                             seed=self.tc.seed)
+                             seed=self.tc.seed, cut=cut)
 
     def bytes_per_step(self, state) -> int:
-        return self.algo.bytes_per_step(state["params"], self.hp)
+        """The one-process figure, also under a split."""
+        with self._context():
+            return self.algo.bytes_per_step(state["params"], self.hp)
 
     def restore_state(self, path: Optional[str] = None) -> Dict[str, Any]:
         """Rebuild the FULL trainer state (params, momentum, the rule's
@@ -217,9 +276,15 @@ class Trainer:
         host = tree.map(lambda a, w: torch.empty(
             (n,) + tuple(a.shape[1:]), dtype=a.dtype) if w else a,
             like, self.on_workers)
+        if self.model_dims is not None:
+            with self._context():
+                for key in ("params", "mom"):
+                    host[key] = tree.map(lambda a: torch.empty(
+                        a.shape, dtype=a.dtype), TP.whole(host[key]))
         full = ckpt.restore(path + ".state", host)
         block = convert.shard_state(full, self.workers.index,
-                                    self.workers.size)
+                                    self.workers.size, self.model_dims,
+                                    self.tp.rank, self.tp.size)
         return tree.map(lambda a, l: a.to(l.device)
                         if isinstance(a, torch.Tensor) else a, block, like)
 
@@ -244,7 +309,7 @@ class Trainer:
         state = state if state is not None else self.init_state()
         k0 = state["step"]
         history: List[Dict] = []
-        lead = self.workers is None or self.workers.index == 0
+        lead = self.lead
         rec = (SpanRecorder() if lead and (tc.trace_path or tc.log_jsonl)
                else None)
         writer = None
@@ -285,6 +350,7 @@ class Trainer:
                             ckpt.save(tc.checkpoint_path + ".state", whole,
                                       meta)
                         workers.barrier()       # the file is whole for all
+                        TP.barrier()
                         del whole
             bps = self.bytes_per_step(state)
             if writer is not None:

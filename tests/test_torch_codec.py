@@ -306,3 +306,44 @@ def test_row_split_point_decode_bitwise(bits, mode, monkeypatch):
         jnp.asarray(pn_np[0]), jnp.asarray(x), jB, jspec, interpret=True))
     tol = 2 * np.spacing(np.abs(x) + np.float32(jB))
     assert np.all(np.abs(split.numpy() - kern) <= tol)
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stochastic", [True, False])
+def test_row_stride_shard_codes_are_the_whole_leafs(bits, stochastic):
+    """A stacked leaf split on one dim, as the tensor-parallel round splits
+    it (``tensor_parallel.counter_view``): each shard encoded with the
+    whole leaf's counter offset and row stride gives the codes the
+    reference's ``encode_ref`` gives the whole leaf at the same elements,
+    on every dim, 2 and 4 shards, also with counters that wrap past 2^32;
+    the wrapper (its plain version on the CPU) equals ``encode_plain``."""
+    from repro_torch.comm import tensor_parallel as TP
+    rng = np.random.default_rng(40 + bits)
+    x = (rng.standard_normal((2, 4, 8, 32)) * 3).astype(np.float32)
+    jB, tB = _B(bits, stochastic)
+    seed = 0xBEEF
+    for base in (5003, 2 ** 32 - 700):
+        whole = torch.from_numpy(np.stack([np.asarray(jref.unpack_ref(
+            jref.encode_ref(jnp.asarray(x[w]), jB, bits, stochastic, seed,
+                            idx_base=base), bits)) for w in range(2)]))
+        for d in (1, 2, 3):
+            for m in (2, 4):
+                for r in range(m):
+                    s = TP.shard(torch.from_numpy(x), d, r, m)
+                    view, off, stride = TP.counter_view(
+                        s, d, r * s.shape[d], x.shape[d])
+                    kw = dict(bits=bits, stochastic=stochastic,
+                              idx_base=base + off, idx_row_stride=stride)
+                    p = tenc.encode_plain(view, tB, seed, **kw)
+                    assert torch.equal(tenc.encode(view, tB, seed, **kw), p)
+                    codes = tq.unpack_codes(p, bits, view.shape[-1])
+                    want = TP.shard(whole, d, r, m).to(codes.dtype)
+                    assert torch.equal(codes.reshape(s.shape), want), \
+                        (base, d, m, r)
+    # the default stride is the padded row: the whole leaf's own layout
+    xt = torch.from_numpy(x).reshape(2, 32, 32)
+    assert torch.equal(
+        tenc.encode_plain(xt, tB, seed, bits=bits, stochastic=stochastic,
+                          idx_base=9),
+        tenc.encode_plain(xt, tB, seed, bits=bits, stochastic=stochastic,
+                          idx_base=9, idx_row_stride=32))

@@ -49,7 +49,7 @@ def test_port_imports_without_jax_or_repro():
                  "obs.trace", "kernels.cost", "analysis",
                  "analysis.roofline", "launch", "launch.train",
                  "launch.dryrun", "launch.calibrate", "launch.mesh",
-                 "models.sharding", "comm.workers"):
+                 "models.sharding", "comm.workers", "comm.tensor_parallel"):
         assert f"repro_torch.{name}" in res["modules"], name
     assert len(res["modules"]) >= 50
     assert res["bad"] == [], f"repro_torch pulled in: {res['bad']}"
@@ -59,7 +59,7 @@ _MESH_PROBE = r"""
 import json, sys
 import torch.distributed as dist
 import repro_torch.launch.mesh, repro_torch.models.sharding
-import repro_torch.comm.workers
+import repro_torch.comm.workers, repro_torch.comm.tensor_parallel
 print(json.dumps({"initialized": dist.is_initialized(),
                   "jax": any(m == "jax" or m.startswith("jax.")
                              for m in sys.modules)}))

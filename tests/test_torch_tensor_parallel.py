@@ -1,0 +1,373 @@
+"""Tensor-parallel weights over the mesh's ``model`` axis, against JAX.
+
+Two gloo groups on the CPU run ``tests/torch_tp_cases.py`` side by side:
+world 2 on the mesh ``(data=1, model=2)`` and world 4 on ``(data=2,
+model=2)``, one thread a rank, the port only.  This process draws the
+inputs from the JAX reference's init of the reduced llama3.2-3b and
+chatglm3-6b (``qkv_bias``, RoPE on half the head dim, GQA 4:2), stacked
+over 4 workers that differ by seeded noise, hands them over as numpy
+arrays, runs the reference while the ranks run, and holds the gathered
+results against it:
+
+* the Megatron operators under ``vmap(grad)`` against one process's
+  autograd (checked in the ranks: 1e-5 of each gradient's largest entry);
+* per-worker loss and gradients under ``vmap(grad)``: losses within
+  ``rtol=1e-5``, each gradient leaf within 1e-4 of its largest entry
+  (``tests/test_torch_lm_train.py``'s float32 bounds);
+* the Moniqua round (8-bit stochastic, 1-bit nearest) and the ``full``
+  round on the shards of the reference's pre-round params and seed:
+  bitwise the reference's round, gathered; the replicated leaves bitwise
+  equal over ``model`` (checked in the ranks);
+* one ``train_step`` with the reference's per-step seed: the parameters
+  within ``1e-6 + lr 1e-4 max|d|`` of each leaf, the loss within
+  ``rtol=1e-5``, ``bytes_per_step`` equal to the reference's;
+* two ``Trainer`` steps with a gathered checkpoint: its restore is the live
+  state bitwise, step and seed generator included (in the ranks); the
+  logged losses within ``rtol=1e-5`` of the port's one-process trainer and
+  the checkpoint's params within two steps' float32 bound of it, elements
+  up to Lemma 2's ``2 (1 - w_ii) delta B`` beyond it counted (a code can
+  round the other way once step 1's gradients differ in the last bits);
+* float32 prefill and 4 cached decode steps within 1e-4 x max|logit|
+  (``tests/test_torch_llama.py``'s bound);
+* every out-of-scope case refused at construction, naming #13e.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs.base import InputShape as JShape
+from repro.core import algorithms as jalg
+from repro.core.moniqua import MoniquaCodec as JCodec
+from repro.core.quantizers import QuantSpec as JSpec
+from repro.core.theta import ThetaSchedule as JTheta
+from repro.core.topology import ring as jring
+from repro.kernels import ops as jops
+from repro.models.model_factory import build_model as jbuild
+from repro.optim import sgd as jsgd
+from repro.train import train_step as jts
+
+import torch_tp_cases as C
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT = os.path.join(REPO, "tests", "torch_tp_cases.py")
+WORLDS = (2, 4)
+ROUND_KEY = jax.random.PRNGKey(5)
+
+
+def _jcfg(arch):
+    return dataclasses.replace(jget_config(arch).reduced(), dtype="float32",
+                               flash_attention=False)
+
+
+def _inputs(path):
+    """The reference's init, stacked over ``C.N`` workers with seeded
+    noise, batches and serving tokens (``C.port_inputs``'s layout).
+    Returns the jax trees."""
+    rng = np.random.default_rng(0)
+    key_step = jax.random.PRNGKey(0)
+    out = {"seed_round": np.array(int(jops._key_to_seed(ROUND_KEY))),
+           "seed_step": np.array(int(jops._key_to_seed(
+               jax.random.split(key_step)[1])))}
+    trees = {}
+    for a in C.ARCHS:
+        jm = jbuild(_jcfg(a))
+        p = jm.init(jax.random.PRNGKey(0))
+        X = jax.tree.map(lambda t: (np.asarray(t, np.float32)[None] + 0.02
+                                    * rng.standard_normal((C.N,) + t.shape)
+                                    ).astype(np.float32), p)
+        for i, leaf in enumerate(jax.tree.leaves(X)):
+            out[f"{a}/X/{i}"] = leaf
+        toks = rng.integers(0, jm.cfg.vocab_size, (C.N, C.B, C.S + 1)
+                            ).astype(np.int32)
+        out[f"{a}/tokens"] = toks[..., :-1].copy()
+        out[f"{a}/labels"] = toks[..., 1:].copy()
+        out[f"{a}/serve"] = rng.integers(
+            0, jm.cfg.vocab_size, (C.SERVE_B, C.SERVE_S + C.DECODE)
+        ).astype(np.int32)
+        trees[a] = (jm, jax.tree.map(jnp.asarray, X))
+    np.savez(path, **out)
+    return out, trees, key_step
+
+
+def _launch(tmp, world, inputs):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    out = os.path.join(tmp, f"out{world}")
+    store = os.path.join(tmp, f"store{world}")
+    return out, [subprocess.Popen(
+        [sys.executable, SCRIPT, store, str(r), str(world), inputs, out],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+
+
+def _collect(out, procs, timeout=240):
+    logs = []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    with open(out + ".json") as f:
+        checks = json.load(f)["checks"]
+    return dict(np.load(out + ".npz")), checks
+
+
+def _reference(inp, trees, key_step):
+    """Every number the ranks are held to, from the JAX package."""
+    ref = {}
+    for a, (jm, jX) in trees.items():
+        batch = {k: jnp.asarray(inp[f"{a}/{k}"]) for k in ("tokens",
+                                                            "labels")}
+        loss, grads = jax.jit(jax.vmap(jax.value_and_grad(jm.loss)))(
+            jX, batch)
+        ref[f"grads-{a}"] = (np.asarray(loss), [np.asarray(g) for g in
+                                                jax.tree.leaves(grads)])
+        P = jax.tree.map(lambda t: t[0], jX)
+        toks = jnp.asarray(inp[f"{a}/serve"])
+        prefill = jax.jit(lambda p, t: jm.prefill_logits(
+            p, {"tokens": t}, last_only=False))(P, toks[:, :C.SERVE_S])
+        cache = jm.init_cache(C.SERVE_B, JShape(
+            "d", C.SERVE_S + C.DECODE, C.SERVE_B, "decode"))
+        decode = jax.jit(jm.decode_step)
+        dec = []
+        for s in range(C.DECODE):
+            lg, cache = decode(P, cache, toks[:, s:s + 1])
+            dec.append(np.asarray(lg))
+        ref[f"serve-{a}"] = (np.asarray(prefill), np.stack(dec))
+    jm, jX = trees[C.ARCHS[0]]
+    for wire, spec in C.ROUNDS.items():
+        # the reference's bucketed Moniqua round is its per-leaf round bit
+        # for bit (its bucket invariants); one flat buffer costs a few
+        # eager compiles instead of every leaf shape's
+        hp = jalg.AlgoHyper(topo=jring(C.N), codec=JCodec(JSpec(
+            *(spec or (8, True)))), theta=C.THETA, backend="jnp",
+            path="auto" if wire == "full" else "bucketed")
+        res = (hp.exact_engine().mix(jX) if wire == "full"
+               else hp.engine().mix(jX, theta=C.THETA, key=ROUND_KEY))
+        ref[f"round-{wire}"] = [np.asarray(x) for x in jax.tree.leaves(res.x)]
+    hp = jalg.AlgoHyper(topo=jring(C.N), codec=JCodec(JSpec(8, True)),
+                        theta=C.THETA, backend="jnp")
+    step = jax.jit(jts.make_train_step(jm, hp, jts.TrainStepConfig(
+        algo="moniqua", sgd=jsgd.SGDConfig(momentum=0.9, weight_decay=5e-4),
+        lr=C.LR, theta=JTheta(value=C.THETA))))
+    js = {"params": jX, "mom": jsgd.init_momentum(jX), "extra": {},
+          "step": jnp.zeros((), jnp.int32),
+          "g_inf": jnp.ones((), jnp.float32), "key": key_step}
+    a = C.ARCHS[0]
+    js, met = step(js, {k: jnp.asarray(inp[f"{a}/{k}"])
+                        for k in ("tokens", "labels")})
+    ref["step"] = ([np.asarray(x) for x in jax.tree.leaves(js["params"])],
+                   [np.asarray(d) for d in jax.tree.leaves(js["mom"])],
+                   float(met["loss"]), int(met["wire_bytes"]))
+    return ref
+
+
+def _one_process_trainer(workdir):
+    """The port's trainer of the ``trainer`` case in this process."""
+    runner = C.Runner.__new__(C.Runner)
+    runner.mesh, runner.rules, runner.device = None, None, "cpu"
+    tr = C.Runner.trainer_of(runner, os.path.join(workdir, "one"))
+    out = tr.run()
+    return out, dict(np.load(os.path.join(workdir, "one.state.npz")))
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("tp"))
+    inputs = os.path.join(tmp, "inputs.npz")
+    inp, trees, key_step = _inputs(inputs)
+    runs = {w: _launch(tmp, w, inputs) for w in WORLDS}
+    ref = _reference(inp, trees, key_step)
+    one = _one_process_trainer(tmp)
+    return ref, one, {w: _collect(*runs[w]) for w in WORLDS}
+
+
+def _leaves(arrays, case):
+    keys = sorted((k for k in arrays if k.startswith(case + "/")),
+                  key=lambda k: int(k.rsplit("/", 1)[1]))
+    return [arrays[k] for k in keys]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_every_case_ran_in_the_ranks(results, world):
+    _, _, res = results
+    arrays, checks = res[world]
+    assert sorted(checks) == sorted(C.case_names())
+    for case, (ok, detail, _) in checks.items():
+        assert ok, (case, detail)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("arch", C.ARCHS)
+def test_per_worker_loss_and_grads_match_reference(results, world, arch):
+    ref, _, res = results
+    arrays, _ = res[world]
+    loss, grads = ref[f"grads-{arch}"]
+    np.testing.assert_allclose(arrays[f"grads-{arch}/loss"], loss,
+                               rtol=1e-5)
+    got = _leaves(arrays, f"grads-{arch}/grads")
+    assert len(got) == len(grads)
+    for c, a in zip(got, grads):
+        assert c.shape == a.shape
+        np.testing.assert_allclose(c, a, rtol=0,
+                                   atol=1e-4 * float(np.abs(a).max()))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("wire", list(C.ROUNDS))
+def test_sharded_round_is_the_reference_round(results, world, wire):
+    ref, _, res = results
+    arrays, _ = res[world]
+    got = _leaves(arrays, f"round-{wire}/x")
+    want = ref[f"round-{wire}"]
+    assert len(got) == len(want)
+    for c, a in zip(got, want):
+        np.testing.assert_array_equal(c, a)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_train_step_matches_reference(results, world):
+    ref, _, res = results
+    arrays, _ = res[world]
+    params, mom, loss, wire_bytes = ref["step"]
+    got = _leaves(arrays, "step/x")
+    for c, a, d in zip(got, params, mom):
+        tol = 1e-6 + C.LR * 1e-4 * np.abs(d).max()
+        assert float(np.abs(c - a).max()) <= tol
+    np.testing.assert_allclose(float(arrays["step/loss"]), loss, rtol=1e-5)
+    assert int(arrays["step/wire_bytes"]) == wire_bytes
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_trainer_checkpoint_is_the_one_process_run(results, world):
+    """The gathered checkpoint against the port's one-process trainer:
+    the file's keys and shapes, the losses, the bytes; each parameter
+    within two steps' float32 bound, or Lemma 2's bound of one round
+    beyond it (counted, under 1e-4 of the elements)."""
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import delta_for_bits
+    _, (one, one_ck), res = results
+    arrays, _ = res[world]
+    np.testing.assert_allclose(arrays["trainer/losses"],
+                               [h["loss"] for h in one["history"]],
+                               rtol=1e-5)
+    assert int(arrays["trainer/bytes"]) == one["bytes_per_step"]
+    keys = sorted(k for k in one_ck if k.startswith("params"))
+    assert sorted(k.split("/", 2)[2] for k in arrays
+                  if k.startswith("trainer/ckpt/")) == keys
+    # Lemma 2's bound on what one round's codes can move a worker: its own
+    # and its neighbours' codes one cell off, 2 (1 - w_ii) delta B; only
+    # the second step's round can see params that differ
+    cell = 2 * (1 - 1 / 3) * delta_for_bits(8, True) * float(
+        modulo.b_theta(C.THETA, delta_for_bits(8, True), "cpu"))
+    moms = {k.replace("params", "mom", 1): one_ck[k.replace("params", "mom",
+                                                              1)]
+            for k in keys}
+    flips = total = 0
+    for k in keys:
+        c, a = arrays[f"trainer/ckpt/{k}"], one_ck[k]
+        assert c.shape == a.shape
+        tol = 2 * (1e-6 + C.LR * 1e-4 * np.abs(moms[k.replace(
+            "params", "mom", 1)]).max())
+        err = np.abs(c - a)
+        assert (err <= tol + cell * 1.001).all(), float(err.max())
+        flips += int((err > tol).sum())
+        total += err.size
+    assert flips <= 1e-4 * total, (flips, total)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("arch", C.ARCHS)
+def test_prefill_and_decode_match_reference(results, world, arch):
+    ref, _, res = results
+    arrays, _ = res[world]
+    for got, want in zip((arrays[f"serve-{arch}/prefill"],
+                          arrays[f"serve-{arch}/decode"]),
+                         ref[f"serve-{arch}"]):
+        assert got.shape == want.shape and got.dtype == np.float32
+        assert (np.abs(got - want).max() / np.abs(want).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("what", C.REFUSALS)
+def test_out_of_scope_is_refused_naming_13e(results, world, what):
+    _, _, res = results
+    ok, detail, _ = res[world][1][f"refuse-{what}"]
+    assert ok, detail
+    assert "#13e" in detail
+
+
+def test_sharded_replicated_and_whole_shapes():
+    """``counter_view`` lays a shard out so that it hashes its elements'
+    whole-leaf counters; ``whole`` and ``dims_of`` round-trip the
+    one-process shapes."""
+    from repro_torch.comm import tensor_parallel as TP
+    from repro_torch.models.sharding import P
+    x = torch.arange(2 * 4 * 6 * 8, dtype=torch.float32).reshape(2, 4, 6, 8)
+    m = 2
+    for d in (1, 2, 3):
+        k = x.shape[d] // m
+        for r in range(m):
+            s = TP.shard(x, d, r, m)
+            view, off, stride = TP.counter_view(s, d, r * k, x.shape[d])
+            rows, cols = view.shape[1:]
+            idx = (off + stride * torch.arange(rows)[:, None]
+                   + torch.arange(cols))
+            # the whole leaf's flat position of each shard element
+            want = torch.arange(x[0].numel()).reshape(x.shape[1:])
+            want = TP.shard(want[None], d, r, m)[0].reshape(rows, cols)
+            assert torch.equal(idx, want)
+    assert TP.dims_of({"a": P(None, "model"), "b": P("data", None),
+                       "c": P(None, None, ("model",))}) == (1, None, 2)
+
+
+def test_operators_backward_outside_the_context(tmp_path):
+    """The autograd engine runs a CUDA backward in a thread of its own,
+    which sees no context variable: the operators carry their process
+    group from the forward, so a backward run in another thread
+    all-reduces as one in the forward's.  A one-rank gloo group with the
+    model split switched on (its all-reduce sums one rank: the identity)."""
+    import threading
+    import torch.distributed as dist
+    from repro_torch.comm import tensor_parallel as TP
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(3, 4, generator=g, requires_grad=True)
+        w = torch.randn(4, 5, generator=g)
+        with TP.model_context(TP.ModelGroup(rank=0, size=2,
+                                            group=dist.group.WORLD)):
+            y = TP.reduce_from_model(TP.copy_to_model(x) @ w).sum()
+        out = {}
+
+        def backward():
+            try:
+                out["grad"] = torch.autograd.grad(y, x)[0]
+            except Exception as e:              # reported by the assert
+                out["error"] = e
+        t = threading.Thread(target=backward)
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+        assert "error" not in out, out.get("error")
+        assert torch.equal(out["grad"], (torch.ones(3, 5) @ w.T))
+    finally:
+        dist.destroy_process_group()
