@@ -305,6 +305,29 @@ Phases (any failure exits non-zero, and the result line is not printed):
    a rank (added to the kernels line), step time and peak memory a rank.
    Phase 2's encode sweep also holds two row strides (one skipping
    columns, one wrapping the counter within a worker).
+27. FSDP over ``data`` under the hierarchical rules and replicated-KV GQA
+   (``comm/fsdp.py``): (c) the encode's blocks of rows (``rows_per_block``,
+   ``block_stride``) ``torch.equal`` to its plain version on the card and
+   the CPU in 36 cases; one process's references (qwen2-72b's training
+   cell at its batch and at half of it, (a)'s and (d)'s prefill and
+   greedy decode step), then four child processes (``--fsdp-rank``) over
+   a gloo group on the one card: (a) qwen2-72b at published widths, 2
+   layers, bfloat16, on ``(data=2, model=2)``, a row of a 2 x 2048
+   prefill a ``data`` rank and a decode step fed one process's token,
+   each within phase 10's bound of one process, greedy tokens equal over
+   ``model``; (d) chatglm3-6b at 2 layers on ``(data=1, model=4)``, its 2
+   KV heads replicated, alike; (c) the Moniqua round of each of (a)'s 15
+   leaves on ring(2), 8-bit stochastic and 1-bit nearest, on each rank's
+   FSDP + tensor-parallel shard, ``torch.equal`` to one process's round
+   cut alike, one encode and one decode-reduce a leaf a round; (b)
+   qwen2-72b at 1 layer, one worker, 4 x 1024 tokens a step, 3 steps
+   through ``Trainer(mesh=, rules=ShardingRules("hierarchical"))``: every
+   loss within 1e-4 of one process's, equal on every rank; each rank's
+   shard of the final momentum and params change within a bound of one
+   process's cut alike that one process fed half of each batch exceeds
+   in every leaf it moves; one bf16 flash launch a step a rank; each
+   rank's times and peak memory.  The launches are added to the kernels
+   line.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -4370,20 +4393,21 @@ def tp_encode_phase(dev, card):
             offsets = bucket.layout_of(X1, 8 // bits).offsets
             kw = dict(bits=bits, stochastic=stochastic)
             for m in (2, 4):
-                dims = TP.dims_of(TS.params_pspecs(
-                    model, rules, {"data": 1, "model": m}, stacked=True))
+                dims = TP.axis_dims(TS.params_pspecs(
+                    model, rules, {"data": 1, "model": m}, stacked=True),
+                    "model")
                 for i, (x, d) in enumerate(zip(leaves, dims)):
                     if d is None:            # gossiped whole (phase 2)
                         continue
                     base = TP_WRAP_BASE + offsets[i]
-                    whole, _, _ = TP.counter_view(x, None, 0, None)
+                    whole = TP.split_view(x, ())[0]
                     codes = unpack_codes(kenc.encode(
                         whole, B, seed, idx_base=base, **kw), bits,
                         x.shape[-1]).reshape(x.shape)
                     for r in range(m):
                         sh = TP.shard(x, d, r, m)
-                        view, off, stride = TP.counter_view(
-                            sh, d, r * sh.shape[d], x.shape[d])
+                        view, off, stride, _, _ = TP.split_view(
+                            sh, ((d, r * sh.shape[d], x.shape[d]),))
                         kws = dict(kw, idx_row_stride=stride)
                         got = kenc.encode(view, B, seed, idx_base=base + off,
                                           **kws)
@@ -4624,8 +4648,9 @@ def tp_phase(dev, card, ref25):
 
     # the parameters: each rank's shards against phase 25's run cut alike
     model = Model(cfg, "cuda")
-    dims = TP.dims_of(TS.params_pspecs(model, ShardingRules(
-        "decentralized"), {"data": 1, "model": TP_MODEL}, stacked=True))
+    dims = TP.axis_dims(TS.params_pspecs(model, ShardingRules(
+        "decentralized"), {"data": 1, "model": TP_MODEL}, stacked=True),
+        "model")
     dB = delta_for_bits(8, True) * float(modulo.b_theta(
         2.0, delta_for_bits(8, True), dev))
     lemma2 = MESH_STEPS * 2 * (1 - 1 / 3) * dB
@@ -4691,6 +4716,565 @@ def tp_phase(dev, card, ref25):
     print(f"phase 26: tensor parallelism passed in "
           f"{time.perf_counter() - t_phase:.1f} s ({t_ranks:.1f} s of "
           f"ranks); launches on its paths {counted} {card}", flush=True)
+    return counted
+
+
+# -- phase 27: FSDP weights over data, replicated-KV GQA ---------------------
+
+FSDP_ARCH, FSDP_KV_ARCH = "qwen2-72b", "chatglm3-6b"
+FSDP_RANKS = 4                 # gloo ranks on the one card
+FSDP_SERVE_LAYERS, FSDP_TRAIN_LAYERS = 2, 1   # depth 80 -> 2 and 1
+FSDP_KV_LAYERS = 2             # chatglm3-6b: depth 28 -> 2
+# (a): every decode token re-gathers a rank's 2.1 B parameters over data
+# through gloo and the host (5.5-8 s a token on one card): the prefill's
+# token and one decode step's, each step's logits against one process's
+FSDP_PROMPT, FSDP_GREEDY = 2048, 2
+FSDP_SEQ, FSDP_BATCH = 1024, 4  # (b): one worker, 4 x 1024 tokens a step
+FSDP_ROUND_N = 2               # (c): ring(2) over (b)'s leaves
+FSDP_TIMEOUT = 900             # seconds the four ranks may take together
+# (b): every step's loss against one process's: the split sums its bf16
+# partial matmuls, token losses and gradients over the ranks in another
+# order than one process (4.5e-6 to 1.5e-5 at 4 x 512 tokens)
+FSDP_LOSS_RTOL = 1e-4
+# (b): after the last step, each rank's shard of every leaf's momentum and
+# params change against one process's cut alike (relative L2), between the
+# split's largest gaps and the smallest of one process fed half of each
+# batch, which each run measures (on an H100: momentum 0.0124 and 0.254,
+# params change, a few bf16 ulps, 0.077 and 1.68)
+FSDP_STATE_RTOL = {"mom": 0.05, "dp": 0.3}
+
+
+def fsdp_config(layers):
+    return lm_config(FSDP_ARCH, layers=layers)
+
+
+def fsdp_trainer_config():
+    from repro_torch.train.trainer import TrainerConfig
+    return TrainerConfig(algo="moniqua", bits=8, topology="ring",
+                         n_workers=1, theta=2.0, lr=0.1, momentum=0.9,
+                         weight_decay=5e-4, steps=MESH_STEPS, log_every=1,
+                         seed=0)
+
+
+def in_turns(rank: int, fn):
+    """``fn()`` on each rank of the default group in turn, the card's
+    memory emptied after each: a whole draw on one rank at a time."""
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def fsdp_serve(rank, model, mesh, rules, ref, launches, res, key):
+    """One rank's prefill and ``FSDP_GREEDY - 1`` decode steps of its rows
+    of the 2-row serving batch, fed one process's greedy tokens: the
+    weights drawn whole one rank at a time and cut to its shards; each
+    step's last-position logits against ``ref`` (one process's:
+    ``logits`` ``[FSDP_GREEDY, 2, 1, V]``, ``tokens`` ``[2,
+    FSDP_GREEDY]``)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.train import serve_step as SS
+    P = in_turns(rank, lambda: SS.shard_serving_params(
+        model, model.init(model.generator(0)), mesh, rules))
+    batch = SyntheticLMPipeline(model, InputShape(
+        "serve_prefill", FSDP_PROMPT, SERVE_BATCH, "prefill"), 1,
+        seed=1).global_batch(0)
+    lo, hi = SS.batch_rows(SERVE_BATCH, mesh, rules)
+    rows = {k: v[lo:hi] for k, v in batch.items()}
+    prefill = SS.make_prefill_step(model, mesh=mesh, rules=rules)
+    launches.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = [prefill(P, rows)]
+    torch.cuda.synchronize()
+    res[f"{key}_ttft_ms"] = 1e3 * (time.perf_counter() - t0)
+    res[f"{key}_launches"] = launches.read()
+    cache = SS.make_cache(model, hi - lo, InputShape(
+        "serve_decode", FSDP_PROMPT + FSDP_GREEDY, SERVE_BATCH, "decode"),
+        mesh=mesh, rules=rules)
+    serve = SS.make_serve_step(model, mesh=mesh, rules=rules)
+    res[f"{key}_cache_k"] = list(cache["layers"]["k"].shape)
+    toks = ref["tokens"][lo:hi].to(steps[0].device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(FSDP_GREEDY - 1):
+        out, cache = serve(P, cache, toks[:, s:s + 1])
+        steps.append(out)
+    torch.cuda.synchronize()
+    res[f"{key}_token_ms"] = 1e3 * (time.perf_counter() - t0) / (
+        FSDP_GREEDY - 1)
+    check(int(cache["pos"]) == FSDP_GREEDY - 1, f"phase 27 {key} decode")
+    V = model.cfg.vocab_size
+    res[f"{key}_gaps"], tokens = [], []
+    for s, lg in enumerate(steps):
+        check(bool(torch.isfinite(lg).all()), f"phase 27 {key} step {s} "
+              f"logits")
+        want = ref["logits"][s][lo:hi].to(lg.device)
+        res[f"{key}_gaps"].append(float((lg - want).abs().max()
+                                        / want.abs().max()))
+        tokens.append(lg[:, -1, :V].argmax(-1).tolist())
+    res[f"{key}_tokens"] = tokens
+    res[f"{key}_rows"] = [lo, hi]
+    del P, batch, rows, cache, steps
+    torch.cuda.empty_cache()
+
+
+def block_encode_check(dev) -> int:
+    """(c): the encode's blocks of rows (``rows_per_block``,
+    ``block_stride``) and its default index, on the card ``torch.equal`` to
+    its plain version there and on the CPU, float32 and bfloat16, 8, 4 and
+    1 bits, counters wrapping past 2^32.  Returns the cases checked."""
+    from repro_torch.kernels import moniqua_encode as kenc
+    g = torch.Generator(device=dev).manual_seed(0)
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for bits, st in ((8, True), (1, False), (4, True)):
+            for rows, rpb, cols in ((185, 37, 1003), (64, 8, 4096),
+                                    (10, 3, 17)):
+                x = torch.randn((3, rows, cols), generator=g,
+                                device=dev).to(dt)
+                B = torch.full((), 1.3, device=dev)
+                for kw in ({}, dict(idx_base=2 ** 32 - 5000,
+                                    idx_row_stride=2000, rows_per_block=rpb,
+                                    block_stride=123457)):
+                    kw.update(bits=bits, stochastic=st)
+                    got = kenc.encode(x, B, 77, **kw)
+                    check(torch.equal(got, kenc.encode_plain(x, B, 77, **kw))
+                          and torch.equal(got.cpu(), kenc.encode_plain(
+                              x.cpu(), B.cpu(), 77, **kw)),
+                          f"phase 27 (c): block encode {dt} {rows} rows in "
+                          f"blocks of {rpb}, {cols} columns, {kw} != plain")
+                    n += 1
+    return n
+
+
+def fsdp_rounds(rank, mesh, rules, res):
+    """(c): the Moniqua round of each leaf of qwen2-72b at (a)'s 2 layers
+    (so that a leaf split on two dims spans two blocks of rows) on
+    ``FSDP_ROUND_N`` workers (ring), 8-bit stochastic and 1-bit nearest,
+    on this rank's FSDP + tensor-parallel shard, ``torch.equal`` to the
+    same cut of one process's round of the whole leaf (each rank computes
+    that in turn); the split rounds' encode and decode-reduce launches."""
+    from repro_torch import tree
+    from repro_torch.comm import fsdp
+    from repro_torch.comm import tensor_parallel as TP
+    from repro_torch.core.algorithms import AlgoHyper
+    from repro_torch.core.moniqua import MoniquaCodec
+    from repro_torch.core.quantizers import QuantSpec
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import moniqua_decode_reduce as kdr
+    from repro_torch.kernels import moniqua_encode as kenc
+    from repro_torch.launch.mesh import mesh_context, mesh_shape_dict
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train import train_step as TS
+    model = Model(fsdp_config(FSDP_SERVE_LAYERS), "cuda")
+    specs = tree.leaves(TS.params_pspecs(model, rules, mesh_shape_dict(mesh),
+                                         stacked=True))
+    shapes = [tuple(a.shape) for a in tree.leaves(TS.abstract_params(model))]
+    dtype = torch.bfloat16
+    r_m, r_d = (int(mesh.get_local_rank("model")),
+                int(mesh.get_local_rank("data")))
+    n_enc = n_dr = 0
+    secs = 0.0
+    for bits, stochastic in ((8, True), (1, False)):
+        hp = AlgoHyper(topo=ring(FSDP_ROUND_N), codec=MoniquaCodec(
+            QuantSpec(bits=bits, stochastic=stochastic)), theta=2.0,
+            path="per_leaf")
+        for i, (shape, spec) in enumerate(zip(shapes, specs)):
+            md, dd = (TP.axis_dims((spec,), "model")[0],
+                      TP.axis_dims((spec,), fsdp.AXIS)[0])
+            seed = 0x5EED27 + i
+
+            def cut(a):
+                return TP.shard(TP.shard(a, md, r_m, 2), dd, r_d,
+                                2).contiguous().clone()
+
+            def one_process():
+                g = torch.Generator(device=model.dev).manual_seed(seed)
+                whole = torch.randn((FSDP_ROUND_N,) + shape, generator=g,
+                                    device=model.dev).to(dtype)
+                out = hp.engine().mix((whole,), theta=2.0,
+                                      seed=seed).x[0]
+                return cut(whole), cut(out)
+            x, want = in_turns(rank, one_process)
+            e0, d0 = kenc.encode.launches, kdr.decode_reduce.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mesh_context(mesh, rules, params=(spec,)):
+                got = hp.engine().mix((x,), theta=2.0, seed=seed).x[0]
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            n_enc += kenc.encode.launches - e0
+            n_dr += kdr.decode_reduce.launches - d0
+            check(torch.equal(got, want), f"phase 27 (c) rank {rank}: leaf "
+                  f"{i} {list(shape)} at {bits} bits != one process's "
+                  f"round, cut alike")
+            del x, want, got
+    res["round_leaves"] = len(shapes)
+    res["round_launches"] = {"moniqua_encode": n_enc,
+                             "moniqua_decode_reduce": n_dr}
+    res["round_ms"] = 1e3 * secs / 2
+    torch.cuda.empty_cache()
+
+
+def fsdp_child(rank: int, store_path: str, out_dir: str) -> int:
+    """One rank of phase 27 (``chip_smoke.py --fsdp-rank RANK STORE
+    DIR``): a gloo group of four ranks on the one card.  (a) qwen2-72b
+    (depth 2, bfloat16) served on ``(data=2, model=2)`` under the
+    hierarchical rules: one row of the 2 x 2048 prefill a ``data`` rank,
+    then one process's greedy tokens decoded (``fsdp_serve``); (d)
+    chatglm3-6b (depth 2) served alike on ``(data=1, model=4)``, its 2 KV
+    heads replicated; (c) the Moniqua round on the shards of (a)'s leaves;
+    (b) qwen2-72b (depth 1) trained for ``MESH_STEPS`` steps through
+    ``Trainer(mesh=, rules=)``, one worker, ``FSDP_BATCH`` x ``FSDP_SEQ``
+    tokens a step.  The parent's one-process references are in
+    ``out_dir``; writes ``rank<R>.json`` and ``rank<R>.pt`` (the final
+    params and momentum shards)."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model_factory import Model
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path,
+                                                         FSDP_RANKS),
+                            rank=rank, world_size=FSDP_RANKS,
+                            timeout=datetime.timedelta(seconds=600))
+    res = {"rank": rank}
+    launches = Launches()
+    refs = torch.load(os.path.join(out_dir, "refs.pt"))
+    try:
+        # gloo groups (the ranks share the card): the meshes' device type
+        # is the CPU, the tensors the card's
+        mesh = make_host_mesh(data=2, model=2, device_type="cpu")
+        mesh_kv = make_host_mesh(data=1, model=4, device_type="cpu")
+        rules = ShardingRules("hierarchical")
+        res["coords"] = [int(mesh.get_local_rank("data")),
+                         int(mesh.get_local_rank("model"))]
+        t0 = time.perf_counter()
+
+        def done(part):
+            res[f"{part}_s"] = time.perf_counter() - t0
+            if rank == 0:
+                print(f"phase 27 rank 0: ({part}) done at "
+                      f"{res[part + '_s']:.1f} s", flush=True)
+        # -- (a) qwen2-72b served under FSDP + tensor parallelism --------
+        fsdp_serve(rank, Model(fsdp_config(FSDP_SERVE_LAYERS), "cuda"),
+                   mesh, rules, refs["a"], launches, res, "a")
+        done("a")
+        # -- (d) chatglm3-6b, replicated-KV GQA --------------------------
+        fsdp_serve(rank, Model(lm_config(FSDP_KV_ARCH,
+                                         layers=FSDP_KV_LAYERS), "cuda"),
+                   mesh_kv, ShardingRules("decentralized"), refs["d"],
+                   launches, res, "d")
+        done("d")
+        # -- (c) the Moniqua round on (a)'s shards -----------------------
+        fsdp_rounds(rank, mesh, rules, res)
+        done("c")
+        # -- (b) training ------------------------------------------------
+        tr = Trainer(Model(fsdp_config(FSDP_TRAIN_LAYERS), "cuda"),
+                     fsdp_trainer_config(),
+                     InputShape("lm_train", FSDP_SEQ, FSDP_BATCH, "train"),
+                     mesh=mesh, rules=rules)
+        state = in_turns(rank, tr.init_state)
+        torch.cuda.reset_peak_memory_stats()
+        launches.zero()
+        out = tr.run(state)
+        res["train_launches"] = launches.read()
+        res["peak"] = torch.cuda.max_memory_allocated()
+        walls = [h["wall"] for h in out["history"]]
+        res["step_ms"] = 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1)
+        res["losses"] = [h["loss"] for h in out["history"]]
+        res["bytes_per_step"] = out["bytes_per_step"]
+        torch.save({k: tree_cpu(out["state"][k]) for k in ("params", "mom")},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+        del out, state, tr
+        done("b")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def fsdp_train_one(batch, dev, ref=None):
+    """(b)'s cell in one process at ``batch`` rows a step: its losses,
+    step time, peak and bytes/step; with ``ref`` (another run's), the gaps
+    of its final state against ``ref``'s (:func:`state_gaps`), else its
+    params before and after and momentum after, on the host."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(Model(fsdp_config(FSDP_TRAIN_LAYERS), "cuda"),
+                 fsdp_trainer_config(),
+                 InputShape("lm_train", FSDP_SEQ, batch, "train"))
+    state = tr.init_state()
+    p0 = tree_cpu(state["params"]) if ref is None else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = tr.run(state)
+    walls = [h["wall"] for h in out["history"]]
+    one = {"losses": [h["loss"] for h in out["history"]],
+           "step_ms": 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1),
+           "peak": torch.cuda.max_memory_allocated(),
+           "bytes": out["bytes_per_step"]}
+    st = {"p": out["state"]["params"], "mom": out["state"]["mom"]}
+    if ref is None:
+        one.update(p0=p0, **tree_cpu(st))
+    else:
+        one["gaps"] = state_gaps(st, ref, dev)
+    del out, state, tr, st
+    torch.cuda.empty_cache()
+    return one
+
+
+def rel_l2(got, want, dev):
+    """``|got - want| / |want|`` (L2, float32 on the card); 0 where both
+    are zero."""
+    got, want = got.to(dev).float(), want.to(dev).float()
+    num, den = float((got - want).norm()), float(want.norm())
+    return num / den if den else (0.0 if num == 0 else math.inf)
+
+
+def state_gaps(got, ref, dev, cut=None):
+    """Per leaf, the relative L2 gap of ``got``'s momentum and params
+    change (``p - p0``, ``p0`` ``ref``'s) against ``ref``'s, each of
+    ``ref``'s leaves cut by ``cut(i, a)`` (a rank's shard) if given."""
+    from repro_torch import tree
+    cut = cut or (lambda i, a: a)
+    mom, dp = [], []
+    for i, (m, p, r_m, r_p, r_p0) in enumerate(zip(
+            tree.leaves(got["mom"]), tree.leaves(got["p"]),
+            tree.leaves(ref["mom"]), tree.leaves(ref["p"]),
+            tree.leaves(ref["p0"]))):
+        p0 = cut(i, r_p0).to(dev).float()
+        mom.append(rel_l2(m, cut(i, r_m), dev))
+        dp.append(rel_l2(p.to(dev).float() - p0,
+                         cut(i, r_p).to(dev).float() - p0, dev))
+    return {"mom": mom, "dp": dp}
+
+
+def fsdp_phase(dev, card):
+    """Phase 27: FSDP weights over ``data`` under the hierarchical rules
+    and replicated-KV GQA over ``model``, four gloo ranks on the one card
+    (``fsdp_child``).  One process first, each freed before the next:
+    (b)'s training cell, at its batch and at half of it (the fault a
+    gradient from one ``data`` rank's rows makes: its state's gaps), and
+    (a)'s and (d)'s
+    prefills and greedy decode steps.  Then the ranks: (a) and (d) within
+    ``BF16_GAP_BOUND`` of one process at every step, greedy tokens equal
+    over ``model``; (b) every loss within ``FSDP_LOSS_RTOL`` of one
+    process's, equal on every rank, every shard's momentum and params
+    change within ``FSDP_STATE_RTOL`` of one process's, which the half
+    batch exceeds; (c) bitwise.  Returns the ranks' launches by
+    kernels-line entry."""
+    import shutil
+    from repro_torch import tree
+    from repro_torch.comm import fsdp
+    from repro_torch.comm import tensor_parallel as TP
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models.model_factory import Model
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.train import serve_step as SS
+    from repro_torch.train import train_step as TS
+
+    t_phase = time.perf_counter()
+    n_block = block_encode_check(dev)
+    print(f"phase 27 (c): the encode's blocks of rows == its plain version "
+          f"(card and CPU) in {n_block} cases", flush=True)
+    out_dir = os.path.join(ROOT, "build", "fsdp27")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    # -- one process: (b)'s cell and its half batch, then the serving ----
+    one = fsdp_train_one(FSDP_BATCH, dev)
+    half_gaps = fsdp_train_one(FSDP_BATCH // 2, dev, one)["gaps"]
+    refs = {}
+    for key, cfg in (("a", fsdp_config(FSDP_SERVE_LAYERS)),
+                     ("d", lm_config(FSDP_KV_ARCH, layers=FSDP_KV_LAYERS))):
+        model = Model(cfg, "cuda")
+        V = cfg.vocab_size
+        P = model.init(model.generator(0))
+        batch = SyntheticLMPipeline(model, InputShape(
+            "serve_prefill", FSDP_PROMPT, SERVE_BATCH, "prefill"), 1,
+            seed=1).global_batch(0)
+        logits = [SS.make_prefill_step(model)(P, batch)]
+        toks = [logits[0][:, -1, :V].argmax(-1, keepdim=True).int()]
+        cache = SS.make_cache(model, SERVE_BATCH, InputShape(
+            "serve_decode", FSDP_PROMPT + FSDP_GREEDY, SERVE_BATCH,
+            "decode"))
+        serve = SS.make_serve_step(model)
+        for _ in range(FSDP_GREEDY - 1):
+            lg, cache = serve(P, cache, toks[-1])
+            logits.append(lg)
+            toks.append(lg[:, -1, :V].argmax(-1, keepdim=True).int())
+        refs[key] = {"logits": torch.stack([x.cpu() for x in logits]),
+                     "tokens": torch.cat(toks, 1).cpu()}
+        del P, batch, model, cache, logits, toks
+        torch.cuda.empty_cache()
+    torch.save(refs, os.path.join(out_dir, "refs.pt"))
+    t_one = time.perf_counter() - t_phase
+    print(f"phase 27: one process's references in {t_one:.1f} s",
+          flush=True)
+
+    # -- the four ranks --------------------------------------------------
+    store = os.path.join(out_dir, "store")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--fsdp-rank", str(r), store, out_dir])
+             for r in range(FSDP_RANKS)]
+    deadline = time.monotonic() + FSDP_TIMEOUT
+    try:
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_ranks = time.perf_counter() - t0
+    check(rcs == [0] * FSDP_RANKS, f"phase 27: the ranks exited {rcs}")
+    res = []
+    for r in range(FSDP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+
+    counted = {}
+    n_leaves = res[0]["round_leaves"]
+    for r, x in enumerate(res):
+        for key, layers in (("a", FSDP_SERVE_LAYERS), ("d", FSDP_KV_LAYERS)):
+            got = x[f"{key}_launches"]
+            check(got["flash_attention_tc"] == layers
+                  and got["flash_attention_f32tc"] == 0
+                  and got["flash_attention_simt"] == 0,
+                  f"phase 27 ({key}) rank {r}: prefill launches {got}")
+            check(max(x[f"{key}_gaps"]) <= BF16_GAP_BOUND,
+                  f"phase 27 ({key}) rank {r}: split vs one-process "
+                  f"logits {x[f'{key}_gaps']} x max|logit| > "
+                  f"{BF16_GAP_BOUND}")
+        trn = x["train_launches"]
+        check(trn["flash_attention_tc"] == MESH_STEPS * FSDP_TRAIN_LAYERS
+              and trn["moniqua_encode"] == 0
+              and trn["moniqua_decode_reduce"] == 0,
+              f"phase 27 (b) rank {r}: training launches {trn}, want "
+              f"{FSDP_TRAIN_LAYERS} bf16 flash a step and no gossip (one "
+              f"worker)")
+        check(x["round_launches"] == {"moniqua_encode": 2 * n_leaves,
+                                      "moniqua_decode_reduce": 2 * n_leaves},
+              f"phase 27 (c) rank {r}: launches {x['round_launches']}, "
+              f"want one encode and one decode-reduce a leaf a round")
+        for k in Launches.KEYS:
+            counted[k] = counted.get(k, 0) + trn[k] + x["round_launches"].get(
+                k, 0) + x["a_launches"][k] + x["d_launches"][k]
+        check(x["losses"] == res[0]["losses"]
+              and x["bytes_per_step"] == res[0]["bytes_per_step"],
+              f"phase 27 (b): rank {r}'s losses or bytes != rank 0's")
+        for y in res:
+            check((y["coords"][0] != x["coords"][0]
+                   or y["a_tokens"] == x["a_tokens"])
+                  and y["d_tokens"] == x["d_tokens"],
+                  "phase 27 (a), (d): greedy tokens differ over model")
+    losses = res[0]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+    check(all(map(math.isfinite, losses)) and max(gaps) <= FSDP_LOSS_RTOL,
+          f"phase 27 (b): losses {losses} vs one process's "
+          f"{one['losses']} (rtol {FSDP_LOSS_RTOL})")
+    check(res[0]["bytes_per_step"] == one["bytes"],
+          f"phase 27 (b): bytes/step {res[0]['bytes_per_step']} != one "
+          f"process's {one['bytes']}")
+
+    # the state: each rank's shards against one process's cut alike
+    specs = tree.leaves(TS.params_pspecs(
+        Model(fsdp_config(FSDP_TRAIN_LAYERS), "cuda"),
+        ShardingRules("hierarchical"), {"data": 2, "model": 2},
+        stacked=True))
+    split = {"mom": [0.0] * len(specs), "dp": [0.0] * len(specs)}
+    for r, x in enumerate(res):
+        c_d, c_m = x["coords"]
+        shard = torch.load(os.path.join(out_dir, f"rank{r}.pt"), mmap=True)
+
+        def cut(i, a):
+            sp = (specs[i],)
+            a = TP.shard(a, TP.axis_dims(sp, "model")[0], c_m, 2)
+            return TP.shard(a, TP.axis_dims(sp, fsdp.AXIS)[0], c_d, 2)
+        g = state_gaps({"mom": shard["mom"], "p": shard["params"]}, one,
+                       dev, cut)
+        for k in split:
+            split[k] = [max(a, b) for a, b in zip(split[k], g[k])]
+        del shard
+    del one["p0"], one["p"], one["mom"]
+    torch.cuda.empty_cache()
+    for k, what in (("mom", "momentum"), ("dp", "params change")):
+        bound = FSDP_STATE_RTOL[k]
+        check(max(split[k]) <= bound,
+              f"phase 27 (b): {what} off one process's by {split[k]} "
+              f"(relative L2 by leaf) > {bound}")
+        # a leaf the half batch leaves bitwise as the whole batch does (a
+        # norm whose bf16 values 3 steps do not move) shows nothing
+        check(min(g for g in half_gaps[k] if g > 0) > bound,
+              f"phase 27 (b): a half batch's {what} {half_gaps[k]} within "
+              f"{bound} of the whole batch's in some leaf: the bound "
+              f"would not see it there")
+    print(f"phase 27 (a): {FSDP_ARCH} ({FSDP_SERVE_LAYERS} layers, bf16) "
+          f"on (data=2, model=2), hierarchical rules: split vs one process "
+          f"{[[round(g, 5) for g in x['a_gaps']] for x in res]} x "
+          f"max|logit| (the prefill's and {FSDP_GREEDY - 1} decode "
+          f"step's, bound {BF16_GAP_BOUND}); cache k {res[0]['a_cache_k']} "
+          f"a rank; greedy tokens a step, equal over model: "
+          f"{[x['a_tokens'] for x in res if x['coords'][1] == 0]} (one "
+          f"process {refs['a']['tokens'].T.tolist()})", flush=True)
+    print(f"phase 27 (d): {FSDP_KV_ARCH} ({FSDP_KV_LAYERS} layers, bf16, 32 "
+          f"heads, 2 KV heads replicated) on (data=1, model=4): split vs "
+          f"one process {[[round(g, 5) for g in x['d_gaps']] for x in res]}"
+          f" x max|logit|; cache k {res[0]['d_cache_k']} a rank; greedy "
+          f"tokens {res[0]['d_tokens']} (one process "
+          f"{refs['d']['tokens'].T.tolist()})", flush=True)
+    print(f"phase 27 (c): the Moniqua round of the {n_leaves} leaves of "
+          f"{FSDP_ARCH} ({FSDP_SERVE_LAYERS} layers) on ring({FSDP_ROUND_N}) "
+          f"at 8 bits stochastic and 1 bit nearest, each rank's FSDP + "
+          f"tensor-parallel shard torch.equal to one process's round cut "
+          f"alike; {res[0]['round_launches']} a rank", flush=True)
+    print(f"phase 27 (b): {FSDP_ARCH} ({FSDP_TRAIN_LAYERS} layer, one "
+          f"worker, {FSDP_BATCH} x {FSDP_SEQ} tokens a step, bf16) on "
+          f"(data=2, model=2): losses {losses} vs one process's "
+          f"{one['losses']} (relative gaps {gaps}, bound {FSDP_LOSS_RTOL}); "
+          f"bytes/step {res[0]['bytes_per_step']}", flush=True)
+    for k, what in (("mom", "momentum"), ("dp", "params change")):
+        print(f"phase 27 (b): {what} after step {MESH_STEPS}, relative L2 "
+              f"gap by leaf (worst shard): split {split[k]} vs one "
+              f"process fed half of each batch {half_gaps[k]} (bound "
+              f"{FSDP_STATE_RTOL[k]})", flush=True)
+    print(f"time: phase 27 one process: (b) step {one['step_ms']:.3f} ms "
+          f"(host clock, mean of steps 1-{MESH_STEPS - 1}), "
+          f"max_memory_allocated {one['peak'] / 2 ** 30:.2f} GiB {card}",
+          flush=True)
+    for x in res:
+        print(f"time: phase 27 rank {x['rank']} (data {x['coords'][0]}, "
+              f"model {x['coords'][1]}): (a) 1 x {FSDP_PROMPT} prefill "
+              f"(time to the first token, its first call) "
+              f"{x['a_ttft_ms']:.2f} ms, decode {x['a_token_ms']:.3f} ms a "
+              f"token; (d) 2 x {FSDP_PROMPT} prefill {x['d_ttft_ms']:.2f} "
+              f"ms, decode {x['d_token_ms']:.3f} ms a token; (c) "
+              f"{x['round_ms']:.2f} ms a round of {n_leaves} leaves; (b) "
+              f"step {x['step_ms']:.3f} ms, max_memory_allocated "
+              f"{x['peak'] / 2 ** 30:.2f} GiB (host clock) {card}",
+              flush=True)
+    print(f"phase 27: FSDP passed in {time.perf_counter() - t_phase:.1f} s "
+          f"({t_one:.1f} s of one process, {t_ranks:.1f} s of ranks); "
+          f"launches on its paths {counted} {card}", flush=True)
     return counted
 
 
@@ -5129,8 +5713,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p26_counts = tp_phase(dev, card, ref25)
     del ref25
+    torch.cuda.empty_cache()
+    p27_counts = fsdp_phase(dev, card)
     for counts in (lm_counts, p22_counts, p23_counts, p24_counts,
-                   p25_counts, p26_counts):
+                   p25_counts, p26_counts, p27_counts):
         for name, n in counts.items():
             extra[name] = extra.get(name, 0) + n
     for k in kernels:
@@ -5139,7 +5725,7 @@ def main() -> int:
             k["train"] = train_flash
             k["phase22"] = p22_flash
             k["phase23"] = p23_flash
-    print(f"launches on phases 17-26's paths, added to the kernels line: "
+    print(f"launches on phases 17-27's paths, added to the kernels line: "
           f"{extra}", flush=True)
 
     print(json.dumps({"kernels": kernels}))
@@ -5153,4 +5739,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-rank"]:
         sys.exit(tp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--fsdp-rank"]:
+        sys.exit(fsdp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -78,14 +78,17 @@ on or off.  The phases of a round run under ``obs.trace`` labels
 (``comm.encode`` / ``comm.permute`` / ``comm.decode_reduce`` /
 ``comm.intra_reduce`` / ``comm.telemetry``) for ``torch.profiler``.
 
-Tensor-parallel rounds (``comm/tensor_parallel.py``, a ``model`` split with
-the params' specs): each rank gossips its shard of every split leaf and
-every replicated leaf whole, per leaf, on the ``moniqua`` and ``full``
-wires.  The layout, the counter offsets and the byte ledger are those of
-one process's tree (``tensor_parallel.whole``); a shard hashes the
-``(seed, index)`` pairs its elements have in the whole leaf (the encode's
-``idx_row_stride``), so the round is the shard of one process's round bit
-for bit, and a replicated leaf comes out the same on every rank.  Other
+Tensor-parallel and FSDP rounds (``comm/tensor_parallel.py``,
+``comm/fsdp.py``: a ``model`` and/or ``data`` split with the params'
+specs): each rank gossips its shard of every split leaf and every
+replicated leaf whole, per leaf, on the ``moniqua`` and ``full`` wires.
+The layout, the counter offsets and the byte ledger are those of one
+process's tree (``tensor_parallel.whole``); a shard hashes the ``(seed,
+index)`` pairs its elements have in the whole leaf (the encode's
+``idx_row_stride``, and for a leaf split on two dims its blocks of rows,
+``tensor_parallel.split_view``), so the round is the shard of one
+process's round bit for bit, and a replicated leaf comes out the same on
+every rank.  Other
 wires, the bucketed path, presence masks, telemetry and two tiers under a
 split raise ``NotImplementedError`` (``CommEngine.model_split_refusal``,
 ROADMAP #13e).
@@ -982,8 +985,8 @@ class CommEngine:
         """
         if self.stateful:
             self._check_wire_state(state)
-        dims = TP.leaf_dims(X)
-        if dims is not None:
+        splits = TP.leaf_splits(X)
+        if splits is not None:
             self.check_model_split(X, presence)
         if self.tiered:
             return self._mix_tiered(X, theta, seed, ledger, state, presence)
@@ -1026,11 +1029,11 @@ class CommEngine:
                 # (seed, layout.offset_i + e), the SAME pairs the bucketed
                 # one-shot encode hashes: the bucketed-vs-per-leaf parity;
                 # a split leaf's shard hashes its elements' pairs in the
-                # whole leaf (tensor_parallel.counter_view)
-                dims = dims or (None,) * len(leaves)
+                # whole leaf (tensor_parallel.split_view)
+                splits = splits or ((),) * len(leaves)
                 out = [self._mix_leaf(l, theta, base_seed,
                                       idx_base=layout.offsets[i],
-                                      presence=presence, model_dim=dims[i])
+                                      presence=presence, splits=splits[i])
                        for i, l in enumerate(leaves)]
             else:
                 out = [self._mix_leaf(l, theta, _leaf_seed(base_seed, i),
@@ -1066,7 +1069,8 @@ class CommEngine:
         why = self.model_split_refusal(X, presence)
         if why is not None:
             raise NotImplementedError(
-                f"{why} with the weights split over 'model': {TODO_13E}")
+                f"{why} with the weights split over 'model' or 'data': "
+                f"{TODO_13E}")
 
     def _mix_tiered(self, X: PyTree, theta, seed: Optional[int],
                     ledger: Optional[BytesLedger], state: Optional[dict],
@@ -1370,21 +1374,22 @@ class CommEngine:
                   idx_base: int = 0,
                   presence: Optional[Tuple[int, ...]] = None,
                   idx_row_stride: Optional[int] = None,
-                  model_dim: Optional[int] = None) -> torch.Tensor:
+                  splits=(), rows_per_block: Optional[int] = None,
+                  block_stride: int = 0) -> torch.Tensor:
         if x.dim() == 1:     # scalar-per-worker leaf: give it a unit last axis
             return self._mix_leaf(x[:, None], theta, seed, idx_base,
                                   presence)[:, 0]
-        if model_dim is not None:      # a shard of a leaf split over model
-            k, vpb = x.shape[model_dim], self._align()
-            view, off, stride = TP.counter_view(
-                x, model_dim, TP.rank() * k, TP.size() * k)
+        if splits:      # a shard of a leaf split over model and/or data
+            vpb = self._align()
+            view, off, stride, rpb, bstride = TP.split_view(x, splits)
             if view.shape[-1] % vpb or x.shape[-1] % vpb:
                 from repro_torch.models.sharding import TODO_13E
                 raise NotImplementedError(
                     f"shard {tuple(x.shape)}: a split leaf's last dim must "
                     f"fill whole code bytes ({vpb} values): {TODO_13E}")
             return self._mix_leaf(view, theta, seed, idx_base + off,
-                                  presence, stride).reshape(x.shape)
+                                  presence, stride, rows_per_block=rpb,
+                                  block_stride=bstride).reshape(x.shape)
         spec = self.codec.spec
         offsets = self.topo.neighbor_offsets()
         weights = _neighbor_weights_of(self.topo)
@@ -1392,7 +1397,8 @@ class CommEngine:
             B = modulo.b_theta(theta, spec.delta, x.device)
             packed = kops.moniqua_encode_stacked(
                 x, B, spec, seed, idx_base=idx_base,
-                idx_row_stride=idx_row_stride)
+                idx_row_stride=idx_row_stride, rows_per_block=rows_per_block,
+                block_stride=block_stride)
             p_nbrs = torch.stack([gossip._roll(packed, o) for o in offsets])
             if presence is None:
                 return kops.moniqua_decode_reduce_stacked(

@@ -53,21 +53,24 @@ class WorkerGroup:
         return len(self.ranks)
 
     @classmethod
-    def of(cls, mesh, axes: Sequence[str]) -> "WorkerGroup":
+    def of(cls, mesh, axes: Sequence[str],
+           fsdp_axis: Optional[str] = None) -> "WorkerGroup":
         """This rank's split of the worker dim over ``axes`` of ``mesh``
         (axes the mesh lacks count as size 1).  Ranks that differ only in
-        their ``model`` coordinate hold the same block of workers, each its
-        shard of the tensor-parallel weights (``comm/tensor_parallel.py``);
-        the blocks are those of this rank's ``model`` coordinate.  Raises
-        ``NotImplementedError`` (ROADMAP #13e) if a mesh dim other than the
-        worker axes and ``model`` has size > 1 (the hierarchical rules'
-        FSDP ``data``)."""
+        their ``model`` coordinate, or in their ``fsdp_axis`` one (the
+        hierarchical rules' ``data``), hold the same block of workers, each
+        its shard of the tensor-parallel and FSDP weights
+        (``comm/tensor_parallel.py``, ``comm/fsdp.py``); the blocks are
+        those of this rank's coordinates on those axes.  Raises
+        ``NotImplementedError`` (ROADMAP #13e) if any other mesh dim has
+        size > 1."""
         import torch.distributed as dist
         from repro_torch.models.sharding import TODO_13E
         names = tuple(mesh.mesh_dim_names)
         axes = tuple(a for a in axes if a in names)
         others = {a: s for a, s in zip(names, mesh.shape)
-                  if a not in axes and a != "model" and s > 1}
+                  if a not in axes and a not in ("model", fsdp_axis)
+                  and s > 1}
         if others:
             raise NotImplementedError(
                 f"mesh {dict(zip(names, mesh.shape))}: the dims {others} "

@@ -27,12 +27,13 @@ leading dim is the worker count, the reference's ``state_pspecs`` rule; on
 a block, which leaves are is a tree of bools beside it, read off the
 resolved specs (``sharding.on_worker_dim``).
 
-Under a ``model`` split as well (``comm/tensor_parallel.py``) each rank
-holds, of its block of workers, its shard of every tensor-parallel leaf of
+Under a ``model`` split as well (``comm/tensor_parallel.py``), and under
+the hierarchical rules' FSDP ``data`` split (``comm/fsdp.py``), each rank
+holds, of its block of workers, its shard of every split leaf of
 ``params`` and ``mom``: ``shard_state`` also cuts those by their split dims
-(``tensor_parallel.dims_of`` of the params' specs), ``gather_state`` puts
-them back whole, and ``shard_params`` cuts a carried-across params tree
-(serving's, or one worker's).
+(``tensor_parallel.AxisGroup``, from the params' specs),
+``gather_state`` puts them back whole, and ``shard_params`` cuts a
+carried-across params tree (serving's, or one worker's).
 """
 from __future__ import annotations
 
@@ -65,26 +66,28 @@ def _n_workers(state) -> int:
     return tree.leaves(state["params"])[0].shape[0]
 
 
-def shard_params(params: PyTree, specs: PyTree, rank: int, size: int
-                 ) -> PyTree:
-    """Rank ``rank``'s of ``size`` shards of a params tree on the
-    ``model`` axis: each leaf cut on the dim its resolved spec in ``specs``
-    (a tree of the same shape: ``params_pspecs``, stacked or not) puts on
-    ``model``, copied; the other leaves whole."""
+def shard_params(params: PyTree, specs: PyTree, splits=()) -> PyTree:
+    """This rank's shard of a params tree under ``splits``
+    (``tensor_parallel.AxisGroup`` s: ``model``, FSDP ``data``): each leaf
+    cut, and copied, on the dim its resolved spec in ``specs`` (a tree of
+    the same shape: ``params_pspecs``, stacked or not) puts on each
+    group's axis; the other leaves whole."""
     from repro_torch.comm import tensor_parallel as TP
-    return TP.shard_tree(params, TP.dims_of(specs), rank, size)
+    for g in splits:
+        if g.size > 1:
+            params = g.cut(params, TP.axis_dims(specs, g.axis))
+    return params
 
 
-def shard_state(state: PyTree, rank: int, R: int, model_dims=None,
-                model_rank: int = 0, model_size: int = 1) -> PyTree:
+def shard_state(state: PyTree, rank: int, R: int, splits=()) -> PyTree:
     """Block ``rank`` of ``R`` of a whole trainer state: every tensor leaf
     whose leading dim is the worker count ``n`` keeps rows ``[rank n/R,
     (rank + 1) n/R)``; the other leaves are shared, except a
     ``torch.Generator``, copied, so blocks cut in one process draw the same
-    seeds as the whole state.  With ``model_dims`` (the split dim of each
-    stacked params leaf, ``tensor_parallel.dims_of``) the leaves of
-    ``params`` and ``mom`` are also cut to shard ``model_rank`` of
-    ``model_size``."""
+    seeds as the whole state.  Under ``splits``
+    (``tensor_parallel.AxisGroup`` s with the split dims of the stacked
+    params) the leaves of ``params`` and ``mom`` are also cut to each
+    group's shard."""
     n = _n_workers(state)
     if n % R:
         raise ValueError(f"{n} workers do not split into {R} blocks")
@@ -99,32 +102,30 @@ def shard_state(state: PyTree, rank: int, R: int, model_dims=None,
             return a[rank * b:(rank + 1) * b]
         return a
     out = tree.map(leaf, state)
-    if model_dims is not None and model_size > 1:
-        from repro_torch.comm import tensor_parallel as TP
-        for key in ("params", "mom"):
-            out[key] = TP.shard_tree(out[key], model_dims, model_rank,
-                                     model_size)
+    for g in splits:
+        if g.size > 1:
+            for key in ("params", "mom"):
+                out[key] = g.cut(out[key])
     return out
 
 
 def gather_state(state: PyTree, on_workers: PyTree) -> PyTree:
     """The whole trainer state from this rank's block of it: every leaf
     that ``on_workers`` marks is all-gathered over the worker split in
-    force, in block order, and under a ``model`` split every shard of
-    ``params`` and ``mom`` is gathered whole over it (an all-reduce of a
-    zero-filled whole, exact).  A collective: every rank calls it.  The
-    identity in one process."""
+    force, in block order, and under a ``model`` or FSDP ``data`` split
+    every shard of ``params`` and ``mom`` is gathered whole over it (an
+    all-reduce of a zero-filled whole, exact).  A collective: every rank
+    calls it.  The identity in one process."""
     from repro_torch.comm import tensor_parallel as TP
     from repro_torch.comm import workers
     out = tree.map(lambda a, w: workers.gather_rows(a) if w else a,
                    state, on_workers)
-    g = TP.current()
-    if g is not None:
+    for g in TP.groups():
         for key in ("params", "mom"):
-            dims = TP.leaf_dims(out[key])
+            dims = TP.leaf_dims(out[key], g.axis)
             leaves, td = tree.flatten(out[key])
             out[key] = tree.unflatten(td, [
-                a if d is None else TP.gather_dim(a, d)
+                a if d is None else TP.gather_dim(a, d, g.axis)
                 for a, d in zip(leaves, dims)])
     return out
 

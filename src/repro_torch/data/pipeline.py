@@ -49,13 +49,16 @@ class SyntheticLMPipeline:
         dev = self.model.dev
         return {k: v.to(dev) for k, v in self._draw(step).items()}
 
-    def worker_batch(self, step: int, rows: Optional[Tuple[int, int]] = None
+    def worker_batch(self, step: int, rows: Optional[Tuple[int, int]] = None,
+                     inner: Optional[Tuple[int, int]] = None
                      ) -> Dict[str, torch.Tensor]:
         """Stacked ``[n, GB / n, ...]`` layout for the decentralized
         trainer: worker ``w`` takes rows ``w GB/n .. (w + 1) GB/n - 1`` of
         the global batch.  ``rows = (lo, hi)``: only workers ``[lo, hi)``
-        (a rank's block), cut on the host before the copy to the device;
-        the draws are the whole batch's."""
+        (a rank's block); ``inner = (a, b)``: only rows ``[a, b)`` of each
+        worker's batch (the hierarchical rules' ``batch`` on ``data``);
+        both cut on the host before the copy to the device; the draws are
+        the whole batch's."""
         n = self.n_workers
         dev = self.model.dev
         lo, hi = (0, n) if rows is None else rows
@@ -64,5 +67,8 @@ class SyntheticLMPipeline:
             if a.shape[0] % n:
                 raise ValueError(f"global batch {a.shape[0]} does not split "
                                  f"over {n} workers")
-            return a.reshape(n, a.shape[0] // n, *a.shape[1:])[lo:hi].to(dev)
+            a = a.reshape(n, a.shape[0] // n, *a.shape[1:])[lo:hi]
+            if inner is not None:
+                a = a[:, inner[0]:inner[1]]
+            return a.to(dev)
         return {k: stack(v) for k, v in self._draw(step).items()}

@@ -41,7 +41,7 @@ _P, _I, _I64, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # C signature of each source's entry point (restype is int: cudaError_t)
 SIGNATURES = {
     "moniqua_encode": (_P, _I, _P, _I64, _I64, _I64, _P, _U32, _U32, _U32,
-                       _I, _I, _P),
+                       _I64, _U32, _I, _I, _P),
     "moniqua_decode_reduce": (_P, _P, _P, _I, _P, _I64, _I64, _I, _P, _P, _I,
                               _P),
     "moniqua_decode": (_P, _P, _I, _P, _I64, _I64, _P, _I, _I, _P),

@@ -11,13 +11,17 @@
 // Layout: x is [rows, cols] row-major, rows = workers * rows_per_worker; the
 // output is [rows, ceil(cols / vpb)] uint8.  A row's columns past `cols`
 // encode as x = 0 (the reference zero-pads the last dim to values-per-byte).
-// The counter index of column c of row r is
-//   idx_base + (r % rows_per_worker) * idx_row_stride + c   (uint32)
+// The counter index of column c of row r is, with w = r % rows_per_worker,
+//   idx_base + (w / rows_per_block) * block_stride
+//            + (w % rows_per_block) * idx_row_stride + c        (uint32)
 // so it restarts for every worker: all workers draw the same uniform for the
 // same element (shared randomness, paper Supp. C).  The caller's stride is
-// ceil(cols / vpb) * vpb for a whole leaf; a shard of a leaf split on one of
-// its dims passes the whole leaf's row step, so that it hashes the indices
-// the whole leaf hashes.
+// ceil(cols / vpb) * vpb for a whole leaf, with one block of every row
+// (rows_per_block = rows_per_worker, block_stride 0); a shard of a leaf
+// split on one of its dims passes the whole leaf's row step, and one split
+// on two dims also blocks of rows with the whole leaf's step between them
+// (a layer of a stacked leaf), so that it hashes the indices the whole leaf
+// hashes.
 //
 // Bound: device memory.  Each element is read once (4 bytes f32 or 2 bf16)
 // and bits/8 bytes are written, with a few dozen integer and float
@@ -147,6 +151,7 @@ __global__ void __launch_bounds__(kThreads, 4)
                   int64_t rows, int64_t rows_per_worker, uint32_t cols,
                   uint32_t pcols, const float* __restrict__ B_ptr,
                   uint32_t seed, uint32_t idx_base, uint32_t idx_row_stride,
+                  int64_t rows_per_block, uint32_t block_stride,
                   int stochastic) {
   using S = Shape<BITS>;
   constexpr uint32_t VPB = S::VPB, SSE = S::SSE, SPT = S::SPT;
@@ -160,8 +165,10 @@ __global__ void __launch_bounds__(kThreads, 4)
   for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
     const T* xr = x + row * cols;
     uint8_t* outr = out + row * pcols;
+    const int64_t wrow = row % rows_per_worker;
     const uint32_t ibase =
-        idx_base + (uint32_t)(row % rows_per_worker) * idx_row_stride;
+        idx_base + (uint32_t)(wrow / rows_per_block) * block_stride +
+        (uint32_t)(wrow % rows_per_block) * idx_row_stride;
     // body: from the first column where x is 4-element aligned and a byte
     // starts, whole super-steps
     const uint32_t xmis =
@@ -237,7 +244,8 @@ template <typename T, int BITS>
 int launch_bits(const T* x, uint8_t* out, int64_t rows,
                 int64_t rows_per_worker, int64_t cols, const float* B,
                 uint32_t seed, uint32_t idx_base, uint32_t idx_row_stride,
-                int stochastic, cudaStream_t stream) {
+                int64_t rows_per_block, uint32_t block_stride, int stochastic,
+                cudaStream_t stream) {
   using S = Shape<BITS>;
   const int64_t pcols = (cols + S::VPB - 1) / S::VPB;
   const int64_t tiles = (cols / S::SSE + S::SPT - 1) / S::SPT;  // at most
@@ -249,33 +257,34 @@ int launch_bits(const T* x, uint8_t* out, int64_t rows,
   const dim3 grid((unsigned)bx, (unsigned)(rows < 65535 ? rows : 65535));
   encode_kernel<T, BITS><<<grid, threads, 0, stream>>>(
       x, out, rows, rows_per_worker, (uint32_t)cols, (uint32_t)pcols, B, seed,
-      idx_base, idx_row_stride, stochastic);
+      idx_base, idx_row_stride, rows_per_block, block_stride, stochastic);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* x, uint8_t* out, int64_t rows, int64_t rows_per_worker,
            int64_t cols, const float* B, uint32_t seed, uint32_t idx_base,
-           uint32_t idx_row_stride, int bits, int stochastic,
+           uint32_t idx_row_stride, int64_t rows_per_block,
+           uint32_t block_stride, int bits, int stochastic,
            cudaStream_t stream) {
   if (rows == 0 || cols == 0) return 0;
   switch (bits) {
     case 1:
       return launch_bits<T, 1>(x, out, rows, rows_per_worker, cols, B, seed,
-                               idx_base, idx_row_stride, stochastic,
-                               stream);
+                               idx_base, idx_row_stride, rows_per_block,
+                               block_stride, stochastic, stream);
     case 2:
       return launch_bits<T, 2>(x, out, rows, rows_per_worker, cols, B, seed,
-                               idx_base, idx_row_stride, stochastic,
-                               stream);
+                               idx_base, idx_row_stride, rows_per_block,
+                               block_stride, stochastic, stream);
     case 4:
       return launch_bits<T, 4>(x, out, rows, rows_per_worker, cols, B, seed,
-                               idx_base, idx_row_stride, stochastic,
-                               stream);
+                               idx_base, idx_row_stride, rows_per_block,
+                               block_stride, stochastic, stream);
     case 8:
       return launch_bits<T, 8>(x, out, rows, rows_per_worker, cols, B, seed,
-                               idx_base, idx_row_stride, stochastic,
-                               stream);
+                               idx_base, idx_row_stride, rows_per_block,
+                               block_stride, stochastic, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -286,21 +295,25 @@ int launch(const T* x, uint8_t* out, int64_t rows, int64_t rows_per_worker,
 // Returns the launch's cudaError_t (0 on success).  `x` is float32 or, with
 // x_is_bf16, bfloat16; `B` points to one float32 on the device.  A row holds
 // fewer than 2^31 columns (offsets inside a row are 32-bit).  The counter
-// index of column c of row r is idx_base + (r % rows_per_worker) *
+// index of column c of row r is, with w = r % rows_per_worker,
+// idx_base + (w / rows_per_block) * block_stride + (w % rows_per_block) *
 // idx_row_stride + c, mod 2^32.
 extern "C" int moniqua_encode(const void* x, int x_is_bf16, void* out,
                               int64_t rows, int64_t rows_per_worker,
                               int64_t cols, const float* B, uint32_t seed,
                               uint32_t idx_base, uint32_t idx_row_stride,
+                              int64_t rows_per_block, uint32_t block_stride,
                               int bits, int stochastic, void* stream) {
-  if (rows_per_worker < 1 || rows < 0 || cols < 0 || cols >= kMaxCols)
+  if (rows_per_worker < 1 || rows_per_block < 1 || rows < 0 || cols < 0 ||
+      cols >= kMaxCols)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint8_t* o = static_cast<uint8_t*>(out);
   if (x_is_bf16)
     return launch(static_cast<const __nv_bfloat16*>(x), o, rows,
                   rows_per_worker, cols, B, seed, idx_base, idx_row_stride,
-                  bits, stochastic, s);
+                  rows_per_block, block_stride, bits, stochastic, s);
   return launch(static_cast<const float*>(x), o, rows, rows_per_worker, cols,
-                B, seed, idx_base, idx_row_stride, bits, stochastic, s);
+                B, seed, idx_base, idx_row_stride, rows_per_block,
+                block_stride, bits, stochastic, s);
 }

@@ -6,12 +6,15 @@ tensor and runs :func:`encode_plain` for a CPU tensor.
 
 The buffer is ``[workers, rows, cols]``: the worker axis is written out (the
 reference vmaps its tile layout over it).  The counter index of element
-``(r, c)`` is ``idx_base + r * idx_row_stride + c (mod 2^32)`` for every
-worker; the stride defaults to ``cols_padded``, ``cols`` rounded up to
-values-per-byte: each worker's row is zero-padded to a byte boundary, and
-all workers share one uniform per element (Supp. C).  Another stride lets
-a shard of a leaf hash the indices the whole leaf hashes in one process
-(``comm/tensor_parallel.counter_view``).
+``(r, c)`` is ``idx_base + (r // rows_per_block) * block_stride + (r %
+rows_per_block) * idx_row_stride + c (mod 2^32)`` for every worker; the
+stride defaults to ``cols_padded``, ``cols`` rounded up to values-per-byte
+(each worker's row is zero-padded to a byte boundary, and all workers
+share one uniform per element, Supp. C), and one block holds every row
+(``rows_per_block = rows``, ``block_stride = 0``), so the index is
+``idx_base + r * idx_row_stride + c``.  Another stride and blocks let a
+shard of a leaf split on one or two dims hash the indices the whole leaf
+hashes in one process (``comm/tensor_parallel.split_view``).
 """
 from __future__ import annotations
 
@@ -28,9 +31,24 @@ from repro_torch.kernels import ref as kref
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def row_bases(rows: int, idx_base: int, stride: int,
+              rows_per_block: Optional[int], block_stride: int,
+              device=None) -> torch.Tensor:
+    """The counter index of column 0 of each row, int64 ``[rows, 1]``
+    (not yet reduced mod 2^32)."""
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    if rows_per_block is None or rows_per_block >= rows:
+        return int(idx_base) + stride * r
+    rpb = int(rows_per_block)
+    return (int(idx_base) + int(block_stride) * torch.div(
+        r, rpb, rounding_mode="floor") + stride * torch.remainder(r, rpb))
+
+
 def encode_plain(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
                  stochastic: bool, idx_base: int = 0,
-                 idx_row_stride: Optional[int] = None) -> torch.Tensor:
+                 idx_row_stride: Optional[int] = None,
+                 rows_per_block: Optional[int] = None,
+                 block_stride: int = 0) -> torch.Tensor:
     """Plain PyTorch encode of ``x [n, rows, cols]`` -> uint8
     ``[n, rows, ceil(cols / vpb)]`` (the kernel's exact semantics)."""
     n, rows, cols = x.shape
@@ -39,9 +57,8 @@ def encode_plain(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
     stride = cols + pad if idx_row_stride is None else int(idx_row_stride)
-    idx = (int(idx_base)
-           + stride * torch.arange(rows, dtype=torch.int64,
-                                   device=x.device)[:, None]
+    idx = (row_bases(rows, idx_base, stride, rows_per_block, block_stride,
+                     x.device)
            + torch.arange(cols + pad, dtype=torch.int64,
                           device=x.device)) & _U32
     return pack_codes(kref.codes_ref(x, B, bits, stochastic, seed, idx), bits)
@@ -49,10 +66,14 @@ def encode_plain(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
 
 def encode(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
            stochastic: bool, idx_base: int = 0,
-           idx_row_stride: Optional[int] = None) -> torch.Tensor:
+           idx_row_stride: Optional[int] = None,
+           rows_per_block: Optional[int] = None,
+           block_stride: int = 0) -> torch.Tensor:
     """Encode ``x [n, rows, cols]`` (float32 or bfloat16, contiguous) with
     the 0-dim float32 ``B`` on ``x``'s device; ``idx_row_stride`` (default
-    ``cols_padded``) is the counter step from one row to the next.
+    ``cols_padded``) is the counter step from one row to the next within a
+    block of ``rows_per_block`` rows (default: every row), ``block_stride``
+    from one block to the next (module docstring).
     Returns packed uint8 ``[n, rows, ceil(cols / vpb)]``.  A CUDA tensor
     launches the kernel (one launch, counted in ``encode.launches``); a CPU
     tensor takes :func:`encode_plain`.  Under ``cost.counting`` each call charges the
@@ -73,7 +94,9 @@ def encode(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
         with cost.plain():
             return encode_plain(x, B, seed, bits=bits, stochastic=stochastic,
                                 idx_base=idx_base,
-                                idx_row_stride=idx_row_stride)
+                                idx_row_stride=idx_row_stride,
+                                rows_per_block=rows_per_block,
+                                block_stride=block_stride)
     if x.device.type != "cuda":
         raise ValueError(f"no encode for device {x.device}")
     if not x.is_contiguous():
@@ -82,6 +105,9 @@ def encode(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
         raise ValueError("B must be one float32 on x's device")
     stride = (pshape[2] * (8 // bits) if idx_row_stride is None
               else int(idx_row_stride))
+    rpb = rows if rows_per_block is None else int(rows_per_block)
+    if rpb < 1:
+        raise ValueError(f"rows_per_block {rpb} < 1")
     out = torch.empty(pshape, dtype=torch.uint8, device=x.device)
     lib = build.load("moniqua_encode")
     with torch.cuda.device(x.device):
@@ -90,7 +116,8 @@ def encode(x: torch.Tensor, B: torch.Tensor, seed: int, *, bits: int,
             ctypes.c_void_p(x.data_ptr()), int(x.dtype == torch.bfloat16),
             ctypes.c_void_p(out.data_ptr()), n * rows, rows, cols,
             ctypes.c_void_p(B.data_ptr()), int(seed) & _U32,
-            int(idx_base) & _U32, stride & _U32, bits,
+            int(idx_base) & _U32, stride & _U32, rpb,
+            int(block_stride) & _U32, bits,
             int(bool(stochastic)), ctypes.c_void_p(stream))
     build.check(err, "moniqua_encode")
     encode.launches += 1

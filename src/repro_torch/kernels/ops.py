@@ -61,35 +61,42 @@ def _pwin(a: int, b: int, vpb: int) -> slice:
 
 def moniqua_encode_stacked(x: torch.Tensor, B, spec: QuantSpec, seed: int, *,
                            idx_base: int = 0,
-                           idx_row_stride: Optional[int] = None
-                           ) -> torch.Tensor:
+                           idx_row_stride: Optional[int] = None,
+                           rows_per_block: Optional[int] = None,
+                           block_stride: int = 0) -> torch.Tensor:
     """Encode a stacked ``[n, ...]`` leaf -> packed uint8
     ``[n, ..., ceil(last / vpb)]``, in one launch unless a row is too long.
     ``idx_base`` is shared by every worker; ``idx_row_stride`` (default
     ``cols_padded``) is the counter step from one row of the ``[n, rows,
-    last]`` view to the next.  Each window of a long row is launched with
-    the counter base its first column has in the whole row, ``idx_base +
-    r * stride + a`` (the kernel takes it mod 2^32), so the payload bits
-    are those of one launch over the row."""
+    last]`` view to the next within a block of ``rows_per_block`` rows
+    (default: all of them), ``block_stride`` from one block to the next
+    (``kernels/moniqua_encode.py``).  Each window of a long row is
+    launched with the counter base its first column has in the whole row,
+    ``idx_base + (r // rows_per_block) * block_stride + (r %
+    rows_per_block) * stride + a`` (the kernel takes it mod 2^32), so the
+    payload bits are those of one launch over the row."""
     x3 = _rows_view(x)
     n, rows, cols = x3.shape
     vpb = spec.values_per_byte
     kw = dict(bits=spec.bits, stochastic=spec.stochastic)
     if cols < _MAX_COLS:
         p = _enc.encode(x3, B, seed, idx_base=idx_base,
-                        idx_row_stride=idx_row_stride, **kw)
+                        idx_row_stride=idx_row_stride,
+                        rows_per_block=rows_per_block,
+                        block_stride=block_stride, **kw)
     else:
         p = torch.empty((n, rows, -(-cols // vpb)), dtype=torch.uint8,
                         device=x.device)
         stride = (-(-cols // vpb) * vpb if idx_row_stride is None
                   else int(idx_row_stride))
+        bases = _enc.row_bases(rows, idx_base, stride, rows_per_block,
+                               block_stride)[:, 0].tolist()
         for w in range(n):
             for r in range(rows):
                 for a, b in _windows(cols, vpb):
                     p[w, r, _pwin(a, b, vpb)] = _enc.encode(
                         x3[w:w + 1, r:r + 1, a:b], B, seed,
-                        idx_base=int(idx_base) + r * stride + a,
-                        **kw)[0, 0]
+                        idx_base=bases[r] + a, **kw)[0, 0]
     return p.reshape(*x.shape[:-1], p.shape[-1])
 
 

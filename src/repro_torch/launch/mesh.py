@@ -11,9 +11,10 @@ type is ``"cuda"`` (NCCL) unless the caller asks for ``"cpu"`` (gloo).
 ``mesh_context(mesh, rules)`` is the ambient mesh of a training or serving
 step: it installs the constraint context of ``models/sharding.py``, the
 split of the decentralized worker dim over the mesh's worker axes
-(``comm/workers.py``), so the gossip rounds run across the ranks, and the
+(``comm/workers.py``), so the gossip rounds run across the ranks, the
 ``model`` axis of the tensor-parallel weights
-(``comm/tensor_parallel.py``).
+(``comm/tensor_parallel.py``) and the hierarchical rules' FSDP ``data``
+axis (``comm/fsdp.py``).
 """
 from __future__ import annotations
 
@@ -65,17 +66,27 @@ def mesh_context(mesh, rules, params=None):
     """Run the body on ``mesh`` under ``rules`` (a ``ShardingRules``):
     ``models.sharding.constrain`` resolves against the mesh, the stacked
     worker dim is split over ``rules.worker_axes``, this rank holding its
-    block of workers (``comm.workers.WorkerGroup``), and the ``model`` axis
-    is installed (``comm.tensor_parallel.ModelGroup``): the Megatron
-    operators all-reduce over it.  ``params``: the resolved specs of the
-    stacked params tree, which leaves the gossip takes as shards of
-    ``model`` (``Trainer`` passes them)."""
+    block of workers (``comm.workers.WorkerGroup``), the ``model`` axis is
+    installed (``comm.tensor_parallel.AxisGroup``): the Megatron
+    operators all-reduce over it, and so is the rules' FSDP axis (the
+    hierarchical rules' ``data``, ``comm/fsdp.py``): the layers gather
+    their weights over it.  ``params``: the resolved specs
+    of the stacked params tree, which leaves the gossip takes as shards of
+    ``model`` and ``data`` (``Trainer`` passes them)."""
     from repro_torch.comm import tensor_parallel as tp
     from repro_torch.comm import workers
     from repro_torch.models import sharding
-    dims = None if params is None else tp.dims_of(params)
     with sharding.constraint_context(rules, mesh_shape_dict(mesh)), \
             workers.worker_context(workers.WorkerGroup.of(
-                mesh, rules.worker_axes)), \
-            tp.model_context(tp.ModelGroup.of(mesh, dims)):
+                mesh, rules.worker_axes, rules.fsdp_axis)), \
+            tp.axis_context(*split_groups(mesh, rules, params)):
         yield mesh
+
+
+def split_groups(mesh, rules, specs=None):
+    """The axes of ``mesh`` that split tensors under ``rules``: ``model``
+    and the rules' FSDP axis (``comm.tensor_parallel.AxisGroup`` s, with
+    the split dims of the resolved params ``specs`` if given)."""
+    from repro_torch.comm import tensor_parallel as tp
+    return (tp.AxisGroup.of(mesh, "model", specs),
+            tp.AxisGroup.of(mesh, rules.fsdp_axis, specs))

@@ -8,23 +8,28 @@ The published config at a given batch and length —
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \\
         --full-size --workers 8 --batch 8 --seq 3000 --steps 3
 
+The reference's production mesh (16 x 16 ranks a pod, ``--multi-pod``
+2 pods), its rules (``ShardingRules(cfg.dist_mode, multi_pod=)``) and an
+assigned input shape (``--shape``, default ``train_4k``), one rank a card
+under ``torchrun`` (256 or 512 ranks; ``--device cpu``: gloo) —
+    torchrun --nproc-per-node 8 --nnodes 32 --rdzv-endpoint HOST:PORT \\
+        -m repro_torch.launch.train \\
+        --arch qwen2-72b --mesh production --shape train_4k --full-size
+
 ``--device cpu`` runs the plain PyTorch versions of the kernels (the
 tests); without a card, ``--device cuda`` raises.  ``--mesh cpu`` (the
 default) keeps the reference's meaning: the workers are a tensor axis on
-one device.  ``--mesh production`` and ``--multi-pod`` exit non-zero: the
-port has the meshes and runs their worker axes across processes (ROADMAP
-#13d, ``launch/mesh.py``), but both meshes also shard the weights over a
-``model`` axis of 16, which is ROADMAP #13e.
+one device, and ``--multi-pod`` is ignored, as in the reference.  On the
+production mesh the process group comes from the environment ``torchrun``
+sets (``init_process_group`` with its ``env://``, NCCL on the cards);
+what the port does not run there yet (the MoE family under any split,
+heads the ``model`` axis does not divide, the other families) exits 2
+with the ``NotImplementedError`` naming ROADMAP #13e.
 """
 from __future__ import annotations
 
 import argparse
 import sys
-
-MESH_TODO = ("--mesh production and --multi-pod shard the weights over the "
-             "mesh's model axis of 16; the port's meshes (ROADMAP #13d, "
-             "launch/mesh.py) run only the worker axes so far: tensor-"
-             "parallel and FSDP weights are ROADMAP Queue 1 #13e")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -47,10 +52,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--mesh", choices=["cpu", "production"], default="cpu",
-                    help="cpu: the workers are a tensor axis on one device "
-                         "(production: ROADMAP #13e)")
+                    help="cpu: the workers are a tensor axis on one device; "
+                         "production: the reference's mesh under torchrun")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported yet (ROADMAP #13e)")
+                    help="the production mesh of two pods")
     ap.add_argument("--shape", default=None,
                     help="assigned input shape name (production mesh)")
     ap.add_argument("--full-size", action="store_true",
@@ -61,11 +66,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _production(args, cfg):
+    """The reference's production mesh, rules and shape, over the default
+    process group (initialised from ``torchrun``'s environment unless the
+    caller did it)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_input_shape
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.sharding import ShardingRules
+    cuda = args.device != "cpu"
+    if not dist.is_initialized():
+        if cuda:
+            import os
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if cuda else "gloo")
+    mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                device_type="cuda" if cuda else "cpu")
+    rules = ShardingRules(cfg.dist_mode, multi_pod=args.multi_pod)
+    return mesh, rules, get_input_shape(args.shape or "train_4k")
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.mesh == "production" or args.multi_pod:
-        print(f"error: {MESH_TODO}", file=sys.stderr)
-        return 2
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -78,7 +101,11 @@ def main(argv=None) -> int:
     if not args.full_size:
         cfg = cfg.reduced()
     model = build_model(cfg, device=args.device)
-    shape = InputShape("cli", args.seq, args.batch, "train")
+    mesh = rules = None
+    if args.mesh == "production":
+        mesh, rules, shape = _production(args, cfg)
+    else:
+        shape = InputShape("cli", args.seq, args.batch, "train")
 
     tc = TrainerConfig(algo=args.algo, topology=args.topology,
                        n_workers=args.workers, bits=args.bits,
@@ -86,14 +113,22 @@ def main(argv=None) -> int:
                        steps=args.steps, log_every=args.log_every,
                        seed=args.seed, checkpoint_path=args.checkpoint,
                        checkpoint_every=0 if not args.checkpoint else 50)
-    trainer = Trainer(model, tc, shape)
+    try:
+        trainer = Trainer(model, tc, shape, mesh=mesh, rules=rules)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    lead = trainer.lead
 
     def log(k, m):
-        print(f"step {k:5d}  loss {m['loss']:.4f}  alpha {m['alpha']:.4g}  "
-              f"theta {m['theta']:.3g}  g_inf {m['g_inf']:.3g}", flush=True)
+        if lead:
+            print(f"step {k:5d}  loss {m['loss']:.4f}  alpha "
+                  f"{m['alpha']:.4g}  theta {m['theta']:.3g}  g_inf "
+                  f"{m['g_inf']:.3g}", flush=True)
 
     out = trainer.run(callback=log)
-    print(f"bytes/step/worker = {out['bytes_per_step']}")
+    if lead:
+        print(f"bytes/step/worker = {out['bytes_per_step']}")
     return 0
 
 

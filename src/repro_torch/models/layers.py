@@ -26,9 +26,21 @@ axis): a rank's attention weights hold its share of the query and KV heads
 (Q/K/V column-parallel, O row-parallel) and its MLP weights its share of
 ``d_ff`` (up and gate column-parallel, down row-parallel).  The head counts
 are read from the tensors, never from ``cfg``; the input goes through
-``copy_to_model`` and the output through ``reduce_from_model``, both the
-identity without a ``model`` split.  GQA's head mapping stays local
-because ``model`` divides the KV heads.
+``copy_to`` and the output through ``reduce_sum`` on ``model``, both the
+identity without a ``model`` split.  Where ``model`` divides the KV heads
+GQA's head mapping stays local; where it does not (replicated-KV GQA,
+``sharding.kv_groups``) ``wk``/``wv``/``bk``/``bv`` are whole on every
+rank, each rank projects the run of KV heads its query heads read (every
+KV head in decode, whose cache holds them all) and the weights' gradients
+are all-reduced over ``model`` (``copy_to`` on the weight).
+
+FSDP (``comm/fsdp.py``, the hierarchical rules' ``data`` axis): a rank
+holds its shard of each weight's ``embed`` dim and gathers the weight
+where it multiplies by it (``fsdp.matmul``, which keeps only the shard
+for the backward pass and gathers again there), so only the weight at
+hand is whole; a weight without an ``embed`` dim (biases, norms) is whole
+on every rank, its gradient all-reduced over ``data`` (``fsdp.gather``
+with ``dim=None``).  Both are one process's products without the split.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import fsdp as FS
 from repro_torch.comm import tensor_parallel as TP
 from repro_torch.kernels import ops as kops
 from repro_torch.models import sharding as SH
@@ -168,25 +181,55 @@ def _context_parallel_kv(k, v, nh):
     return k, v
 
 
-def _proj_heads(x, w):
-    """``einsum("...d,dnh->...nh", x, w)`` as one matrix product."""
-    d, n, h = w.shape
-    return torch.matmul(x, w.reshape(d, n * h)).unflatten(-1, (n, h))
+def kv_span(cfg):
+    """Replicated-KV GQA: the KV heads ``(k0, k1)`` this rank's query
+    heads read, or ``None`` when the KV heads split over ``model`` like
+    the query heads (or there is no ``model`` split)."""
+    m = TP.size("model")
+    if m == 1 or cfg.num_kv_heads % m == 0:
+        return None
+    nkv_l, _ = SH.kv_groups(cfg.num_heads, cfg.num_kv_heads, m)
+    g = cfg.num_heads // cfg.num_kv_heads
+    k0 = TP.rank("model") * (cfg.num_heads // m) // g
+    return k0, k0 + nkv_l
 
 
-def _project_qkv(p, cfg, x):
+def _proj_heads(x, w, **kw):
+    """``einsum("...d,dnh->...nh", x, w)`` as one matrix product (``w``
+    gathered over ``data`` under FSDP; ``kw`` of ``fsdp.matmul``)."""
+    return FS.matmul(x, w, 0, **kw).unflatten(-1, (-1, w.shape[-1]))
+
+
+def _project_qkv(p, cfg, x, all_kv=False):
+    """Q, K and V of ``x``.  Replicated-KV GQA: K and V of the run of KV
+    heads this rank's query heads read (:func:`kv_span`), or of every KV
+    head with ``all_kv``."""
+    span = kv_span(cfg)
+    kw = {}
+    if span is not None:
+        kw = dict(copy_model=True,
+                  heads=None if all_kv else (1, span[0], span[1]))
+
+    def kv_bias(name):
+        b = FS.gather(p[name], None)
+        if span is None:
+            return b
+        b = TP.copy_to(b, "model")
+        return b if all_kv else b.narrow(-2, span[0], span[1] - span[0])
     q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
+    k = _proj_heads(x, p["wk"], **kw)
+    v = _proj_heads(x, p["wv"], **kw)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = (q + FS.gather(p["bq"], None), k + kv_bias("bk"),
+                   v + kv_bias("bv"))
     return q, k, v
 
 
 def _out_proj(out, wo):
-    """``einsum("...nh,nhd->...d", out, wo)`` as one matrix product."""
-    n, h, d = wo.shape
-    return torch.matmul(out.flatten(-2), wo.reshape(n * h, d))
+    """``einsum("...nh,nhd->...d", out, wo)`` as one matrix product, the
+    partial sums added over ``model`` (``wo`` gathered over ``data`` under
+    FSDP)."""
+    return TP.reduce_sum(FS.matmul(out.flatten(-2), wo, 2, k=2), "model")
 
 
 def _gqa_expand(k, nh):
@@ -240,7 +283,7 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
     with an all-true mask, as in the reference.  Under a ``model`` split
     the heads are this rank's, the output its partial sum all-reduced."""
     hd = cfg.hd
-    q, k, v = _project_qkv(p, cfg, TP.copy_to_model(x))
+    q, k, v = _project_qkv(p, cfg, TP.copy_to(x, "model"))
     nh = q.shape[-2]                     # this rank's query heads
     if cross_kv is not None:
         k, v = cross_kv
@@ -256,7 +299,7 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
         k, v = _context_parallel_kv(k, v, cfg.num_heads)
         out = kops.flash_sdpa(q, k, v, scale=scale, causal=True,
                               window=window)
-        return TP.reduce_from_model(_out_proj(out, p["wo"]))
+        return _out_proj(out, p["wo"])
     k, v = _gqa_expand(k, nh), _gqa_expand(v, nh)
     k, v = _context_parallel_kv(k, v, cfg.num_heads)
     if cross_kv is not None or bidir:
@@ -268,7 +311,7 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
     else:
         out = _sdpa(q, k, v, causal_mask(sq, sk, window, device=x.device),
                     scale)
-    return TP.reduce_from_model(_out_proj(out, p["wo"]))
+    return _out_proj(out, p["wo"])
 
 
 def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
@@ -284,10 +327,11 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
     cache and write nothing (whisper's cross-attention; ``pos`` is then the
     encoder length, slots ``>= pos`` masked).  Returns ``(out, cache)``,
     the same dict.  Under a ``model`` split the cache holds this rank's KV
-    heads.
+    heads, or every KV head (replicated-KV GQA: the rank projects them all
+    and reads the run its query heads need).
     """
     hd = cfg.hd
-    q, k, v = _project_qkv(p, cfg, TP.copy_to_model(x))
+    q, k, v = _project_qkv(p, cfg, TP.copy_to(x, "model"), all_kv=True)
     nh = q.shape[-2]
     ck, cv = cache["k"], cache["v"]
     W = ck.shape[-3]
@@ -309,18 +353,26 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
         valid = (slot_pos >= 0) & (slot_pos <= pos)
         if window:
             valid &= slot_pos > pos - window
+    span = kv_span(cfg)
+    if span is not None and not cross:
+        ck = ck.narrow(-2, span[0], span[1] - span[0])
+        cv = cv.narrow(-2, span[0], span[1] - span[0])
     kk = _gqa_expand(ck, nh)
     vv = _gqa_expand(cv, nh)
     kk, vv = _context_parallel_kv(kk, vv, cfg.num_heads)
     out = _sdpa(q, kk, vv, valid[None, None, :], 1.0 / math.sqrt(hd))
-    return TP.reduce_from_model(_out_proj(out, p["wo"])), cache
+    out = _out_proj(out, p["wo"])
+    return out, cache
 
 
 def init_attn_cache(batch_dims, cfg, length, dtype, device, stack=()):
     """Zeroed K/V ``[*stack, *batch_dims, length, nkv, hd]``; under a
-    ``model`` split ``nkv`` is this rank's share of the KV heads."""
-    shape = (*stack, *batch_dims, length, cfg.num_kv_heads // TP.size(),
-             cfg.hd)
+    ``model`` split ``nkv`` is this rank's share of the KV heads (all of
+    them under replicated-KV GQA)."""
+    nkv = cfg.num_kv_heads
+    if kv_span(cfg) is None:
+        nkv //= TP.size("model")
+    shape = (*stack, *batch_dims, length, nkv, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -347,11 +399,12 @@ def mlp_pspecs(gated):
 
 def mlp(p, x, gated):
     """Under a ``model`` split: this rank's columns of ``d_ff``, the output
-    its partial sum all-reduced."""
-    x = TP.copy_to_model(x)
-    h = x @ p["w_up"]
+    its partial sum all-reduced; under an FSDP split the weights gathered
+    over ``data``."""
+    x = TP.copy_to(x, "model")
+    h = FS.matmul(x, p["w_up"], 0)
     if gated:
-        h = F.silu(x @ p["w_gate"]) * h
+        h = F.silu(FS.matmul(x, p["w_gate"], 0)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return TP.reduce_from_model(h @ p["w_down"])
+    return TP.reduce_sum(FS.matmul(h, p["w_down"], 1), "model")

@@ -236,7 +236,8 @@ class Model:
         if cfg.family == "audio":               # the head tied to tok_embed
             return WH.whisper_logits(params, h)
         # under a model split: every rank's columns, gathered whole
-        return TP.gather_dim(T.logits_from_hidden(params, cfg, h), -1)
+        return TP.gather_dim(T.logits_from_hidden(params, cfg, h), -1,
+                             "model")
 
     def init_cache(self, batch: int, shape: InputShape) -> PyTree:
         cfg = self.cfg
@@ -271,7 +272,7 @@ class Model:
             ring = cache["layers"]["k"].shape[-3]
             logits, cache = T.decode_step(params, cfg, cache, token,
                                           window=ring)
-            return TP.gather_dim(logits, -1), cache
+            return TP.gather_dim(logits, -1, "model"), cache
         if cfg.family == "audio":
             return WH.whisper_decode_step(params, cfg, cache, token)
         x = params["embed"][token]

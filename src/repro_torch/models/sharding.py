@@ -18,13 +18,15 @@ that does not divide its mesh axes.  ``placements`` turns a resolved spec
 into the DTensor placements of a ``DeviceMesh``.
 
 What the port runs of it: the worker axes, as blocks of workers on ranks
-(``comm/workers.py``), and the ``model`` axis for the dense decoder family
-under the decentralized rules (``comm/tensor_parallel.py``: heads, MLP and
-vocabulary split, Megatron's all-reduces).  Any other spec over a mesh
-axis of size > 1 (the hierarchical ``embed -> data``, ``model`` on another
-family, a ``model`` axis that does not divide the heads, which the
-reference meets with context-parallel ``kv_seq``) raises
-``NotImplementedError`` (:func:`check_runnable`,
+(``comm/workers.py``), and for the dense decoder family the ``model``
+axis (``comm/tensor_parallel.py``: heads, MLP and vocabulary split,
+Megatron's all-reduces; KV heads replicated where ``model`` does not
+divide them) under either rules, and the hierarchical rules' FSDP
+``embed -> data`` (``comm/fsdp.py``: weights gathered where used,
+gradients reduce-scattered).  Any other spec over a mesh axis of size > 1
+(``model`` or ``data`` on another family, a ``model`` axis that does not
+divide the heads, which the reference meets with context-parallel
+``kv_seq``) raises ``NotImplementedError`` (:func:`check_runnable`,
 :func:`tensor_parallel_refusal`): those are ROADMAP Queue 1 #13e.
 """
 from __future__ import annotations
@@ -214,38 +216,65 @@ def unrunnable_axes(spec: PartitionSpec, rules: ShardingRules,
                  if a not in ok and mesh_shape.get(a, 1) > 1)
 
 
+def kv_groups(num_heads: int, num_kv_heads: int, m: int
+              ) -> Optional[Tuple[int, int]]:
+    """Replicated-KV GQA on a ``model`` axis of ``m`` that divides the
+    query heads but not the KV heads: ``(nkv_local, group)``, the KV heads
+    a rank's query heads read (a contiguous run of them) and the query
+    heads of one; ``None`` when each rank's query heads do not read whole
+    groups of one KV head each (neither divides the other)."""
+    nh_l, g = num_heads // m, num_heads // num_kv_heads
+    if nh_l % g == 0:
+        return nh_l // g, g
+    if g % nh_l == 0:
+        return 1, nh_l
+    return None
+
+
+def fsdp_size(rules: ShardingRules, mesh_shape: dict) -> int:
+    """The size of the rules' FSDP axis on the mesh (1 without one)."""
+    a = rules.fsdp_axis
+    return 1 if a is None else mesh_shape.get(a, 1)
+
+
 def tensor_parallel_refusal(cfg, rules: ShardingRules,
                             mesh_shape: dict) -> Optional[str]:
     """Why the port cannot split ``cfg``'s weights over the mesh's
-    ``model`` axis (a message naming #13e), or ``None`` when it can: the
-    dense decoder family under the decentralized rules, with ``model``
-    dividing the query and KV heads, the MLP and the padded vocabulary,
-    and every split leaf's last dim a whole number of code bytes at any
-    width (a multiple of 8; the padded vocabulary is one of 256).  ``cfg`` may be ``None`` (a model without an
-    ``ArchConfig``, such as the ResNet)."""
+    ``model`` axis or the rules' FSDP ``data`` axis (a message naming
+    #13e), or ``None`` when it can: the dense decoder family, under
+    either rules; ``model`` dividing the query heads (replicated-KV GQA
+    where it does not divide the KV heads, when each rank's query heads
+    read whole groups, :func:`kv_groups`), the MLP and the padded
+    vocabulary; ``data`` dividing ``d_model``; and every split leaf's last
+    dim a whole number of code bytes at any width (a multiple of 8; the
+    padded vocabulary is one of 256).  ``cfg`` may be ``None`` (a model
+    without an ``ArchConfig``, such as the ResNet)."""
     m = mesh_shape.get("model", 1)
-    if m <= 1:
+    dn = fsdp_size(rules, mesh_shape)
+    if m <= 1 and dn <= 1:
         return None
     why = None
-    if rules.mode != "decentralized":
-        why = (f"the {rules.mode} rules shard 'embed' over 'data' (FSDP "
-               f"weights)")
-    elif cfg is None or getattr(cfg, "family", None) != "dense":
-        why = (f"tensor parallelism is ported for the dense family only, "
-               f"not {getattr(cfg, 'family', type(cfg).__name__)!r}")
-    elif cfg.num_heads % m:
+    if cfg is None or getattr(cfg, "family", None) != "dense":
+        why = (f"tensor-parallel and FSDP weights are ported for the dense "
+               f"family only, not "
+               f"{getattr(cfg, 'family', type(cfg).__name__)!r}")
+    elif m > 1 and cfg.num_heads % m:
         why = (f"{cfg.num_heads} heads do not split over model={m} (the "
                f"reference falls back to context-parallel 'kv_seq')")
-    elif cfg.num_kv_heads % m:
-        why = (f"{cfg.num_kv_heads} KV heads do not split over model={m} "
-               f"(replicated-KV GQA)")
+    elif m > 1 and cfg.num_kv_heads % m and kv_groups(
+            cfg.num_heads, cfg.num_kv_heads, m) is None:
+        why = (f"{cfg.num_kv_heads} KV heads replicated over model={m}: "
+               f"a rank's {cfg.num_heads // m} query heads do not read "
+               f"whole groups of one KV head")
     else:
         vocab = -(-cfg.vocab_size // 256) * 256
-        for name, v in (("d_ff", cfg.d_ff), ("padded vocabulary", vocab)):
-            if v % m:
-                why = f"{name} {v} does not split over model={m}"
+        for name, v, axis, k in (("d_ff", cfg.d_ff, "model", m),
+                                 ("padded vocabulary", vocab, "model", m),
+                                 ("d_model", cfg.d_model, "data", dn)):
+            if v % k:
+                why = f"{name} {v} does not split over {axis}={k}"
                 break
-        for name, v in (("head_dim", cfg.hd), ("d_model", cfg.d_model),
+        for name, v in (("head_dim", cfg.hd), ("d_model", cfg.d_model // dn),
                         ("d_ff", cfg.d_ff)):
             if why is None and v % 8:
                 why = (f"{name} {v} is not a multiple of 8: a split leaf's "
@@ -260,16 +289,18 @@ def check_runnable(specs, rules: ShardingRules, mesh_shape: dict,
                    what: str = "state", cfg=None) -> None:
     """Raise ``NotImplementedError`` (ROADMAP #13e) if any spec in the tree
     ``specs`` shards a mesh axis of size > 1 that the port does not run:
-    the worker axes always run; ``model`` runs when
+    the worker axes always run; ``model`` and the rules' FSDP axis
+    (``data`` under the hierarchical rules) run when
     :func:`tensor_parallel_refusal` admits ``cfg`` (the model's
-    ``ArchConfig``, or ``None``).  A ``model`` axis > 1 with a refused
-    ``cfg`` raises even where no spec names it: nothing is replicated
-    silently."""
+    ``ArchConfig``, or ``None``).  A ``model`` or FSDP axis > 1 with a
+    refused ``cfg`` raises even where no spec names it: nothing is
+    replicated silently."""
     from repro_torch import tree
     refusal = tensor_parallel_refusal(cfg, rules, mesh_shape)
     if refusal is not None:
         raise NotImplementedError(f"{what}: {refusal}")
-    allowed = ("model",) if mesh_shape.get("model", 1) > 1 else ()
+    allowed = tuple(a for a in ("model", rules.fsdp_axis)
+                    if a is not None and mesh_shape.get(a, 1) > 1)
     for i, spec in enumerate(tree.leaves(specs)):
         bad = unrunnable_axes(spec, rules, mesh_shape, allowed)
         if bad:

@@ -24,12 +24,21 @@ vocab-parallel: a max all-reduced without gradient, the sum of exponentials
 all-reduced, the target logit taken from the rank that owns it, the padded
 columns masked by their global index.  Serving gathers the logits whole
 (``Model.prefill_logits`` / ``decode_step``).
+
+FSDP (``comm/fsdp.py``): ``embed`` and ``head`` are gathered over
+``data`` where used (the head's product through ``fsdp.matmul``, which
+keeps only the shard for the backward pass), the norms' gradients
+all-reduced over it (``fsdp.gather``); each rank holds its rows of the
+batch, and ``xent`` is the mean over the whole batch: the sums of the
+token losses and the counts of valid labels added over ``data`` before
+the division.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import fsdp as FS
 from repro_torch.comm import tensor_parallel as TP
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -65,27 +74,31 @@ def init_block(gen, cfg, stack=()):
 def block_apply(p, cfg, x, positions, *, window=0):
     """Pre-norm block.  Returns ``(x, aux)``: the MoE router's aux loss, a
     float32 scalar, or ``None`` for a dense block (which has none)."""
-    h = L.attention(p["attn"], cfg, L.rms_norm(x, p["ln1"]), positions,
+    h = L.attention(p["attn"], cfg,
+                    L.rms_norm(x, FS.gather(p["ln1"], None)), positions,
                     window=window)
     x = x + h
     if cfg.family == "moe":
         y, aux = M.moe_layer(p["moe"], L.rms_norm(x, p["ln2"]), cfg.moe,
                              cfg.gated_mlp)
         return x + y, aux
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.gated_mlp), None
+    return x + L.mlp(p["mlp"], L.rms_norm(x, FS.gather(p["ln2"], None)),
+                     cfg.gated_mlp), None
 
 
 def block_decode(p, cfg, x, cache, pos, *, window=0):
     """One token through a block.  An MoE block routes it alone (a group of
     one token, capacity 1 for every shipped config)."""
-    h, cache = L.attention_decode(p["attn"], cfg, L.rms_norm(x, p["ln1"]),
+    h, cache = L.attention_decode(p["attn"], cfg,
+                                  L.rms_norm(x, FS.gather(p["ln1"], None)),
                                   cache, pos, window=window)
     x = x + h
     if cfg.family == "moe":
         y, _ = M.moe_layer(p["moe"], L.rms_norm(x, p["ln2"]), cfg.moe,
                            cfg.gated_mlp)
     else:
-        y = L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.gated_mlp)
+        y = L.mlp(p["mlp"], L.rms_norm(x, FS.gather(p["ln2"], None)),
+                  cfg.gated_mlp)
     return x + y, cache
 
 
@@ -141,30 +154,32 @@ def hidden_states(p, cfg, x, positions, *, window=0):
                            window=window)
         if a is not None:
             aux = aux + a
-    return L.rms_norm(x, p["ln_f"]), aux
+    return L.rms_norm(x, FS.gather(p["ln_f"], None)), aux
 
 
 def logits_from_hidden(p, cfg, h):
     """``(h @ w)`` in the working dtype, then float32: under a ``model``
     split this rank's columns of the padded vocabulary."""
-    w = p["embed"].T if cfg.tie_embeddings else p["head"]
-    return (TP.copy_to_model(h) @ w).float()
+    h = TP.copy_to(h, "model")
+    if cfg.tie_embeddings:
+        return FS.matmul(h, p["embed"], 1, k=-1).float()
+    return FS.matmul(h, p["head"], 0).float()
 
 
 def embed_tokens(p, cfg, tokens):
     """``embed[tokens]``; under a ``model`` split the rows this rank owns
     (the others zero), summed over the ranks: exact, one rank adds each
     row to zeros."""
-    E = p["embed"]
-    if TP.current() is None:
+    E = FS.gather(p["embed"], 1)
+    if TP.current("model") is None:
         return E[tokens]
     n = E.shape[0]
-    local = tokens.long() - TP.rank() * n
+    local = tokens.long() - TP.rank("model") * n
     own = (local >= 0) & (local < n)
     x = E[local.clamp(0, n - 1)]
     x = torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
-    return TP.reduce_from_model(x)
+    return TP.reduce_sum(x, "model")
 
 
 def lm_logits(p, cfg, tokens, *, window=0):
@@ -191,14 +206,22 @@ def xent(logits, labels, vocab_size):
     before the float32 ``log_softmax``; the sum over valid positions is
     divided by ``max(#valid, 1)``.  Under a ``model`` split ``logits`` are
     this rank's columns (:func:`_xent_vocab_parallel`)."""
-    if TP.current() is not None:
+    if TP.current("model") is not None:
         return _xent_vocab_parallel(logits, labels, vocab_size)
     V = logits.shape[-1]
     pad = torch.arange(V, device=logits.device) < vocab_size
     lp = torch.log_softmax(torch.where(pad, logits, -1e30), dim=-1)
     valid = labels >= 0
     ll = torch.gather(lp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    return -torch.where(valid, ll, 0.0).sum() / valid.sum().clamp(min=1)
+    return _mean_loss(ll, valid)
+
+
+def _mean_loss(ll, valid):
+    """``-sum(ll over valid) / max(#valid, 1)``; under an FSDP split the
+    sum and the count over every ``data`` rank's rows."""
+    total = TP.reduce_sum(-torch.where(valid, ll, 0.0).sum(), FS.AXIS)
+    count = TP.reduce_sum(valid.sum().to(total.dtype), FS.AXIS)
+    return total / count.clamp(min=1)
 
 
 def _xent_vocab_parallel(logits, labels, vocab_size):
@@ -208,18 +231,18 @@ def _xent_vocab_parallel(logits, labels, vocab_size):
     target logit ``z_t`` (from the rank that owns the label) each summed
     over the ranks.  The same loss on every rank."""
     n = logits.shape[-1]
-    v0 = TP.rank() * n
+    v0 = TP.rank("model") * n
     cols = v0 + torch.arange(n, device=logits.device)
     z = torch.where(cols < vocab_size, logits, -1e30)
-    m = TP.max_over_model(z.detach().amax(dim=-1, keepdim=True))
-    sumexp = TP.reduce_from_model(torch.exp(z - m).sum(-1))
+    m = TP.max_over(z.detach().amax(dim=-1, keepdim=True), "model")
+    sumexp = TP.reduce_sum(torch.exp(z - m).sum(-1), "model")
     valid = labels >= 0
     local = labels.long() - v0
     own = (local >= 0) & (local < n)
     zt = torch.gather(z, -1, local.clamp(0, n - 1)[..., None])[..., 0]
-    zt = TP.reduce_from_model(torch.where(own, zt, 0.0))
+    zt = TP.reduce_sum(torch.where(own, zt, 0.0), "model")
     ll = zt - m[..., 0] - torch.log(sumexp)
-    return -torch.where(valid, ll, 0.0).sum() / valid.sum().clamp(min=1)
+    return _mean_loss(ll, valid)
 
 
 # ---------------------------------------------------------------------------

@@ -42,13 +42,15 @@ def direction(cfg: SGDConfig, grads: PyTree, params: PyTree,
     place on a float32 copy of ``p``; IEEE addition commutes): an LM's
     head and embedding are billions of values.  Under a worker split the
     norm is all-reduced over the ranks (a max: exact), and under a
-    ``model`` split over the shards too, so that theta and B are the same
-    on every rank."""
+    ``model`` or FSDP ``data`` split over the shards too, so that theta
+    and B are the same on every rank."""
     flat_g, treedef = tree.flatten(grads)
     g_inf = torch.zeros((), dtype=torch.float32, device=flat_g[0].device)
     for g in flat_g:                  # |g| and its max are exact in g's dtype
         g_inf = torch.maximum(g_inf, torch.max(torch.abs(g)).float())
-    g_inf = TP.max_over_model(workers.all_max(g_inf))
+    g_inf = workers.all_max(g_inf)
+    for axis in ("model", "data"):
+        g_inf = TP.max_over(g_inf, axis)
 
     ds, ms = [], []
     for g, p, m in zip(flat_g, tree.leaves(params), tree.leaves(mom)):

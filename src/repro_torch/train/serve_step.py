@@ -9,10 +9,14 @@ under ``torch.no_grad`` inside a profiler range (``serve.prefill`` /
 
 With ``mesh=`` and ``rules=`` the steps run under ``mesh_context``: the
 params are this rank's shards over ``model`` (``shard_serving_params``),
-the cache holds its KV heads (``make_cache``), and the logits come back
-whole on every rank.  The batch is the caller's rows: serving sends
-nothing over the other mesh axes.  What the port does not run over
-``model`` (``models.sharding.tensor_parallel_refusal``) raises
+the cache holds its KV heads (``make_cache``; every KV head under
+replicated-KV GQA), and the logits come back whole over the vocabulary on
+every rank.  The batch is the caller's rows.  Under the hierarchical
+rules the params are also cut over ``data`` (FSDP: each layer gathers its
+weights where it uses them) and ``global_batch`` lies on ``data``: each
+``data`` rank serves its rows of the global batch (:func:`batch_rows`),
+its cache holds those rows, and its logits are theirs.  What the port does
+not run (``models.sharding.tensor_parallel_refusal``) raises
 ``NotImplementedError`` naming #13e when the step is built.
 """
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs.base import InputShape
-from repro_torch.launch.mesh import mesh_context, mesh_shape_dict
+from repro_torch.launch.mesh import (mesh_context, mesh_shape_dict,
+                                     split_groups)
 from repro_torch.models.model_factory import Model
 from repro_torch.models.sharding import (ShardingRules, check_runnable,
                                          resolve_tree, safe_pspec)
@@ -76,7 +81,8 @@ def make_serve_step(model: Model, *, mesh=None,
 
 def make_cache(model: Model, batch: int, shape: InputShape, *, mesh=None,
                rules: Optional[ShardingRules] = None) -> PyTree:
-    """``model.init_cache(batch, shape)``, on a mesh this rank's KV heads."""
+    """``model.init_cache(batch, shape)``, on a mesh this rank's KV heads;
+    ``batch`` is this rank's rows (:func:`batch_rows`)."""
     with _mesh(model, mesh, rules)():
         return model.init_cache(batch, shape)
 
@@ -89,14 +95,25 @@ def serving_pspecs(model: Model, rules: ShardingRules, mesh_shape) -> PyTree:
 
 def shard_serving_params(model: Model, params: PyTree, mesh,
                          rules: ShardingRules) -> PyTree:
-    """This rank's shards over ``model`` of a whole serving params tree
-    (every rank draws or loads the whole tree and keeps its cut)."""
-    from repro_torch.comm import tensor_parallel as TP
+    """This rank's shards over ``model`` (and, under the hierarchical
+    rules, over ``data``) of a whole serving params tree (every rank draws
+    or loads the whole tree and keeps its cut)."""
     shape = mesh_shape_dict(mesh)
     _mesh(model, mesh, rules)                   # refuses what is not run
-    g = TP.ModelGroup.of(mesh)
     return convert.shard_params(params, serving_pspecs(model, rules, shape),
-                                g.rank, g.size)
+                                split_groups(mesh, rules))
+
+
+def batch_rows(n: int, mesh=None, rules: Optional[ShardingRules] = None
+               ) -> Tuple[int, int]:
+    """This rank's ``[lo, hi)`` of a global serving batch of ``n`` rows:
+    its ``data`` share under the hierarchical rules' FSDP split, all of
+    them otherwise."""
+    from repro_torch.comm import fsdp
+    from repro_torch.comm import tensor_parallel as TP
+    if mesh is None:
+        return 0, n
+    return fsdp.rows(n, TP.AxisGroup.of(mesh, rules.fsdp_axis))
 
 
 def abstract_cache(model: Model, shape: InputShape) -> PyTree:

@@ -24,10 +24,17 @@ out of it.  A ``model`` axis > 1 splits the weights of the dense family
 share a block of workers and its batch rows, each rank's state is its cut
 of the one-process init (every rank draws the whole init), the gossip is
 the per-leaf round on the shards, and checkpoints are gathered whole.
-Everything else on a ``model`` axis > 1 (other families, the hierarchical
-rules, heads or KV heads the axis does not divide, other wires or update
-rules, the bucketed path, two tiers, the stale overlap, presence masks,
-telemetry) and any state spec over another mesh axis of size > 1 raise
+Under the hierarchical rules (``ShardingRules("hierarchical"[,
+multi_pod=True])``) the dense family's weights are also split over
+``data`` (FSDP, ``comm/fsdp.py``): the workers are the pods (one block on
+one pod, every rank holding all of them), each rank's state is its cut of
+the one-process init over ``data`` and ``model``, it takes its ``data``
+share of every worker's batch rows, and the gossip is the per-leaf round
+on the shards.  Everything else on a ``model`` or FSDP axis > 1 (other
+families, heads the axis does not divide, KV heads replicated in groups
+a rank cannot read whole, other wires or update rules, the bucketed
+path, two tiers, the stale overlap, presence masks, telemetry) and any
+state spec over another mesh axis of size > 1 raise
 ``NotImplementedError`` (ROADMAP #13e) at construction: nothing is
 replicated silently.
 """
@@ -35,7 +42,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
@@ -43,6 +49,7 @@ import torch
 
 from repro_torch import convert, tree
 from repro_torch.checkpoint import ckpt
+from repro_torch.comm import fsdp as FS
 from repro_torch.comm import tensor_parallel as TP
 from repro_torch.comm import workers
 from repro_torch.configs.base import InputShape
@@ -52,9 +59,9 @@ from repro_torch.core.quantizers import QuantSpec
 from repro_torch.core.theta import ThetaSchedule
 from repro_torch.core.topology import get_topology
 from repro_torch.data.pipeline import SyntheticLMPipeline
-from repro_torch.launch.mesh import mesh_context, mesh_shape_dict
+from repro_torch.launch.mesh import mesh_context, mesh_shape_dict, split_groups
 from repro_torch.models.sharding import (ShardingRules, check_runnable,
-                                         on_worker_dim)
+                                         fsdp_size, on_worker_dim)
 from repro_torch.obs.runlog import RunLogWriter
 from repro_torch.obs.trace import SpanRecorder
 from repro_torch.optim.sgd import SGDConfig
@@ -147,16 +154,17 @@ class Trainer:
         self.hp = build_hyper(tc)
         self.algo = get_algorithm(tc.algo)
         self.mesh, self.rules = mesh, rules
-        self.param_specs = self.model_dims = None
-        self.tp = TP.ModelGroup()
+        self.param_specs, self.splits = None, ()
         self.workers = None if mesh is None else self._worker_group()
         b = tc.n_workers // (1 if mesh is None else self.workers.size)
         lo, hi = self.rows = (0, b) if mesh is None else (
             self.workers.index * b, (self.workers.index + 1) * b)
+        inner = self._inner_rows(data)
         if isinstance(data, InputShape):
             pipe = SyntheticLMPipeline(model, data, tc.n_workers,
                                        seed=tc.seed)
-            self.batch_fn = lambda k: pipe.worker_batch(k, rows=(lo, hi))
+            self.batch_fn = lambda k: pipe.worker_batch(k, rows=(lo, hi),
+                                                        inner=inner)
         elif mesh is not None:
             self.batch_fn = lambda k: {name: v[lo:hi]
                                        for name, v in data(k).items()}
@@ -186,20 +194,33 @@ class Trainer:
                                 shape, tc.n_workers)
         check_runnable(specs, rules, shape,
                        cfg=getattr(self.model, "cfg", None))
-        if shape.get("model", 1) > 1:
+        if shape.get("model", 1) > 1 or fsdp_size(rules, shape) > 1:
             self._check_tensor_parallel()
             self.param_specs = specs["params"]
-            self.model_dims = TP.dims_of(self.param_specs)
-            self.tp = TP.ModelGroup.of(self.mesh, self.model_dims)
+            self.splits = tuple(g for g in split_groups(
+                self.mesh, rules, self.param_specs) if g.size > 1)
         # the state leaves held in blocks of rows (gathered, restored)
         self.on_workers = tree.map(lambda s: on_worker_dim(s, rules), specs)
-        return workers.WorkerGroup.of(self.mesh, rules.worker_axes)
+        return workers.WorkerGroup.of(self.mesh, rules.worker_axes,
+                                      rules.fsdp_axis)
+
+    def _inner_rows(self, data):
+        """This rank's ``[a, b)`` of every worker's batch rows under an
+        FSDP split (the hierarchical rules' ``batch`` on ``data``), or
+        ``None``."""
+        g = [g for g in self.splits if g.axis == FS.AXIS]
+        if not g:
+            return None
+        if not isinstance(data, InputShape):
+            raise ValueError("an FSDP split takes its batches from an "
+                             "InputShape")
+        return FS.rows(data.global_batch // self.tc.n_workers, g[0])
 
     def _check_tensor_parallel(self) -> None:
         """Refuse, naming #13e, what the slice does not run over a
-        ``model`` axis > 1: rules other than Moniqua and D-PSGD and the
-        stale overlap here, the rest as the rule's engine refuses it on
-        one process's tree (``CommEngine.model_split_refusal``)."""
+        ``model`` or FSDP axis > 1: rules other than Moniqua and D-PSGD and
+        the stale overlap here, the rest as the rule's engine refuses it
+        on one process's tree (``CommEngine.model_split_refusal``)."""
         from repro_torch.models.sharding import TODO_13E
         tc, hp = self.tc, self.hp
         why = None
@@ -209,7 +230,8 @@ class Trainer:
             why = f"the {tc.overlap} overlap"
         if why is not None:
             raise NotImplementedError(
-                f"{why} with the weights split over 'model': {TODO_13E}")
+                f"{why} with the weights split over 'model' or 'data': "
+                f"{TODO_13E}")
         n = tc.n_workers
         whole = tree.map(lambda a: torch.empty(
             (n,) + tuple(a.shape), dtype=a.dtype, device="meta"),
@@ -225,9 +247,10 @@ class Trainer:
     @property
     def lead(self) -> bool:
         """Whether this process writes the files: the one process, or the
-        rank of the first block of workers and the first ``model`` shard."""
-        return self.workers is None or (self.workers.index == 0
-                                        and self.tp.rank == 0)
+        rank of the first block of workers and the first ``model`` and
+        ``data`` shard."""
+        return self.workers is None or (self.workers.index == 0 and all(
+            g.rank == 0 for g in self.splits))
 
     def gather_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
         """The whole state (one process's) from this rank's block: a
@@ -240,15 +263,17 @@ class Trainer:
     def init_state(self) -> Dict[str, Any]:
         """A fresh state; with a mesh this rank's block of it (the rows of
         one process's state: every worker starts from the same weights),
-        under a ``model`` split its shards of them."""
+        under a ``model`` or FSDP split its shards of them."""
         lo, hi = self.rows
         cut = None
-        if self.model_dims is not None:
-            # the specs are the stacked ones: a worker's dim d is d - 1
-            dims = tuple(None if d is None else d - 1
-                         for d in self.model_dims)
-            cut = functools.partial(TP.shard_tree, dims=dims,
-                                    r=self.tp.rank, m=self.tp.size)
+        if self.splits:
+            def cut(p):
+                for g in self.splits:
+                    # the specs are the stacked ones: a worker's dim d is
+                    # d - 1
+                    p = g.cut(p, tuple(None if d is None else d - 1
+                                       for d in g.dims))
+                return p
         return TS.init_state(self.model, self.algo, self.hp, hi - lo,
                              seed=self.tc.seed, cut=cut)
 
@@ -276,15 +301,14 @@ class Trainer:
         host = tree.map(lambda a, w: torch.empty(
             (n,) + tuple(a.shape[1:]), dtype=a.dtype) if w else a,
             like, self.on_workers)
-        if self.model_dims is not None:
+        if self.splits:
             with self._context():
                 for key in ("params", "mom"):
                     host[key] = tree.map(lambda a: torch.empty(
                         a.shape, dtype=a.dtype), TP.whole(host[key]))
         full = ckpt.restore(path + ".state", host)
         block = convert.shard_state(full, self.workers.index,
-                                    self.workers.size, self.model_dims,
-                                    self.tp.rank, self.tp.size)
+                                    self.workers.size, self.splits)
         return tree.map(lambda a, l: a.to(l.device)
                         if isinstance(a, torch.Tensor) else a, block, like)
 
@@ -350,7 +374,8 @@ class Trainer:
                             ckpt.save(tc.checkpoint_path + ".state", whole,
                                       meta)
                         workers.barrier()       # the file is whole for all
-                        TP.barrier()
+                        for g in TP.groups():
+                            TP.barrier(g.axis)
                         del whole
             bps = self.bytes_per_step(state)
             if writer is not None:

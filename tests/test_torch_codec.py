@@ -312,7 +312,7 @@ def test_row_split_point_decode_bitwise(bits, mode, monkeypatch):
 @pytest.mark.parametrize("stochastic", [True, False])
 def test_row_stride_shard_codes_are_the_whole_leafs(bits, stochastic):
     """A stacked leaf split on one dim, as the tensor-parallel round splits
-    it (``tensor_parallel.counter_view``): each shard encoded with the
+    it (``tensor_parallel.split_view``): each shard encoded with the
     whole leaf's counter offset and row stride gives the codes the
     reference's ``encode_ref`` gives the whole leaf at the same elements,
     on every dim, 2 and 4 shards, also with counters that wrap past 2^32;
@@ -330,8 +330,8 @@ def test_row_stride_shard_codes_are_the_whole_leafs(bits, stochastic):
             for m in (2, 4):
                 for r in range(m):
                     s = TP.shard(torch.from_numpy(x), d, r, m)
-                    view, off, stride = TP.counter_view(
-                        s, d, r * s.shape[d], x.shape[d])
+                    view, off, stride, _, _ = TP.split_view(
+                        s, ((d, r * s.shape[d], x.shape[d]),))
                     kw = dict(bits=bits, stochastic=stochastic,
                               idx_base=base + off, idx_row_stride=stride)
                     p = tenc.encode_plain(view, tB, seed, **kw)
@@ -347,3 +347,65 @@ def test_row_stride_shard_codes_are_the_whole_leafs(bits, stochastic):
                           idx_base=9),
         tenc.encode_plain(xt, tB, seed, bits=bits, stochastic=stochastic,
                           idx_base=9, idx_row_stride=32))
+
+
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("layout", ["wq", "wo", "embed"])
+def test_block_index_shard_codes_are_the_whole_leafs(bits, stochastic,
+                                                     layout):
+    """A stacked leaf split on two dims, as the FSDP + tensor-parallel
+    round splits it (``tensor_parallel.split_view``: ``wq`` ``[n, L,
+    d/D, h/M, hd]``, ``wo`` ``[n, L, h/M, hd, d/D]``, ``embed`` ``[n,
+    V/M, d/D]``): each shard encoded with the whole leaf's counter offset,
+    row stride and blocks of rows gives the codes the reference's
+    ``encode_ref`` gives the whole leaf at the same elements, also with
+    counters that wrap past 2^32; the wrapper equals ``encode_plain``, and
+    the default blocks (one of every row) are today's index."""
+    from repro_torch.comm import tensor_parallel as TP
+    shape, (a, b) = {"wq": ((2, 3, 8, 4, 16), (2, 3)),
+                     "wo": ((2, 3, 4, 8, 16), (2, 4)),
+                     "embed": ((2, 16, 32), (1, 2))}[layout]
+    rng = np.random.default_rng(60 + bits)
+    x = (rng.standard_normal(shape) * 3).astype(np.float32)
+    jB, tB = _B(bits, stochastic)
+    seed = 0xF5D9
+    last = shape[-1]
+    for base in (7001, 2 ** 32 - 900):
+        whole = torch.from_numpy(np.stack([np.asarray(jref.unpack_ref(
+            jref.encode_ref(jnp.asarray(x[w].reshape(-1, last)), jB, bits,
+                            stochastic, seed, idx_base=base), bits))
+            for w in range(2)])).reshape(shape)
+        for ma, mb in ((2, 2), (2, 4)):
+            for ra in range(ma):
+                for rb in range(mb):
+                    s = TP.shard(TP.shard(torch.from_numpy(x), a, ra, ma),
+                                 b, rb, mb)
+                    view, off, stride, rpb, bs = TP.split_view(
+                        s, ((a, ra * s.shape[a], shape[a]),
+                            (b, rb * s.shape[b], shape[b])))
+                    kw = dict(bits=bits, stochastic=stochastic,
+                              idx_base=base + off, idx_row_stride=stride,
+                              rows_per_block=rpb, block_stride=bs)
+                    p = tenc.encode_plain(view, tB, seed, **kw)
+                    assert torch.equal(tenc.encode(view, tB, seed, **kw), p)
+                    assert torch.equal(tops.moniqua_encode_stacked(
+                        view, tB, tq.QuantSpec(bits=bits,
+                                               stochastic=stochastic),
+                        seed, **{k: v for k, v in kw.items()
+                                 if k not in ("bits", "stochastic")}), p)
+                    codes = tq.unpack_codes(p, bits, view.shape[-1])
+                    want = TP.shard(TP.shard(whole, a, ra, ma), b, rb, mb)
+                    assert torch.equal(codes.reshape(s.shape),
+                                       want.to(codes.dtype)), \
+                        (base, ma, mb, ra, rb)
+    # one block of every row, with any stride between blocks, is the
+    # index without blocks
+    xt = torch.from_numpy(x).reshape(2, -1, last)
+    rows = xt.shape[1]
+    plain = tenc.encode_plain(xt, tB, seed, bits=bits,
+                              stochastic=stochastic, idx_base=9)
+    for rpb, bs in ((None, 0), (rows, 0), (rows, 12345)):
+        assert torch.equal(tenc.encode_plain(
+            xt, tB, seed, bits=bits, stochastic=stochastic, idx_base=9,
+            rows_per_block=rpb, block_stride=bs), plain)

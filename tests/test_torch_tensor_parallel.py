@@ -315,9 +315,9 @@ def test_out_of_scope_is_refused_naming_13e(results, world, what):
 
 
 def test_sharded_replicated_and_whole_shapes():
-    """``counter_view`` lays a shard out so that it hashes its elements'
-    whole-leaf counters; ``whole`` and ``dims_of`` round-trip the
-    one-process shapes."""
+    """``split_view`` lays a shard split on one dim out so that it hashes
+    its elements' whole-leaf counters; ``axis_dims`` reads the split dims
+    of resolved specs."""
     from repro_torch.comm import tensor_parallel as TP
     from repro_torch.models.sharding import P
     x = torch.arange(2 * 4 * 6 * 8, dtype=torch.float32).reshape(2, 4, 6, 8)
@@ -326,7 +326,8 @@ def test_sharded_replicated_and_whole_shapes():
         k = x.shape[d] // m
         for r in range(m):
             s = TP.shard(x, d, r, m)
-            view, off, stride = TP.counter_view(s, d, r * k, x.shape[d])
+            view, off, stride, _, _ = TP.split_view(
+                s, ((d, r * k, x.shape[d]),))
             rows, cols = view.shape[1:]
             idx = (off + stride * torch.arange(rows)[:, None]
                    + torch.arange(cols))
@@ -334,8 +335,9 @@ def test_sharded_replicated_and_whole_shapes():
             want = torch.arange(x[0].numel()).reshape(x.shape[1:])
             want = TP.shard(want[None], d, r, m)[0].reshape(rows, cols)
             assert torch.equal(idx, want)
-    assert TP.dims_of({"a": P(None, "model"), "b": P("data", None),
-                       "c": P(None, None, ("model",))}) == (1, None, 2)
+    assert TP.axis_dims({"a": P(None, "model"), "b": P("data", None),
+                         "c": P(None, None, ("model",))},
+                        "model") == (1, None, 2)
 
 
 def test_operators_backward_outside_the_context(tmp_path):
@@ -353,9 +355,9 @@ def test_operators_backward_outside_the_context(tmp_path):
         g = torch.Generator().manual_seed(0)
         x = torch.randn(3, 4, generator=g, requires_grad=True)
         w = torch.randn(4, 5, generator=g)
-        with TP.model_context(TP.ModelGroup(rank=0, size=2,
-                                            group=dist.group.WORLD)):
-            y = TP.reduce_from_model(TP.copy_to_model(x) @ w).sum()
+        with TP.axis_context(TP.AxisGroup("model", rank=0, size=2,
+                                          group=dist.group.WORLD)):
+            y = TP.reduce_sum(TP.copy_to(x, "model") @ w, "model").sum()
         out = {}
 
         def backward():

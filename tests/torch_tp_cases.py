@@ -160,7 +160,7 @@ class Runner:
             self.inp[f"{arch}/X/{i}"][lo:hi]).to(self.device)
             for i in range(len(shapes))])
         _, r = self.coords()
-        X = TP.shard_tree(X, TP.dims_of(self.specs(model)), r,
+        X = TP.shard_tree(X, TP.axis_dims(self.specs(model), "model"), r,
                           self.model_size)
         batch = {k: torch.from_numpy(self.inp[f"{arch}/{k}"][lo:hi]).to(
             self.device) for k in ("tokens", "labels")}
@@ -173,11 +173,12 @@ class Runner:
         from repro_torch.comm import tensor_parallel as TP
         from repro_torch.comm import workers
         X = tree.map(workers.gather_rows, X)
-        dims = TP.leaf_dims(X)
+        dims = TP.leaf_dims(X, "model")
         if dims is None:
             return X
         leaves, td = tree.flatten(X)
-        return tree.unflatten(td, [a if d is None else TP.gather_dim(a, d)
+        return tree.unflatten(td, [a if d is None
+                                   else TP.gather_dim(a, d, "model")
                                    for a, d in zip(leaves, dims)])
 
     def put(self, case, tree_or_arrays):
@@ -192,12 +193,13 @@ class Runner:
         model rank (an all-reduce max of each leaf's |x - x_rank0|)."""
         from repro_torch import tree
         from repro_torch.comm import tensor_parallel as TP
-        if TP.current() is None:
+        if TP.current("model") is None:
             return True
         worst = 0.0
-        for a, d in zip(tree.leaves(X), TP.dims_of(self.specs(model))):
+        for a, d in zip(tree.leaves(X),
+                        TP.axis_dims(self.specs(model), "model")):
             if d is None:
-                gap = (TP.gather_dim(a.reshape(1, -1), 1)
+                gap = (TP.gather_dim(a.reshape(1, -1), 1, "model")
                        .reshape(self.model_size, -1))
                 worst = max(worst, float(
                     (gap - gap[:1]).abs().max()))
@@ -205,7 +207,7 @@ class Runner:
 
     # -- the cases ------------------------------------------------------------
     def ops(self):
-        """copy_to_model / reduce_from_model / max_over_model under
+        """copy_to / reduce_sum / max_over on ``model`` under
         vmap(grad) on a column- then row-parallel pair against one
         process's autograd."""
         from repro_torch.comm import tensor_parallel as TP
@@ -216,8 +218,9 @@ class Runner:
         Bw = torch.randn(n, f, d, generator=g)
 
         def loss(a, b, x):
-            y = TP.reduce_from_model(torch.tanh(TP.copy_to_model(x) @ a) @ b)
-            return ((y - TP.max_over_model(y.amax())) ** 2).sum()
+            y = TP.reduce_sum(torch.tanh(TP.copy_to(x, "model") @ a) @ b,
+                              "model")
+            return ((y - TP.max_over(y.amax(), "model")) ** 2).sum()
         want = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(
             A, Bw, X)
         model = self.model(ARCHS[0])
@@ -372,9 +375,15 @@ class Runner:
         if what == "heads":
             model = self.model(ARCHS[0], num_heads=3, num_kv_heads=3)
         elif what == "kv-heads":
-            model = self.model(ARCHS[1], num_kv_heads=1)
+            # KV heads replicated over model (3 over 2), a rank's 3 query
+            # heads reading groups of 2: not whole groups of one KV head
+            model = self.model(ARCHS[1], num_heads=6, num_kv_heads=3)
         elif what == "hierarchical":
+            # the hierarchical rules run the dense family (FSDP over
+            # data); the MoE family is refused under them
+            from repro_torch.configs import get_config
             rules = ShardingRules("hierarchical")
+            model = Model(get_config("dbrx-132b").reduced(), self.device)
         elif what == "family-moe":
             from repro_torch.configs import get_config
             model = Model(get_config("dbrx-132b").reduced(), self.device)
