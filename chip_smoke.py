@@ -7,12 +7,13 @@ Phases (any failure exits non-zero, and the result line is not printed):
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no card -> exit 2.  TF32 is off for matmul and cuDNN.
-2. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
    (nvcc, sm_90a, in parallel; read with cuobjdump, the bfloat16
    tensor-core flash kernel's SASS must hold ``HGMMA`` and ``UTMALDG``, its
-   head dim 96 instantiation's too, the float32 one's TF32
-   ``HMMA.1688.F32.TF32``; registers and spills from ptxas, none spilled in
-   either tensor-core kernel's head dim 96 instantiation), then hold each
+   head dim 96, 192 and 256 instantiations' too, the float32 one's TF32
+   ``HMMA.1688.F32.TF32``, also at 96, 192 and 256; registers and spills
+   from ptxas, none spilled in either flash kernel's head dim 96, 192 or
+   256 instantiation), then hold each
    codec kernel against its plain
    PyTorch version with ``torch.equal``, on the card and against the CPU:
    encode over bits 1/2/4/8 x stochastic and nearest x idx_base != 0 x
@@ -40,14 +41,16 @@ Phases (any failure exits non-zero, and the result line is not printed):
 6. A torch.profiler trace of three 8-bit main-path steps: device busy share,
    launches, and device time by kernel group and by kernel.
 7. The flash-attention kernels against their plain version in float32 on
-   the same inputs, on the card, each case through the route its dtype and
-   head dim select (at head dims 64, 96 and 128 the tensor cores: bfloat16
-   the ``wgmma`` kernel, float32 the 3xTF32 ``mma.sync`` kernel; the rest:
-   the CUDA-core kernel), each route's launches counted: the reference
+   the same inputs, on the card, each case through the route its dtype
+   selects (at every head dim the tensor cores: bfloat16 the ``wgmma``
+   kernel, float32 the 3xTF32 ``mma.sync`` kernel), each route's launches
+   counted: the reference
    tests' sweep (S 256/384/128/130 with windows 0/100/32/0), non-causal
    Sq=130/Sk=256, head dims 64, 96 and 128, grouped-query cases (K/V at
    1/3, 1/2 and, at 96, 1/4 of the query heads), at 96 also Sq=200/Sk=300
-   causal and Sq=130/Sk=200 non-causal, the CUDA-core route at 256 and 33,
+   causal and Sq=130/Sk=200 non-causal, head dims no config has (33, 80,
+   160, 192, 256: causal with a window, non-causal Sq=130/Sk=200, at 256
+   also K/V at 1/2 of the query heads),
    and the serving shape [48, 4096, 128] causal (with 48 and with 16 KV
    heads), each in float32 (rtol = atol = 2e-5, the reference tests'
    numbers) and bfloat16 (within the reference tests' atol 0.03, and
@@ -55,9 +58,9 @@ Phases (any failure exits non-zero, and the result line is not printed):
    float32 tolerance).  Then two paths through ``ops.flash_sdpa``, one
    causal 4096-token prompt each: phi-3-vision-4.2b's attention (32 heads
    of 96, bfloat16 as published), the bfloat16 tensor-core kernel once;
-   and a check that the CUDA-core route still runs from there, 16 heads
-   of 256 (a head dim no config has, the widest the reference's kernel
-   takes: a route check, not a workload), that kernel once.
+   and a route check, 16 heads of 256 (a head dim no config has, the
+   widest the reference's kernel takes: not a workload), the bfloat16
+   tensor-core kernel once (its 256 instantiation).
 8. The single-payload decode kernel against its plain version, bitwise on
    the card and against the CPU: phase 2's rows (1003, 4096, 17, 1, 4104,
    4096 one element off alignment, payloads one to three bytes into their
@@ -68,28 +71,26 @@ Phases (any failure exits non-zero, and the result line is not printed):
 9. Serving llama3.2-3b at full width and depth in float32 (torch's TF32
    off: its matmuls run in full float32, while the flash kernel takes its
    products as 3xTF32), batch 2, a 256-token prompt: prefill through the
-   float32 tensor-core flash kernel (28 launches, none of the other two
-   routes) against the plain masked-softmax path, and the prompt fed token
+   float32 tensor-core flash kernel (28 launches, none of the bfloat16
+   one) against the plain masked-softmax path, and the prompt fed token
    by token through ``serve_step`` against prefill, both within 1e-3 x
    max|logit|; then 16 greedy tokens.
 10. The published bfloat16 llama3.2-3b, its config as registered (which
    serves through the flash kernel by default): prefill of 2 x 4096 tokens
    (the bfloat16 tensor-core flash kernel launched once per layer, 28
-   times, the other two never), its gap to the plain path, 32 greedy
+   times, the other never), its gap to the plain path, 32 greedy
    decode tokens against a 4096-slot cache; prefill and decode times and
    profiles of one prefill and of 4 decode tokens.
 11. Times of the serving slice's kernels at [48, 4096, 128] causal: the
    bfloat16 tensor-core kernel with the prefill's 16 KV heads, the float32
-   tensor-core kernel and the CUDA-core kernel on the same float32 inputs,
-   each beside scaled_dot_product_attention and its bound (float32: the
-   3xTF32 bound at the TF32 tensor-core peak, and the CUDA-core one at the
-   float32 peak); the two float32 kernels and the library call at head dim
-   64; at phase 7's phi-3-vision shape [32, 4096, 96] causal, in both
-   dtypes, the tensor-core kernel, the CUDA-core kernel on the same inputs
-   (the record of the route head dim 96 left), the plain version, the
-   library call and the bound; the CUDA-core kernel on phase 7's route
-   check ([16, 4096, 256] bfloat16), which its kernels-line entry reports
-   as a record of the route; the point decode at its path's shape.
+   tensor-core kernel, each beside scaled_dot_product_attention and its
+   bound (float32: the 3xTF32 bound at the TF32 tensor-core peak); the
+   float32 kernel and the library call at head dim 64; in both dtypes, at
+   phase 7's phi-3-vision shape [32, 4096, 96], at its route check
+   [16, 4096, 256] and at [32, 4096, 80] (a head dim run in the 96
+   instantiation with zero columns), causal: the kernel, the plain version,
+   the library call and the bound, the kernel held to the plain version;
+   the point decode at its path's shape.
 12. The paper's other update rules on the main path's model (ResNet-20,
    8 workers, 128 images each, 8 bits, 10 steps through ``Trainer.run``):
    naive, choco and deepsqueeze (gamma 0.3), dcd, ecd on a ring; d2 and
@@ -399,9 +400,12 @@ def sass_counts(lib, ops, fn=None):
 MAIN_PATH_KERNELS = ("encode_kernelIfLi8E", "encode_kernelIfLi1E",
                      "decode_reduce_kernelIfLi8ELi2E",
                      "decode_reduce_kernelIfLi1ELi2E")
-# the tensor-core flash kernels' head dim 96 instantiations, by library
-FLASH_D96_KERNELS = {"flash_attention_tc": "fa_kernel_tcILi96E",
-                     "flash_attention_f32tc": "fa_f32tc_kernelILi96E"}
+# the flash kernels' mangled name prefixes, by library, and the head dim
+# instantiations phase 2 reads one by one: 96 (phi-3-vision-4.2b), 192 and
+# 256 (no config: the tiles past head dim 128)
+FLASH_KERNEL_PREFIX = {"flash_attention_tc": "fa_kernel_tcILi",
+                       "flash_attention_f32tc": "fa_f32tc_kernelILi"}
+FLASH_CHECKED_DIMS = (96, 192, 256)
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -634,11 +638,16 @@ F32_PROMPT, F32_GREEDY = 256, 16          # phase 9
 BF16_PROMPT, BF16_GREEDY = 4096, 32       # phase 10
 FLASH_MAIN = (48, 4096, 128)              # [B*H, S, D] of phase 10's prefill
 # [B*H, S, D] of phase 7's two flash paths: phi-3-vision-4.2b's attention
-# (32 heads of 96); and a check that the CUDA-core route still runs from
-# ops.flash_sdpa, at 16 heads of 256, a head dim no config has (no model's
-# traffic: its times are a record of the route, not of a workload)
+# (32 heads of 96); and a route check through ops.flash_sdpa at 16 heads of
+# 256, a head dim no config has, the widest the reference's kernel takes
+# (no model's traffic: its times are a record of the route, not of a
+# workload).  FLASH_PAD: a head dim no instantiation has (80, run in the 96
+# one with zero columns), timed in phase 11.
 FLASH_PHI = (32, 4096, 96)
 FLASH_WIDE = (16, 4096, 256)
+FLASH_PAD = (32, 4096, 80)
+# phase 7's head dims outside the configs'
+FLASH_PAD_DIMS = (33, 80, 160, 192, 256)
 GQA_MAIN = 3                               # its query heads per KV head (24/8)
 # float32 serving checks (phase 9): the flash path and the token-by-token
 # decode against prefill, each within this share of max|logit|
@@ -724,8 +733,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     from repro_torch.train.serve_step import make_prefill_step, make_serve_step
 
     gen = torch.Generator().manual_seed(12)
-    routes = (kfa.flash_attention_tc, kfa.flash_attention_f32tc,
-              kfa.flash_attention_simt)
+    routes = (kfa.flash_attention_tc, kfa.flash_attention_f32tc)
 
     def launches():
         return {r.__name__: r.launches for r in routes}
@@ -736,6 +744,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
 
     # -- 7. flash kernels against their plain version --------------------
     torch.cuda.synchronize()
+    t7 = time.perf_counter()
     zero_launches()
     routed = {r.__name__: 0 for r in routes}
 
@@ -777,13 +786,24 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
                            scale=1.0 / math.sqrt(d), causal=causal,
                            window=window)
                 n += 1
-    for d in (256, 33):                # the CUDA-core route: widest, odd
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn((4, 384, d), generator=gen).to(dtype)
-                       .to(dev) for _ in range(3))
-            flash_case(f"flash {dtype} d={d}", q, k, v,
-                       scale=1.0 / math.sqrt(d), causal=True, window=100)
-            n += 1
+    # head dims no config has, each run in the next instantiation up with
+    # zero columns (33: padded to 40 by the wrapper; 80 in 96, 160 in 192)
+    # or in its own (192, 256): causal with a window, non-causal at ragged
+    # Sq != Sk, and at 256 grouped-query attention with g = 2
+    for d in FLASH_PAD_DIMS:
+        pad_cases = [(True, 384, 384, 100, 4, 4), (False, 130, 200, 0, 4, 4)]
+        if d == 256:
+            pad_cases.append((True, 256, 256, 0, 4, 2))
+        for causal, sq, sk, window, bh, bh_kv in pad_cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                q = torch.randn((bh, sq, d), generator=gen).to(dtype).to(dev)
+                k, v = (torch.randn((bh_kv, sk, d), generator=gen).to(dtype)
+                        .to(dev) for _ in range(2))
+                flash_case(f"flash {dtype} causal={causal} sq={sq} sk={sk} "
+                           f"window={window} d={d} g={bh // bh_kv}", q, k, v,
+                           scale=1.0 / math.sqrt(d), causal=causal,
+                           window=window)
+                n += 1
     bh, s_main, d_main = FLASH_MAIN
     kv_main = bh // GQA_MAIN            # the prefill's KV blocks
     fa_kw = dict(scale=1.0 / math.sqrt(d_main), causal=True, window=0)
@@ -837,17 +857,15 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
 
     # phi-3-vision-4.2b's attention (32 query and 32 KV heads of 96,
     # bfloat16 as published): the bfloat16 tensor-core kernel at head dim 96
-    ph_h, ph_s, ph_d = FLASH_PHI
-    ph_kw = dict(scale=1.0 / math.sqrt(ph_d), causal=True, window=0)
     tc96_path, ph_err, _ = sdpa_path(FLASH_PHI, kfa.flash_attention_tc,
                                      "phi-3-vision-4.2b's attention")
-    # a check of the CUDA-core route through ops.flash_sdpa, not a
-    # workload: head dim 256, which no config has, the widest the
-    # reference's kernel takes
-    wd_h, wd_s, wd_d = FLASH_WIDE
-    wd_kw = dict(scale=1.0 / math.sqrt(wd_d), causal=True, window=0)
-    simt_path, wd_err, _ = sdpa_path(FLASH_WIDE, kfa.flash_attention_simt,
-                                     "the CUDA-core route check")
+    # a route check through ops.flash_sdpa, not a workload: head dim 256,
+    # which no config has, the widest the reference's kernel takes, on the
+    # bfloat16 tensor-core kernel's 256 instantiation
+    wd_path, wd_err, _ = sdpa_path(FLASH_WIDE, kfa.flash_attention_tc,
+                                   "the head dim 256 route check")
+
+    print(f"phase 7 took {time.perf_counter() - t7:.1f} s", flush=True)
 
     # -- 8. decode kernel: bitwise sweep, then its path --------------------
     # phase 2's rows [workers, rows, cols]: 1003, no vpb divides it; 4096,
@@ -962,8 +980,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     torch.cuda.synchronize()
     f32_launches = launches()
     check(f32_launches == {"flash_attention_tc": 0,
-                           "flash_attention_f32tc": cfg.num_layers,
-                           "flash_attention_simt": 0},
+                           "flash_attention_f32tc": cfg.num_layers},
           f"f32 prefill flash launches {f32_launches}, want the float32 "
           f"tensor-core kernel {cfg.num_layers} times and no other")
     lp = make_prefill_step(m32_plain)(params, batch)
@@ -1013,8 +1030,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     torch.cuda.synchronize()
     fa_launches = kfa.flash_attention_tc.launches
     check(launches() == {"flash_attention_tc": cfg.num_layers,
-                         "flash_attention_f32tc": 0,
-                         "flash_attention_simt": 0},
+                         "flash_attention_f32tc": 0},
           f"bf16 prefill flash launches {launches()}, want the tensor-core "
           f"kernel {cfg.num_layers} times and no other")
     check(bool(torch.isfinite(logits).all()), "bf16 prefill not finite")
@@ -1064,6 +1080,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     torch.cuda.empty_cache()
 
     # -- 11. times of the serving slice's kernels at their path's shapes --
+    t11 = time.perf_counter()
     # qm, km, vm: the bfloat16 inputs at the prefill's shape (16 KV blocks)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fa_ms = timer(lambda: kfa.flash_attention_tc(qm, km, vm, **fa_kw),
@@ -1074,14 +1091,10 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     sdpa_ms = timer(lambda: sdpa(qm[None], km[None], vm[None], is_causal=True,
                                  enable_gqa=True), reps=20, warmup=2)
     # the same function with the KV blocks expanded to 48, the shape of
-    # the earlier timings, where both routes and the library call are timed
-    # side by side
+    # the earlier timings, the kernel and the library call side by side
     km1, vm1 = (kfa.expand_kv(t, GQA_MAIN) for t in (km, vm))
     tc48_ms = timer(lambda: kfa.flash_attention_tc(qm, km1, vm1, **fa_kw),
                     reps=20, warmup=2)
-    simt_bf16_ms = timer(lambda: kfa.flash_attention_simt(qm, km1, vm1,
-                                                          **fa_kw),
-                         reps=10, warmup=2)
     sdpa48_ms = timer(lambda: sdpa(qm[None], km1[None], vm1[None],
                                    is_causal=True), reps=20, warmup=2)
     del km1, vm1
@@ -1090,28 +1103,20 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     fa_bound = 1e3 * max(fa_bytes / HBM_BYTES_PER_S,
                          fa_flops / BF16_OPS_PER_S)
     # float32 at the same shape, 48 KV blocks: the float32 tensor-core
-    # kernel (phase 9's route), the CUDA-core kernel on the same inputs,
-    # the plain version and the library call
+    # kernel (phase 9's route), the plain version and the library call
     q32, k32, v32 = f32_main
     f32tc_ms = timer(lambda: kfa.flash_attention_f32tc(q32, k32, v32,
                                                        **fa_kw),
                      reps=10, warmup=2)
-    simt_ms = timer(lambda: kfa.flash_attention_simt(q32, k32, v32, **fa_kw),
-                    reps=10, warmup=2)
     f32_plain_ms = timer(lambda: kfa.flash_attention_plain(q32, k32, v32,
                                                            **fa_kw),
                          reps=5, warmup=1)
     sdpa32_ms = timer(lambda: sdpa(q32[None], k32[None], v32[None],
                                    is_causal=True), reps=10, warmup=2)
-    _, simt_err, _ = kfa.flash_close(
-        kfa.flash_attention_simt(q32, k32, v32, **fa_kw),
-        kfa.flash_attention_plain(q32, k32, v32, **fa_kw))
     f32_bytes = 4 * 4 * bh * s_main * d_main
     # 3xTF32 issues three TF32 products for each float32 one
     f32tc_bound = 1e3 * max(f32_bytes / HBM_BYTES_PER_S,
                             3 * fa_flops / TF32_OPS_PER_S)
-    simt_bound = 1e3 * max(f32_bytes / HBM_BYTES_PER_S,
-                           fa_flops / F32_OPS_PER_S)
     del q32, k32, v32, f32_main
     # float32 at head dim 64, the route's other instantiation
     d64 = 64
@@ -1121,69 +1126,55 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     f32tc64_ms = timer(lambda: kfa.flash_attention_f32tc(q64, k64, v64,
                                                          **kw64),
                        reps=10, warmup=2)
-    simt64_ms = timer(lambda: kfa.flash_attention_simt(q64, k64, v64,
-                                                       **kw64),
-                      reps=10, warmup=2)
     sdpa64_ms = timer(lambda: sdpa(q64[None], k64[None], v64[None],
                                    is_causal=True), reps=10, warmup=2)
     del q64, k64, v64
     f32tc64_bound = 1e3 * max(4 * 4 * bh * s_main * d64 / HBM_BYTES_PER_S,
                               3 * 4 * d64 * bh * causal_pairs(s_main)
                               / TF32_OPS_PER_S)
-    # head dim 96 at phase 7's phi-3-vision shape as the kernels get it,
-    # [32, 4096, 96] causal, in both dtypes: the tensor-core kernel, the
-    # CUDA-core kernel on the same inputs (the record of the route head dim
-    # 96 took before), the plain version and the library call
-    qp, kp, vp = (torch.randn((ph_h, ph_s, ph_d), generator=gen)
-                  .to(torch.bfloat16).to(dev) for _ in range(3))
-    ph_ms = timer(lambda: kfa.flash_attention_tc(qp, kp, vp, **ph_kw),
-                  reps=20, warmup=2)
-    ph_simt_ms = timer(lambda: kfa.flash_attention_simt(qp, kp, vp,
-                                                        **ph_kw),
-                       reps=10, warmup=2)
-    ph_plain_ms = timer(lambda: kfa.flash_attention_plain(qp, kp, vp,
-                                                          **ph_kw),
-                        reps=5, warmup=1)
-    ph_sdpa_ms = timer(lambda: sdpa(qp[None], kp[None], vp[None],
-                                    is_causal=True), reps=20, warmup=2)
-    qp, kp, vp = (t.float() for t in (qp, kp, vp))
-    ph32_ms = timer(lambda: kfa.flash_attention_f32tc(qp, kp, vp, **ph_kw),
-                    reps=10, warmup=2)
-    ph32_simt_ms = timer(lambda: kfa.flash_attention_simt(qp, kp, vp,
-                                                          **ph_kw),
-                         reps=10, warmup=2)
-    ph32_plain_ms = timer(lambda: kfa.flash_attention_plain(qp, kp, vp,
-                                                            **ph_kw),
-                          reps=5, warmup=1)
-    ph32_sdpa_ms = timer(lambda: sdpa(qp[None], kp[None], vp[None],
-                                      is_causal=True), reps=10, warmup=2)
-    ok, ph32_err, ph32_ratio = kfa.flash_close(
-        kfa.flash_attention_f32tc(qp, kp, vp, **ph_kw),
-        kfa.flash_attention_plain(qp, kp, vp, **ph_kw))
-    check(ok, f"float32 flash {list(FLASH_PHI)} != plain (max abs "
-          f"{ph32_err:.3g})")
-    del qp, kp, vp
-    ph_flops = 4 * ph_d * ph_h * causal_pairs(ph_s)
-    ph_bytes = 2 * 4 * ph_h * ph_s * ph_d
-    ph_bound = 1e3 * max(ph_bytes / HBM_BYTES_PER_S,
-                         ph_flops / BF16_OPS_PER_S)
-    ph32_bound = 1e3 * max(2 * ph_bytes / HBM_BYTES_PER_S,
-                           3 * ph_flops / TF32_OPS_PER_S)
-    # the CUDA-core kernel on phase 7's route check, [16, 4096, 256]
-    # bfloat16 causal (a head dim no config has)
-    qw, kw_, vw = (torch.randn((wd_h, wd_s, wd_d), generator=gen)
-                   .to(torch.bfloat16).to(dev) for _ in range(3))
-    wd_ms = timer(lambda: kfa.flash_attention_simt(qw, kw_, vw, **wd_kw),
-                  reps=10, warmup=2)
-    wd_plain_ms = timer(lambda: kfa.flash_attention_plain(qw, kw_, vw,
-                                                          **wd_kw),
-                        reps=5, warmup=1)
-    wd_sdpa_ms = timer(lambda: sdpa(qw[None], kw_[None], vw[None],
+
+    def route_times(shape, dtype):
+        """The route of ``dtype`` on causal ``shape`` = [BH, S, D] (KV
+        blocks as many): its kernel, the plain version, the library call
+        and the bound (bfloat16: operations at the bf16 peak; float32: the
+        3xTF32 bound, three TF32 products for each one), the kernel held
+        to the plain version; the kernel's launch is counted by its
+        wrapper, not here."""
+        h, sl, dh = shape
+        q, k, v = (torch.randn((h, sl, dh), generator=gen).to(dtype).to(dev)
+                   for _ in range(3))
+        kw = dict(scale=1.0 / math.sqrt(dh), causal=True, window=0)
+        fn = kfa.route(q)
+        ok, err, ratio = kfa.flash_close(
+            fn(q, k, v, **kw), kfa.flash_attention_plain(
+                q.float(), k.float(), v.float(), **kw))
+        check(ok, f"{fn.__name__} {list(shape)} {dtype} != plain (max abs "
+              f"{err:.3g})")
+        bf16 = dtype == torch.bfloat16
+        ms = timer(lambda: fn(q, k, v, **kw), reps=20 if bf16 else 10,
+                   warmup=2)
+        plain_ms = timer(lambda: kfa.flash_attention_plain(q, k, v, **kw),
+                         reps=5, warmup=1)
+        lib_ms = timer(lambda: sdpa(q[None], k[None], v[None],
                                     is_causal=True), reps=10, warmup=2)
-    del qw, kw_, vw
-    wd_flops = 4 * wd_d * wd_h * causal_pairs(wd_s)
-    wd_bound = 1e3 * max(2 * 4 * wd_h * wd_s * wd_d / HBM_BYTES_PER_S,
-                         wd_flops / BF16_OPS_PER_S)
+        flops = 4 * dh * h * causal_pairs(sl)
+        nbytes = 4 * h * sl * dh * q.element_size()
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                          flops / BF16_OPS_PER_S if bf16
+                          else 3 * flops / TF32_OPS_PER_S)
+        del q, k, v
+        return dict(shape=list(shape), kernel=fn.__name__,
+                    max_abs_err=err, tolerance_ratio=ratio, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound, bound_by="operations",
+                    library_ms=lib_ms, tflops=flops / ms / 1e9)
+
+    # head dim 96 at phase 7's phi-3-vision shape as the kernels get it,
+    # [32, 4096, 96] causal, in both dtypes; head dim 256 at phase 7's
+    # route check [16, 4096, 256] and head dim 80 (run in the 96
+    # instantiation with zero columns) at [32, 4096, 80]
+    rt = {(shape, str(dt)[6:]): route_times(shape, dt)
+          for shape in (FLASH_PHI, FLASH_WIDE, FLASH_PAD)
+          for dt in (torch.bfloat16, torch.float32)}
     elems = flat.numel()
     dec_ms = timer(lambda: kdec.decode(p_nbr, flat, B8, bits=8))
     dec_plain_ms = timer(lambda: kdec.decode_plain(p_nbr, flat, B8, bits=8))
@@ -1198,53 +1189,39 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
           f"MB take {1e3 * fa_bytes / HBM_BYTES_PER_S:.4f} ms) {card}",
           flush=True)
     print(f"time: flash {list(FLASH_MAIN)} bfloat16 causal, {bh} KV blocks: "
-          f"tensor-core kernel {tc48_ms:.4f} ms | CUDA-core kernel "
-          f"{simt_bf16_ms:.4f} ms | scaled_dot_product_attention "
-          f"{sdpa48_ms:.4f} ms {card}", flush=True)
+          f"tensor-core kernel {tc48_ms:.4f} ms | "
+          f"scaled_dot_product_attention {sdpa48_ms:.4f} ms {card}",
+          flush=True)
     print(f"time: flash {list(FLASH_MAIN)} float32 causal, {bh} KV blocks: "
           f"flash_attention_f32tc (3xTF32 mma.sync) {f32tc_ms:.4f} ms | "
-          f"flash_attention (CUDA cores) {simt_ms:.4f} ms | plain "
-          f"{f32_plain_ms:.4f} ms | scaled_dot_product_attention "
-          f"{sdpa32_ms:.4f} ms | bounds: 3xTF32 {f32tc_bound:.4f} ms "
-          f"(operations x3 at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s TF32), "
-          f"CUDA cores {simt_bound:.4f} ms (operations at "
-          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32) {card}", flush=True)
+          f"plain {f32_plain_ms:.4f} ms | scaled_dot_product_attention "
+          f"{sdpa32_ms:.4f} ms | 3xTF32 bound {f32tc_bound:.4f} ms "
+          f"(operations x3 at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s TF32) "
+          f"{card}", flush=True)
     print(f"time: flash [{bh}, {s_main}, {d64}] float32 causal, {bh} KV "
           f"blocks: flash_attention_f32tc {f32tc64_ms:.4f} ms | "
-          f"flash_attention (CUDA cores) {simt64_ms:.4f} ms | "
           f"scaled_dot_product_attention {sdpa64_ms:.4f} ms | 3xTF32 bound "
-          f"{f32tc64_bound:.4f} ms "
-          f"{card}", flush=True)
-    print(f"time: flash {list(FLASH_PHI)} bfloat16 causal (phi-3-vision-"
-          f"4.2b's attention): flash_attention_tc {ph_ms:.4f} ms "
-          f"({ph_flops / ph_ms / 1e9:.1f} TFLOP/s of the algorithm's "
-          f"{ph_flops / 1e9:.1f} GFLOP) | flash_attention (CUDA cores) "
-          f"{ph_simt_ms:.4f} ms | plain {ph_plain_ms:.4f} ms | "
-          f"scaled_dot_product_attention {ph_sdpa_ms:.4f} ms | bound "
-          f"{ph_bound:.4f} ms (operations at {BF16_OPS_PER_S / 1e12:.0f} "
-          f"TFLOP/s bf16; {1e3 * ph_flops / F32_OPS_PER_S:.4f} ms at the "
-          f"CUDA cores' {F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32) {card}",
-          flush=True)
-    print(f"time: flash {list(FLASH_PHI)} float32 causal: "
-          f"flash_attention_f32tc (3xTF32 mma.sync) {ph32_ms:.4f} ms | "
-          f"flash_attention (CUDA cores) {ph32_simt_ms:.4f} ms | plain "
-          f"{ph32_plain_ms:.4f} ms | scaled_dot_product_attention "
-          f"{ph32_sdpa_ms:.4f} ms | 3xTF32 bound {ph32_bound:.4f} ms "
-          f"(operations x3 at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s TF32) | "
-          f"max abs vs plain {ph32_err:.4g} ({ph32_ratio:.3g} x tolerance) "
-          f"{card}", flush=True)
-    print(f"time: flash_attention (CUDA cores) on the route check "
-          f"{list(FLASH_WIDE)} bfloat16 causal: kernel {wd_ms:.4f} ms "
-          f"({wd_flops / wd_ms / 1e9:.1f} TFLOP/s) | plain {wd_plain_ms:.4f} "
-          f"ms | scaled_dot_product_attention {wd_sdpa_ms:.4f} ms | bound "
-          f"{wd_bound:.4f} ms (operations at {BF16_OPS_PER_S / 1e12:.0f} "
-          f"TFLOP/s bf16; {1e3 * wd_flops / F32_OPS_PER_S:.4f} ms at the "
-          f"CUDA cores' {F32_OPS_PER_S / 1e12:.0f} TFLOP/s float32) {card}",
-          flush=True)
+          f"{f32tc64_bound:.4f} ms {card}", flush=True)
+    for (shape, dt), r in rt.items():
+        print(f"time: flash {list(shape)} {dt} causal: {r['kernel']} "
+              f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s of the "
+              f"algorithm) | plain {r['plain_ms']:.4f} ms | "
+              f"scaled_dot_product_attention {r['library_ms']:.4f} ms | "
+              f"bound {r['bound_ms']:.4f} ms (operations"
+              f"{' x3 at the TF32 peak' if dt == 'float32' else ''}) | max "
+              f"abs vs plain {r['max_abs_err']:.4g} "
+              f"({r['tolerance_ratio']:.3g} x tolerance) {card}", flush=True)
     print(f"time: moniqua_decode 8-bit remote {list(flat.shape)} float32: "
           f"kernel {dec_ms:.5f} ms | plain {dec_plain_ms:.5f} ms | bound "
           f"{dec_bound:.5f} ms (bytes) | library: no single PyTorch call "
           f"{card}", flush=True)
+
+    print(f"phase 11 took {time.perf_counter() - t11:.1f} s", flush=True)
+
+    def record(shape, dt, **extra):
+        r = dict(rt[shape, dt])
+        del r["kernel"], r["tflops"], r["tolerance_ratio"]
+        return dict(r, **extra)
     return [
         dict(name="flash_attention_tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
@@ -1254,11 +1231,14 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
              plain_ms=fa_plain_ms, bound_ms=fa_bound, bound_by="operations",
              library_ms=sdpa_ms,
              # head dim 96 on its path, phase 7's phi-3-vision attention
-             d96=dict(shape=list(FLASH_PHI),
-                      launches=tc96_path["flash_attention_tc"],
-                      max_abs_err=ph_err, ms=ph_ms, plain_ms=ph_plain_ms,
-                      bound_ms=ph_bound, bound_by="operations",
-                      library_ms=ph_sdpa_ms)),
+             d96=record(FLASH_PHI, "bfloat16",
+                        launches=tc96_path["flash_attention_tc"],
+                        path_max_abs_err=ph_err),
+             # head dim 256 on phase 7's route check (no config has it)
+             d256=record(FLASH_WIDE, "bfloat16",
+                         launches=wd_path["flash_attention_tc"],
+                         path_max_abs_err=wd_err),
+             d80=record(FLASH_PAD, "bfloat16")),
         dict(name="flash_attention_f32tc", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_f32tc.cu",
              replaces="src/repro/kernels/flash_attention.py:130",
@@ -1266,28 +1246,11 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
              max_abs_err=main["float32", bh][0], ms=f32tc_ms,
              plain_ms=f32_plain_ms, bound_ms=f32tc_bound,
              bound_by="operations", library_ms=sdpa32_ms,
-             # head dim 96 at phase 7's phi-3-vision shape (no float32 path)
-             d96=dict(shape=list(FLASH_PHI), max_abs_err=ph32_err,
-                      ms=ph32_ms, plain_ms=ph32_plain_ms,
-                      bound_ms=ph32_bound, bound_by="operations",
-                      library_ms=ph32_sdpa_ms)),
-        # launches and times on phase 7's check of the CUDA-core route
-        # (head dim 256, which no config has: a route check, not traffic);
-        # head dim 96, which it served before, and float32 at the serving
-        # shape kept beside as the earlier records
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:130",
-             launches=simt_path["flash_attention_simt"],
-             max_abs_err=wd_err, ms=wd_ms, plain_ms=wd_plain_ms,
-             bound_ms=wd_bound, bound_by="operations",
-             library_ms=wd_sdpa_ms,
-             d96_record=dict(shape=list(FLASH_PHI), bfloat16_ms=ph_simt_ms,
-                             float32_ms=ph32_simt_ms),
-             float32_record=dict(shape=list(FLASH_MAIN), max_abs_err=simt_err,
-                                 ms=simt_ms, plain_ms=f32_plain_ms,
-                                 bound_ms=simt_bound, bound_by="operations",
-                                 library_ms=sdpa32_ms)),
+             # phase 7's phi-3-vision, route-check and padded shapes in
+             # float32 (no float32 path at these head dims)
+             d96=record(FLASH_PHI, "float32"),
+             d256=record(FLASH_WIDE, "float32"),
+             d80=record(FLASH_PAD, "float32")),
         dict(name="moniqua_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/moniqua_decode.cu",
              replaces="src/repro/kernels/moniqua_decode.py:68",
@@ -3074,8 +3037,7 @@ class Launches:
         from repro_torch.kernels import flash_attention as kfa
         from repro_torch.kernels import moniqua_decode_reduce as kdr
         from repro_torch.kernels import moniqua_encode as kenc
-        self.routes = (kfa.flash_attention_tc, kfa.flash_attention_f32tc,
-                       kfa.flash_attention_simt)
+        self.routes = (kfa.flash_attention_tc, kfa.flash_attention_f32tc)
         self.codec = {"moniqua_encode": kenc.encode,
                       "moniqua_decode_reduce": kdr.decode_reduce}
         self.counted = {}
@@ -3150,8 +3112,7 @@ def train_runs(model, shape, base, runs, launches, card, what,
               f"{what} {name}: step 0's loss {losses[0]} not within 10% of "
               f"ln V = {math.log(cfg.vocab_size):.4f}")
         check(got["flash_attention_tc"] == steps * flash_per_step
-              and got["flash_attention_f32tc"] == 0
-              and got["flash_attention_simt"] == 0,
+              and got["flash_attention_f32tc"] == 0,
               f"{what} {name}: flash launches {got}, want "
               f"{flash_per_step} a step on the bf16 tensor-core kernel")
         check(got["moniqua_encode"] == n_codec
@@ -3350,8 +3311,7 @@ def serve_cell(model, params, prompt, greedy, launches, flash_per_prefill,
     got = launches.read()
     launches.add(got)
     check(got["flash_attention_tc"] == flash_per_prefill
-          and got["flash_attention_f32tc"] == 0
-          and got["flash_attention_simt"] == 0,
+          and got["flash_attention_f32tc"] == 0,
           f"{what} prefill flash launches {got}, want {flash_per_prefill}")
     check(bool(torch.isfinite(logits).all()), f"{what} prefill logits")
     if gap_fn is None:
@@ -3713,8 +3673,7 @@ def f32_decode_check(model, params, shape, launches, flash_f32, what,
     got = launches.read()
     launches.add(got)
     check(got["flash_attention_f32tc"] == flash_f32
-          and got["flash_attention_tc"] == 0
-          and got["flash_attention_simt"] == 0,
+          and got["flash_attention_tc"] == 0,
           f"{what} float32 prefill flash launches {got}, want {flash_f32}")
     cache = model.init_cache(shape.global_batch, shape)
     serve = make_serve_step(model)
@@ -4069,8 +4028,7 @@ def launch_phase(dev, card):
               f"step ({per_step} a step on {leaves} leaves)")
         check(got["flash_attention_tc"] == steps * wh.num_layers
               == steps * CLI_WH_FLASH
-              and got["flash_attention_f32tc"] == 0
-              and got["flash_attention_simt"] == 0,
+              and got["flash_attention_f32tc"] == 0,
               f"phase 24 (a): flash launches {got}, want {CLI_WH_FLASH} a "
               f"step on the bf16 tensor-core kernel")
         print(f"phase 24 (a): python -m repro_torch.launch.train "
@@ -4096,8 +4054,7 @@ def launch_phase(dev, card):
         check(bps_b == want_b, f"phase 24 (b): bytes/step/worker {bps_b} != "
               f"{want_b}")
         check(got_b["flash_attention_f32tc"] == lm_steps * lm.num_layers
-              and got_b["flash_attention_tc"] == 0
-              and got_b["flash_attention_simt"] == 0,
+              and got_b["flash_attention_tc"] == 0,
               f"phase 24 (b): flash launches {got_b}, want one float32 "
               f"launch a layer a step")
         check(got_b["moniqua_encode"] == got_b["moniqua_decode_reduce"]
@@ -4622,8 +4579,7 @@ def tp_phase(dev, card, ref25):
         pre, trn = x["prefill_launches"], x["train_launches"]
         n_leaves = len(tree.leaves(ref25["params"]))
         check(pre["flash_attention_tc"] == serve_config().num_layers
-              and pre["flash_attention_f32tc"] == 0
-              and pre["flash_attention_simt"] == 0,
+              and pre["flash_attention_f32tc"] == 0,
               f"phase 26 (a) rank {r}: prefill launches {pre}")
         check(trn["flash_attention_tc"] == MESH_STEPS * cfg.num_layers
               and trn["moniqua_encode"] == MESH_STEPS * n_leaves
@@ -5158,8 +5114,7 @@ def fsdp_phase(dev, card):
         for key, layers in (("a", FSDP_SERVE_LAYERS), ("d", FSDP_KV_LAYERS)):
             got = x[f"{key}_launches"]
             check(got["flash_attention_tc"] == layers
-                  and got["flash_attention_f32tc"] == 0
-                  and got["flash_attention_simt"] == 0,
+                  and got["flash_attention_f32tc"] == 0,
                   f"phase 27 ({key}) rank {r}: prefill launches {got}")
             check(max(x[f"{key}_gaps"]) <= BF16_GAP_BOUND,
                   f"phase 27 ({key}) rank {r}: split vs one-process "
@@ -5316,7 +5271,7 @@ def main() -> int:
     # -- 2. build, then each kernel against its plain version --------------
     t0 = time.perf_counter()
     libs = build.build_all(force=True)
-    check(len(libs) == 6, f"built {sorted(libs)}, want 6 kernels")
+    check(len(libs) == 5, f"built {sorted(libs)}, want 5 kernels")
     print(f"build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR}", flush=True)
     for name, path in libs.items():
@@ -5349,27 +5304,27 @@ def main() -> int:
         check(all(sass.values()), f"{name} SASS {sass}: want {what}")
         print(f"sass: {name} " + ", ".join(
             f"{op} {n}" for op, n in sass.items()), flush=True)
-    # the head dim 96 instantiations (phi-3-vision-4.2b's attention): the
-    # bfloat16 one's SASS, and no spill in either
-    fn96 = FLASH_D96_KERNELS["flash_attention_tc"]
-    sass = sass_counts(libs["flash_attention_tc"], ("HGMMA", "UTMALDG"),
-                       fn=fn96)
-    if sass is None:
-        print("sass: flash_attention_tc head dim 96 counts not measured (no "
-              "cuobjdump in the toolkit)")
-    else:
-        check(all(sass.values()), f"flash_attention_tc head dim 96 SASS "
-              f"{sass}: want wgmma (HGMMA) and TMA loads (UTMALDG)")
-        print(f"sass: flash_attention_tc head dim 96 ({fn96}) " + ", ".join(
-            f"{op} {n}" for op, n in sass.items()), flush=True)
-    for name, fn in FLASH_D96_KERNELS.items():
-        kern = {k: v for k, v in ptxas_kernels(
-            libs[name].with_suffix(".log").read_text()).items() if fn in k}
-        check(len(kern) == 1, f"{name}: no ptxas lines for {fn}")
-        (regs, spill), = kern.values()
-        check(spill == 0, f"{name} head dim 96 spills {spill} bytes")
-        print(f"  ptxas {name} head dim 96 ({fn}): {regs} registers, "
-              f"{spill} bytes spilled", flush=True)
+    # the head dim 96, 192 and 256 instantiations of both flash kernels:
+    # their tensor-core instructions in the SASS, and no spill in any
+    flash_ops = {"flash_attention_tc": ("HGMMA", "UTMALDG"),
+                 "flash_attention_f32tc": ("HMMA.1688.F32.TF32",)}
+    for name, prefix in FLASH_KERNEL_PREFIX.items():
+        log = libs[name].with_suffix(".log").read_text()
+        for d in FLASH_CHECKED_DIMS:
+            fn = f"{prefix}{d}E"
+            kern = {k: v for k, v in ptxas_kernels(log).items() if fn in k}
+            check(len(kern) == 1, f"{name}: no ptxas lines for {fn}")
+            (regs, spill), = kern.values()
+            check(spill == 0, f"{name} head dim {d} spills {spill} bytes")
+            sass = sass_counts(libs[name], flash_ops[name], fn=fn)
+            if sass is None:
+                counts = "SASS counts not measured (no cuobjdump)"
+            else:
+                check(all(sass.values()), f"{name} head dim {d} SASS "
+                      f"{sass}: want {' and '.join(flash_ops[name])}")
+                counts = ", ".join(f"{op} {n}" for op, n in sass.items())
+            print(f"  ptxas {name} head dim {d} ({fn}): {regs} registers, "
+                  f"{spill} bytes spilled; sass {counts}", flush=True)
 
     gen = torch.Generator().manual_seed(0)
 

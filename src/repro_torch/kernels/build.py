@@ -11,11 +11,11 @@ Flags are per source.  The codec kernels build with ``-fmad=false``, which
 keeps every float multiply and add separately rounded, as the plain PyTorch
 versions compute them (the kernels also spell the arithmetic out with
 ``_rn`` intrinsics), so they equal their plain versions bit for bit.  The
-three flash-attention kernels (``flash_attention.cu`` on CUDA cores,
-``flash_attention_tc.cu`` on the tensor cores in bfloat16 with ``wgmma``
-and TMA, ``flash_attention_f32tc.cu`` on the tensor cores in float32 with
-3xTF32 ``mma.sync``) are held to their plain version within a tolerance
-(they sum in another order) and may contract multiply-adds.  The tensor-core kernel fetches
+two flash-attention kernels (``flash_attention_tc.cu`` on the tensor cores
+in bfloat16 with ``wgmma`` and TMA, ``flash_attention_f32tc.cu`` on the
+tensor cores in float32 with 3xTF32 ``mma.sync``) are held to their plain
+version within a tolerance (they sum in another order) and may contract
+multiply-adds.  The tensor-core kernel fetches
 ``cuTensorMapEncodeTiled`` at run time through the CUDA runtime
 (``cudaGetDriverEntryPoint``), so no source links ``-lcuda``.
 ``--use_fast_math`` is never used.
@@ -45,8 +45,6 @@ SIGNATURES = {
     "moniqua_decode_reduce": (_P, _P, _P, _I, _P, _I64, _I64, _I, _P, _P, _I,
                               _P),
     "moniqua_decode": (_P, _P, _I, _P, _I64, _I64, _P, _I, _I, _P),
-    "flash_attention": (_P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _I,
-                        ctypes.c_float, _I, _I64, _P),
     "flash_attention_tc": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
                            ctypes.c_float, _I, _I64, _P),
     "flash_attention_f32tc": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
@@ -54,8 +52,7 @@ SIGNATURES = {
 }
 # nvcc flags of each source
 FLAGS = {"moniqua_encode": CODEC_FLAGS, "moniqua_decode_reduce": CODEC_FLAGS,
-         "moniqua_decode": CODEC_FLAGS, "flash_attention": NVCC_FLAGS,
-         "flash_attention_tc": NVCC_FLAGS,
+         "moniqua_decode": CODEC_FLAGS, "flash_attention_tc": NVCC_FLAGS,
          "flash_attention_f32tc": NVCC_FLAGS}
 
 _libs: Dict[str, ctypes.CDLL] = {}

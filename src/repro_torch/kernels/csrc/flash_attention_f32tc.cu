@@ -1,13 +1,16 @@
 // Flash-attention forward in float32 on Hopper's tensor cores (3xTF32
-// mma.sync), sm_90a: the float32 route at head dims 64, 96 and 128.
+// mma.sync), sm_90a: the float32 route at every head dim 1..256.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel) where
-// the inputs are float32 at head dim 64, 96 or 128; bfloat16 there takes
-// flash_attention_tc.cu, every other head dim flash_attention.cu.  q [BH,
-// Sq, D], k/v [BH/g, Sk, D], row-major float32, out [BH, Sq, D] float32;
-// query row block bh reads KV block bh / g (grouped-query attention without
-// a copy).  Per query row i and key j, as the reference computes:
+// the inputs are float32; bfloat16 takes flash_attention_tc.cu.  q [BH,
+// Sq, d], k/v [BH/g, Sk, d], row-major float32, out [BH, Sq, d] float32,
+// with d a multiple of 8 (the wrapper pads any other d to one with zero
+// columns); query row block bh reads KV block bh / g (grouped-query
+// attention without a copy).  The kernel is instantiated at D = 64, 96,
+// 128, 192 and 256, and d runs at the smallest D >= d: columns d..D-1 of
+// the staged tiles are zero-filled like rows past Sq or Sk, so they add
+// exact zeros to every score, and only columns < d are stored.  Per query row i and key j, as the reference computes:
 //   s_ij = (q_i . k_j) * scale in float32; valid: i < Sq, j < Sk and, when
 //   causal, j <= i and (window == 0 or j > i - window); masked scores are
 //   the finite sentinel -1e30; running max m, denominator l and numerator
@@ -32,17 +35,26 @@
 // Q + K + V + O are 402 MB.
 //
 // Design (right and simple first; wgmma is a later step).
-// - A CTA is 4 warps and takes 64 query rows of one bh, 16 rows a warp, and
-//   walks the live key tiles of 64 keys.  Key tiles past the causal
+// - A CTA is BM / 16 warps and takes BM query rows of one bh, 16 rows a
+//   warp, and walks the live key tiles of BN keys: BM = BN = 64 (4 warps)
+//   up to D = 128.  Past it Q, K and V tiles of 64 rows leave room for one
+//   CTA of 4 warps an SM, so BM = 128 (8 warps, each K and V tile read by
+//   twice the rows): BN = 64 at D = 192 (196 KB), BN = 32 at D = 256
+//   (195 KB; 64 keys would not fit).  Measured at [16, 4096, D] causal
+//   (PERF.md): at 192, 1.994 ms against 2.19 with BN = 32 and 2.42 with
+//   BM = BN = 64; at 256, 2.886 against 3.30 with BM = BN = 64 and 3.70
+//   with BM = 64, BN = 32.  Key tiles past the causal
 //   frontier or wholly before the window are skipped; the CTAs with the
 //   most live tiles (the last query tiles) are launched first.
 // - Q (once) and each K and V tile are staged in shared memory with
-//   cp.async (16-byte copies, rows past Sq or Sk zero-filled), one stage:
+//   cp.async (16-byte copies, rows past Sq or Sk and columns past d
+//   zero-filled), one stage:
 //   at D = 128 a CTA holds 101 KB (77 KB at D = 96), so two CTAs share an
 //   SM and one computes while the other loads (two stages would leave room
 //   for one CTA).  Rows are padded to D + 4 floats, so that every fragment
 //   load below hits 32 different banks: D + 4 is 4 mod 32 at each head dim
-//   (68, 100, 132), so K's (row g, column t) lands in bank 4 g + t and V's
+//   (68, 100, 132, 196, 260), so K's (row g, column t) lands in bank 4 g + t
+//   and V's
 //   (row 2 t, column g) in bank 8 t + g.
 // - Fragments are read from shared memory with plain 32-bit loads, as
 //   mma.sync m16n8k8 lays them out, and split as they are loaded.  (Split
@@ -63,19 +75,20 @@
 
 namespace {
 
-constexpr int kBlockM = 64;
-constexpr int kBlockN = 64;
-constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-template <int D>
+// head dim D, BM query rows (BM / 16 warps), BN keys a tile
+template <int D, int BM, int BN>
 struct Tile {
+  static constexpr int kThreads = 2 * BM;           // 16 rows a warp
   static constexpr int ST = D + 4;                  // row stride, floats
-  static constexpr int QT = kBlockM * ST;           // the Q tile
-  static constexpr int MAT = kBlockN * ST;          // one K or V tile
+  static constexpr int QT = BM * ST;                // the Q tile
+  static constexpr int MAT = BN * ST;               // one K or V tile
   static constexpr size_t SMEM = sizeof(float) * (QT + 2 * MAT);  // Q, K, V
+  // CTAs an SM can hold by shared memory (227 KB a block, 228 KB an SM)
+  static constexpr int kMinBlocks = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
 };
 
 // cvt.rna.tf32.f32's rounding (to nearest, ties away from zero, to 10
@@ -128,31 +141,32 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-// ROWS rows from row r0 of a [rows, D] matrix into a tile of stride D + 4;
-// rows at or past `limit` are zero-filled
-template <int D, int ROWS>
+// ROWS rows from row r0 of a [rows, d] matrix into a tile of D + 4 columns
+// a row; rows at or past `limit` and columns at or past d are zero-filled
+template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t r0, int64_t limit,
+                                          int r0, int limit, int d,
                                           int tid) {
-  for (int c = tid; c < ROWS * D / 4; c += kThreads) {
+  for (int c = tid; c < ROWS * D / 4; c += THREADS) {
     const int r = c / (D / 4), c4 = c % (D / 4);
-    const bool ok = r0 + r < limit;
+    const bool ok = r0 + r < limit && 4 * c4 < d;
     cp_async16(dst + r * (D + 4) + 4 * c4,
-               src + (ok ? (r0 + r) * D + 4 * c4 : 0), ok);
+               src + (ok ? (int64_t)(r0 + r) * d + 4 * c4 : 0), ok);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int D, int BM, int BN>
+__global__ void __launch_bounds__(Tile<D, BM, BN>::kThreads,
+                                  Tile<D, BM, BN>::kMinBlocks)
     fa_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     int64_t bh_count, int64_t group, int64_t sq, int64_t sk,
-                    float scale, int causal, int64_t window,
+                    int d, float scale, int causal, int64_t window,
                     int64_t nq_blocks) {
-  using T = Tile<D>;
+  using T = Tile<D, BM, BN>;
   constexpr int ST = T::ST;
   constexpr int KS = D / 8;        // k-steps of S = Q K^T
-  constexpr int NB = kBlockN / 8;  // n-blocks of S, k-steps of P V
+  constexpr int NB = BN / 8;       // n-blocks of S, k-steps of P V
   constexpr int ND = D / 8;        // n-blocks of O
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -164,23 +178,24 @@ __global__ void __launch_bounds__(kThreads, 2)
   // heaviest query tiles (most live key tiles under causal) first
   const int64_t qblk = nq_blocks - 1 - (int64_t)blockIdx.x / bh_count;
   const int64_t bh = (int64_t)blockIdx.x % bh_count;
-  const int64_t q0 = qblk * kBlockM;
-  const float* kg = k + (bh / group) * sk * D;  // GQA: this head's KV head
-  const float* vg = v + (bh / group) * sk * D;
+  const int q0 = (int)(qblk * BM);
+  const int sq32 = (int)sq, sk32 = (int)sk, w32 = (int)window;
+  const float* kg = k + (bh / group) * sk * d;  // GQA: this head's KV head
+  const float* vg = v + (bh / group) * sk * d;
 
   // the live key tiles [j_begin, j_end)
-  const int64_t q_lo = q0, q_hi = q0 + kBlockM - 1;
-  const int64_t nk = (sk + kBlockN - 1) / kBlockN;
-  int64_t j_begin = 0, j_end = nk;
+  const int q_lo = q0, q_hi = q0 + BM - 1;
+  const int nk = (sk32 + BN - 1) / BN;
+  int j_begin = 0, j_end = nk;
   if (causal) {
-    j_end = q_hi / kBlockN + 1 < nk ? q_hi / kBlockN + 1 : nk;
-    const int64_t first = q_lo - window + 1;  // the first key row q_lo sees
-    if (window && first > 0) j_begin = first / kBlockN;
+    j_end = q_hi / BN + 1 < nk ? q_hi / BN + 1 : nk;
+    const int first = q_lo - w32 + 1;  // the first key row q_lo sees
+    if (w32 && first > 0) j_begin = first / BN;
   }
 
-  load_rows<D, kBlockM>(sQ, q + bh * sq * D, q0, sq, tid);
+  load_rows<D, BM, T::kThreads>(sQ, q + bh * sq * d, q0, sq32, d, tid);
   // this warp's query rows g and g + 8 of its 16
-  const int64_t row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   const float* qw = sQ + (warp * 16 + g) * ST + t;
   const float scale2 = scale * kLog2e;
 
@@ -191,10 +206,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
-  for (int64_t j = j_begin; j < j_end; ++j) {
-    const int64_t k_lo = j * kBlockN;
-    load_rows<D, kBlockN>(sK, kg, k_lo, sk, tid);
-    load_rows<D, kBlockN>(sV, vg, k_lo, sk, tid);
+  for (int j = j_begin; j < j_end; ++j) {
+    const int k_lo = j * BN;
+    load_rows<D, BN, T::kThreads>(sK, kg, k_lo, sk32, d, tid);
+    load_rows<D, BN, T::kThreads>(sV, vg, k_lo, sk32, d, tid);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
@@ -225,21 +240,21 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     // scale (into base 2) and mask; element e of block n is row
     // (e < 2 ? row0 : row1), key k_lo + 8 n + 2 t + (e & 1)
-    const bool whole = k_lo + kBlockN <= sk && q_hi < sq &&
-                       (!causal || (k_lo + kBlockN - 1 <= q_lo &&
-                                    (!window || k_lo > q_hi - window)));
+    const bool whole = k_lo + BN <= sk32 && q_hi < sq32 &&
+                       (!causal || (k_lo + BN - 1 <= q_lo &&
+                                    (!w32 || k_lo > q_hi - w32)));
 #pragma unroll
     for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         bool valid = true;
         if (!whole) {
-          const int64_t iq = e < 2 ? row0 : row1;
-          const int64_t jk = k_lo + 8 * n + 2 * t + (e & 1);
-          valid = iq < sq && jk < sk;
+          const int iq = e < 2 ? row0 : row1;
+          const int jk = k_lo + 8 * n + 2 * t + (e & 1);
+          valid = iq < sq32 && jk < sk32;
           if (causal) {
             valid = valid && jk <= iq;
-            if (window) valid = valid && jk > iq - window;
+            if (w32) valid = valid && jk > iq - w32;
           }
         }
         s[n][e] = valid ? s[n][e] * scale2 : kNegInf;
@@ -299,31 +314,34 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(kFull, l[r], 1);
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
-    const int64_t iq = r ? row1 : row0;
-    if (iq >= sq) continue;
+    const int iq = r ? row1 : row0;
+    if (iq >= sq32) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    float* orow = o + (bh * sq + iq) * D + 2 * t;
+    float* orow = o + (bh * sq + iq) * d + 2 * t;
+    // columns 8 n + 2 t and + 1 lie both below d or both past it (8 | d)
 #pragma unroll
     for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n) =
-          make_float2(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+      if (8 * n + 2 * t < d)
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
   }
 }
 
-template <int D>
+template <int D, int BM, int BN>
 int launch(const float* q, const float* k, const float* v, float* o,
-           int64_t bh, int64_t group, int64_t sq, int64_t sk, float scale,
-           int causal, int64_t window, cudaStream_t stream) {
-  const size_t smem = Tile<D>::SMEM;
+           int64_t bh, int64_t group, int64_t sq, int64_t sk, int d,
+           float scale, int causal, int64_t window, cudaStream_t stream) {
+  using T = Tile<D, BM, BN>;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_f32tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fa_f32tc_kernel<D, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int64_t nq = (sq + kBlockM - 1) / kBlockM;
+  const int64_t nq = (sq + BM - 1) / BM;
   const int64_t blocks = nq * bh;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fa_f32tc_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      q, k, v, o, bh, group, sq, sk, scale, causal, window, nq);
+  fa_f32tc_kernel<D, BM, BN><<<(unsigned)blocks, T::kThreads, T::SMEM,
+                               stream>>>(q, k, v, o, bh, group, sq, sk, d,
+                                         scale, causal, window, nq);
   return (int)cudaGetLastError();
 }
 
@@ -331,29 +349,43 @@ int launch(const float* q, const float* k, const float* v, float* o,
 
 // Returns the launch's cudaError_t (0 on success).  q, k, v, o are float32,
 // 16-byte aligned; q, o [bh, sq, d], k, v [bh_kv, sk, d] with bh_kv dividing
-// bh; d is 64, 96 or 128.  `window` is read only when `causal` is set.
+// bh; d is a multiple of 8 up to 256.  `window` is read only when `causal`
+// is set.
 extern "C" int flash_attention_f32tc(const void* q, const void* k,
                                      const void* v, void* o, int64_t bh,
                                      int64_t bh_kv, int64_t sq, int64_t sk,
                                      int d, float scale, int causal,
                                      int64_t window, void* stream) {
-  if (bh < 0 || sq < 0 || sk < 0 || bh_kv < 1 || bh % bh_kv)
+  // rows and key indices are 32-bit inside the kernel (int64_t ones took
+  // the registers that the D = 256 instantiation spilled)
+  constexpr int64_t kMaxRows = 0x7fffffffLL - 2 * 128;
+  if (bh < 0 || sq < 0 || sk < 0 || bh_kv < 1 || bh % bh_kv ||
+      sq > kMaxRows || sk > kMaxRows || window < 0)
     return (int)cudaErrorInvalidValue;
-  if (d != 64 && d != 96 && d != 128) return (int)cudaErrorInvalidValue;
+  if (d < 8 || d > 256 || d % 8) return (int)cudaErrorInvalidValue;
   if (bh == 0 || sq == 0) return 0;
+  // a window wider than every query row's reach masks nothing more
+  const int64_t w = causal && window ? (window < sq + 1 ? window : sq + 1)
+                                     : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(o);
-  if (d == 64)
-    return launch<64>(qt, kt, vt, ot, bh, bh / bh_kv, sq, sk, scale, causal,
-                      window, s);
-  if (d == 96)
-    return launch<96>(qt, kt, vt, ot, bh, bh / bh_kv, sq, sk, scale, causal,
-                      window, s);
-  if (d == 128)
-    return launch<128>(qt, kt, vt, ot, bh, bh / bh_kv, sq, sk, scale,
-                       causal, window, s);
-  return (int)cudaErrorInvalidValue;
+  const int64_t g = bh / bh_kv;
+  // <D, query rows, key tile> at the smallest D >= d
+  if (d <= 64)
+    return launch<64, 64, 64>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
+                              causal, w, s);
+  if (d <= 96)
+    return launch<96, 64, 64>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
+                              causal, w, s);
+  if (d <= 128)
+    return launch<128, 64, 64>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
+                               causal, w, s);
+  if (d <= 192)
+    return launch<192, 128, 64>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
+                                causal, w, s);
+  return launch<256, 128, 32>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
+                              causal, w, s);
 }

@@ -1,12 +1,12 @@
 // Flash-attention forward on Hopper's tensor cores (wgmma, TMA), sm_90a:
-// the bfloat16 route at head dims 64, 96 and 128.
+// the bfloat16 route at every head dim 1..256.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel) where
-// the inputs are bfloat16; float32 inputs take flash_attention_f32tc.cu,
-// and head dims other than these three the CUDA-core route
-// (flash_attention.cu).  q [BH, Sq, D], k/v [BH/g, Sk, D],
-// row-major bfloat16, out [BH, Sq, D] bfloat16.  Query row block bh reads
+// the inputs are bfloat16; float32 inputs take flash_attention_f32tc.cu.
+// q [BH, Sq, d], k/v [BH/g, Sk, d], row-major bfloat16, out [BH, Sq, D]
+// bfloat16 (below), with d a multiple of 8 (the wrapper pads any other d
+// to one with zero columns).  Query row block bh reads
 // KV block bh / g: with heads folded (lead..., H) that is the reference's
 // jnp.repeat of the KV heads, done here without a copy.  Per query row i
 // and key j, as the reference computes:
@@ -16,37 +16,54 @@
 //   max m, denominator l and numerator acc, rescaled by
 //   alpha = exp(m_old - m_new) at each key tile; out = acc / max(l, 1e-30).
 //
+// Head dims.  The kernel is instantiated at D = 64, 96, 128, 192 and 256;
+// d runs at the smallest D >= d.  The tensor maps span d columns, so TMA
+// zero-fills the columns d..D-1 of every box as it does rows past Sq or
+// Sk: the padded columns add exact zeros to every score, and the output's
+// columns d..D-1 come out zero.  The output has D columns; the wrapper
+// keeps the first d.  (Storing only columns < d, with d as the row stride,
+// made the kernel 3.5% slower at D = 64 and 96 where d = D, PERF.md.)
+//
 // Bound: operations.  Causal attention at BH = 48, S = 4096, D = 128 does
 // 4 * D flops for each of the ~403 M causal (i, j) pairs: 206 GFLOP, 0.21 ms
 // at the bf16 tensor-core peak; Q + K + V + O are 134 MB with 16 KV heads
-// (0.04 ms).  At phi-3-vision-4.2b's [32, 4096, 96]: 103 GFLOP, 0.104 ms.
+// (0.04 ms).  At phi-3-vision-4.2b's [32, 4096, 96]: 103 GFLOP, 0.104 ms;
+// at [16, 4096, 256]: 137.5 GFLOP, 0.139 ms.
 //
 // Design.  A CTA takes 128 query rows of one bh (the reference's block) and
-// walks the live key tiles of 128 rows, heaviest query blocks first.
+// walks the live key tiles of BN rows, heaviest query blocks first.
 // The CTA is two warpgroups, 64 query rows each.  Thread 0 starts every
-// load with TMA (3-D tensor maps over [heads, rows, D], rows past Sq or Sk
-// zero-filled): Q once, then K and V into a ring of STAGES stages with
-// full/empty mbarriers, STAGES - 1 tiles ahead; it refills a stage at the
-// end of a tile, once both warpgroups have released the stage's previous
-// tile, so one warpgroup may trail the other by a tile.  There is no
+// load with TMA (3-D tensor maps over [heads, rows, d], rows past Sq or Sk
+// and columns past d zero-filled): Q once, then K and V into a ring of
+// STAGES stages with full/empty mbarriers, STAGES - 1 tiles ahead; it
+// refills a stage at the end of a tile, once both warpgroups have released
+// the stage's previous tile, so one warpgroup may trail the other by a tile.
+// There is no
 // producer warp: with one (384 threads, setmaxnreg 24 / 240) ptxas still
 // compiles the whole kernel to 168 registers a thread, spills and
 // serialises the wgmmas; 256 threads leave each up to 255.
+// Tiles: BN = 128 keys with 4 stages at D = 64 and 96, 3 at 128; BN = 64
+// past 128, where a thread holds O in D / 2 float32 registers (128 at
+// D = 256) beside S (BN / 2) and P's hi and lo halves (BN / 4 each): at
+// 128 keys S and P alone would take 128 and the kernel would spill.  In
+// shared memory Q is 128 x D x 2 B and a stage of K and V 2 x BN x D x 2 B:
+// 48 + 3 x 48 KB at D = 192, 64 + 2 x 64 KB at D = 256.
 // Each tile is held as D / PC panels of [rows][PC columns], each swizzled
 // by TMA: PC = 64 (128-byte rows, 128-byte swizzle) where 64 divides D,
 // else PC = 32 (64-byte rows, 64-byte swizzle), so D = 96 is three exact
 // panels.  (Two 128-byte panels with columns 96-127 zero-filled would pad
 // P V, two thirds of the tensor work with P's hi/lo split, to N = 128.)
 // Each warpgroup computes, per key tile,
-//   S = Q K^T    wgmma m64n128k16, Q and K from shared memory, K-major,
+//   S = Q K^T    wgmma m64nBNk16, Q and K from shared memory, K-major,
 //                PC / 16 k-steps a panel;
 //   softmax      in registers on S's accumulator fragment, float32, with
 //                the mask computed only on ragged, diagonal and window-edge
 //                tiles; l sums the float32 P;
-//   O += P V     wgmma m64nDk16 with P as the A operand from registers (S's
+//   O += P V     wgmma m64nNk16 with P as the A operand from registers (S's
 //                fragment is already the A fragment's layout) and V from
-//                shared memory, MN-major (transposed), D / PC swizzle atoms
-//                along N.
+//                shared memory, MN-major (transposed), N = D up to 128,
+//                and past 128 one N = 128 product and one of D - 128 on
+//                O's two column ranges.
 // P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and both go
 // through the tensor cores into O: one bf16 rounding of P would err by up
 // to 2^-9 per weight, which over a 4096-key row adds a large share of an
@@ -61,7 +78,6 @@
 namespace {
 
 constexpr int kBlockM = 128;               // query rows of a CTA
-constexpr int kBlockN = 128;               // key rows of a tile
 constexpr int kThreads = 256;              // two warpgroups
 constexpr float kNegInf = -1e30f;
 
@@ -69,18 +85,19 @@ constexpr float kNegInf = -1e30f;
 // swizzle where 64 divides D, else a 64-byte row under the 64-byte swizzle
 template <int D>
 constexpr int panel_cols() {
-  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
+  static_assert(D == 64 || D == 96 || D == 128 || D == 192 || D == 256,
+                "head dim 64, 96, 128, 192 or 256");
   return D % 64 == 0 ? 64 : 32;
 }
 
-template <int D, int STAGES>
+template <int D, int BN, int STAGES>
 struct Smem {
   static constexpr int PC = panel_cols<D>();
   // each [rows][PC] panel is swizzled by TMA; panels of 16 or 8 KB keep
   // every panel 1024-byte aligned, a multiple of either swizzle's period
   __nv_bfloat16 q[D / PC][kBlockM * PC];
-  __nv_bfloat16 k[STAGES][D / PC][kBlockN * PC];
-  __nv_bfloat16 v[STAGES][D / PC][kBlockN * PC];
+  __nv_bfloat16 k[STAGES][D / PC][BN * PC];
+  __nv_bfloat16 v[STAGES][D / PC][BN * PC];
   uint64_t full[STAGES];
   uint64_t empty[STAGES];
   uint64_t q_full;
@@ -204,6 +221,39 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, as above at 64 keys
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+      "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S = Q K^T over one 16-column step at BN = 128 or 64 keys
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BN / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(BN == 64 || BN == 128, "key tile 64 or 128");
+  if constexpr (BN == 128) {
+    wgmma_ss_n128(s, da, db, scale_d);
+  } else {
+    wgmma_ss_n64(s, da, db, scale_d);
+  }
+}
+
 // d[64 x 128] += A[64 x 16] . B[16 x 128] with A in registers (bf16 pairs
 // in the accumulator's layout) and B MN-major in shared memory (swizzled
 // panels, transposed); likewise at N = 96 and 64 below.
@@ -283,39 +333,59 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// O += P V over one 16-key step: D = 128, 96 or 64 output columns.
+// The N columns of O from column OFF on, as a wgmma accumulator of its own
+// (the fragment's layout repeats every 8 columns: chunk i of the slice is
+// chunk OFF / 8 + i of O)
+template <int OFF, int N, int M>
+__device__ __forceinline__ float (&cols(float (&acc)[M]))[N / 2] {
+  static_assert(OFF % 8 == 0 && (OFF + N) / 2 <= M, "slice of O");
+  return *reinterpret_cast<float(*)[N / 2]>(&acc[OFF / 2]);
+}
+
+// O += P V over one 16-key step.  D = 128, 96 or 64 output columns in one
+// wgmma; past 128, columns 0..127 in one and 128..D-1 in another, whose
+// V descriptor starts two panels (of panel_bytes, 64 columns) further.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
-                                         const uint32_t* a, uint64_t db) {
-  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
-  if constexpr (D == 128) {
+                                         const uint32_t* a, uint64_t db,
+                                         uint32_t panel_bytes) {
+  if constexpr (D == 256 || D == 192) {
+    wgmma_rs_n128(cols<0, 128>(acc), a, db);
+    const uint64_t db_hi = db + ((2 * panel_bytes) >> 4);  // two panels on
+    if constexpr (D == 256) {
+      wgmma_rs_n128(cols<128, 128>(acc), a, db_hi);
+    } else {
+      wgmma_rs_n64(cols<128, 64>(acc), a, db_hi);
+    }
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(acc, a, db);
   } else if constexpr (D == 96) {
     wgmma_rs_n96(acc, a, db);
   } else {
+    static_assert(D == 64, "head dim 64, 96, 128, 192 or 256");
     wgmma_rs_n64(acc, a, db);
   }
 }
 
 // Thread 0 loads key tile j, the CTA's t-th, into stage t % STAGES once
 // both warpgroups have released the stage's previous tile.
-template <int D, int STAGES>
-__device__ __forceinline__ void load_kv(Smem<D, STAGES>& sm,
+template <int D, int BN, int STAGES>
+__device__ __forceinline__ void load_kv(Smem<D, BN, STAGES>& sm,
                                         const CUtensorMap* k_map,
                                         const CUtensorMap* v_map, int t,
                                         int j, int kvh) {
-  constexpr int PC = Smem<D, STAGES>::PC;
+  constexpr int PC = Smem<D, BN, STAGES>::PC;
   const int st = t % STAGES;
   if (t >= STAGES) mbar_wait(&sm.empty[st], ((t / STAGES) - 1) & 1);
-  mbar_expect_tx(&sm.full[st], 2 * kBlockN * D * 2);
+  mbar_expect_tx(&sm.full[st], 2 * BN * D * 2);
 #pragma unroll
   for (int p = 0; p < D / PC; ++p) {
-    tma_load(sm.k[st][p], k_map, &sm.full[st], p * PC, j * kBlockN, kvh);
-    tma_load(sm.v[st][p], v_map, &sm.full[st], p * PC, j * kBlockN, kvh);
+    tma_load(sm.k[st][p], k_map, &sm.full[st], p * PC, j * BN, kvh);
+    tma_load(sm.v[st][p], v_map, &sm.full[st], p * PC, j * BN, kvh);
   }
 }
 
-template <int D, int STAGES>
+template <int D, int BN, int STAGES>
 __global__ void __launch_bounds__(kThreads, 1)
     fa_kernel_tc(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
@@ -323,11 +393,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                  __nv_bfloat16* __restrict__ out, int bh_count, int group,
                  int sq, int sk, float scale, int causal, int window,
                  int nq_blocks) {
-  constexpr int PC = Smem<D, STAGES>::PC;  // columns of a panel
-  constexpr int P = D / PC;                 // panels of a row
+  using Sm = Smem<D, BN, STAGES>;
+  constexpr int PC = Sm::PC;           // columns of a panel
+  constexpr int P = D / PC;            // panels of a row
   constexpr uint32_t kAtom = 16 * PC;  // bytes of 8 swizzled rows
   extern __shared__ uint8_t smem_raw[];
-  Smem<D, STAGES>& sm = *reinterpret_cast<Smem<D, STAGES>*>(
+  Sm& sm = *reinterpret_cast<Sm*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
 
   // heaviest query blocks (most live key tiles under causal) first
@@ -336,11 +407,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = qblk * kBlockM;
   // the CTA's live key tiles [j_begin, j_end), as the reference skips its
   // blocks: past the causal frontier, or wholly before the window
-  const int nk = (sk + kBlockN - 1) / kBlockN;
+  const int nk = (sk + BN - 1) / BN;
   int j_begin = 0, j_end = nk;
   if (causal) {
-    j_end = min(nk, (q0 + kBlockM - 1) / kBlockN + 1);
-    if (window) j_begin = max(0, q0 - window + 1) / kBlockN;
+    j_end = min(nk, (q0 + kBlockM - 1) / BN + 1);
+    if (window) j_begin = max(0, q0 - window + 1) / BN;
   }
 
   if (threadIdx.x == 0) {
@@ -375,20 +446,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int col0 = 2 * (lane % 4);
   const __nv_bfloat16* q_wg = &sm.q[0][wg * 64 * PC];
 
-  float acc[D / 2], s[64];
+  float acc[D / 2], s[BN / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] = 0.0f;
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.0f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
   const float scale2 = scale * 1.4426950408889634f;  // scale * log2(e)
-  uint32_t p_hi[32], p_lo[32];
+  uint32_t p_hi[BN / 4], p_lo[BN / 4];
 
   mbar_wait(&sm.q_full, 0);
   for (int j = j_begin, t = 0; j < j_end; ++j, ++t) {
     const int st = t % STAGES;
     mbar_wait(&sm.full[st], (t / STAGES) & 1);
-    const int k_lo = j * kBlockN, k_hi = k_lo + kBlockN - 1;
+    const int k_lo = j * BN, k_hi = k_lo + BN - 1;
     const bool live =
         !causal || (k_lo <= qb && (!window || k_hi > qa - window));
     if (live) {
@@ -398,9 +469,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const int p = ks / (PC / 16), c = (ks % (PC / 16)) * 16;
-        wgmma_ss_n128(s,
-                      sw_desc<PC>(q_wg + p * kBlockM * PC + c, 16, kAtom),
-                      sw_desc<PC>(&sm.k[st][p][c], 16, kAtom), ks > 0);
+        wgmma_qk<BN>(s, sw_desc<PC>(q_wg + p * kBlockM * PC + c, 16, kAtom),
+                     sw_desc<PC>(&sm.k[st][p][c], 16, kAtom), ks > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -414,7 +484,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           (causal && (k_hi > qa || (window && k_lo <= qb - window)));
       float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
+      for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float va = s[4 * i + e] * scale2, vb = s[4 * i + 2 + e] * scale2;
@@ -442,7 +512,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
       float rs_a = 0.0f, rs_b = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
+      for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           s[4 * i + e] = exp2f(s[4 * i + e] - mn_a);
@@ -466,7 +536,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // P = P_hi + P_lo in bf16, in the A fragment's layout: for key step
       // kk, registers 4 kk .. 4 kk + 3 hold S chunks 2 kk and 2 kk + 1
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < BN / 4; ++i) {
         const float x0 = s[2 * i], x1 = s[2 * i + 1];
         const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
         const float2 h = __bfloat1622float2(hi);
@@ -475,16 +545,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 
       // O += P_hi V + P_lo V over the tile's keys in steps of 16; V is
-      // MN-major: the PC-column panels lie kBlockN * PC * 2 bytes apart
+      // MN-major: the PC-column panels lie BN * PC * 2 bytes apart
       // (leading offset), groups of 8 keys kAtom bytes apart (stride offset)
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      for (int kk = 0; kk < BN / 16; ++kk) {
         const uint64_t db = sw_desc<PC>(&sm.v[st][0][kk * 16 * PC],
-                                        kBlockN * PC * 2, kAtom);
-        wgmma_pv<D>(acc, &p_hi[4 * kk], db);
-        wgmma_pv<D>(acc, &p_lo[4 * kk], db);
+                                        BN * PC * 2, kAtom);
+        wgmma_pv<D>(acc, &p_hi[4 * kk], db, BN * PC * 2);
+        wgmma_pv<D>(acc, &p_lo[4 * kk], db, BN * PC * 2);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -544,17 +614,18 @@ EncodeTiled encode_tiled() {
 }
 
 // A 3-D map over [heads, rows, d] bf16 (dims listed innermost first)
-// whose box is one [128 rows][pc columns] panel, 128-byte swizzled at
-// pc = 64, 64-byte swizzled at pc = 32.
+// whose box is one [box_rows][pc columns] panel, 128-byte swizzled at
+// pc = 64, 64-byte swizzled at pc = 32.  Box columns at or past d, like
+// rows at or past `rows`, arrive as zeros.
 bool make_map(CUtensorMap* map, const void* base, int64_t heads,
-              int64_t rows, int d, int pc) {
+              int64_t rows, int d, int pc, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
                                  (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)pc, kBlockN, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)pc, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(base), dims, strides, box, elem,
@@ -564,36 +635,39 @@ bool make_map(CUtensorMap* map, const void* base, int64_t heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int STAGES>
+// Q boxes are kBlockM rows, K and V boxes BN rows; all span d columns.
+template <int D, int BN, int STAGES>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
-           int64_t bh_kv, int64_t sq, int64_t sk, float scale, int causal,
-           int window, cudaStream_t stream) {
-  static_assert(kBlockM == kBlockN, "one box shape serves Q, K and V");
-  constexpr int PC = Smem<D, STAGES>::PC;
+           int64_t bh_kv, int64_t sq, int64_t sk, int d, float scale,
+           int causal, int window, cudaStream_t stream) {
+  using Sm = Smem<D, BN, STAGES>;
   CUtensorMap q_map, k_map, v_map;
-  if (!make_map(&q_map, q, bh, sq, D, PC) ||
-      !make_map(&k_map, k, bh_kv, sk, D, PC) ||
-      !make_map(&v_map, v, bh_kv, sk, D, PC))
+  if (!make_map(&q_map, q, bh, sq, d, Sm::PC, kBlockM) ||
+      !make_map(&k_map, k, bh_kv, sk, d, Sm::PC, BN) ||
+      !make_map(&v_map, v, bh_kv, sk, d, Sm::PC, BN))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(Smem<D, STAGES>) + 1024;  // + alignment slack
+  const size_t smem = sizeof(Sm) + 1024;  // + alignment slack
   const cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel_tc<D, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fa_kernel_tc<D, BN, STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t nq = (sq + kBlockM - 1) / kBlockM;
   if (nq * bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fa_kernel_tc<D, STAGES><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), (int)bh,
-      (int)(bh / bh_kv), (int)sq, (int)sk, scale, causal, window, (int)nq);
+  fa_kernel_tc<D, BN, STAGES>
+      <<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
+          q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), (int)bh,
+          (int)(bh / bh_kv), (int)sq, (int)sk, scale, causal, window,
+          (int)nq);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the launch's cudaError_t (0 on success).  q, o [bh, sq, d] and
-// k, v [bh_kv, sk, d] bfloat16, contiguous, 16-byte aligned; bh_kv divides
-// bh; d is 64, 96 or 128; sk >= 1.  `window` is read only when `causal` is
-// set.
+// Returns the launch's cudaError_t (0 on success).  q [bh, sq, d] and
+// k, v [bh_kv, sk, d] bfloat16, o [bh, sq, D] bfloat16 with D the
+// instantiation d runs at (its columns d..D-1 come out zero), all
+// contiguous and 16-byte aligned; bh_kv divides bh; d is a multiple of 8
+// up to 256; sk >= 1.  `window` is read only when `causal` is set.
 extern "C" int flash_attention_tc(const void* q, const void* k,
                                   const void* v, void* o, int64_t bh,
                                   int64_t bh_kv, int64_t sq, int64_t sk,
@@ -601,7 +675,8 @@ extern "C" int flash_attention_tc(const void* q, const void* k,
                                   int64_t window, void* stream) {
   constexpr int64_t kMaxRows = 0x7fffffffLL - 2 * kBlockM;
   if (bh < 0 || bh > 0x7fffffffLL || bh_kv < 1 || bh % bh_kv || sq < 0 ||
-      sk < 1 || sq > kMaxRows || sk > kMaxRows || window < 0)
+      sk < 1 || sq > kMaxRows || sk > kMaxRows || window < 0 || d < 8 ||
+      d > 256 || d % 8)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
@@ -612,12 +687,19 @@ extern "C" int flash_attention_tc(const void* q, const void* k,
   const int w = causal && window ? (int)(window < sq + 1 ? window : sq + 1)
                                  : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch<64, 4>(q, k, v, o, bh, bh_kv, sq, sk, scale, causal, w, s);
-  if (d == 96)
-    return launch<96, 4>(q, k, v, o, bh, bh_kv, sq, sk, scale, causal, w, s);
-  if (d == 128)
-    return launch<128, 3>(q, k, v, o, bh, bh_kv, sq, sk, scale, causal, w,
-                          s);
-  return (int)cudaErrorInvalidValue;
+  // <D, key tile, stages> at the smallest D >= d
+  if (d <= 64)
+    return launch<64, 128, 4>(q, k, v, o, bh, bh_kv, sq, sk, d, scale,
+                              causal, w, s);
+  if (d <= 96)
+    return launch<96, 128, 4>(q, k, v, o, bh, bh_kv, sq, sk, d, scale,
+                              causal, w, s);
+  if (d <= 128)
+    return launch<128, 128, 3>(q, k, v, o, bh, bh_kv, sq, sk, d, scale,
+                               causal, w, s);
+  if (d <= 192)
+    return launch<192, 64, 3>(q, k, v, o, bh, bh_kv, sq, sk, d, scale,
+                              causal, w, s);
+  return launch<256, 64, 2>(q, k, v, o, bh, bh_kv, sq, sk, d, scale, causal,
+                            w, s);
 }

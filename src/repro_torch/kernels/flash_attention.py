@@ -8,22 +8,22 @@ block ``bh // g``, which is the reference's ``jnp.repeat`` of the KV heads
 when heads are folded ``(lead..., H)``.  The window applies only when
 ``causal``; ``Sq != Sk`` is allowed.
 
-:func:`flash_attention` picks one of three CUDA kernels by dtype and head
-dim (:func:`route`), never by trying.  At a head dim in
-:data:`TC_HEAD_DIMS` (64, 96 and 128: every head dim at which a config of
-the reference's model zoo runs attention) both dtypes run on the tensor
-cores: bfloat16 through :func:`flash_attention_tc`
-(``csrc/flash_attention_tc.cu``: ``wgmma`` and TMA), float32 through
-:func:`flash_attention_f32tc`
+:func:`flash_attention` picks one of two CUDA kernels by dtype
+(:func:`route`), never by trying, and both run on the tensor cores at
+every head dim 1..:data:`MAX_HEAD_DIM`: bfloat16 through
+:func:`flash_attention_tc` (``csrc/flash_attention_tc.cu``: ``wgmma`` and
+TMA), float32 through :func:`flash_attention_f32tc`
 (``csrc/flash_attention_f32tc.cu``: 3xTF32 ``mma.sync``, each operand split
 into two TF32 parts, which keeps float32's tolerance where one TF32 pass
-cannot).  Every other head dim up to :data:`MAX_HEAD_DIM`, which no config
-has, goes to :func:`flash_attention_simt` (``csrc/flash_attention.cu``:
-CUDA cores).  Each keeps its own count of
-launches.  CPU tensors take :func:`flash_attention_plain`.  Under
-``kernels.cost.counting`` every route charges its kernel's FLOPs (causal
-work halved: the attended pairs only) and bytes, and takes ``meta``
-tensors.
+cannot).  Each kernel is instantiated at the head dims of
+:data:`TC_HEAD_DIMS` and runs a head dim d at :func:`padded_head_dim`
+(d): columns d and past of its tiles are zeros, filled as the tiles are
+loaded where 8 divides d; for any other d the wrapper pads q, k and v
+with zero columns to the next multiple of 8 and cuts the output back.
+Each keeps its own count of launches.  CPU tensors take
+:func:`flash_attention_plain`.  Under ``kernels.cost.counting`` every
+route charges its kernel's FLOPs (causal work halved: the attended pairs
+only) and bytes at the real head dim d, and takes ``meta`` tensors.
 
 :func:`sdpa` with :func:`causal_mask` is the one masked-softmax oracle of
 the port: ``models.layers`` runs it as the plain attention path and for
@@ -44,8 +44,16 @@ from repro_torch.kernels import cost
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 # head dims that the tensor-core kernels instantiate (both dtypes)
-TC_HEAD_DIMS = (64, 96, 128)
+TC_HEAD_DIMS = (64, 96, 128, 192, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def padded_head_dim(d: int) -> int:
+    """The instantiation a head dim d in 1..:data:`MAX_HEAD_DIM` runs at:
+    the smallest of :data:`TC_HEAD_DIMS` that is at least d."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
+    return next(dim for dim in TC_HEAD_DIMS if d <= dim)
 
 
 def sdpa(q, k, v, mask, scale):
@@ -198,27 +206,36 @@ def _check_cuda(q, k, v):
             raise ValueError(f"{name} must be contiguous on {q.device}")
 
 
-def _launch(name, q, k, v, args):
-    """Run kernel ``name`` on q's stream -> o; ``args`` follow the four
-    pointers and precede the stream."""
-    out = torch.empty_like(q)
+def _launch(name, q, k, v, scale, causal, window, wide_out):
+    """Run kernel ``name`` on q's stream -> o.  A head dim that 8 does not
+    divide runs on copies of q, k and v padded with zero columns to the
+    next multiple of 8.  A kernel with ``wide_out`` writes all
+    :func:`padded_head_dim` columns of its output; the first d are kept."""
+    d = q.shape[-1]
+    pad = -d % 8
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    cols = padded_head_dim(d) if wide_out else q.shape[-1]
+    out = q.new_empty(q.shape[:2] + (cols,))
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     lib = build.load(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, name)(
             ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
             ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            *args, ctypes.c_void_p(stream))
+            q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2],
+            ctypes.c_float(scale), int(bool(causal)), int(window),
+            ctypes.c_void_p(stream))
     build.check(err, name)
-    return out
+    return out[..., :d].contiguous() if cols != d else out
 
 
 def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        scale: float, causal: bool = True,
                        window: int = 0) -> torch.Tensor:
-    """The tensor-core route: bfloat16, head dim in :data:`TC_HEAD_DIMS`,
+    """The bfloat16 route, at any head dim up to :data:`MAX_HEAD_DIM`,
     every base 16-byte aligned (TMA).  A CUDA tensor launches
     ``csrc/flash_attention_tc.cu`` (counted in
     ``flash_attention_tc.launches``) or raises; CPU tensors take
@@ -228,17 +245,15 @@ def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out is not None:
         return out
     _check_cuda(q, k, v)
-    bh, sq, d = q.shape
-    if q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS:
-        raise ValueError(f"the tensor-core route takes bfloat16 at head dims "
-                         f"{TC_HEAD_DIMS}, got {q.dtype}, d={d}")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core route takes bfloat16, got "
+                         f"{q.dtype}")
     if k.shape[1] == 0:
         raise ValueError("the tensor-core route needs Sk >= 1")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("TMA needs 16-byte aligned q, k, v")
-    out = _launch("flash_attention_tc", q, k, v,
-                  (bh, k.shape[0], sq, k.shape[1], d, ctypes.c_float(scale),
-                   int(bool(causal)), int(window)))
+    out = _launch("flash_attention_tc", q, k, v, scale, causal, window,
+                  wide_out=True)
     if out.numel():
         flash_attention_tc.launches += 1
     return out
@@ -248,9 +263,9 @@ def flash_attention_f32tc(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, scale: float,
                           causal: bool = True,
                           window: int = 0) -> torch.Tensor:
-    """The float32 tensor-core route: float32, head dim in
-    :data:`TC_HEAD_DIMS`, every base 16-byte aligned (``cp.async``).  A
-    CUDA tensor launches ``csrc/flash_attention_f32tc.cu`` (counted in
+    """The float32 route, at any head dim up to :data:`MAX_HEAD_DIM`,
+    every base 16-byte aligned (``cp.async``).  A CUDA tensor launches
+    ``csrc/flash_attention_f32tc.cu`` (counted in
     ``flash_attention_f32tc.launches``) or raises; CPU tensors take
     :func:`flash_attention_plain`."""
     _check(q, k, v)
@@ -258,53 +273,24 @@ def flash_attention_f32tc(q: torch.Tensor, k: torch.Tensor,
     if out is not None:
         return out
     _check_cuda(q, k, v)
-    bh, sq, d = q.shape
-    if q.dtype != torch.float32 or d not in TC_HEAD_DIMS:
-        raise ValueError(f"the float32 tensor-core route takes float32 at "
-                         f"head dims {TC_HEAD_DIMS}, got {q.dtype}, d={d}")
+    if q.dtype != torch.float32:
+        raise ValueError(f"the float32 tensor-core route takes float32, got "
+                         f"{q.dtype}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("cp.async needs 16-byte aligned q, k, v")
-    out = _launch("flash_attention_f32tc", q, k, v,
-                  (bh, k.shape[0], sq, k.shape[1], d, ctypes.c_float(scale),
-                   int(bool(causal)), int(window)))
+    out = _launch("flash_attention_f32tc", q, k, v, scale, causal, window,
+                  wide_out=False)
     if out.numel():
         flash_attention_f32tc.launches += 1
     return out
 
 
-def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, scale: float, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
-    """The CUDA-core route: float32 or bfloat16, any head dim up to
-    :data:`MAX_HEAD_DIM` (:func:`route` sends it those outside
-    :data:`TC_HEAD_DIMS`).  A CUDA tensor launches ``csrc/flash_attention.cu``
-    (counted in ``flash_attention_simt.launches``); CPU tensors take
-    :func:`flash_attention_plain`."""
-    _check(q, k, v)
-    out = _off_card("flash_attention_simt", q, k, v, scale, causal, window)
-    if out is not None:
-        return out
-    _check_cuda(q, k, v)
-    bh, sq, d = q.shape
-    out = _launch("flash_attention", q, k, v,
-                  (int(q.dtype == torch.bfloat16), bh, k.shape[0], sq,
-                   k.shape[1], d, ctypes.c_float(scale), int(bool(causal)),
-                   int(window)))
-    if out.numel():
-        flash_attention_simt.launches += 1
-    return out
-
-
 def route(q: torch.Tensor):
-    """The kernel wrapper :func:`flash_attention` calls, fixed by dtype and
-    head dim: the tensor cores at :data:`TC_HEAD_DIMS` = 64, 96, 128
-    (bfloat16 :func:`flash_attention_tc`, float32
-    :func:`flash_attention_f32tc`), the CUDA cores
-    (:func:`flash_attention_simt`) at any other head dim."""
-    if q.shape[-1] in TC_HEAD_DIMS:
-        return (flash_attention_tc if q.dtype == torch.bfloat16
-                else flash_attention_f32tc)
-    return flash_attention_simt
+    """The kernel wrapper :func:`flash_attention` calls, fixed by dtype:
+    bfloat16 :func:`flash_attention_tc`, float32
+    :func:`flash_attention_f32tc`, at every head dim."""
+    return (flash_attention_tc if q.dtype == torch.bfloat16
+            else flash_attention_f32tc)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -319,4 +305,3 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention_tc.launches = 0
 flash_attention_f32tc.launches = 0
-flash_attention_simt.launches = 0

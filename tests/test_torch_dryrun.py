@@ -217,9 +217,13 @@ def _wrapper_calls():
             q.bfloat16(), q[:2].bfloat16(), q[:2].bfloat16(), scale=0.125),
         "flash_attention_f32tc": lambda: tfa.flash_attention_f32tc(
             q, q, q, scale=0.125, causal=True, window=16),
-        "flash_attention_simt": lambda: tfa.flash_attention_simt(
-            _meta(4, 128, 32), _meta(4, 128, 32), _meta(4, 128, 32),
-            scale=0.125, causal=False),
+        # a head dim no instantiation has (run in the 96 one on the card),
+        # charged at its own d
+        "flash_attention_tc_d80": lambda: tfa.flash_attention_tc(
+            _meta(4, 128, 80, dtype=torch.bfloat16),
+            _meta(2, 128, 80, dtype=torch.bfloat16),
+            _meta(2, 128, 80, dtype=torch.bfloat16), scale=0.125,
+            causal=False),
         "flash_attention": lambda: tfa.flash_attention(q, q, q, scale=0.1),
     }
 
@@ -247,12 +251,15 @@ def test_meta_inside_the_cost_context_charges_by_formula():
     assert c.flops["moniqua_decode"] == kcost.DECODE_OPS * 120
     causal = 128 * 129 // 2
     windowed = sum(min(i + 1, 16) for i in range(128))
-    assert c.flops["flash_attention_tc"] == 4 * 4 * 64 * causal
-    assert c.bytes["flash_attention_tc"] == 2 * (2 * 4 + 2 * 2) * 128 * 64
+    assert outs["flash_attention_tc_d80"].shape == (4, 128, 80)
+    assert c.calls["flash_attention_tc"] == 2
+    assert c.flops["flash_attention_tc"] == (4 * 4 * 64 * causal
+                                             + 4 * 4 * 80 * 128 * 128)
+    assert c.bytes["flash_attention_tc"] == 2 * (2 * 4 + 2 * 2) * 128 * (
+        64 + 80)
     assert c.flops["flash_attention_f32tc"] == (4 * 4 * 64 * windowed
                                                 + 4 * 4 * 64 * causal)
     assert c.calls["flash_attention_f32tc"] == 2
-    assert c.flops["flash_attention_simt"] == 4 * 4 * 32 * 128 * 128
     # the serving shape PERF.md bounds: 206.2 GFLOP causal
     assert 4 * 48 * 128 * kcost.attended_pairs(4096, 4096, True, 0) == \
         pytest.approx(206.2e9, rel=1e-3)

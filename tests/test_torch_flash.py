@@ -65,7 +65,9 @@ def test_flash_sdpa_matches_reference(S, window):
     np.testing.assert_allclose(_np(out), _np(ref), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("D", [64, 96, 128])
+# 64, 96, 128: the head dims of the configs; 33, 80 (padded to 40 and run
+# in the 96 instantiation on the card), 192 and 256 (the widest): the rest
+@pytest.mark.parametrize("D", [64, 96, 128, 33, 80, 192, 256])
 @pytest.mark.parametrize("causal,sq,sk,window", [
     (True, 256, 256, 0), (True, 384, 384, 100), (True, 130, 130, 0),
     (False, 130, 256, 0), (False, 130, 256, 50)])   # non-causal: no window
@@ -204,16 +206,17 @@ def test_model_attention_flash_flag():
 
 def test_flash_counts_no_cpu_launch_and_rejects_bad_input():
     q = torch.zeros(2, 16, 64)
-    routes = (tfa.flash_attention_tc, tfa.flash_attention_f32tc,
-              tfa.flash_attention_simt)
+    routes = (tfa.flash_attention_tc, tfa.flash_attention_f32tc)
     for route in routes:
         route.launches = 0
-    for x in (q, q.bfloat16(), torch.zeros(2, 16, 32)):  # one per route
+    # each route, at an instantiated and at a padded head dim
+    for x in (q, q.bfloat16(), torch.zeros(2, 16, 33),
+              torch.zeros(2, 16, 33).bfloat16()):
         tfa.flash_attention(x, x, x, scale=0.125)
         for route in routes:
             route(x, x, x, scale=0.125)
     # plain version on the CPU: no route counts a launch
-    assert [r.launches for r in routes] == [0, 0, 0]
+    assert [r.launches for r in routes] == [0, 0]
     with pytest.raises(ValueError):
         tfa.flash_attention(torch.zeros(2, 16, 300), torch.zeros(2, 16, 300),
                             torch.zeros(2, 16, 300), scale=0.1)
@@ -228,18 +231,50 @@ def test_flash_counts_no_cpu_launch_and_rejects_bad_input():
 
 
 def test_flash_route_is_fixed_by_dtype_and_head_dim():
-    """At head dims 64, 96 (phi-3-vision-4.2b) and 128 both dtypes take the
-    tensor cores: bfloat16 the wgmma route, float32 the 3xTF32 route; every
-    other head dim the CUDA-core route."""
+    """At every head dim 1..256 both dtypes take the tensor cores: bfloat16
+    the wgmma route, float32 the 3xTF32 route.  No other route exists."""
     def q(dtype, d):
         return torch.zeros(1, 4, d, dtype=dtype)
-    for d in (64, 96, 128):
+    for d in range(1, tfa.MAX_HEAD_DIM + 1):
         assert tfa.route(q(torch.bfloat16, d)) is tfa.flash_attention_tc
         assert tfa.route(q(torch.float32, d)) is tfa.flash_attention_f32tc
-    for dtype, d in ((torch.float32, 32), (torch.float32, 256),
-                     (torch.bfloat16, 32), (torch.bfloat16, 256),
-                     (torch.float32, 80), (torch.bfloat16, 192)):
-        assert tfa.route(q(dtype, d)) is tfa.flash_attention_simt
+    assert not hasattr(tfa, "flash_attention_simt")
+
+
+def test_padded_head_dim_is_the_smallest_instantiation_at_least_d():
+    assert tfa.TC_HEAD_DIMS == (64, 96, 128, 192, 256)
+    for d in range(1, tfa.MAX_HEAD_DIM + 1):
+        want = min(dim for dim in tfa.TC_HEAD_DIMS if dim >= d)
+        assert tfa.padded_head_dim(d) == want
+    assert [tfa.padded_head_dim(d) for d in (1, 64, 65, 96, 97, 128, 129,
+                                             192, 193, 256)] == \
+        [64, 64, 96, 96, 128, 128, 192, 192, 256, 256]
+    for d in (0, 257):
+        with pytest.raises(ValueError):
+            tfa.padded_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [33, 80, 160, 200])
+@pytest.mark.parametrize("causal,sq,sk,window", [
+    (True, 130, 130, 0), (True, 200, 200, 50), (False, 130, 200, 0)])
+def test_zero_padded_head_dim_is_the_unpadded_function(d, causal, sq, sk,
+                                                       window):
+    """What the kernels compute at a padded head dim: q, k and v with zero
+    columns up to :func:`padded_head_dim` (d), cut back to d columns, is
+    the attention of the unpadded inputs, within 2e-5 (the zeros add
+    exact zeros to every score; only the sums' order may differ), with
+    grouped-query KV blocks (g = 2)."""
+    rng = np.random.default_rng(d + sq + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((4, sq, d), (2, sk, d), (2, sk, d)))
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal, window=window)
+    pad = tfa.padded_head_dim(d) - d
+    padded = tfa.flash_attention_plain(
+        *(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v)), **kw)
+    assert bool((padded[..., d:] == 0).all())
+    np.testing.assert_allclose(padded[..., :d].numpy(),
+                               tfa.flash_attention_plain(q, k, v, **kw)
+                               .numpy(), rtol=2e-5, atol=2e-5)
 
 
 def test_flash_rejects_bad_gqa_and_dtype():

@@ -7,10 +7,11 @@ from zero, to 10 mantissa bits), and a product is ``lo_a hi_b + hi_a lo_b +
 hi_a hi_b`` with float32 sums.  The card is not here, so this emulates the
 kernel's arithmetic in torch: TF32 operands held in float32 (their products
 are exact in float32: 11 x 11 significant bits), float32 sums, and the
-kernel's loop: 64-row query blocks, 64-key tiles (at every head dim) over
-the live tiles the kernel walks, and its online softmax in base 2 (``exp2``
-of the score times ``scale * log2(e)``, rounded to float32, less the
-running max).
+kernel's loop: its query blocks and key tiles at each head dim
+(:func:`tiles`) over the live tiles the kernel walks, and its online
+softmax in base 2 (``exp2`` of the score times ``scale * log2(e)``,
+rounded to float32, less the running max).  A head dim between
+instantiations runs in the next one up with zero columns.
 
 * The split reconstructs x within 2^-21 relative (where x - hi is not
   subnormal: TF32 keeps float32's exponent range, so a subnormal lo keeps
@@ -30,8 +31,6 @@ import torch
 from repro_torch.kernels import flash_attention as tfa
 
 NEG_INF = -1e30
-BLOCK_M = 64
-BLOCK_N = 64
 LOG2E = 1.4426950408889634
 
 
@@ -62,23 +61,32 @@ def matmul_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tf32(a) @ tf32(b)
 
 
-def live_tiles(q0: int, sk: int, causal: bool, window: int):
+def tiles(d: int):
+    """(query rows of a block, keys of a tile) of the instantiation at
+    head dim d."""
+    if d <= 128:
+        return 64, 64
+    return (128, 64) if d <= 192 else (128, 32)
+
+
+def live_tiles(q0: int, sk: int, causal: bool, window: int, bm: int,
+               bn: int):
     """The key tiles the kernel walks for the query block at row q0."""
-    nk = -(-sk // BLOCK_N)
+    nk = -(-sk // bn)
     if not causal:
         return range(nk)
-    q_hi = q0 + BLOCK_M - 1
+    q_hi = q0 + bm - 1
     first = q0 - window + 1
-    begin = first // BLOCK_N if window and first > 0 else 0
-    return range(begin, min(nk, q_hi // BLOCK_N + 1))
+    begin = first // bn if window and first > 0 else 0
+    return range(begin, min(nk, q_hi // bn + 1))
 
 
 def flash_emulated(q, k, v, *, scale, causal, window, matmul):
     """The kernel's loop on float32 q [BH, Sq, D], k/v [BH/g, Sk, D]."""
-    bh, sq = q.shape[:2]
+    bh, sq, d = q.shape
     g = bh // k.shape[0]
     sk = k.shape[1]
-    bn = BLOCK_N
+    bm, bn = tiles(d)
     # the kernel's scale * log2(e), one float32 product
     scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
         LOG2E, dtype=torch.float32)
@@ -86,13 +94,13 @@ def flash_emulated(q, k, v, *, scale, causal, window, matmul):
     rows = torch.arange(sq)[:, None]
     for h in range(bh):
         kh, vh = k[h // g], v[h // g]
-        for q0 in range(0, sq, BLOCK_M):
-            qb = q[h, q0:q0 + BLOCK_M]
-            iq = rows[q0:q0 + BLOCK_M]
+        for q0 in range(0, sq, bm):
+            qb = q[h, q0:q0 + bm]
+            iq = rows[q0:q0 + bm]
             m = torch.full((qb.shape[0], 1), NEG_INF)
             l = torch.zeros((qb.shape[0], 1))
             acc = torch.zeros_like(qb)
-            for j in live_tiles(q0, sk, causal, window):
+            for j in live_tiles(q0, sk, causal, window, bm, bn):
                 jk = torch.arange(j * bn, min(sk, (j + 1) * bn))[None, :]
                 s = matmul(qb, kh[j * bn:(j + 1) * bn].T) * scale2
                 valid = torch.ones_like(s, dtype=torch.bool)
@@ -107,7 +115,7 @@ def flash_emulated(q, k, v, *, scale, causal, window, matmul):
                 l = l * alpha + p.sum(1, keepdim=True)
                 acc = acc * alpha + matmul(p, vh[j * bn:(j + 1) * bn])
                 m = m_new
-            out[h, q0:q0 + BLOCK_M] = acc / torch.clamp(l, min=1e-30)
+            out[h, q0:q0 + bm] = acc / torch.clamp(l, min=1e-30)
     return out
 
 
@@ -159,6 +167,10 @@ CASES = [  # causal, sq, sk, window, bh, bh_kv, d
     # head dim 96 (phi-3-vision-4.2b): GQA with a window, ragged, non-causal
     (True, 384, 384, 100, 4, 1, 96), (True, 130, 130, 0, 2, 2, 96),
     (True, 200, 300, 0, 4, 1, 96), (False, 130, 200, 0, 2, 1, 96),
+    # head dims 192 and 256, with the tiles the kernel takes there
+    (True, 384, 384, 100, 4, 2, 192), (True, 200, 300, 0, 2, 2, 192),
+    (False, 130, 200, 0, 2, 1, 192), (True, 256, 256, 0, 4, 2, 256),
+    (True, 384, 384, 100, 2, 1, 256), (False, 130, 256, 0, 2, 2, 256),
 ]
 
 
@@ -180,3 +192,23 @@ def test_one_tf32_pass_misses_float32_tolerance(d):
     three = _worst(flash_emulated(q, k, v, matmul=matmul_3xtf32, **kw), want)
     one = _worst(flash_emulated(q, k, v, matmul=matmul_1xtf32, **kw), want)
     assert three <= 1.0 < one
+
+
+@pytest.mark.parametrize("causal,sq,sk,window,bh,bh_kv", [
+    (True, 384, 384, 100, 4, 1), (True, 200, 300, 0, 2, 2),
+    (False, 130, 200, 0, 2, 1)])
+def test_3xtf32_attention_at_a_padded_head_dim(causal, sq, sk, window, bh,
+                                               bh_kv):
+    """Head dim 80 as the card runs it: q, k and v with 16 zero columns in
+    the 96 instantiation (``cp.async`` fills them), the output cut back to
+    80 columns, within the float32 tolerance of the plain version at 80."""
+    d = 80
+    q, k, v = _inputs(bh, bh_kv, sq, sk, d, seed=sq + d + bh)
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal, window=window)
+    pad = tfa.padded_head_dim(d) - d
+    got = flash_emulated(
+        *(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v)),
+        matmul=matmul_3xtf32, **kw)
+    assert bool((got[..., d:] == 0).all())
+    want = tfa.flash_attention_plain(q, k, v, **kw)
+    assert _worst(got[..., :d], want) <= 1.0
