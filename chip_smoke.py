@@ -70,7 +70,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    2's delta * B.
 9. Serving llama3.2-3b at full width and depth in float32 (torch's TF32
    off: its matmuls run in full float32, while the flash kernel takes its
-   products as 3xTF32), batch 2, a 256-token prompt: prefill through the
+   products as 3xTF32), batch 2, a 128-token prompt: prefill through the
    float32 tensor-core flash kernel (28 launches, none of the bfloat16
    one) against the plain masked-softmax path, and the prompt fed token
    by token through ``serve_step`` against prefill, both within 1e-3 x
@@ -236,19 +236,20 @@ Phases (any failure exits non-zero, and the result line is not printed):
 23. The rest of the zoo, through the same entry points: (a) xlstm-125m as
    published (12 layers, d 768, 4 heads of 192, sLSTM at layers 0, 4 and
    8, chunk 128, vocab 50,304, bf16): a 2 x 2048 prefill (no attention,
-   no flash launch), 32 greedy tokens, and a float32 copy whose 256-token
+   no flash launch), 32 greedy tokens, and a float32 copy whose 128-token
    prompt fed token by token matches its prefill's last position within
-   phase 9's 1e-3 x max|logit|; (b) xlstm-125m trained as published on
-   ring(8), one 2048-token sequence a worker, 3 steps of moniqua 8-bit
+   phase 9's 1e-3 x max|logit|; (b) xlstm-125m trained at 4 of its 12
+   layers (the sLSTM block at layer 0) on ring(8), one 2048-token
+   sequence a worker, 3 steps of moniqua 8-bit
    and 3 of dpsgd as in phase 21 (finite gradients at chunk 128, Lemma
-   2); (c) whisper-base as published (6 + 6 layers, d 512, 8 heads of
-   64, vocab 51,865 tied), 16 windows of 30 s (1500 frames, 375 decoder
-   tokens): a prefill that launches flash 6 times (the decoder's
-   self-attention; the encoder's and the cross attention take the plain
-   route, as in the reference) within phase 10's bound of the plain
-   route, ``whisper_prefill_cross`` and 32 greedy tokens (3000 self
-   slots, 1500 cross), and a float32 check of decode against prefill at
-   64 tokens; (d) whisper-base trained on ring(8), one window a worker (6
+   2; one step profiled); (c) whisper-base as published (6 + 6 layers, d
+   512, 8 heads of 64, vocab 51,865 tied), 16 windows of 30 s (1500
+   frames, 375 decoder tokens): a prefill that launches flash 6 times
+   (the decoder's self-attention; the encoder's and the cross attention
+   take the plain route, as in the reference) within phase 10's bound of
+   the plain route, ``whisper_prefill_cross`` and 32 greedy tokens (3000
+   self slots, 1500 cross), and a float32 check of decode against prefill
+   at 64 tokens; (d) whisper-base trained on ring(8), one window a worker (6
    flash launches a step, flash vs plain gradients); (e)
    phi-3-vision-4.2b as published (32 layers, d 3072, 32 heads of 96,
    bf16; 576 patch embeddings of 1024, the CLIP tower a stub): a 2 x (576
@@ -271,12 +272,12 @@ Phases (any failure exits non-zero, and the result line is not printed):
    (a)'s measured one, its FLOPs equal to the same counters' around one
    real step on the card (the kernels charged by the same formulas), and
    the step's MFU beside the dry run's bound; (d) the dry run's sweep,
-   ``dryrun.main`` over the ten assigned architectures x the four input
-   shapes in processes of its own beside (a)-(c) (xlstm-125m x
-   prefill_32k left out, ROADMAP): no error row, whisper-base x long_500k
-   skipped with the reference's reason, each combination's seconds and
-   peak against the card's 80 GB; and ``calibrate_one`` for llama3.2-3b x
-   train_4k against the sweep's direct count.  The CLI runs' launches are
+   ``dryrun.main`` over the ten assigned architectures at one input shape
+   each (``SWEEP_ROWS``: every shape at least once) in processes of its
+   own beside (a)-(c): no error row, whisper-base x long_500k skipped
+   with the reference's reason, each row's seconds and peak against the
+   card's 80 GB; and ``calibrate_one`` for llama3.2-3b x train_4k against
+   the sweep's direct count.  The CLI runs' launches are
    added to the kernels line.
 25. The meshes (``launch/mesh.py``, ``models/sharding.py``): a one-rank
    NCCL process group and a ``(data=1, model=1)`` ``DeviceMesh`` on the
@@ -312,29 +313,42 @@ Phases (any failure exits non-zero, and the result line is not printed):
    the CPU in 36 cases; one process's references (qwen2-72b's training
    cell at its batch and at half of it, (a)'s and (d)'s prefill and
    greedy decode step), then four child processes (``--fsdp-rank``) over
-   a gloo group on the one card: (a) qwen2-72b at published widths, 2
-   layers, bfloat16, on ``(data=2, model=2)``, a row of a 2 x 2048
+   a gloo group on the one card: (a) qwen2-72b at published widths, 1
+   layer, bfloat16, on ``(data=2, model=2)``, a row of a 2 x 2048
    prefill a ``data`` rank and a decode step fed one process's token,
    each within phase 10's bound of one process, greedy tokens equal over
    ``model``; (d) chatglm3-6b at 2 layers on ``(data=1, model=4)``, its 2
-   KV heads replicated, alike; (c) the Moniqua round of each of (a)'s 15
-   leaves on ring(2), 8-bit stochastic and 1-bit nearest, on each rank's
-   FSDP + tensor-parallel shard, ``torch.equal`` to one process's round
+   KV heads replicated, alike; (c) the Moniqua round of each of the 15
+   leaves of qwen2-72b at 1 layer on ring(2), 8-bit stochastic and
+   1-bit nearest, on each rank's FSDP + tensor-parallel shard,
+   ``torch.equal`` to one process's round
    cut alike, one encode and one decode-reduce a leaf a round; (b)
-   qwen2-72b at 1 layer, one worker, 4 x 1024 tokens a step, 3 steps
+   qwen2-72b at 1 layer, one worker, 4 x 1024 tokens a step, 2 steps
    through ``Trainer(mesh=, rules=ShardingRules("hierarchical"))``: every
    loss within 1e-4 of one process's, equal on every rank; each rank's
    shard of the final momentum and params change within a bound of one
    process's cut alike that one process fed half of each batch exceeds
    in every leaf it moves; one bf16 flash launch a step a rank; each
-   rank's times and peak memory.  The launches are added to the kernels
-   line.
+   rank's times and peak memory.  Then the MoE family (ROADMAP #13e.1),
+   in the same four children after one process's references: (e)
+   dbrx-132b at published widths, 2 layers, on ``(data=2, model=2)``, as
+   (a), its experts split on ``d_model`` over ``data`` and on each
+   expert's ``d_ff`` over ``model``, the routings the split made
+   otherwise than one process counted; (f) grok-1-314b at 1 layer on
+   ``(data=1, model=4)``, alike; (g) the Moniqua round of each of (e)'s
+   13 leaves as (c); (h) dbrx-132b at 1 layer with ``d_ff`` cut to
+   ``FSDP_MOE_TRAIN_DFF`` (printed), 4 x 1024 tokens, 3 steps as (b):
+   step 0's loss within 1e-4 of one process's, the later ones within
+   ``MOE_LOSS_RTOL`` (the rerouted tokens move them), equal on every
+   rank.  The
+   launches are added to the kernels line.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -624,6 +638,23 @@ def window_edges(prof) -> str:
     return f"{len(nm)} kernels, first {nm[:3]}, last {nm[-3:]}"
 
 
+class PhaseClock:
+    """Each phase's seconds on the host clock: ``done(what)`` prints the
+    time since the last mark."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def done(self, what: str) -> None:
+        now = time.perf_counter()
+        print(f"time: {what} took {now - self.t:.1f} s", flush=True)
+        self.t = now
+
+
+CLOCK = PhaseClock()
+T_START = time.perf_counter()
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -634,7 +665,7 @@ def check(cond: bool, what: str) -> None:
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense (data sheet)
 SERVE_ARCH = "llama3.2-3b"
 SERVE_BATCH = 2
-F32_PROMPT, F32_GREEDY = 256, 16          # phase 9
+F32_PROMPT, F32_GREEDY = 128, 16          # phase 9 (256 until PR 31)
 BF16_PROMPT, BF16_GREEDY = 4096, 32       # phase 10
 FLASH_MAIN = (48, 4096, 128)              # [B*H, S, D] of phase 10's prefill
 # [B*H, S, D] of phase 7's two flash paths: phi-3-vision-4.2b's attention
@@ -744,7 +775,6 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
 
     # -- 7. flash kernels against their plain version --------------------
     torch.cuda.synchronize()
-    t7 = time.perf_counter()
     zero_launches()
     routed = {r.__name__: 0 for r in routes}
 
@@ -865,8 +895,8 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     wd_path, wd_err, _ = sdpa_path(FLASH_WIDE, kfa.flash_attention_tc,
                                    "the head dim 256 route check")
 
-    print(f"phase 7 took {time.perf_counter() - t7:.1f} s", flush=True)
 
+    CLOCK.done("phase 7")
     # -- 8. decode kernel: bitwise sweep, then its path --------------------
     # phase 2's rows [workers, rows, cols]: 1003, no vpb divides it; 4096,
     # aligned (also with y one element off alignment, and with the payload
@@ -958,6 +988,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
           f"remote {e_remote:.4g}, self {e_self:.4g} <= delta*B "
           f"{lemma2:.4g}", flush=True)
 
+    CLOCK.done("phase 8")
     # -- 9. float32 llama3.2-3b, full width and depth ----------------------
     m32 = Model(serve_config(dtype="float32"), "cuda")
     m32_plain = Model(serve_config(dtype="float32", flash_attention=False),
@@ -1014,6 +1045,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     del params, cache, lf, lp, logits
     torch.cuda.empty_cache()
 
+    CLOCK.done("phase 9")
     # -- 10. the published bfloat16 model ----------------------------------
     mbf = Model(serve_config(), "cuda")          # the published config
     mbf_plain = Model(serve_config(flash_attention=False), "cuda")
@@ -1079,8 +1111,8 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
     del params, cache, logits, out
     torch.cuda.empty_cache()
 
+    CLOCK.done("phase 10")
     # -- 11. times of the serving slice's kernels at their path's shapes --
-    t11 = time.perf_counter()
     # qm, km, vm: the bfloat16 inputs at the prefill's shape (16 KV blocks)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fa_ms = timer(lambda: kfa.flash_attention_tc(qm, km, vm, **fa_kw),
@@ -1216,7 +1248,7 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
           f"{dec_bound:.5f} ms (bytes) | library: no single PyTorch call "
           f"{card}", flush=True)
 
-    print(f"phase 11 took {time.perf_counter() - t11:.1f} s", flush=True)
+    CLOCK.done("phase 11")
 
     def record(shape, dt, **extra):
         r = dict(rt[shape, dt])
@@ -2852,8 +2884,10 @@ def obs_phase(dev, card, model, batches, X_cpu, trained):
                               codec=MoniquaCodec(spec8), theta=2.0,
                               max_delay=ADPSGD_DELAY, quantized=True)
     sched = adpsgd.make_schedule(N_WORKERS, ADPSGD_ITERS, cfg, seed=0)
+    # one run each (a second pair only timed again, 4 x 200 iterations
+    # took 42 s of the phase on a slow host)
     ad, it_ms = {}, {}
-    for turn, tel in enumerate((False, True, False, True)):
+    for tel in (False, True):
         calls[0] = 0
         zero()
         t1 = time.perf_counter()
@@ -2863,9 +2897,8 @@ def obs_phase(dev, card, model, batches, X_cpu, trained):
         got = read()
         it_ms.setdefault(tel, []).append(
             1e3 * (time.perf_counter() - t1) / ADPSGD_ITERS)
-        if turn < 2:                # the second pair only times
-            add(counted, got)
-            ad[tel] = (res, got)
+        add(counted, got)
+        ad[tel] = (res, got)
     check(torch.equal(ad[False][0][0], ad[True][0][0]),
           "AD-PSGD telemetry on != off (X)")
     enc_off, enc_on = (ad[False][1]["moniqua_encode"],
@@ -2883,7 +2916,7 @@ def obs_phase(dev, card, model, batches, X_cpu, trained):
           f"total {int(htr['alias_count'].sum())}, max consensus_inf "
           f"{float(htr['consensus_inf'].max()):.6g}", flush=True)
     print(f"time: AD-PSGD moniqua iteration (ResNet-20 gradient, mean of "
-          f"{ADPSGD_ITERS}), host clock, two runs each, in turns: telemetry "
+          f"{ADPSGD_ITERS}), host clock, one run each: telemetry "
           f"off " + ", ".join(f"{v:.3f}" for v in it_ms[False]) + " ms | on "
           + ", ".join(f"{v:.3f}" for v in it_ms[True]) + f" ms {card}",
           flush=True)
@@ -3059,15 +3092,15 @@ class Launches:
 
 
 def train_runs(model, shape, base, runs, launches, card, what,
-               flash_per_step, before=None):
+               flash_per_step, before=None, profiled=2):
     """Each of ``runs`` through ``Trainer(model, tc, shape)`` from one seed
     (``Trainer.run`` owns each run's state: the card holds one): finite
     losses, step 0's within 10% of ln V, the bf16 tensor-core flash kernel
     ``flash_per_step`` times a step, the codec kernels as ``path="auto"``
     resolves for the tree, bytes a step equal to the shape-only
-    accounting; step time, tokens/s, peak memory, and a profile of two
-    steps after the Moniqua run.  ``before(params)`` sees one worker's
-    initial parameters first."""
+    accounting; step time, tokens/s, peak memory, and a profile of
+    ``profiled`` steps after the Moniqua run.  ``before(params)`` sees one
+    worker's initial parameters first."""
     from repro_torch import tree
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -3135,15 +3168,16 @@ def train_runs(model, shape, base, runs, launches, card, what,
         if kw["algo"] == "moniqua":
             state = res["state"]
             del res
-            batches = [tr.batch_fn(k) for k in (steps, steps + 1)]
+            batches = [tr.batch_fn(steps + k) for k in range(profiled)]
 
             def two_steps():
                 nonlocal state
                 for b in batches:
                     state, _ = tr.step_fn(state, b)
             t_prof = time.perf_counter()
-            profile_device(two_steps, f"2 {what} {name} steps", card)
-            print(f"time: the profile of 2 {what} {name} steps took "
+            profile_device(two_steps, f"{profiled} {what} {name} steps",
+                           card)
+            print(f"time: the profile of {profiled} {what} {name} steps took "
                   f"{time.perf_counter() - t_prof:.1f} s of host time, "
                   f"recording and reading included", flush=True)
             del state, batches
@@ -3642,9 +3676,11 @@ def moe_hybrid_phase(dev, timer, card):
 # -- the rest of the zoo: xlstm, whisper, phi-3-vision (phase 23) ------------
 
 XL_ARCH, WH_ARCH, VLM_ARCH = "xlstm-125m", "whisper-base", "phi-3-vision-4.2b"
-XL_PROMPT, XL_F32_PROMPT = 2048, 256
-# xlstm training: ring(8), the paper's topology, 2048 tokens a worker
-XL_WORKERS = 8
+XL_PROMPT, XL_F32_PROMPT = 2048, 128      # the second 256 until PR 31
+# xlstm training: ring(8), the paper's topology, 2048 tokens a worker; depth
+# 12 -> 4 (the sLSTM block at layer 0 and three mLSTM blocks: its host-bound
+# steps took 3.0-3.8 s at 12)
+XL_WORKERS, XL_TRAIN_LAYERS = 8, 4
 # whisper: 16 windows of 30 s, the reference's batch_spec at seq_len 3000:
 # 1500 encoder frames and min(448, 3000 / 8) = 375 decoder tokens a window
 WH_BATCH, WH_SEQ = 16, 3000
@@ -3752,14 +3788,17 @@ def zoo_phase(dev, timer, card):
     torch.cuda.empty_cache()
     part_done("a")
 
-    # -- (b) xlstm-125m trained as published --------------------------------
-    model = Model(lm_config(XL_ARCH, None), "cuda")
+    # -- (b) xlstm-125m trained at XL_TRAIN_LAYERS layers -------------------
+    model = Model(lm_config(XL_ARCH, XL_TRAIN_LAYERS), "cuda")
     shape = InputShape("xlstm_train", LM_SEQ, XL_WORKERS, "train")
-    print(f"phase 23 (b): {XL_ARCH} as published on ring({XL_WORKERS}), "
+    print(f"phase 23 (b): {XL_ARCH} cut to {XL_TRAIN_LAYERS} of 12 layers, "
+          f"every width as published, on ring({XL_WORKERS}), "
           f"{LM_SEQ} tokens a worker ({LM_SEQ // model.cfg.ssm.chunk} "
           f"mLSTM chunks of {model.cfg.ssm.chunk})", flush=True)
+    # one profiled step: xlstm's records ~137 k kernels a step at 12
+    # layers, and two took 38.1 s of host time to record and read
     train_runs(model, shape, base(XL_WORKERS), runs, launches, card,
-               "xlstm", 0)
+               "xlstm", 0, profiled=1)
     p0, b0 = lemma2_check(model, shape, base(XL_WORKERS), runs, dev,
                           "phase 23 (b)")
     del p0, b0, model
@@ -3869,16 +3908,21 @@ CLI_WH_CODEC, CLI_WH_FLASH = 32, 6     # (a)'s launches a step: per-leaf on
                                        # layers' self-attention
 CARD_BYTES = 80e9              # the H100's HBM (data sheet)
 PEAK_RATIO = (0.8, 1.25)       # dry-run peak / measured peak
-# (d): dryrun.main's sweep on meta, one process a part, run beside (a)-(c).
-# xlstm-125m x prefill_32k is left out: its sLSTM loop is 3 x 32768 steps
-# of ~14 ops through the Python dispatch modes (~1.4 M ops, several
-# minutes); ROADMAP lists it.
-SWEEP_PARTS = ((("--shape", "train_4k"),),
-               (("--shape", "decode_32k"), ("--shape", "long_500k")),
-               tuple(("--arch", a, "--shape", "prefill_32k") for a in (
-                   "dbrx-132b", "grok-1-314b", "chatglm3-6b", "llama3.2-3b",
-                   "phi-3-vision-4.2b", "internlm2-20b", "qwen2-72b",
-                   "whisper-base", "zamba2-1.2b")))
+# (d): dryrun.main on meta, one input shape an architecture (each shape at
+# least once), one process a part, run beside (a)-(c): llama3.2-3b x
+# train_4k is the calibration's row, whisper-base x long_500k the
+# reference's one skip.  The sweep of every architecture at every shape
+# took 137.6-158.1 s; the rest of it is left to the dry run's CLI.
+SWEEP_ROWS = {"llama3.2-3b": "train_4k", "whisper-base": "long_500k",
+              "chatglm3-6b": "prefill_32k", "dbrx-132b": "decode_32k",
+              "grok-1-314b": "decode_32k", "xlstm-125m": "decode_32k",
+              "phi-3-vision-4.2b": "decode_32k",
+              "internlm2-20b": "decode_32k", "qwen2-72b": "decode_32k",
+              "zamba2-1.2b": "decode_32k"}
+_SWEEP_REST = [("--arch", a, "--shape", s)
+               for a, s in SWEEP_ROWS.items() if a != "llama3.2-3b"]
+SWEEP_PARTS = ((("--arch", "llama3.2-3b", "--shape", "train_4k"),),
+               ) + tuple(tuple(_SWEEP_REST[i::3]) for i in range(3))
 SWEEP_TIMEOUT = 600
 
 
@@ -4150,8 +4194,10 @@ def launch_phase(dev, card):
               if r["status"] == "error"]
     check(not errors and not fails, f"phase 24 (d): error rows {errors} "
           f"{fails}")
-    want = {(a, s) for a in assigned_archs() for s in INPUT_SHAPES}
-    want.discard(("xlstm-125m", "prefill_32k"))
+    want = set(SWEEP_ROWS.items())
+    check(set(SWEEP_ROWS) == set(assigned_archs())
+          and {s for _, s in want} == set(INPUT_SHAPES), "phase 24 (d): "
+          f"the sweep's rows {SWEEP_ROWS} miss an architecture or a shape")
     check({(r["arch"], r["shape"]) for r in rows} == want and
           len(rows) == len(want), f"phase 24 (d): {len(rows)} rows, want "
           f"{len(want)}")
@@ -4190,7 +4236,8 @@ def launch_phase(dev, card):
           f"phase 24 (d): bytes direct {direct['bytes_per_chip']} != "
           f"calibrated {calr['bytes_per_chip']} + the stacked-gradient "
           f"term ({second} a layer pair)")
-    print(f"phase 24 (d): {len(rows)} dry-run rows, 0 errors, 1 skipped "
+    print(f"phase 24 (d): {len(rows)} dry-run rows (one shape an "
+          f"architecture), 0 errors, 1 skipped "
           f"(whisper-base x long_500k: the reference's reason); "
           f"llama3.2-3b x train_4k calibrated from depth 1 and 2 to {L}: "
           f"FLOPs {calr['flops_per_chip']:.6e} == the sweep's direct "
@@ -4207,6 +4254,9 @@ def launch_phase(dev, card):
 # -- phase 25: the meshes and sharding rules ---------------------------------
 
 MESH_STEPS = 3
+# phase 26 (a)'s greedy tokens (phase 10's 32 until PR 31: each is an
+# all-reduce round trip through gloo, 0.22-0.3 s a token)
+TP_GREEDY = 8
 
 
 def mesh_phase(dev, card):
@@ -4471,16 +4521,16 @@ def tp_child(rank: int, store_path: str, out_dir: str) -> int:
         out_d, cache = serve(P, cache, tok)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(BF16_GREEDY - 1):
+        for _ in range(TP_GREEDY - 1):
             tok = out_d[:, -1, :model.cfg.vocab_size].argmax(
                 -1, keepdim=True).int()
             tokens.append(tok)
             out_d, cache = serve(P, cache, tok)
         torch.cuda.synchronize()
         res["token_ms"] = 1e3 * (time.perf_counter() - t0) / (
-            BF16_GREEDY - 1)
+            TP_GREEDY - 1)
         check(bool(torch.isfinite(out_d).all())
-              and int(cache["pos"]) == BF16_GREEDY, "phase 26 (a) decode")
+              and int(cache["pos"]) == TP_GREEDY, "phase 26 (a) decode")
         res["tokens"] = torch.cat(tokens, 1).tolist()
         del P, cache, logits, out_d, batch, prefill, serve
         torch.cuda.empty_cache()
@@ -4667,7 +4717,7 @@ def tp_phase(dev, card, ref25):
           f"{res[0]['prefill_gap']:.4g} x max|logit| (bound "
           f"{BF16_GAP_BOUND}); cache k {res[0]['cache_k']} a rank; first "
           f"tokens {[t[0] for t in res[0]['tokens']]} (one process "
-          f"{res[0]['first_token_one_process']}); {BF16_GREEDY} greedy "
+          f"{res[0]['first_token_one_process']}); {TP_GREEDY} greedy "
           f"tokens equal on both ranks: {res[0]['tokens']}", flush=True)
     print(f"phase 26: tensor parallelism passed in "
           f"{time.perf_counter() - t_phase:.1f} s ({t_ranks:.1f} s of "
@@ -4679,7 +4729,12 @@ def tp_phase(dev, card, ref25):
 
 FSDP_ARCH, FSDP_KV_ARCH = "qwen2-72b", "chatglm3-6b"
 FSDP_RANKS = 4                 # gloo ranks on the one card
-FSDP_SERVE_LAYERS, FSDP_TRAIN_LAYERS = 2, 1   # depth 80 -> 2 and 1
+# depth 80 -> 1 served, trained and gossiped ((a) and (c) took 2 before
+# (e)-(h) came: a forward's re-gathers cost ~4 s a layer, and (g)'s
+# expert leaves span 32 blocks of rows where (c)'s at 2 layers spanned 2)
+FSDP_SERVE_LAYERS, FSDP_TRAIN_LAYERS, FSDP_ROUND_LAYERS = 1, 1, 1
+# (b)'s steps (MESH_STEPS, 3, until PR 31); (h) takes MESH_STEPS
+FSDP_B_STEPS = 2
 FSDP_KV_LAYERS = 2             # chatglm3-6b: depth 28 -> 2
 # (a): every decode token re-gathers a rank's 2.1 B parameters over data
 # through gloo and the host (5.5-8 s a token on one card): the prefill's
@@ -4698,17 +4753,58 @@ FSDP_LOSS_RTOL = 1e-4
 # batch, which each run measures (on an H100: momentum 0.0124 and 0.254,
 # params change, a few bf16 ulps, 0.077 and 1.68)
 FSDP_STATE_RTOL = {"mom": 0.05, "dp": 0.3}
+# (e)-(h): the MoE family split: dbrx-132b served at 2 layers on (data=2,
+# model=2) and its round, grok-1-314b at 1 layer on (data=1, model=4),
+# dbrx-132b trained at 1 layer with its experts' d_ff cut.  Published, 1
+# layer is 4.49 B parameters, ~85 GB in one process (~19 bytes a
+# parameter, qwen2-72b's (b)).  On an H100 at d_ff 6912 (3.36 B
+# parameters) one process took 59.83 GiB and each rank 15.01 GiB; at
+# 9600 one process fitted but the four ranks ran out of the card's 79.18
+# GiB (a rank at 16.89 GiB asking for 0.88 more).  A unit of d_ff adds
+# ~1.0e-3 GiB a rank, so 8192 = 128 x 64 leaves each rank ~16.3 GiB
+# (qwen2-72b (b)'s take 15.92) and ~6 GiB of the card spare
+FSDP_MOE_ARCH, FSDP_GROK_ARCH = "dbrx-132b", "grok-1-314b"
+FSDP_MOE_LAYERS, FSDP_GROK_LAYERS, FSDP_MOE_TRAIN_LAYERS = 2, 1, 1
+FSDP_MOE_TRAIN_DFF = 8192
+# (h): the bf16 split routes 1-8% of the routings otherwise than one
+# process (a top-k near-tie moved by its summation order, counted in (e)
+# and (f)), which moves the MoE loss more than the dense cell's: step 0
+# (the same params) is held to FSDP_LOSS_RTOL, the steps after it to
+# phase 26's bound for a bf16 split cell against one process (on an H100:
+# 7.57e-5, 3.23e-5 and 2.26e-4 at d_ff 6912)
+MOE_LOSS_RTOL = 1e-3
 
 
 def fsdp_config(layers):
     return lm_config(FSDP_ARCH, layers=layers)
 
 
-def fsdp_trainer_config():
+def moe_train_config():
+    """(h)'s config: dbrx-132b at published widths but ``d_ff``, 1 layer."""
+    return lm_config(FSDP_MOE_ARCH, layers=FSDP_MOE_TRAIN_LAYERS,
+                     d_ff=FSDP_MOE_TRAIN_DFF)
+
+
+def rerouted(seen, ref, lo, hi) -> list:
+    """``[routings that differ, routings]`` of this rank's rows ``[lo,
+    hi)`` (``RouteRecorder.seen``, token by layer) against one process's
+    of the whole ``SERVE_BATCH`` rows (``ref``), call by call."""
+    check(len(seen) == len(ref), f"phase 27: {len(seen)} routing calls, "
+          f"one process {len(ref)}")
+    n = total = 0
+    for got, want in zip(seen, ref):
+        want = want.reshape(SERVE_BATCH, -1, want.shape[-1])[lo:hi]
+        same = (got.cpu() == want.reshape(got.shape)).all(-1)
+        n += int((~same).sum())
+        total += same.numel()
+    return [n, total]
+
+
+def fsdp_trainer_config(steps):
     from repro_torch.train.trainer import TrainerConfig
     return TrainerConfig(algo="moniqua", bits=8, topology="ring",
                          n_workers=1, theta=2.0, lr=0.1, momentum=0.9,
-                         weight_decay=5e-4, steps=MESH_STEPS, log_every=1,
+                         weight_decay=5e-4, steps=steps, log_every=1,
                          seed=0)
 
 
@@ -4736,35 +4832,45 @@ def fsdp_serve(rank, model, mesh, rules, ref, launches, res, key):
     from repro_torch.configs.base import InputShape
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.train import serve_step as SS
+    t0 = time.perf_counter()
     P = in_turns(rank, lambda: SS.shard_serving_params(
         model, model.init(model.generator(0)), mesh, rules))
+    if rank == 0:
+        print(f"phase 27 rank 0: ({key}) weights drawn whole and cut, one "
+              f"rank at a time, in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     batch = SyntheticLMPipeline(model, InputShape(
         "serve_prefill", FSDP_PROMPT, SERVE_BATCH, "prefill"), 1,
         seed=1).global_batch(0)
     lo, hi = SS.batch_rows(SERVE_BATCH, mesh, rules)
     rows = {k: v[lo:hi] for k, v in batch.items()}
     prefill = SS.make_prefill_step(model, mesh=mesh, rules=rules)
-    launches.zero()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = [prefill(P, rows)]
-    torch.cuda.synchronize()
-    res[f"{key}_ttft_ms"] = 1e3 * (time.perf_counter() - t0)
-    res[f"{key}_launches"] = launches.read()
-    cache = SS.make_cache(model, hi - lo, InputShape(
-        "serve_decode", FSDP_PROMPT + FSDP_GREEDY, SERVE_BATCH, "decode"),
-        mesh=mesh, rules=rules)
-    serve = SS.make_serve_step(model, mesh=mesh, rules=rules)
-    res[f"{key}_cache_k"] = list(cache["layers"]["k"].shape)
-    toks = ref["tokens"][lo:hi].to(steps[0].device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for s in range(FSDP_GREEDY - 1):
-        out, cache = serve(P, cache, toks[:, s:s + 1])
-        steps.append(out)
-    torch.cuda.synchronize()
-    res[f"{key}_token_ms"] = 1e3 * (time.perf_counter() - t0) / (
-        FSDP_GREEDY - 1)
+    moe = model.cfg.family == "moe"
+    routes = RouteRecorder() if moe else contextlib.nullcontext()
+    with routes:
+        launches.zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = [prefill(P, rows)]
+        torch.cuda.synchronize()
+        res[f"{key}_ttft_ms"] = 1e3 * (time.perf_counter() - t0)
+        res[f"{key}_launches"] = launches.read()
+        cache = SS.make_cache(model, hi - lo, InputShape(
+            "serve_decode", FSDP_PROMPT + FSDP_GREEDY, SERVE_BATCH,
+            "decode"), mesh=mesh, rules=rules)
+        serve = SS.make_serve_step(model, mesh=mesh, rules=rules)
+        res[f"{key}_cache_k"] = list(cache["layers"]["k"].shape)
+        toks = ref["tokens"][lo:hi].to(steps[0].device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(FSDP_GREEDY - 1):
+            out, cache = serve(P, cache, toks[:, s:s + 1])
+            steps.append(out)
+        torch.cuda.synchronize()
+        res[f"{key}_token_ms"] = 1e3 * (time.perf_counter() - t0) / (
+            FSDP_GREEDY - 1)
+    if moe:
+        res[f"{key}_rerouted"] = rerouted(routes.seen, ref["routes"], lo, hi)
     check(int(cache["pos"]) == FSDP_GREEDY - 1, f"phase 27 {key} decode")
     V = model.cfg.vocab_size
     res[f"{key}_gaps"], tokens = [], []
@@ -4810,13 +4916,16 @@ def block_encode_check(dev) -> int:
     return n
 
 
-def fsdp_rounds(rank, mesh, rules, res):
-    """(c): the Moniqua round of each leaf of qwen2-72b at (a)'s 2 layers
-    (so that a leaf split on two dims spans two blocks of rows) on
-    ``FSDP_ROUND_N`` workers (ring), 8-bit stochastic and 1-bit nearest,
-    on this rank's FSDP + tensor-parallel shard, ``torch.equal`` to the
-    same cut of one process's round of the whole leaf (each rank computes
-    that in turn); the split rounds' encode and decode-reduce launches."""
+def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c"):
+    """(c): the Moniqua round of each leaf of qwen2-72b at
+    ``FSDP_ROUND_LAYERS`` (``cfg`` another config: (g)'s dbrx-132b, whose
+    expert leaves split on two dims past their layer and expert dims
+    span blocks of rows) on ``FSDP_ROUND_N`` workers
+    (ring), 8-bit stochastic and 1-bit nearest, on this rank's FSDP +
+    tensor-parallel shard, ``torch.equal`` to the same cut of one
+    process's round of the whole leaf (each rank computes that in turn);
+    the split rounds' encode and decode-reduce launches, under ``res``
+    keys prefixed ``g_`` for (g)."""
     from repro_torch import tree
     from repro_torch.comm import fsdp
     from repro_torch.comm import tensor_parallel as TP
@@ -4829,7 +4938,8 @@ def fsdp_rounds(rank, mesh, rules, res):
     from repro_torch.launch.mesh import mesh_context, mesh_shape_dict
     from repro_torch.models.model_factory import Model
     from repro_torch.train import train_step as TS
-    model = Model(fsdp_config(FSDP_SERVE_LAYERS), "cuda")
+    model = Model(cfg or fsdp_config(FSDP_ROUND_LAYERS), "cuda")
+    pre = "" if key == "c" else f"{key}_"
     specs = tree.leaves(TS.params_pspecs(model, rules, mesh_shape_dict(mesh),
                                          stacked=True))
     shapes = [tuple(a.shape) for a in tree.leaves(TS.abstract_params(model))]
@@ -4838,27 +4948,27 @@ def fsdp_rounds(rank, mesh, rules, res):
                 int(mesh.get_local_rank("data")))
     n_enc = n_dr = 0
     secs = 0.0
-    for bits, stochastic in ((8, True), (1, False)):
-        hp = AlgoHyper(topo=ring(FSDP_ROUND_N), codec=MoniquaCodec(
-            QuantSpec(bits=bits, stochastic=stochastic)), theta=2.0,
-            path="per_leaf")
-        for i, (shape, spec) in enumerate(zip(shapes, specs)):
-            md, dd = (TP.axis_dims((spec,), "model")[0],
-                      TP.axis_dims((spec,), fsdp.AXIS)[0])
-            seed = 0x5EED27 + i
+    hps = [(bits, AlgoHyper(topo=ring(FSDP_ROUND_N), codec=MoniquaCodec(
+        QuantSpec(bits=bits, stochastic=stochastic)), theta=2.0,
+        path="per_leaf")) for bits, stochastic in ((8, True), (1, False))]
+    for i, (shape, spec) in enumerate(zip(shapes, specs)):
+        md, dd = (TP.axis_dims((spec,), "model")[0],
+                  TP.axis_dims((spec,), fsdp.AXIS)[0])
+        seed = 0x5EED27 + i
 
-            def cut(a):
-                return TP.shard(TP.shard(a, md, r_m, 2), dd, r_d,
-                                2).contiguous().clone()
+        def cut(a):
+            return TP.shard(TP.shard(a, md, r_m, 2), dd, r_d,
+                            2).contiguous().clone()
 
-            def one_process():
-                g = torch.Generator(device=model.dev).manual_seed(seed)
-                whole = torch.randn((FSDP_ROUND_N,) + shape, generator=g,
-                                    device=model.dev).to(dtype)
-                out = hp.engine().mix((whole,), theta=2.0,
-                                      seed=seed).x[0]
-                return cut(whole), cut(out)
-            x, want = in_turns(rank, one_process)
+        def one_process():
+            # the leaf drawn whole once for both rounds, one rank at a time
+            g = torch.Generator(device=model.dev).manual_seed(seed)
+            whole = torch.randn((FSDP_ROUND_N,) + shape, generator=g,
+                                device=model.dev, dtype=dtype)
+            return cut(whole), [cut(hp.engine().mix(
+                (whole,), theta=2.0, seed=seed).x[0]) for _, hp in hps]
+        x, wants = in_turns(rank, one_process)
+        for (bits, hp), want in zip(hps, wants):
             e0, d0 = kenc.encode.launches, kdr.decode_reduce.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4868,14 +4978,15 @@ def fsdp_rounds(rank, mesh, rules, res):
             secs += time.perf_counter() - t0
             n_enc += kenc.encode.launches - e0
             n_dr += kdr.decode_reduce.launches - d0
-            check(torch.equal(got, want), f"phase 27 (c) rank {rank}: leaf "
-                  f"{i} {list(shape)} at {bits} bits != one process's "
+            check(torch.equal(got, want), f"phase 27 ({key}) rank {rank}: "
+                  f"leaf {i} {list(shape)} at {bits} bits != one process's "
                   f"round, cut alike")
-            del x, want, got
-    res["round_leaves"] = len(shapes)
-    res["round_launches"] = {"moniqua_encode": n_enc,
-                             "moniqua_decode_reduce": n_dr}
-    res["round_ms"] = 1e3 * secs / 2
+            del got
+        del x, wants
+    res[f"{pre}round_leaves"] = len(shapes)
+    res[f"{pre}round_launches"] = {"moniqua_encode": n_enc,
+                                   "moniqua_decode_reduce": n_dr}
+    res[f"{pre}round_ms"] = 1e3 * secs / 2
     torch.cuda.empty_cache()
 
 
@@ -4887,11 +4998,14 @@ def fsdp_child(rank: int, store_path: str, out_dir: str) -> int:
     then one process's greedy tokens decoded (``fsdp_serve``); (d)
     chatglm3-6b (depth 2) served alike on ``(data=1, model=4)``, its 2 KV
     heads replicated; (c) the Moniqua round on the shards of (a)'s leaves;
-    (b) qwen2-72b (depth 1) trained for ``MESH_STEPS`` steps through
+    (b) qwen2-72b (depth 1) trained for ``FSDP_B_STEPS`` steps through
     ``Trainer(mesh=, rules=)``, one worker, ``FSDP_BATCH`` x ``FSDP_SEQ``
-    tokens a step.  The parent's one-process references are in
+    tokens a step; then the MoE family: (e) dbrx-132b (depth 2) served as
+    (a) is, (f) grok-1-314b (depth 1) served on ``(data=1, model=4)``,
+    (g) the Moniqua round on (e)'s shards, (h) dbrx-132b (depth 1, d_ff
+    cut) trained as (b) is.  The parent's one-process references are in
     ``out_dir``; writes ``rank<R>.json`` and ``rank<R>.pt`` (the final
-    params and momentum shards)."""
+    params and momentum shards of (b))."""
     import datetime
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -4911,6 +5025,13 @@ def fsdp_child(rank: int, store_path: str, out_dir: str) -> int:
     res = {"rank": rank}
     launches = Launches()
     refs = torch.load(os.path.join(out_dir, "refs.pt"))
+    # every rank starts its CUDA context, allocator, generator and cuBLAS
+    # here, all at once: the first weights are drawn one rank at a time,
+    # and with each rank starting CUDA in its turn that draw took 49.4 s
+    from repro_torch.device import resolve_device
+    warm = torch.randn((1024, 1024), device=resolve_device("cuda"))
+    float((warm @ warm).sum())
+    del warm
     try:
         # gloo groups (the ranks share the card): the meshes' device type
         # is the CPU, the tensors the card's
@@ -4941,7 +5062,7 @@ def fsdp_child(rank: int, store_path: str, out_dir: str) -> int:
         done("c")
         # -- (b) training ------------------------------------------------
         tr = Trainer(Model(fsdp_config(FSDP_TRAIN_LAYERS), "cuda"),
-                     fsdp_trainer_config(),
+                     fsdp_trainer_config(FSDP_B_STEPS),
                      InputShape("lm_train", FSDP_SEQ, FSDP_BATCH, "train"),
                      mesh=mesh, rules=rules)
         state = in_turns(rank, tr.init_state)
@@ -4957,7 +5078,39 @@ def fsdp_child(rank: int, store_path: str, out_dir: str) -> int:
         torch.save({k: tree_cpu(out["state"][k]) for k in ("params", "mom")},
                    os.path.join(out_dir, f"rank{rank}.pt"))
         del out, state, tr
+        torch.cuda.empty_cache()
         done("b")
+        # -- (e) dbrx-132b served under FSDP + tensor parallelism ---------
+        fsdp_serve(rank, Model(lm_config(FSDP_MOE_ARCH,
+                                         layers=FSDP_MOE_LAYERS), "cuda"),
+                   mesh, rules, refs["e"], launches, res, "e")
+        done("e")
+        # -- (f) grok-1-314b over model=4 ---------------------------------
+        fsdp_serve(rank, Model(lm_config(FSDP_GROK_ARCH,
+                                         layers=FSDP_GROK_LAYERS), "cuda"),
+                   mesh_kv, rules, refs["f"], launches, res, "f")
+        done("f")
+        # -- (g) the Moniqua round on (e)'s expert shards -----------------
+        fsdp_rounds(rank, mesh, rules, res, cfg=lm_config(
+            FSDP_MOE_ARCH, layers=FSDP_MOE_LAYERS), key="g")
+        done("g")
+        # -- (h) dbrx-132b trained -----------------------------------------
+        tr = Trainer(Model(moe_train_config(), "cuda"),
+                     fsdp_trainer_config(MESH_STEPS),
+                     InputShape("lm_train", FSDP_SEQ, FSDP_BATCH, "train"),
+                     mesh=mesh, rules=rules)
+        state = in_turns(rank, tr.init_state)
+        torch.cuda.reset_peak_memory_stats()
+        launches.zero()
+        out = tr.run(state)
+        res["h_train_launches"] = launches.read()
+        res["h_peak"] = torch.cuda.max_memory_allocated()
+        walls = [h["wall"] for h in out["history"]]
+        res["h_step_ms"] = 1e3 * (walls[-1] - walls[0]) / (len(walls) - 1)
+        res["h_losses"] = [h["loss"] for h in out["history"]]
+        res["h_bytes_per_step"] = out["bytes_per_step"]
+        del out, state, tr
+        done("h")
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -4966,19 +5119,21 @@ def fsdp_child(rank: int, store_path: str, out_dir: str) -> int:
     return 0
 
 
-def fsdp_train_one(batch, dev, ref=None):
-    """(b)'s cell in one process at ``batch`` rows a step: its losses,
-    step time, peak and bytes/step; with ``ref`` (another run's), the gaps
-    of its final state against ``ref``'s (:func:`state_gaps`), else its
-    params before and after and momentum after, on the host."""
+def fsdp_train_one(batch, dev, ref=None, cfg=None, keep=True):
+    """(b)'s cell (``cfg``: another config, (h)'s) in one process at
+    ``batch`` rows a step: its losses, step time, peak and bytes/step;
+    with ``ref`` (another run's), the gaps of its final state against
+    ``ref``'s (:func:`state_gaps`), else, with ``keep``, its params before
+    and after and momentum after, on the host."""
     from repro_torch.configs.base import InputShape
     from repro_torch.models.model_factory import Model
     from repro_torch.train.trainer import Trainer
-    tr = Trainer(Model(fsdp_config(FSDP_TRAIN_LAYERS), "cuda"),
-                 fsdp_trainer_config(),
+    tr = Trainer(Model(cfg or fsdp_config(FSDP_TRAIN_LAYERS), "cuda"),
+                 fsdp_trainer_config(MESH_STEPS if cfg else FSDP_B_STEPS),
                  InputShape("lm_train", FSDP_SEQ, batch, "train"))
     state = tr.init_state()
-    p0 = tree_cpu(state["params"]) if ref is None else None
+    keep = keep and ref is None
+    p0 = tree_cpu(state["params"]) if keep else None
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out = tr.run(state)
@@ -4988,9 +5143,9 @@ def fsdp_train_one(batch, dev, ref=None):
            "peak": torch.cuda.max_memory_allocated(),
            "bytes": out["bytes_per_step"]}
     st = {"p": out["state"]["params"], "mom": out["state"]["mom"]}
-    if ref is None:
+    if keep:
         one.update(p0=p0, **tree_cpu(st))
-    else:
+    elif ref is not None:
         one["gaps"] = state_gaps(st, ref, dev)
     del out, state, tr, st
     torch.cuda.empty_cache()
@@ -5028,15 +5183,17 @@ def fsdp_phase(dev, card):
     and replicated-KV GQA over ``model``, four gloo ranks on the one card
     (``fsdp_child``).  One process first, each freed before the next:
     (b)'s training cell, at its batch and at half of it (the fault a
-    gradient from one ``data`` rank's rows makes: its state's gaps), and
-    (a)'s and (d)'s
-    prefills and greedy decode steps.  Then the ranks: (a) and (d) within
+    gradient from one ``data`` rank's rows makes: its state's gaps),
+    (h)'s, and (a)'s, (d)'s, (e)'s and (f)'s prefills and greedy decode
+    steps (for (e) and (f) their routings).  Then the ranks: (a) and (d) within
     ``BF16_GAP_BOUND`` of one process at every step, greedy tokens equal
     over ``model``; (b) every loss within ``FSDP_LOSS_RTOL`` of one
     process's, equal on every rank, every shard's momentum and params
     change within ``FSDP_STATE_RTOL`` of one process's, which the half
-    batch exceeds; (c) bitwise.  Returns the ranks' launches by
-    kernels-line entry."""
+    batch exceeds; (c) bitwise; (e) and (f) as (a), the routings the
+    split made otherwise than one process counted; (g) as (c); (h)'s
+    losses as (b)'s.  Returns the ranks' launches by kernels-line
+    entry."""
     import shutil
     from repro_torch import tree
     from repro_torch.comm import fsdp
@@ -5058,28 +5215,37 @@ def fsdp_phase(dev, card):
     # -- one process: (b)'s cell and its half batch, then the serving ----
     one = fsdp_train_one(FSDP_BATCH, dev)
     half_gaps = fsdp_train_one(FSDP_BATCH // 2, dev, one)["gaps"]
+    one_h = fsdp_train_one(FSDP_BATCH, dev, cfg=moe_train_config(),
+                           keep=False)
     refs = {}
     for key, cfg in (("a", fsdp_config(FSDP_SERVE_LAYERS)),
-                     ("d", lm_config(FSDP_KV_ARCH, layers=FSDP_KV_LAYERS))):
+                     ("d", lm_config(FSDP_KV_ARCH, layers=FSDP_KV_LAYERS)),
+                     ("e", lm_config(FSDP_MOE_ARCH, layers=FSDP_MOE_LAYERS)),
+                     ("f", lm_config(FSDP_GROK_ARCH,
+                                     layers=FSDP_GROK_LAYERS))):
         model = Model(cfg, "cuda")
         V = cfg.vocab_size
         P = model.init(model.generator(0))
         batch = SyntheticLMPipeline(model, InputShape(
             "serve_prefill", FSDP_PROMPT, SERVE_BATCH, "prefill"), 1,
             seed=1).global_batch(0)
-        logits = [SS.make_prefill_step(model)(P, batch)]
-        toks = [logits[0][:, -1, :V].argmax(-1, keepdim=True).int()]
-        cache = SS.make_cache(model, SERVE_BATCH, InputShape(
-            "serve_decode", FSDP_PROMPT + FSDP_GREEDY, SERVE_BATCH,
-            "decode"))
-        serve = SS.make_serve_step(model)
-        for _ in range(FSDP_GREEDY - 1):
-            lg, cache = serve(P, cache, toks[-1])
-            logits.append(lg)
-            toks.append(lg[:, -1, :V].argmax(-1, keepdim=True).int())
+        moe = cfg.family == "moe"
+        with (RouteRecorder() if moe else contextlib.nullcontext()) as rec:
+            logits = [SS.make_prefill_step(model)(P, batch)]
+            toks = [logits[0][:, -1, :V].argmax(-1, keepdim=True).int()]
+            cache = SS.make_cache(model, SERVE_BATCH, InputShape(
+                "serve_decode", FSDP_PROMPT + FSDP_GREEDY, SERVE_BATCH,
+                "decode"))
+            serve = SS.make_serve_step(model)
+            for _ in range(FSDP_GREEDY - 1):
+                lg, cache = serve(P, cache, toks[-1])
+                logits.append(lg)
+                toks.append(lg[:, -1, :V].argmax(-1, keepdim=True).int())
         refs[key] = {"logits": torch.stack([x.cpu() for x in logits]),
                      "tokens": torch.cat(toks, 1).cpu()}
-        del P, batch, model, cache, logits, toks
+        if moe:
+            refs[key]["routes"] = [t.cpu() for t in rec.seen]
+        del P, batch, model, cache, logits, toks, rec
         torch.cuda.empty_cache()
     torch.save(refs, os.path.join(out_dir, "refs.pt"))
     t_one = time.perf_counter() - t_phase
@@ -5109,9 +5275,10 @@ def fsdp_phase(dev, card):
             res.append(json.load(f))
 
     counted = {}
-    n_leaves = res[0]["round_leaves"]
+    n_leaves, g_leaves = res[0]["round_leaves"], res[0]["g_round_leaves"]
     for r, x in enumerate(res):
-        for key, layers in (("a", FSDP_SERVE_LAYERS), ("d", FSDP_KV_LAYERS)):
+        for key, layers in (("a", FSDP_SERVE_LAYERS), ("d", FSDP_KV_LAYERS),
+                            ("e", FSDP_MOE_LAYERS), ("f", FSDP_GROK_LAYERS)):
             got = x[f"{key}_launches"]
             check(got["flash_attention_tc"] == layers
                   and got["flash_attention_f32tc"] == 0,
@@ -5121,27 +5288,41 @@ def fsdp_phase(dev, card):
                   f"logits {x[f'{key}_gaps']} x max|logit| > "
                   f"{BF16_GAP_BOUND}")
         trn = x["train_launches"]
-        check(trn["flash_attention_tc"] == MESH_STEPS * FSDP_TRAIN_LAYERS
+        check(trn["flash_attention_tc"] == FSDP_B_STEPS * FSDP_TRAIN_LAYERS
               and trn["moniqua_encode"] == 0
               and trn["moniqua_decode_reduce"] == 0,
               f"phase 27 (b) rank {r}: training launches {trn}, want "
               f"{FSDP_TRAIN_LAYERS} bf16 flash a step and no gossip (one "
               f"worker)")
-        check(x["round_launches"] == {"moniqua_encode": 2 * n_leaves,
-                                      "moniqua_decode_reduce": 2 * n_leaves},
-              f"phase 27 (c) rank {r}: launches {x['round_launches']}, "
-              f"want one encode and one decode-reduce a leaf a round")
+        trh = x["h_train_launches"]
+        check(trh["flash_attention_tc"] == MESH_STEPS * FSDP_MOE_TRAIN_LAYERS
+              and trh["moniqua_encode"] == 0
+              and trh["moniqua_decode_reduce"] == 0,
+              f"phase 27 (h) rank {r}: training launches {trh}, want "
+              f"{FSDP_MOE_TRAIN_LAYERS} bf16 flash a step and no gossip")
+        for key, n in (("c", n_leaves), ("g", g_leaves)):
+            got = x["round_launches" if key == "c" else "g_round_launches"]
+            check(got == {"moniqua_encode": 2 * n,
+                          "moniqua_decode_reduce": 2 * n},
+                  f"phase 27 ({key}) rank {r}: launches {got}, want one "
+                  f"encode and one decode-reduce a leaf a round")
         for k in Launches.KEYS:
-            counted[k] = counted.get(k, 0) + trn[k] + x["round_launches"].get(
-                k, 0) + x["a_launches"][k] + x["d_launches"][k]
+            counted[k] = counted.get(k, 0) + trn[k] + trh[k] + sum(
+                x[f"{key}round_launches"].get(k, 0) for key in ("", "g_")
+            ) + sum(x[f"{key}_launches"][k] for key in "adef")
         check(x["losses"] == res[0]["losses"]
-              and x["bytes_per_step"] == res[0]["bytes_per_step"],
-              f"phase 27 (b): rank {r}'s losses or bytes != rank 0's")
+              and x["bytes_per_step"] == res[0]["bytes_per_step"]
+              and x["h_losses"] == res[0]["h_losses"]
+              and x["h_bytes_per_step"] == res[0]["h_bytes_per_step"],
+              f"phase 27 (b), (h): rank {r}'s losses or bytes != rank 0's")
         for y in res:
             check((y["coords"][0] != x["coords"][0]
-                   or y["a_tokens"] == x["a_tokens"])
-                  and y["d_tokens"] == x["d_tokens"],
-                  "phase 27 (a), (d): greedy tokens differ over model")
+                   or (y["a_tokens"] == x["a_tokens"]
+                       and y["e_tokens"] == x["e_tokens"]))
+                  and y["d_tokens"] == x["d_tokens"]
+                  and y["f_tokens"] == x["f_tokens"],
+                  "phase 27 (a), (d), (e), (f): greedy tokens differ over "
+                  "model")
     losses = res[0]["losses"]
     gaps = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
     check(all(map(math.isfinite, losses)) and max(gaps) <= FSDP_LOSS_RTOL,
@@ -5150,6 +5331,17 @@ def fsdp_phase(dev, card):
     check(res[0]["bytes_per_step"] == one["bytes"],
           f"phase 27 (b): bytes/step {res[0]['bytes_per_step']} != one "
           f"process's {one['bytes']}")
+    h_losses = res[0]["h_losses"]
+    h_gaps = [abs(a - b) / abs(b) for a, b in zip(h_losses,
+                                                   one_h["losses"])]
+    check(all(map(math.isfinite, h_losses))
+          and h_gaps[0] <= FSDP_LOSS_RTOL
+          and max(h_gaps) <= MOE_LOSS_RTOL
+          and res[0]["h_bytes_per_step"] == one_h["bytes"],
+          f"phase 27 (h): losses {h_losses} vs one process's "
+          f"{one_h['losses']} (rtol {FSDP_LOSS_RTOL} at step 0, "
+          f"{MOE_LOSS_RTOL} after), bytes/step "
+          f"{res[0]['h_bytes_per_step']} vs {one_h['bytes']}")
 
     # the state: each rank's shards against one process's cut alike
     specs = tree.leaves(TS.params_pspecs(
@@ -5183,7 +5375,7 @@ def fsdp_phase(dev, card):
               f"phase 27 (b): a half batch's {what} {half_gaps[k]} within "
               f"{bound} of the whole batch's in some leaf: the bound "
               f"would not see it there")
-    print(f"phase 27 (a): {FSDP_ARCH} ({FSDP_SERVE_LAYERS} layers, bf16) "
+    print(f"phase 27 (a): {FSDP_ARCH} ({FSDP_SERVE_LAYERS} layer, bf16) "
           f"on (data=2, model=2), hierarchical rules: split vs one process "
           f"{[[round(g, 5) for g in x['a_gaps']] for x in res]} x "
           f"max|logit| (the prefill's and {FSDP_GREEDY - 1} decode "
@@ -5197,8 +5389,39 @@ def fsdp_phase(dev, card):
           f" x max|logit|; cache k {res[0]['d_cache_k']} a rank; greedy "
           f"tokens {res[0]['d_tokens']} (one process "
           f"{refs['d']['tokens'].T.tolist()})", flush=True)
+    for key, arch, layers, shape in (
+            ("e", FSDP_MOE_ARCH, FSDP_MOE_LAYERS, "(data=2, model=2)"),
+            ("f", FSDP_GROK_ARCH, FSDP_GROK_LAYERS, "(data=1, model=4)")):
+        n_re = [x[f"{key}_rerouted"] for x in res]
+        print(f"phase 27 ({key}): {arch} ({layers} layers, bf16) on {shape}"
+              f", hierarchical rules: split vs one process "
+              f"{[[round(g, 5) for g in x[f'{key}_gaps']] for x in res]} x "
+              f"max|logit| (the prefill's and {FSDP_GREEDY - 1} decode "
+              f"step's, bound {BF16_GAP_BOUND}); routings (token x layer, "
+              f"prefill and decode) the split routed otherwise than one "
+              f"process, a rank: {n_re} "
+              f"({[round(100 * a / b, 4) for a, b in n_re]}%); cache k "
+              f"{res[0][f'{key}_cache_k']} a rank; greedy tokens, equal "
+              f"over model: {[x[f'{key}_tokens'] for x in res]} (one "
+              f"process {refs[key]['tokens'].T.tolist()})", flush=True)
+    print(f"phase 27 (g): the Moniqua round of the {g_leaves} leaves of "
+          f"{FSDP_MOE_ARCH} ({FSDP_MOE_LAYERS} layers) on "
+          f"ring({FSDP_ROUND_N}) at 8 bits stochastic and 1 bit nearest, "
+          f"each rank's shard (experts on d_model over data and d_ff over "
+          f"model) torch.equal to one process's round cut alike; "
+          f"{res[0]['g_round_launches']} a rank", flush=True)
+    print(f"phase 27 (h): {FSDP_MOE_ARCH} ({FSDP_MOE_TRAIN_LAYERS} layer, "
+          f"d_ff cut to {FSDP_MOE_TRAIN_DFF} of 10752, one worker, "
+          f"{FSDP_BATCH} x "
+          f"{FSDP_SEQ} tokens a step, bf16) on (data=2, model=2): losses "
+          f"{h_losses} vs one process's {one_h['losses']} (relative gaps "
+          f"{h_gaps}, bounds {FSDP_LOSS_RTOL} at step 0 and "
+          f"{MOE_LOSS_RTOL} after); bytes/step "
+          f"{res[0]['h_bytes_per_step']}; one process: step "
+          f"{one_h['step_ms']:.3f} ms, max_memory_allocated "
+          f"{one_h['peak'] / 2 ** 30:.2f} GiB {card}", flush=True)
     print(f"phase 27 (c): the Moniqua round of the {n_leaves} leaves of "
-          f"{FSDP_ARCH} ({FSDP_SERVE_LAYERS} layers) on ring({FSDP_ROUND_N}) "
+          f"{FSDP_ARCH} ({FSDP_ROUND_LAYERS} layers) on ring({FSDP_ROUND_N}) "
           f"at 8 bits stochastic and 1 bit nearest, each rank's FSDP + "
           f"tensor-parallel shard torch.equal to one process's round cut "
           f"alike; {res[0]['round_launches']} a rank", flush=True)
@@ -5208,12 +5431,12 @@ def fsdp_phase(dev, card):
           f"{one['losses']} (relative gaps {gaps}, bound {FSDP_LOSS_RTOL}); "
           f"bytes/step {res[0]['bytes_per_step']}", flush=True)
     for k, what in (("mom", "momentum"), ("dp", "params change")):
-        print(f"phase 27 (b): {what} after step {MESH_STEPS}, relative L2 "
+        print(f"phase 27 (b): {what} after step {FSDP_B_STEPS}, relative L2 "
               f"gap by leaf (worst shard): split {split[k]} vs one "
               f"process fed half of each batch {half_gaps[k]} (bound "
               f"{FSDP_STATE_RTOL[k]})", flush=True)
     print(f"time: phase 27 one process: (b) step {one['step_ms']:.3f} ms "
-          f"(host clock, mean of steps 1-{MESH_STEPS - 1}), "
+          f"(host clock, mean of steps 1-{FSDP_B_STEPS - 1}), "
           f"max_memory_allocated {one['peak'] / 2 ** 30:.2f} GiB {card}",
           flush=True)
     for x in res:
@@ -5225,7 +5448,15 @@ def fsdp_phase(dev, card):
               f"ms, decode {x['d_token_ms']:.3f} ms a token; (c) "
               f"{x['round_ms']:.2f} ms a round of {n_leaves} leaves; (b) "
               f"step {x['step_ms']:.3f} ms, max_memory_allocated "
-              f"{x['peak'] / 2 ** 30:.2f} GiB (host clock) {card}",
+              f"{x['peak'] / 2 ** 30:.2f} GiB; (e) 1 x {FSDP_PROMPT} "
+              f"prefill {x['e_ttft_ms']:.2f} ms, decode "
+              f"{x['e_token_ms']:.3f} ms a token; (f) 2 x {FSDP_PROMPT} "
+              f"prefill {x['f_ttft_ms']:.2f} ms, decode "
+              f"{x['f_token_ms']:.3f} ms a token; (g) "
+              f"{x['g_round_ms']:.2f} ms a round of {g_leaves} leaves; (h) "
+              f"step {x['h_step_ms']:.3f} ms, max_memory_allocated "
+              f"{x['h_peak'] / 2 ** 30:.2f} GiB (host clock) {card}; parts "
+              f"done at {[round(x[p + '_s'], 1) for p in 'adcbefgh']} s",
               flush=True)
     print(f"phase 27: FSDP passed in {time.perf_counter() - t_phase:.1f} s "
           f"({t_one:.1f} s of one process, {t_ranks:.1f} s of ranks); "
@@ -5259,6 +5490,7 @@ def main() -> int:
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     # -- 1. device ---------------------------------------------------------
+    CLOCK.t = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5471,6 +5703,7 @@ def main() -> int:
     print(f"phase 2: {n_checks} kernel sweeps equal their plain versions "
           f"(card and CPU), torch.equal", flush=True)
 
+    CLOCK.done("phases 1-2")
     # -- 3. one gossip round on the full ResNet-20 bucket ------------------
     p0 = init_resnet(torch.Generator().manual_seed(1), depth=20, width=16)
     X_cpu = tree.map(lambda a: a[None] + 0.02 * torch.randn(
@@ -5500,6 +5733,7 @@ def main() -> int:
           f"(flatten, encode, 2 rolls, decode-reduce, unflatten), host "
           f"clock {mix_ms:.4f} ms {card}", flush=True)
 
+    CLOCK.done("phase 3")
     # -- 4. the main path through Trainer.run ------------------------------
     model = ResNetModel(depth=20, width=16, device="cuda")
     batches = [stacked_cifar_like(k, IMAGES, N_WORKERS, seed=0,
@@ -5540,6 +5774,7 @@ def main() -> int:
     print("phase 4: main path ran through both kernels, one launch each per "
           "Moniqua step", flush=True)
 
+    CLOCK.done("phase 4")
     # -- 5. kernel times at the main path's shapes -------------------------
     D = layout.padded_elems                 # 272,282 at 8 bits
     flat = layout.flatten(X).reshape(N_WORKERS, 1, D)
@@ -5597,6 +5832,7 @@ def main() -> int:
               f"images/worker, mean of steps 1-{STEPS - 1}) {ms:.3f} ms "
               f"{card}")
 
+    CLOCK.done("phase 5")
     # -- 6. where a main-path step's device time goes ---------------------
     step_fn, state = main_run
     with torch.profiler.profile(activities=[
@@ -5633,43 +5869,59 @@ def main() -> int:
                   f"{e.count:6d}x  {e.key[:90]}")
 
     torch.cuda.synchronize()
+    CLOCK.done("phase 6")
     kernels += serving_phases(dev, timer, card, flat.reshape(N_WORKERS, D),
                               B8, flat110)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     rules_phase(dev, card, model, batches)
+    CLOCK.done("phase 12")
     dec_entry = adpsgd_phase(dev, timer, card, model, batches, X_cpu)
     kernels = [dec_entry if k["name"] == "moniqua_decode" else k
                for k in kernels]
+    CLOCK.done("phase 13")
     split_phase(dev, card)
     torch.cuda.empty_cache()
+    CLOCK.done("phase 14")
     staged_phase(dev, card, X_cpu)
+    CLOCK.done("phase 15")
     wires_phase(dev, card, model, batches)
     torch.cuda.empty_cache()
+    CLOCK.done("phase 16")
     # the new paths' launches go onto the codec and point-decode entries
     extra = {}
-    for counts in (elastic_phase(dev, card, X_cpu),
-                   sim_phase(dev, card, model, batches, X_cpu),
-                   tiered_phase(dev, card, model, batches, X_cpu),
-                   obs_phase(dev, card, model, batches, X_cpu,
-                             main_run[1]["params"])):
-        for name, n in counts.items():
-            extra[name] = extra.get(name, 0) + n
+    for n, phase in ((17, lambda: elastic_phase(dev, card, X_cpu)),
+                     (18, lambda: sim_phase(dev, card, model, batches,
+                                            X_cpu)),
+                     (19, lambda: tiered_phase(dev, card, model, batches,
+                                               X_cpu)),
+                     (20, lambda: obs_phase(dev, card, model, batches, X_cpu,
+                                            main_run[1]["params"]))):
+        for name, k in phase().items():
+            extra[name] = extra.get(name, 0) + k
+        CLOCK.done(f"phase {n}")
     torch.cuda.empty_cache()
     lm_counts, train_flash = lm_phase(dev, timer, card)
     torch.cuda.empty_cache()
+    CLOCK.done("phase 21")
     p22_counts, p22_flash = moe_hybrid_phase(dev, timer, card)
     torch.cuda.empty_cache()
+    CLOCK.done("phase 22")
     p23_counts, p23_flash = zoo_phase(dev, timer, card)
     torch.cuda.empty_cache()
+    CLOCK.done("phase 23")
     p24_counts = launch_phase(dev, card)
     torch.cuda.empty_cache()
+    CLOCK.done("phase 24")
     p25_counts, ref25 = mesh_phase(dev, card)
     torch.cuda.empty_cache()
+    CLOCK.done("phase 25")
     p26_counts = tp_phase(dev, card, ref25)
     del ref25
     torch.cuda.empty_cache()
+    CLOCK.done("phase 26")
     p27_counts = fsdp_phase(dev, card)
+    CLOCK.done("phase 27")
     for counts in (lm_counts, p22_counts, p23_counts, p24_counts,
                    p25_counts, p26_counts, p27_counts):
         for name, n in counts.items():
@@ -5682,6 +5934,8 @@ def main() -> int:
             k["phase23"] = p23_flash
     print(f"launches on phases 17-27's paths, added to the kernels line: "
           f"{extra}", flush=True)
+    print(f"time: chip_smoke.py took {time.perf_counter() - T_START:.1f} s "
+          f"since it started {card}", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1381,12 +1381,13 @@ class CommEngine:
                                   presence)[:, 0]
         if splits:      # a shard of a leaf split over model and/or data
             vpb = self._align()
-            view, off, stride, rpb, bstride = TP.split_view(x, splits)
-            if view.shape[-1] % vpb or x.shape[-1] % vpb:
+            try:
+                view, off, stride, rpb, bstride = TP.split_view(x, splits,
+                                                                vpb)
+            except ValueError as e:
                 from repro_torch.models.sharding import TODO_13E
                 raise NotImplementedError(
-                    f"shard {tuple(x.shape)}: a split leaf's last dim must "
-                    f"fill whole code bytes ({vpb} values): {TODO_13E}")
+                    f"shard {tuple(x.shape)}: {e}: {TODO_13E}") from None
             return self._mix_leaf(view, theta, seed, idx_base + off,
                                   presence, stride, rows_per_block=rpb,
                                   block_stride=bstride).reshape(x.shape)

@@ -18,7 +18,9 @@ keeps only the shard for the backward pass:
   whole freed; backward, the whole gathered again for ``x``'s gradient,
   and ``W``'s gradient reduce-scattered (summed: every rank's rows add
   their share to it).  So at most one weight is whole at a time, forward
-  and backward.
+  and backward.  An MoE layer's expert weights ``[E, d, f]`` go through
+  it as one weight, a stack of one matrix an expert (``experts=True``:
+  ``ezcd,edf->ezcf``, a batched product over ``E``).
 * :func:`gather` for a weight read otherwise (the embedding's rows, whose
   backward reads no weight; the norms and biases, whole on every rank,
   ``dim=None``: the identity forward, the gradient all-reduced).
@@ -122,17 +124,21 @@ class _Mat:
     """How a weight becomes the matrix ``M`` of ``x @ M``: narrowed to
     ``heads = (dim, lo, hi)`` if given, then its first ``k`` dims are the
     rows (``k > 0``), or its last ``-k`` dims the columns of its
-    transpose (``k < 0``).  ``bw``: the weight has a worker dim in front
-    (a ``vmap`` rule's batch, kept as the matrices' batch)."""
+    transpose (``k < 0``).  ``experts``: the weight's first dim is a stack
+    of matrices, one an expert, multiplied by ``x``'s first dim expert by
+    expert.  ``bw``: the weight has a worker dim in front (a ``vmap``
+    rule's batch, kept as the matrices' batch)."""
     k: int
     heads: Optional[Tuple[int, int, int]] = None
     bw: bool = False
+    experts: bool = False
 
     def of(self, w):
         b = int(self.bw)
         if self.heads is not None:
             d, lo, hi = self.heads
             w = w.narrow(d + b, lo, hi - lo)
+        b += int(self.experts)
         lead, core = w.shape[:b], w.shape[b:]
         if self.k > 0:
             return w.reshape(*lead, math.prod(core[:self.k]), -1)
@@ -180,7 +186,7 @@ class _GatheredMatmul(torch.autograd.Function):
         mat = spec.mat
         M = mat.of(TP.whole_of(w, spec.dim + mat.bw, spec.r, spec.d,
                                spec.group))
-        return _mm(x, M, mat.bw, spec.bx)
+        return _mm(x, M, mat.bw, spec.bx, mat.experts)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -202,15 +208,17 @@ class _GatheredMatmul(torch.autograd.Function):
         sp = ctx.spec
         mat, dim = sp.mat, sp.dim + sp.mat.bw
         M = mat.of(_Gather.apply(w, dim, sp.r, sp.d, sp.group))
-        if mat.bw:
-            n, K, N = M.shape
-            g3 = g.reshape(n, -1, N)
-            gx = g3 @ M.mT
-            gx = (gx if sp.bx else gx.sum(0)).reshape(x.shape)
+        K, N = M.shape[-2:]
+        if mat.bw or mat.experts:
+            # g carries the worker dim if x or w does, x's if x does
+            gx = _mm(g, M.mT, mat.bw, mat.bw or sp.bx, mat.experts)
+            gx = (gx if sp.bx or not mat.bw else gx.sum(0)).reshape(x.shape)
             del M
-            gM = x.reshape(n if sp.bx else 1, -1, K).mT @ g3
+            gM = _rows(x, sp.bx, mat.experts).mT @ _rows(
+                g, mat.bw or sp.bx, mat.experts)
+            if sp.bx and not mat.bw:
+                gM = gM.sum(0)
         else:
-            K, N = M.shape
             gx = g @ M.mT
             del M
             gM = x.reshape(-1, K).mT @ g.reshape(-1, N)
@@ -236,32 +244,48 @@ class _GatheredMatmul(torch.autograd.Function):
         return out, 0 if bx or bw else None
 
 
-def _mm(x, M, bw, bx):
+def _rows(x, bx, experts):
+    """``x`` as a stack of row blocks ``[*lead, rows, K]``: ``lead`` its
+    worker dim (``bx``) and expert dim (``experts``), a worker dim of 1
+    where it has none."""
+    lead = x.shape[:int(bx) + int(experts)]
+    x = x.reshape(*lead, -1, x.shape[-1])
+    return x if bx else x.unsqueeze(0)
+
+
+def _mm(x, M, bw, bx, experts=False):
     """``x @ M``, with ``M`` a stack of matrices when ``bw`` (one a
-    worker; ``x`` a stack too when ``bx``, else the same for each)."""
-    if not bw:
+    worker; ``x`` a stack too when ``bx``, else the same for each) or
+    ``experts`` (one an expert, against ``x``'s expert dim, which follows
+    its worker dim)."""
+    if not (bw or experts):
         return x @ M
-    n, K, N = M.shape
-    lead = x.shape[:-1] if bx else (n,) + x.shape[:-1]
-    return (x.reshape(n if bx else 1, -1, K) @ M).reshape(*lead, N)
+    out = _rows(x, bx, experts) @ (M if bw else M.unsqueeze(0))
+    lead = out.shape[:-2] if bw or bx else out.shape[1:-2]
+    return out.reshape(*lead, *x.shape[int(bx) + int(experts):-1],
+                       M.shape[-1])
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, dim: int, k: int = 1,
            heads: Optional[Tuple[int, int, int]] = None,
-           copy_model: bool = False) -> torch.Tensor:
+           copy_model: bool = False, experts: bool = False
+           ) -> torch.Tensor:
     """``x @ M``, ``M`` weight ``w`` as a matrix: narrowed to ``heads =
     (dim, lo, hi)`` if given, its first ``k`` dims the rows (``k < 0``: the
-    transpose of ``w`` with its last ``-k`` dims the columns).  Under an
-    FSDP split ``w`` is this rank's shard of its ``dim`` and only the
-    shard is kept for the backward pass (module docstring).
-    ``copy_model``: ``w`` is whole on every ``model`` rank, each using its
-    part, so its gradient is summed over ``model`` (``TP.copy_to``)."""
-    mat = _Mat(k, heads)
+    transpose of ``w`` with its last ``-k`` dims the columns).  With
+    ``experts``, ``w`` is a stack of one such weight an expert on its first
+    dim, and ``x [E, ..., K]`` is multiplied expert by expert (``ezcd,edf
+    ->ezcf``).  Under an FSDP split ``w`` is this rank's shard of its
+    ``dim`` and only the shard is kept for the backward pass (module
+    docstring).  ``copy_model``: ``w`` is whole on every ``model`` rank,
+    each using its part, so its gradient is summed over ``model``
+    (``TP.copy_to``)."""
+    mat = _Mat(k, heads, experts=experts)
     g = TP.current(AXIS)
     if g is None:
         if copy_model:
             w = TP.copy_to(w, "model")
-        return x @ mat.of(w)
+        return _mm(x, mat.of(w), False, False, experts)
     tg = TP.current("model") if copy_model else None
     return _GatheredMatmul.apply(x, w, _Spec(
         dim % w.dim(), g.rank, g.size, g.group,

@@ -202,7 +202,8 @@ def whole(X: PyTree) -> PyTree:
     return tree.unflatten(td, out)
 
 
-def split_view(x: torch.Tensor, splits: Sequence[Tuple[int, int, int]]
+def split_view(x: torch.Tensor, splits: Sequence[Tuple[int, int, int]],
+               align: int = 1
                ) -> Tuple[torch.Tensor, int, Optional[int], Optional[int],
                           int]:
     """A stacked leaf shard as the encode's ``[n, rows, cols]`` with the
@@ -222,11 +223,34 @@ def split_view(x: torch.Tensor, splits: Sequence[Tuple[int, int, int]]
     ``block_stride = S_a M S_b Q``, ``stride = S_b Q`` and ``offset = o_a
     M S_b Q + o_b Q``.  Returns ``(view, offset, stride, rows_per_block,
     block_stride)``; one split (or none) keeps one block, the encode's
-    default (``rows_per_block=None``, ``block_stride=0``)."""
+    default (``rows_per_block=None``, ``block_stride=0``).
+
+    ``align``: the codes a byte.  One process pads each row of a leaf
+    whose last dim is not a multiple of it to one (its counters skip the
+    padding), so such a shard keeps its last dim as the columns, at the
+    padded row stride ``cp``: split on one earlier dim ``a`` at ``o_a``,
+    ``[n, P s_a M, last]`` in blocks of ``s_a M`` rows (``M`` the whole
+    dims between), ``offset = o_a M cp``, ``stride = cp``,
+    ``block_stride = S_a M cp`` (an MoE router ``[n, L, d/D, E]``).  A
+    split of such a last dim, or two splits, raise ``ValueError``."""
     splits = tuple(splits)
     if not splits:
         return (x.contiguous().reshape(x.shape[0], -1, x.shape[-1]), 0,
                 None, None, 0)
+    last = x.shape[-1]
+    if last % align:
+        (a, oa, Sa), = splits if len(splits) == 1 else ((None,) * 3,)
+        if a is None or a == x.dim() - 1:
+            raise ValueError(f"a shard split on {splits} with a last dim "
+                             f"of {last}, not a whole number of code bytes "
+                             f"({align} values)")
+        cp = -(-last // align) * align
+        pre = math.prod(x.shape[1:a])
+        mid = math.prod(x.shape[a + 1:-1])
+        view = x.contiguous().reshape(x.shape[0], -1, last)
+        return (view, oa * mid * cp, cp,
+                x.shape[a] * mid if pre > 1 else None,
+                Sa * mid * cp if pre > 1 else 0)
     if len(splits) == 1:
         (d, k0, full), = splits
         after = math.prod(x.shape[d + 1:])

@@ -29,10 +29,12 @@ what the reference's ``n_workers_for`` gives on one pod, where workers are
 pods; ``--workers`` overrides both.
 
 Flags the reference has and this one does not: ``--multi-pod``,
-``--both-meshes`` and ``--host-mesh`` lay the weights over a ``model`` axis
-larger than 1, which the port's meshes (``launch/mesh.py``) do not run yet
-(ROADMAP #13e); ``--comm-backend`` (jnp | pallas | auto) has no counterpart: the
-port's ``AlgoHyper`` has no backend, and a CUDA tensor always launches the
+``--both-meshes`` and ``--host-mesh``, which lower the step on the
+reference's meshes, wait for ROADMAP #13e.6 (the port's meshes,
+``launch/mesh.py``, run a ``model`` and an FSDP ``data`` axis in training
+and serving, but this dry run counts one process's step);
+``--comm-backend`` (jnp | pallas | auto) has no counterpart: the port's
+``AlgoHyper`` has no backend, and a CUDA tensor always launches the
 kernel.  The reference's forced-device ``XLA_FLAGS`` have none either.
 
 Usage:

@@ -22,9 +22,9 @@ default) keeps the reference's meaning: the workers are a tensor axis on
 one device, and ``--multi-pod`` is ignored, as in the reference.  On the
 production mesh the process group comes from the environment ``torchrun``
 sets (``init_process_group`` with its ``env://``, NCCL on the cards);
-what the port does not run there yet (the MoE family under any split,
-heads the ``model`` axis does not divide, the other families) exits 2
-with the ``NotImplementedError`` naming ROADMAP #13e.
+what the port does not run there yet (heads the ``model`` axis does not
+divide, the families other than the dense and MoE ones) exits 2 with the
+``NotImplementedError`` naming ROADMAP #13e.
 """
 from __future__ import annotations
 

@@ -24,15 +24,18 @@ context.
 Tensor parallelism (``comm/tensor_parallel.py``, the mesh's ``model``
 axis): a rank's attention weights hold its share of the query and KV heads
 (Q/K/V column-parallel, O row-parallel) and its MLP weights its share of
-``d_ff`` (up and gate column-parallel, down row-parallel).  The head counts
-are read from the tensors, never from ``cfg``; the input goes through
-``copy_to`` and the output through ``reduce_sum`` on ``model``, both the
-identity without a ``model`` split.  Where ``model`` divides the KV heads
-GQA's head mapping stays local; where it does not (replicated-KV GQA,
-``sharding.kv_groups``) ``wk``/``wv``/``bk``/``bv`` are whole on every
-rank, each rank projects the run of KV heads its query heads read (every
-KV head in decode, whose cache holds them all) and the weights' gradients
-are all-reduced over ``model`` (``copy_to`` on the weight).
+``d_ff`` (up and gate column-parallel, down row-parallel; an MoE layer's
+experts alike, each expert's ``d_ff`` split, ``models/moe.py``).  The
+split runs for the dense and MoE families (``sharding.SPLIT_FAMILIES``).
+The head counts are read from the tensors, never from ``cfg``; the input
+goes through ``copy_to`` and the output through ``reduce_sum`` on
+``model``, both the identity without a ``model`` split.  Where ``model``
+divides the KV heads GQA's head mapping stays local; where it does not
+(replicated-KV GQA, ``sharding.kv_groups``) ``wk``/``wv``/``bk``/``bv``
+are whole on every rank, each rank projects the run of KV heads its query
+heads read (every KV head in decode, whose cache holds them all) and the
+weights' gradients are all-reduced over ``model`` (``copy_to`` on the
+weight).
 
 FSDP (``comm/fsdp.py``, the hierarchical rules' ``data`` axis): a rank
 holds its shard of each weight's ``embed`` dim and gathers the weight

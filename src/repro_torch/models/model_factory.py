@@ -18,10 +18,10 @@ whisper's decode reads its cross caches, which
 ``whisper.whisper_prefill_cross`` fills from the encoder first, as in the
 reference.
 
-Under a ``model`` split (``launch.mesh.mesh_context``, the dense family
-only) ``params`` are this rank's shards, ``init_cache`` holds its KV heads,
-``loss`` is the vocab-parallel cross-entropy (the same value on every
-rank), and the serving logits come back whole on every rank.
+Under a ``model`` split (``launch.mesh.mesh_context``, the dense and MoE
+families only) ``params`` are this rank's shards, ``init_cache`` holds its
+KV heads, ``loss`` is the vocab-parallel cross-entropy (the same value on
+every rank), and the serving logits come back whole on every rank.
 """
 from __future__ import annotations
 

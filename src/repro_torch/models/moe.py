@@ -24,6 +24,29 @@ Three things differ in form, not in value, from the reference:
 
 The router aux loss is the load-balancing term ``E * sum_e f_e * P_e``
 (Switch/GShard).
+
+Under a split (``comm/tensor_parallel.py``, ``comm/fsdp.py``; the
+reference's rules: the expert dim replicated, each expert's ``d_ff`` on
+``model``, ``d_model`` on ``data``):
+
+* the router is whole on every ``model`` rank (gathered over ``data``),
+  and each rank routes the same input, so its logits, choices and slots
+  are one process's given the same ``x``;
+* the experts' input goes through ``copy_to`` on ``model`` and each rank
+  runs its columns of every expert's ``d_ff`` (rows of ``w_down``); the
+  expert weights are gathered over ``data`` where used
+  (``fsdp.matmul(..., experts=True)``); the combined output, one process's
+  ``[G, g, d]`` in part on each rank, is summed over ``model`` once (not
+  the ``K * cf`` times larger ``ye``);
+* ``combine`` goes through ``copy_to`` on ``model``: its gradient, from
+  each rank's part of the output, is summed over the ranks, so that the
+  router's gradient is whole and the same on every rank; the aux term's,
+  computed alike on every rank, is not (counted once);
+* a ``data`` rank holds its rows of the batch, and a group never
+  straddles a row (``S % g == 0``), so its groups, capacities and fills
+  are one process's; the aux's ``me`` and ``ce`` are means over every
+  ``data`` rank's groups (summed over ``data`` / D) before their product,
+  the reference's means over the global batch.
 """
 from __future__ import annotations
 
@@ -33,6 +56,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import fsdp as FS
+from repro_torch.comm import tensor_parallel as TP
 from repro_torch.models import layers as L
 
 
@@ -86,17 +111,23 @@ def route(p, xg, moe_cfg):
     Returns ``(topg [G, g, K] float32, topi [G, g, K] int64, dispatch
     [G, g, E, C] in xg's dtype, combine [G, g, E, C] float32, aux)``.
     A token's choice ``kk`` went to expert ``topi[..., kk]`` and was kept
-    when that expert's slot row holds a one in ``dispatch``."""
+    when that expert's slot row holds a one in ``dispatch``.  Under an
+    FSDP split the router is gathered whole and the aux's means are over
+    every ``data`` rank's groups (module docstring)."""
     G, g, _ = xg.shape
     E, K = moe_cfg.num_experts, moe_cfg.top_k
     C = capacity(g, K, moe_cfg.capacity_factor, E)
-    logits = xg.float() @ p["router"]                       # [G, g, E]
+    logits = xg.float() @ FS.gather(p["router"], 0)         # [G, g, E]
     gates = torch.softmax(logits, dim=-1)
 
     # -- load-balance aux (computed on the full softmax) -------------------
+    D = TP.size(FS.AXIS)
     me = gates.mean(dim=(0, 1))                             # mean router prob
     topg, topi = top_k(gates, K)                            # [G, g, K]
     ce = _one_hot(topi[..., 0], E).mean(dim=(0, 1))         # fraction routed
+    if D > 1:
+        me = TP.reduce_sum(me, FS.AXIS) / D
+        ce = TP.reduce_sum(ce, FS.AXIS) / D
     aux = E * torch.sum(me * ce)
 
     # -- capacity-limited dispatch: the K choices in priority order --------
@@ -117,20 +148,24 @@ def route(p, xg, moe_cfg):
 
 
 def moe_layer(p, x, moe_cfg, gated) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y [B, S, d], aux_loss, a float32 scalar)."""
+    """x: [B, S, d] -> (y [B, S, d], aux_loss, a float32 scalar).  Under
+    a ``model`` split each rank runs its columns of every expert's
+    ``d_ff`` and ``y`` is summed over the ranks (module docstring)."""
     B, S, d = x.shape
     g = min(moe_cfg.group_size, S)
     assert S % g == 0, (S, g)
     xg = x.reshape(B * (S // g), g, d)                       # [G, g, d]
     _, _, dispatch, combine, aux = route(p, xg, moe_cfg)
 
-    # -- expert computation ------------------------------------------------
-    xe = torch.einsum("zgec,zgd->ezcd", dispatch, xg)          # [E, G, C, d]
-    h = torch.einsum("ezcd,edf->ezcf", xe, p["w_up"])
+    # -- expert computation: this rank's d_ff columns of every expert ------
+    xe = torch.einsum("zgec,zgd->ezcd", dispatch,
+                      TP.copy_to(xg, "model"))                 # [E, G, C, d]
+    h = FS.matmul(xe, p["w_up"], 1, experts=True)              # ezcd,edf
     if gated:
-        h = F.silu(torch.einsum("ezcd,edf->ezcf", xe, p["w_gate"])) * h
+        h = F.silu(FS.matmul(xe, p["w_gate"], 1, experts=True)) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    ye = torch.einsum("ezcf,efd->ezcd", h, p["w_down"])        # [E, G, C, d]
-    y = torch.einsum("zgec,ezcd->zgd", combine.to(x.dtype), ye)
-    return y.reshape(B, S, d), aux
+    ye = FS.matmul(h, p["w_down"], 2, experts=True)            # [E, G, C, d]
+    y = torch.einsum("zgec,ezcd->zgd",
+                     TP.copy_to(combine, "model").to(x.dtype), ye)
+    return TP.reduce_sum(y, "model").reshape(B, S, d), aux

@@ -18,16 +18,18 @@ that does not divide its mesh axes.  ``placements`` turns a resolved spec
 into the DTensor placements of a ``DeviceMesh``.
 
 What the port runs of it: the worker axes, as blocks of workers on ranks
-(``comm/workers.py``), and for the dense decoder family the ``model``
-axis (``comm/tensor_parallel.py``: heads, MLP and vocabulary split,
-Megatron's all-reduces; KV heads replicated where ``model`` does not
-divide them) under either rules, and the hierarchical rules' FSDP
-``embed -> data`` (``comm/fsdp.py``: weights gathered where used,
-gradients reduce-scattered).  Any other spec over a mesh axis of size > 1
-(``model`` or ``data`` on another family, a ``model`` axis that does not
-divide the heads, which the reference meets with context-parallel
-``kv_seq``) raises ``NotImplementedError`` (:func:`check_runnable`,
-:func:`tensor_parallel_refusal`): those are ROADMAP Queue 1 #13e.
+(``comm/workers.py``), and for the dense and MoE decoder families the
+``model`` axis (``comm/tensor_parallel.py``: heads, MLP or each expert's
+``d_ff``, and vocabulary split, Megatron's all-reduces; KV heads
+replicated where ``model`` does not divide them; the expert dim and the
+router whole on every rank) under either rules, and the hierarchical
+rules' FSDP ``embed -> data`` (``comm/fsdp.py``: weights gathered where
+used, gradients reduce-scattered).  Any other spec over a mesh axis of
+size > 1 (``model`` or ``data`` on another family, a ``model`` axis that
+does not divide the heads, which the reference meets with
+context-parallel ``kv_seq``) raises ``NotImplementedError``
+(:func:`check_runnable`, :func:`tensor_parallel_refusal`): those are
+ROADMAP Queue 1 #13e.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ import contextvars
 import dataclasses
 from typing import Iterator, Optional, Sequence, Tuple
 
+# the families whose weights split over ``model`` and FSDP ``data``
+SPLIT_FAMILIES = ("dense", "moe")
 TODO_13E = ("sharding weights or activations over a mesh axis other than "
             "the worker axes (tensor-parallel 'model', hierarchical "
             "'embed -> data') is not ported yet: ROADMAP Queue 1 #13e")
@@ -241,12 +245,17 @@ def tensor_parallel_refusal(cfg, rules: ShardingRules,
                             mesh_shape: dict) -> Optional[str]:
     """Why the port cannot split ``cfg``'s weights over the mesh's
     ``model`` axis or the rules' FSDP ``data`` axis (a message naming
-    #13e), or ``None`` when it can: the dense decoder family, under
-    either rules; ``model`` dividing the query heads (replicated-KV GQA
-    where it does not divide the KV heads, when each rank's query heads
-    read whole groups, :func:`kv_groups`), the MLP and the padded
-    vocabulary; ``data`` dividing ``d_model``; and every split leaf's last
-    dim a whole number of code bytes at any width (a multiple of 8; the
+    #13e), or ``None`` when it can: the dense decoder family and the MoE
+    family (the expert dim whole on every rank, as the reference's
+    ``"experts": None``), under either rules; ``model`` dividing the query
+    heads (replicated-KV GQA where it does not divide the KV heads, when
+    each rank's query heads read whole groups, :func:`kv_groups`), the MLP
+    or each expert's ``d_ff`` and the padded vocabulary; ``data`` dividing
+    ``d_model``; and every split leaf's code rows a whole number of bytes
+    at any width (a multiple of 8): ``head_dim``, ``d_model / data`` and
+    ``d_ff / model``, of which the columns of every split leaf's view
+    (``tensor_parallel.split_view``) are multiples (the router's ``d_model
+    / data * E``, an expert's ``d_ff / model`` or ``d_model / data``; the
     padded vocabulary is one of 256).  ``cfg`` may be ``None`` (a model
     without an ``ArchConfig``, such as the ResNet)."""
     m = mesh_shape.get("model", 1)
@@ -254,9 +263,9 @@ def tensor_parallel_refusal(cfg, rules: ShardingRules,
     if m <= 1 and dn <= 1:
         return None
     why = None
-    if cfg is None or getattr(cfg, "family", None) != "dense":
-        why = (f"tensor-parallel and FSDP weights are ported for the dense "
-               f"family only, not "
+    if cfg is None or getattr(cfg, "family", None) not in SPLIT_FAMILIES:
+        why = (f"tensor-parallel and FSDP weights are ported for the "
+               f"{' and '.join(SPLIT_FAMILIES)} families only, not "
                f"{getattr(cfg, 'family', type(cfg).__name__)!r}")
     elif m > 1 and cfg.num_heads % m:
         why = (f"{cfg.num_heads} heads do not split over model={m} (the "
@@ -275,10 +284,10 @@ def tensor_parallel_refusal(cfg, rules: ShardingRules,
                 why = f"{name} {v} does not split over {axis}={k}"
                 break
         for name, v in (("head_dim", cfg.hd), ("d_model", cfg.d_model // dn),
-                        ("d_ff", cfg.d_ff)):
+                        ("d_ff", cfg.d_ff // m)):
             if why is None and v % 8:
-                why = (f"{name} {v} is not a multiple of 8: a split leaf's "
-                       f"codes would not fill whole bytes")
+                why = (f"{name} {v} a rank is not a multiple of 8: a split "
+                       f"leaf's codes would not fill whole bytes")
     if why is None:
         return None
     return f"{getattr(cfg, 'name', cfg)!s} on mesh {mesh_shape}: {why}; " \

@@ -31,7 +31,8 @@ keeps only the shard for the backward pass), the norms' gradients
 all-reduced over it (``fsdp.gather``); each rank holds its rows of the
 batch, and ``xent`` is the mean over the whole batch: the sums of the
 token losses and the counts of valid labels added over ``data`` before
-the division.
+the division.  The MoE aux is the same on every rank: its means over
+every ``data`` rank's groups (``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -78,12 +79,11 @@ def block_apply(p, cfg, x, positions, *, window=0):
                     L.rms_norm(x, FS.gather(p["ln1"], None)), positions,
                     window=window)
     x = x + h
+    xn = L.rms_norm(x, FS.gather(p["ln2"], None))
     if cfg.family == "moe":
-        y, aux = M.moe_layer(p["moe"], L.rms_norm(x, p["ln2"]), cfg.moe,
-                             cfg.gated_mlp)
+        y, aux = M.moe_layer(p["moe"], xn, cfg.moe, cfg.gated_mlp)
         return x + y, aux
-    return x + L.mlp(p["mlp"], L.rms_norm(x, FS.gather(p["ln2"], None)),
-                     cfg.gated_mlp), None
+    return x + L.mlp(p["mlp"], xn, cfg.gated_mlp), None
 
 
 def block_decode(p, cfg, x, cache, pos, *, window=0):
@@ -93,12 +93,11 @@ def block_decode(p, cfg, x, cache, pos, *, window=0):
                                   L.rms_norm(x, FS.gather(p["ln1"], None)),
                                   cache, pos, window=window)
     x = x + h
+    xn = L.rms_norm(x, FS.gather(p["ln2"], None))
     if cfg.family == "moe":
-        y, _ = M.moe_layer(p["moe"], L.rms_norm(x, p["ln2"]), cfg.moe,
-                           cfg.gated_mlp)
+        y, _ = M.moe_layer(p["moe"], xn, cfg.moe, cfg.gated_mlp)
     else:
-        y = L.mlp(p["mlp"], L.rms_norm(x, FS.gather(p["ln2"], None)),
-                  cfg.gated_mlp)
+        y = L.mlp(p["mlp"], xn, cfg.gated_mlp)
     return x + y, cache
 
 

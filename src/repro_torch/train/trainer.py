@@ -19,13 +19,14 @@ worker axes (``launch/mesh.py``).  Each rank builds its block of the state
 from the same seeded init, takes its workers' rows of every batch and runs
 each step under ``mesh_context``; checkpoints hold the whole state (the
 file one process writes), and ``restore_state`` cuts this rank's block
-out of it.  A ``model`` axis > 1 splits the weights of the dense family
-(``comm/tensor_parallel.py``): the ranks that differ only in ``model``
+out of it.  A ``model`` axis > 1 splits the weights of the dense and MoE
+families (``comm/tensor_parallel.py``; the MoE experts on each expert's
+``d_ff``, ``models/moe.py``): the ranks that differ only in ``model``
 share a block of workers and its batch rows, each rank's state is its cut
 of the one-process init (every rank draws the whole init), the gossip is
 the per-leaf round on the shards, and checkpoints are gathered whole.
 Under the hierarchical rules (``ShardingRules("hierarchical"[,
-multi_pod=True])``) the dense family's weights are also split over
+multi_pod=True])``) those families' weights are also split over
 ``data`` (FSDP, ``comm/fsdp.py``): the workers are the pods (one block on
 one pod, every rank holding all of them), each rank's state is its cut of
 the one-process init over ``data`` and ``model``, it takes its ``data``

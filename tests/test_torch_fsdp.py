@@ -31,6 +31,15 @@ the gathered results against it, with ``tests/test_torch_tensor_parallel
   bound of it, elements up to Lemma 2's one-round bound beyond it counted;
 * float32 prefill and 4 cached decode steps within 1e-4 x max|logit|;
 * every out-of-scope case refused at construction, naming #13e.
+
+Reduced dbrx-132b (E 4, top-2, group 64) runs on ``(data=2, model=2)``
+and ``(pod=2, data=2)`` too (``C.MOE_WORLDS``), its experts split on
+``d_model`` over ``data`` and on each expert's ``d_ff`` over ``model``,
+held to the same bounds: gradients, the Moniqua 8-bit and 1-bit rounds
+on the expert shards (bitwise), a train step, prefill and decode.  A
+token that the split routed otherwise than the reference (a top-k
+near-tie moved by the split's summation order) would put its logits and
+gradients far outside these bounds; none does on these inputs.
 """
 import dataclasses
 import json
@@ -172,7 +181,8 @@ def _reference(inp, trees, key_step):
         ref[f"serve-{a}"] = (np.asarray(prefill), np.stack(dec))
         ref[f"step-{a}"] = _train_step_ref(jm, jX, batch, key_step)
         for wire, spec in C.ROUNDS.items():
-            if a == C.KV_ARCH and wire != "moniqua8":
+            if a == C.KV_ARCH and wire != "moniqua8" or (
+                    a == C.MOE_ARCH and wire == "full"):
                 continue
             # the reference's bucketed Moniqua round is its per-leaf round
             # bit for bit (its bucket invariants): fewer eager compiles
@@ -315,6 +325,77 @@ def test_prefill_and_decode_match_reference(results, world):
         assert (np.abs(got - want).max() / np.abs(want).max()) <= 1e-4
 
 
+@pytest.mark.parametrize("world", C.MOE_WORLDS)
+def test_moe_loss_and_grads_match_reference(results, world):
+    ref, _, res = results
+    arrays, _ = res[world]
+    loss, grads = ref[f"grads-{C.MOE_ARCH}"]
+    np.testing.assert_allclose(arrays[f"grads-{C.MOE_ARCH}/loss"], loss,
+                               rtol=1e-5)
+    got = _leaves(arrays, f"grads-{C.MOE_ARCH}/grads")
+    assert len(got) == len(grads)
+    for c, a in zip(got, grads):
+        assert c.shape == a.shape
+        np.testing.assert_allclose(c, a, rtol=0,
+                                   atol=1e-4 * float(np.abs(a).max()))
+
+
+@pytest.mark.parametrize("world", C.MOE_WORLDS)
+@pytest.mark.parametrize("wire", ["moniqua8", "moniqua1"])
+def test_moe_round_on_the_expert_shards_is_the_reference_round(results,
+                                                               world, wire):
+    """Bitwise; at 1 bit the router's rows of E = 4 codes are padded to a
+    byte, in one process and on the shards alike."""
+    ref, _, res = results
+    arrays, _ = res[world]
+    got = _leaves(arrays, f"round-{wire}-{C.MOE_ARCH}/x")
+    want = ref[f"round-{wire}-{C.MOE_ARCH}"]
+    assert len(got) == len(want)
+    for c, a in zip(got, want):
+        np.testing.assert_array_equal(c, a)
+
+
+@pytest.mark.parametrize("world", C.MOE_WORLDS)
+def test_moe_train_step_matches_reference(results, world):
+    """Reduced dbrx-132b's train step on the expert shards: each parameter
+    within one step's bound, or Lemma 2's bound of one round beyond it
+    (a code rounded the other way from last-bit differences of the
+    pre-round params, counted, under 1e-4 of the elements; none on these
+    inputs, 3 of ``w_down``'s on ``tests/test_torch_tensor_parallel.py``'s)."""
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import delta_for_bits
+    ref, _, res = results
+    arrays, _ = res[world]
+    params, mom, loss, wire_bytes = ref[f"step-{C.MOE_ARCH}"]
+    case = f"step-{C.MOE_ARCH}"
+    got = _leaves(arrays, f"{case}/x")
+    assert len(got) == len(params)
+    cell = 2 * (1 - 1 / 3) * delta_for_bits(8, True) * float(
+        modulo.b_theta(C.THETA, delta_for_bits(8, True), "cpu"))
+    flips = total = 0
+    for c, a, d in zip(got, params, mom):
+        tol = 1e-6 + C.LR * 1e-4 * np.abs(d).max()
+        err = np.abs(c - a)
+        assert float(err.max()) <= tol + cell * 1.001
+        flips += int((err > tol).sum())
+        total += err.size
+    assert flips <= 1e-4 * total, (flips, total)
+    np.testing.assert_allclose(float(arrays[f"{case}/loss"]), loss,
+                               rtol=1e-5)
+    assert int(arrays[f"{case}/wire_bytes"]) == wire_bytes
+
+
+@pytest.mark.parametrize("world", C.MOE_WORLDS)
+def test_moe_prefill_and_decode_match_reference(results, world):
+    ref, _, res = results
+    arrays, _ = res[world]
+    a = C.MOE_ARCH
+    for got, want in zip((arrays[f"serve-{a}/prefill"],
+                          arrays[f"serve-{a}/decode"]), ref[f"serve-{a}"]):
+        assert got.shape == want.shape and got.dtype == np.float32
+        assert (np.abs(got - want).max() / np.abs(want).max()) <= 1e-4
+
+
 @pytest.mark.parametrize("world,what", [(w, r) for w in WORLDS
                                         for r in C.REFUSALS[w]])
 def test_out_of_scope_is_refused_naming_13e(results, world, what):
@@ -348,6 +429,40 @@ def test_split_view_hashes_the_whole_leaf_counters():
                 want = want_all.narrow(a - 1, ra * ka, ka).narrow(
                     b - 1, rb * kb, kb).reshape(rows, cols)
                 assert torch.equal(idx, want)
+
+
+@pytest.mark.parametrize("shape,a", [((2, 3, 8, 4), 2), ((2, 8, 4), 1),
+                                     ((2, 3, 8, 2, 5), 2)],
+                         ids=["router", "one-layer", "between"])
+def test_split_view_pads_an_unaligned_last_dim(shape, a):
+    """A shard split on one dim whose whole last dim is not a whole number
+    of code bytes (an MoE router ``[n, L, d/D, E]`` at E 4 and 1 bit)
+    hashes the counters one process gives its elements, whose rows are
+    padded to whole bytes: ``row_bases`` at the view's offset, padded
+    stride and blocks against the whole leaf's padded rows.  A split of
+    such a last dim, or two splits, raise ``ValueError``."""
+    from repro_torch.comm import tensor_parallel as TP
+    from repro_torch.kernels.moniqua_encode import row_bases
+    align = 8
+    x = torch.zeros(shape)
+    last = shape[-1]
+    cp = -(-last // align) * align
+    rows_whole = x[0].numel() // last
+    want_all = (row_bases(rows_whole, 0, cp, None, 0) + torch.arange(last)
+                ).reshape(shape[1:])
+    for r in range(2):
+        k = shape[a] // 2
+        s = x.narrow(a, r * k, k)
+        view, off, stride, rpb, bs = TP.split_view(
+            s, ((a, r * k, shape[a]),), align)
+        rows, cols = view.shape[1:]
+        assert cols == last and stride == cp
+        idx = row_bases(rows, off, stride, rpb, bs) + torch.arange(cols)
+        want = want_all.narrow(a - 1, r * k, k).reshape(rows, cols)
+        assert torch.equal(idx, want)
+    with pytest.raises(ValueError):
+        TP.split_view(x.narrow(len(shape) - 1, 0, 2),
+                      ((len(shape) - 1, 0, last),), align)
 
 
 def test_gather_backward_outside_the_context(tmp_path):
@@ -521,6 +636,56 @@ def test_matmul_gradients_match_the_gathered_product(tmp_path, k, heads):
 
         def control(w, x):
             return x @ mat.of(fsdp.gather(w, dim))
+        with TP.axis_context(TP.AxisGroup("data", rank=1, size=2,
+                                          group=dist.group.WORLD)):
+            for fn_dims in ((None, None), (0, 0), (0, None), (None, 0)):
+                got = []
+                for fn in (ours, control):
+                    ww = (w if fn_dims[0] is not None else w[0]).clone()
+                    xx = (x if fn_dims[1] is not None else x[0]).clone()
+                    ww.requires_grad_(True)
+                    xx.requires_grad_(True)
+                    y = (fn(ww, xx) if fn_dims == (None, None) else
+                         torch.func.vmap(fn, in_dims=fn_dims)(ww, xx))
+                    (y ** 2).sum().backward()
+                    got.append((y.detach(), ww.grad, xx.grad))
+                for a, b in zip(*got):
+                    torch.testing.assert_close(a, b)
+            got = [torch.func.vmap(torch.func.grad(
+                lambda w, x: (fn(w, x) ** 2).sum(), argnums=(0, 1)))(w, x)
+                for fn in (ours, control)]
+            for a, b in zip(*got):
+                torch.testing.assert_close(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dim", [1, 2], ids=["w_up", "w_down"])
+def test_expert_matmul_gradients_match_the_gathered_product(tmp_path, dim):
+    """``fsdp.matmul(..., experts=True)`` on an expert stack ``[E, K, N]``
+    (``ezcd,edf->ezcf``) split on its rows (``w_up``) or columns
+    (``w_down``): forward and gradients against autograd through the
+    einsum of ``fsdp.gather``'s whole stack, plainly and under ``vmap``
+    with the worker dim on ``x``, on ``w`` and on both, and under
+    ``vmap(grad)``.  A one-rank gloo group with the split switched on
+    (rank 1 of 2)."""
+    import torch.distributed as dist
+    from repro_torch.comm import fsdp
+    from repro_torch.comm import tensor_parallel as TP
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        g = torch.Generator().manual_seed(2)
+        n, E, K, N = 3, 4, 6, 5
+        shape = (E, K // 2, N) if dim == 1 else (E, K, N // 2)
+        w = torch.randn((n,) + shape, generator=g)
+        x = torch.randn(n, E, 2, 3, K, generator=g)
+
+        def ours(w, x):
+            return fsdp.matmul(x, w, dim, experts=True)
+
+        def control(w, x):
+            return torch.einsum("ezcd,edf->ezcf", x, fsdp.gather(w, dim))
         with TP.axis_context(TP.AxisGroup("data", rank=1, size=2,
                                           group=dist.group.WORLD)):
             for fn_dims in ((None, None), (0, 0), (0, None), (None, 0)):

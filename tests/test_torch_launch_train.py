@@ -89,27 +89,23 @@ def test_production_mesh_waits_for_13d(flags):
     """``--mesh production [--multi-pod]``: the reference's mesh, rules
     and shape (the mesh swapped for a 4-rank gloo mesh, ``(data=2,
     model=2)`` or ``(pod=2, data=2)``, the shape for a small one) train
-    reduced qwen2-72b under the hierarchical rules for 2 steps, with the
-    reference's bytes/step/worker; what still waits for ROADMAP #13e (the
-    MoE family under a split) exits non-zero naming it."""
-    refused = "dbrx-132b" in flags
-    world = "d2" if refused else ("p2d2" if "--multi-pod" in flags
-                                  else "d2m2")
+    reduced qwen2-72b, and reduced dbrx-132b (the MoE family: its experts
+    split on ``d_model`` over ``data`` and on each expert's ``d_ff`` over
+    ``model``), under the hierarchical rules for 2 steps, with the
+    reference's bytes/step/worker."""
+    world = "p2d2" if "--multi-pod" in flags else "d2m2"
+    arch = "dbrx-132b" if "dbrx-132b" in flags else "qwen2-72b"
     argv = flags + ARGS
-    if not refused:
-        argv += ["--arch", "qwen2-72b"]
+    if arch not in flags:
+        argv += ["--arch", arch]
     rcs, out, err = _cli_ranks(world, argv)
-    if refused:
-        assert all(rc != 0 for rc in rcs), rcs
-        assert "#13e" in err
-        return
     assert rcs == [0] * len(rcs), err[-3000:]
     steps = re.findall(r"^step\s+(\d+)\s+loss (\S+)", out, re.M)
     assert [int(k) for k, _ in steps] == [0, 1]
     assert all(float(v) == float(v) and abs(float(v)) < 1e3
                for _, v in steps)
     got = int(re.search(r"^bytes/step/worker = (\d+)$", out, re.M).group(1))
-    assert got == _reference_bytes("qwen2-72b", "moniqua", 2, 8) > 0
+    assert got == _reference_bytes(arch, "moniqua", 2, 8) > 0
 
 
 def test_cuda_without_a_card_raises():

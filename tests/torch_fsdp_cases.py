@@ -17,7 +17,11 @@ The worlds: ``d2`` and ``d2m2``, the hierarchical rules on one pod
 worker, FSDP over ``data``); ``p2d2``, the hierarchical rules across pods
 (``(pod=2, data=2, model=1)``: two workers a pod); ``m4``, replicated-KV
 GQA (chatglm3-6b's 2 KV heads under 4 query heads on ``(data=1,
-model=4)``, the decentralized rules).
+model=4)``, the decentralized rules).  ``d2m2`` and ``p2d2`` also run
+reduced dbrx-132b (``MOE_WORLDS``: E 4, top-2, group 64): its gradients,
+its Moniqua 8-bit and 1-bit rounds (the router's rows of 4 codes padded
+to a byte, as one process pads them), a train step and its serving, on
+the expert shards.
 
 ``python tests/torch_fsdp_cases.py --cli STORE RANK WORLD FLAGS...``: one
 rank of the training CLI on the production mesh with
@@ -28,7 +32,11 @@ assigned shape for a small one (``tests/test_torch_launch_train.py``).
 cards: builds the kernels, draws the inputs with the port's own init,
 starts one NCCL rank a card for each four-rank world, and rank 0 holds
 every case against the same case run in one process on its card
-(``CARD_TOL``, the rounds bitwise); then the full-width cell (qwen2-72b
+(``CARD_TOL``, the rounds bitwise); on ``d2m2`` the MoE cell (dbrx-132b
+at published widths, 1 layer, one worker, 2 x 1024 tokens, ``CELL_STEPS``
+steps: losses equal on every rank, the first within ``CARD_TOL`` of one
+process's forward on rank 0's card; step time and peak a card); then the
+full-width cell (qwen2-72b
 at published widths, 2 layers, two pods of one worker each on ``(pod=2,
 data=2)``, Moniqua 8-bit, bfloat16) for ``CELL_STEPS`` steps, its step
 time and peak a card, and each leaf's round bitwise against one process's
@@ -40,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import json
+import math
 import os
 import sys
 import time
@@ -48,11 +57,11 @@ import traceback
 import numpy as np
 import torch
 
-ARCH, KV_ARCH = "qwen2-72b", "chatglm3-6b"
-ARCHS = (ARCH, KV_ARCH)
+ARCH, KV_ARCH, MOE_ARCH = "qwen2-72b", "chatglm3-6b", "dbrx-132b"
+ARCHS = (ARCH, KV_ARCH, MOE_ARCH)
 # reduced qwen2-72b keeps 4 KV heads under 4 query heads: GQA 4:2 by
 # override; reduced chatglm3-6b has 4 heads and 2 KV heads already
-OVERRIDES = {ARCH: dict(num_kv_heads=2), KV_ARCH: {}}
+OVERRIDES = {ARCH: dict(num_kv_heads=2), KV_ARCH: {}, MOE_ARCH: {}}
 N, B, S = 4, 2, 32            # workers, sequences a worker, tokens
 THETA, LR = 2.0, 0.1
 SERVE_B, SERVE_S, DECODE = 2, 24, 4
@@ -64,18 +73,27 @@ WORLDS = {
     "m4": (4, dict(data=1, model=4), "decentralized", False, KV_ARCH),
 }
 ROUNDS = {"moniqua8": (8, True), "moniqua1": (1, False), "full": None}
+# the worlds that also run the MoE family
+MOE_WORLDS = ("d2m2", "p2d2")
+# the families still refused on a split (ROADMAP #13e.4) by their configs
+FAMILY_ARCHS = {"zamba": "zamba2-1.2b", "xlstm": "xlstm-125m",
+                "whisper": "whisper-base", "vlm": "phi-3-vision-4.2b"}
 REFUSALS = {
-    "d2": ("hierarchical-moe", "wire-qsgd", "path-bucketed", "rule-choco",
+    "d2": ("hierarchical-xlstm", "wire-qsgd", "path-bucketed", "rule-choco",
            "overlap-stale"),
-    "d2m2": ("hierarchical-moe", "kv_seq", "family-zamba", "telemetry"),
-    "p2d2": ("hierarchical-moe", "presence"),
-    "m4": ("kv-groups", "family-moe"),
+    "d2m2": ("hierarchical-whisper", "kv_seq", "family-zamba", "telemetry"),
+    "p2d2": ("hierarchical-vlm", "presence"),
+    "m4": ("kv-groups", "family-xlstm"),
 }
 # the NCCL run: one process on a card against the split on four cards,
 # float32 gradients and logits within this share of their largest entry
 CARD_TOL = 1e-4
 # the full-width cell of the NCCL run
 CELL_LAYERS, CELL_SEQ, CELL_STEPS, CELL_N = 2, 1024, 3, 2
+# the MoE cell of the NCCL run: dbrx-132b at published widths, 1 layer,
+# one worker, 2 x 1024 tokens a step on (data=2, model=2); its first loss
+# against one process's forward on one card (9 GB of weights)
+MOE_CELL_LAYERS, MOE_CELL_SEQ, MOE_CELL_ROWS = 1, 1024, 2
 
 
 def case_names(world):
@@ -84,6 +102,9 @@ def case_names(world):
              f"serve-{arch}"]
     if arch == ARCH:
         names += ["round-moniqua1", "round-full", "trainer"]
+    if world in MOE_WORLDS:
+        names += [f"{c}-{MOE_ARCH}" for c in (
+            "grads", "round-moniqua8", "round-moniqua1", "step", "serve")]
     return names + [f"refuse-{r}" for r in REFUSALS[world]]
 
 
@@ -206,16 +227,18 @@ class Runner:
             self.mesh, self.rules))
 
     def stacked(self, model):
-        """This rank's workers, batch rows and shards of the inputs."""
+        """This rank's workers, batch rows and shards of the inputs of
+        ``model``'s arch."""
         from repro_torch import tree
+        arch = model.cfg.name
         td, shapes = abstract(model.cfg)
         lo, hi = self.rows()
         X = tree.unflatten(td, [torch.from_numpy(
-            self.inp[f"{self.arch}/X/{i}"][lo:hi]).to(self.device)
+            self.inp[f"{arch}/X/{i}"][lo:hi]).to(self.device)
             for i in range(len(shapes))])
         a, z = self.inner(B)
         batch = {k: torch.from_numpy(
-            self.inp[f"{self.arch}/{k}"][lo:hi, a:z]).to(self.device)
+            self.inp[f"{arch}/{k}"][lo:hi, a:z]).to(self.device)
             for k in ("tokens", "labels")}
         return self.cut(X, self.specs(model)), batch
 
@@ -307,16 +330,17 @@ class Runner:
                 for a, b in pairs]
         return max(errs) <= 1e-5, f"relative gaps {errs}"
 
-    def grads(self):
+    def grads(self, arch=None):
         from repro_torch.comm import workers
-        model = self.model()
+        arch = arch or self.arch
+        model = self.model(arch)
         X, batch = self.stacked(model)
         with self.context(model):
             g, loss = torch.func.vmap(torch.func.grad_and_value(model.loss))(
                 X, batch)
             same = self.replicated_equal(g)
-            self.put(f"grads-{self.arch}/grads", self.gather(g))
-            self.arrays[f"grads-{self.arch}/loss"] = workers.gather_rows(
+            self.put(f"grads-{arch}/grads", self.gather(g))
+            self.arrays[f"grads-{arch}/loss"] = workers.gather_rows(
                 loss).cpu().numpy()
         return same, f"unsplit gradients equal over the ranks: {same}"
 
@@ -329,25 +353,31 @@ class Runner:
         return AlgoHyper(topo=ring(N), codec=MoniquaCodec(
             QuantSpec(bits=bits, stochastic=stochastic)), theta=THETA)
 
-    def round(self, wire):
-        model = self.model()
+    def round(self, wire, arch=None):
+        """The round on this rank's shards; its case is ``round-WIRE``
+        on the world's arch, ``round-WIRE-ARCH`` on another."""
+        model = self.model(arch)
         X, _ = self.stacked(model)
         hp = self.hyper(wire)
         seed = int(self.inp["seed_round"])
+        case = f"round-{wire}" + (f"-{arch}" if arch else "")
         with self.context(model):
             if wire == "full":
                 out = hp.exact_engine().mix(X).x
             else:
                 out = hp.engine().mix(X, theta=THETA, seed=seed).x
             same = self.replicated_equal(out)
-            self.put(f"round-{wire}/x", self.gather(out))
+            self.put(f"{case}/x", self.gather(out))
         return same, f"unsplit leaves equal over the ranks: {same}"
 
-    def step(self):
+    def step(self, arch=None):
+        """One Moniqua 8-bit train step; its case is ``step`` on the
+        world's arch, ``step-ARCH`` on another."""
         from repro_torch.optim import sgd
         from repro_torch.core.theta import ThetaSchedule
         from repro_torch.train import train_step as TS
-        model = self.model()
+        model = self.model(arch)
+        case = "step" + (f"-{arch}" if arch else "")
         X, batch = self.stacked(model)
         hp = self.hyper("moniqua8")
         step_fn = TS.make_train_step(model, hp, TS.TrainStepConfig(
@@ -361,9 +391,9 @@ class Runner:
             state, met = step_fn(state, batch,
                                  seed=int(self.inp["seed_step"]))
             same = self.replicated_equal(state["params"])
-            self.put("step/x", self.gather(state["params"]))
-        self.arrays["step/loss"] = np.asarray(float(met["loss"]))
-        self.arrays["step/wire_bytes"] = np.asarray(met["wire_bytes"])
+            self.put(f"{case}/x", self.gather(state["params"]))
+        self.arrays[f"{case}/loss"] = np.asarray(float(met["loss"]))
+        self.arrays[f"{case}/wire_bytes"] = np.asarray(met["wire_bytes"])
         return same, f"unsplit leaves equal over the ranks: {same}"
 
     def trainer_of(self, ckpt=None):
@@ -404,7 +434,7 @@ class Runner:
         return (same and same_run,
                 f"restore bitwise {same}; step and generator {same_run}")
 
-    def serve(self):
+    def serve(self, arch=None):
         """Prefill and ``DECODE`` cached steps of this rank's rows of the
         serving batch on its shards; the logits gathered over ``data``."""
         from repro_torch import tree
@@ -412,8 +442,8 @@ class Runner:
         from repro_torch.comm import tensor_parallel as TP
         from repro_torch.configs.base import InputShape
         from repro_torch.train import serve_step as SS
-        arch = self.arch
-        model = self.model()
+        arch = arch or self.arch
+        model = self.model(arch)
         td, shapes = abstract(model.cfg)
         P = tree.unflatten(td, [torch.from_numpy(
             self.inp[f"{arch}/X/{i}"][0]).to(self.device)
@@ -451,10 +481,11 @@ class Runner:
         shape = InputShape("lm", S, N * B, "train")
         model = self.model()
         tc = dict(algo="moniqua", n_workers=N, steps=1)
-        if what in ("hierarchical-moe", "family-moe"):
-            model = Model(get_config("dbrx-132b").reduced(), self.device)
-        elif what == "family-zamba":
-            model = Model(get_config("zamba2-1.2b").reduced(), self.device)
+        family = what.split("-", 1)[1] if what.startswith(
+            ("hierarchical-", "family-")) else None
+        if family is not None:
+            model = Model(get_config(FAMILY_ARCHS[family]).reduced(),
+                          self.device)
         elif what == "kv_seq":
             model = self.model(num_heads=3, num_kv_heads=1)
         elif what == "kv-groups":
@@ -485,6 +516,12 @@ class Runner:
                f"serve-{self.arch}": self.serve}
         for w in ROUNDS:
             out[f"round-{w}"] = lambda w=w: self.round(w)
+        a = MOE_ARCH
+        out.update({f"grads-{a}": lambda: self.grads(a),
+                    f"round-moniqua8-{a}": lambda: self.round("moniqua8", a),
+                    f"round-moniqua1-{a}": lambda: self.round("moniqua1", a),
+                    f"step-{a}": lambda: self.step(a),
+                    f"serve-{a}": lambda: self.serve(a)})
         for r in REFUSALS[self.world]:
             out[f"refuse-{r}"] = lambda r=r: self.refuse(r)
         return out
@@ -567,6 +604,47 @@ def cell_trainer(mesh, rules):
     return Trainer(Model(cell_config(), "cuda"), tc,
                    InputShape("lm_train", CELL_SEQ, 2 * CELL_N, "train"),
                    mesh=mesh, rules=rules)
+
+
+def moe_cell_trainer(mesh=None, rules=None):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_CELL_LAYERS)
+    tc = TrainerConfig(algo="moniqua", bits=8, topology="ring", n_workers=1,
+                       theta=2.0, lr=0.1, momentum=0.9, weight_decay=5e-4,
+                       steps=CELL_STEPS, log_every=1, seed=0)
+    return Trainer(Model(cfg, "cuda"), tc, InputShape(
+        "lm_train", MOE_CELL_SEQ, MOE_CELL_ROWS, "train"), mesh=mesh,
+        rules=rules)
+
+
+def moe_cell(rank, mesh, rules) -> dict:
+    """The MoE cell split over the four cards, then (rank 0) one
+    process's loss of step 0's batch at the same init, a forward alone."""
+    import torch.distributed as dist
+    tr = moe_cell_trainer(mesh, rules)
+    out = cell_run(tr)
+    del tr
+    torch.cuda.empty_cache()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out["losses"])
+    out["losses_equal"] = all(x == every[0] for x in every)
+    if rank == 0:
+        one = moe_cell_trainer()
+        state = one.init_state()
+        del state["mom"]
+        with torch.no_grad():
+            first = float(torch.func.vmap(one.model.loss)(
+                state["params"], one.batch_fn(0))[0])
+        out["one_first_loss"] = first
+        out["first_gap"] = abs(out["losses"][0] - first) / abs(first)
+        del one, state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
 
 
 def cell_run(tr) -> dict:
@@ -693,6 +771,9 @@ def nccl_compare(runner, rank, world, inputs, workdir) -> dict:
         del one
     torch.cuda.empty_cache()
     out = {"held": held}
+    if world == "d2m2":
+        dist.barrier()
+        out["moe_cell"] = moe_cell(rank, runner.mesh, runner.rules)
     if world != "p2d2":
         return out
     dist.barrier()
@@ -758,6 +839,17 @@ def launch_nccl(outdir: str, timeout: float = 500.0) -> int:
             h = rep["held"].get(case, [True, "checked in the ranks"])
             ok = ok and chk[0] and h[0]
             print(world, case, chk[0], h[0], chk[1][:200], "|", h[1])
+        if world == "d2m2":
+            c = rep["moe_cell"]
+            print(f"MoE cell {MOE_ARCH} ({MOE_CELL_LAYERS} layer, "
+                  f"{MOE_CELL_ROWS} x {MOE_CELL_SEQ} tokens, (data=2, "
+                  f"model=2)): step {c['step_ms']:.3f} ms, peak "
+                  f"{c['peak_gib']:.2f} GiB a card, losses {c['losses']}, "
+                  f"equal on every rank {c['losses_equal']}; one process's "
+                  f"first loss {c['one_first_loss']} (gap "
+                  f"{c['first_gap']:.3e}), bytes/step {c['bytes_per_step']}")
+            ok = ok and c["losses_equal"] and c["first_gap"] <= CARD_TOL \
+                and all(math.isfinite(v) for v in c["losses"])
         if world == "p2d2":
             c, r = rep["cell"], rep["cell_rounds"]
             print(f"cell (pod=2, data=2): step {c['step_ms']:.3f} ms, peak "

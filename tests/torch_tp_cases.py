@@ -4,9 +4,10 @@
 joins a gloo group of WORLD ranks (2 or 4) through the ``FileStore`` at
 STORE, lays them out as the mesh ``(data, model) = MESHES[WORLD]``, reads
 the cases' inputs from the ``.npz`` at INPUTS (stacked float32 params of
-the reduced dense archs, token batches, the round and step seeds, serving
-tokens; ``tests/test_torch_tensor_parallel.py`` draws them from the JAX
-reference's init), runs every case of ``CASES`` on its block of workers and
+the reduced dense archs and of reduced dbrx-132b, token batches, the round
+and step seeds, serving tokens; ``tests/test_torch_tensor_parallel.py``
+draws them from the JAX reference's init), runs every case of ``CASES``
+on its block of workers and
 its shards of the weights, gathers each result whole and, on rank 0,
 writes the arrays to ``OUT + ".npz"`` and the checks made in the ranks
 (``{case: [ok, detail]}``) to ``OUT + ".json"``.  Only the port is
@@ -34,14 +35,17 @@ import traceback
 import numpy as np
 import torch
 
-ARCHS = ("llama3.2-3b", "chatglm3-6b")
+ARCHS = ("llama3.2-3b", "chatglm3-6b", "dbrx-132b")
+MOE_ARCH = ARCHS[2]            # reduced: E 4, top-2, group 64
 N, B, S = 4, 2, 32            # workers, sequences a worker, tokens
 THETA, LR = 2.0, 0.1
 SERVE_B, SERVE_S, DECODE = 2, 24, 4
 MESHES = {2: (1, 2), 4: (2, 2)}
 ROUNDS = {"moniqua8": (8, True), "moniqua1": (1, False), "full": None}
-REFUSALS = ("heads", "kv-heads", "hierarchical", "family-moe", "wire-qsgd",
-            "path-bucketed", "rule-choco", "serve-heads")
+REFUSALS = ("heads", "kv-heads", "hierarchical-whisper", "family-vlm",
+            "wire-qsgd", "path-bucketed", "rule-choco", "serve-heads")
+# the families still refused on a split (ROADMAP #13e.4) by their configs
+FAMILY_ARCHS = {"whisper": "whisper-base", "vlm": "phi-3-vision-4.2b"}
 # the full-width cell of the NCCL run (chip_smoke.py phase 21's)
 CELL_LAYERS, CELL_SEQ, CELL_STEPS = 2, 2048, 3
 # its split losses against the one-card run's: chip_smoke.py phase 26's
@@ -58,6 +62,7 @@ def case_names():
     the arrays the test holds against the reference."""
     return (["ops"] + [f"grads-{a}" for a in ARCHS]
             + [f"round-{w}" for w in ROUNDS] + ["step", "trainer"]
+            + [f"round-moniqua8-{MOE_ARCH}", f"step-{MOE_ARCH}"]
             + [f"serve-{a}" for a in ARCHS]
             + [f"refuse-{r}" for r in REFUSALS])
 
@@ -257,8 +262,11 @@ class Runner:
         return AlgoHyper(topo=ring(N), codec=MoniquaCodec(
             QuantSpec(bits=bits, stochastic=stochastic)), theta=THETA)
 
-    def round(self, wire):
-        arch = ARCHS[0]
+    def round(self, wire, arch=None):
+        """The round on this rank's shards; its case is ``round-WIRE``
+        on the first arch, ``round-WIRE-ARCH`` on another."""
+        case = f"round-{wire}" + (f"-{arch}" if arch else "")
+        arch = arch or ARCHS[0]
         model = self.model(arch)
         X, _ = self.stacked(arch, model)
         hp = self.hyper(wire)
@@ -269,14 +277,17 @@ class Runner:
             else:
                 out = hp.engine().mix(X, theta=THETA, seed=seed).x
             same = self.replicated_equal(out, model)
-            self.put(f"round-{wire}/x", self.gather(out))
+            self.put(f"{case}/x", self.gather(out))
         return same, f"replicated leaves equal over model: {same}"
 
-    def step(self):
+    def step(self, arch=None):
+        """One Moniqua 8-bit train step; its case is ``step`` on the
+        first arch, ``step-ARCH`` on another."""
         from repro_torch.optim import sgd
         from repro_torch.core.theta import ThetaSchedule
         from repro_torch.train import train_step as TS
-        arch = ARCHS[0]
+        case = "step" + (f"-{arch}" if arch else "")
+        arch = arch or ARCHS[0]
         model = self.model(arch)
         X, batch = self.stacked(arch, model)
         hp = self.hyper("moniqua8")
@@ -291,10 +302,10 @@ class Runner:
             state, met = step_fn(state, batch,
                                  seed=int(self.inp["seed_step"]))
             same = self.replicated_equal(state["params"], model)
-            self.put("step/x", self.gather(state["params"]))
-        self.arrays["step/loss"] = np.asarray(float(met["loss"]))
-        self.arrays["step/wire_bytes"] = np.asarray(met["wire_bytes"])
-        self.arrays["step/g_inf"] = np.asarray(float(met["g_inf"]))
+            self.put(f"{case}/x", self.gather(state["params"]))
+        self.arrays[f"{case}/loss"] = np.asarray(float(met["loss"]))
+        self.arrays[f"{case}/wire_bytes"] = np.asarray(met["wire_bytes"])
+        self.arrays[f"{case}/g_inf"] = np.asarray(float(met["g_inf"]))
         return same, f"replicated leaves equal over model: {same}"
 
     def trainer_of(self, ckpt=None):
@@ -378,15 +389,15 @@ class Runner:
             # KV heads replicated over model (3 over 2), a rank's 3 query
             # heads reading groups of 2: not whole groups of one KV head
             model = self.model(ARCHS[1], num_heads=6, num_kv_heads=3)
-        elif what == "hierarchical":
-            # the hierarchical rules run the dense family (FSDP over
-            # data); the MoE family is refused under them
+        elif what.startswith(("hierarchical-", "family-")):
+            # the hierarchical rules run the dense and MoE families (FSDP
+            # over data); the other families are refused under either
             from repro_torch.configs import get_config
-            rules = ShardingRules("hierarchical")
-            model = Model(get_config("dbrx-132b").reduced(), self.device)
-        elif what == "family-moe":
-            from repro_torch.configs import get_config
-            model = Model(get_config("dbrx-132b").reduced(), self.device)
+            kind, family = what.split("-", 1)
+            if kind == "hierarchical":
+                rules = ShardingRules("hierarchical")
+            model = Model(get_config(FAMILY_ARCHS[family]).reduced(),
+                          self.device)
         elif what == "wire-qsgd":
             tc["wire"] = "qsgd"
         elif what == "path-bucketed":
@@ -412,6 +423,9 @@ class Runner:
             out[f"serve-{a}"] = lambda a=a: self.serve(a)
         for w in ROUNDS:
             out[f"round-{w}"] = lambda w=w: self.round(w)
+        out[f"round-moniqua8-{MOE_ARCH}"] = lambda: self.round("moniqua8",
+                                                              MOE_ARCH)
+        out[f"step-{MOE_ARCH}"] = lambda: self.step(MOE_ARCH)
         for r in REFUSALS:
             out[f"refuse-{r}"] = lambda r=r: self.refuse(r)
         return out
