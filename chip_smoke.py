@@ -188,7 +188,7 @@ Phases (any failure exits non-zero, and the result line is not printed):
    trace (params bitwise a telemetry-off run's under deterministic cuDNN,
    ``obs_*`` metrics, log and trace valid by the port's validators, device
    time of a profiled step under the ``comm.*`` labels); AD-PSGD with edge
-   telemetry, 200 iterations (X bitwise, two extra encodes an iteration);
+   telemetry, 50 iterations (X bitwise, two extra encodes an iteration);
    ``SimTrace.to_chrome`` of churn-ring merged with the trainer's trace;
    ``MoniquaCodec(use_kernels=True)`` on the bucket (encode and point
    decode card == CPU bitwise, within Lemma 2's delta B) and
@@ -318,7 +318,10 @@ Phases (any failure exits non-zero, and the result line is not printed):
    prefill a ``data`` rank and a decode step fed one process's token,
    each within phase 10's bound of one process, greedy tokens equal over
    ``model``; (d) chatglm3-6b at 2 layers on ``(data=1, model=4)``, its 2
-   KV heads replicated, alike; (c) the Moniqua round of each of the 15
+   KV heads replicated, alike, its decode cache on the sequence dim (every
+   KV head over a quarter of the 2052 slots a rank, the bytes checked
+   against one process's whole ring), greedy tokens equal to one
+   process's; (c) the Moniqua round of each of the 15
    leaves of qwen2-72b at 1 layer on ring(2), 8-bit stochastic and
    1-bit nearest, on each rank's FSDP + tensor-parallel shard,
    ``torch.equal`` to one process's round
@@ -331,17 +334,45 @@ Phases (any failure exits non-zero, and the result line is not printed):
    in every leaf it moves; one bf16 flash launch a step a rank; each
    rank's times and peak memory.  Then the MoE family (ROADMAP #13e.1),
    in the same four children after one process's references: (e)
-   dbrx-132b at published widths, 2 layers, on ``(data=2, model=2)``, as
+   dbrx-132b at published widths, 1 layer, on ``(data=2, model=2)``, as
    (a), its experts split on ``d_model`` over ``data`` and on each
    expert's ``d_ff`` over ``model``, the routings the split made
    otherwise than one process counted; (f) grok-1-314b at 1 layer on
    ``(data=1, model=4)``, alike; (g) the Moniqua round of each of (e)'s
    13 leaves as (c); (h) dbrx-132b at 1 layer with ``d_ff`` cut to
-   ``FSDP_MOE_TRAIN_DFF`` (printed), 4 x 1024 tokens, 3 steps as (b):
+   ``FSDP_MOE_TRAIN_DFF`` (printed), 4 x 1024 tokens, 2 steps as (b):
    step 0's loss within 1e-4 of one process's, the later ones within
    ``MOE_LOSS_RTOL`` (the rerouted tokens move them), equal on every
    rank.  The
    launches are added to the kernels line.
+28. Context-parallel attention over ``model`` (the reference's
+   ``kv_seq``): (a) both flash kernels at llama3.2-3b's serving attention
+   [48, 4096, 128] (16 KV blocks), float32 and bfloat16, the keys cut into
+   16 shares, each share's output and log-sum-exp at its key offset
+   ``k0`` against the plain version (``flash_close``; ``lse`` relative
+   1e-5 in float32, 1e-3 in bfloat16), their merge against the whole
+   kernel's output (``flash_close``, in bfloat16 plus one bfloat16
+   rounding of each share's output, weighted), causal and with a window
+   of 1000, a share whose rows are all masked (0 and -inf); each kernel
+   timed with ``lse`` off and on (the store's cost) at the whole shape
+   and at the heaviest share, beside SDPA and the bound; (b) sixteen
+   child processes (``--cp-rank``) over a gloo group on the one card, the
+   mesh ``(data=1, model=16)``: llama3.2-3b at published widths, 1 layer,
+   bfloat16, its 24 heads context-parallel (the attention weights whole,
+   each rank's 256 keys through the flash kernel at its offset, merged),
+   its 8 KV heads' decode cache on the sequence (65 of 1040 slots a
+   rank): a 1 x 1024 prefill and 4 decode steps, every step's logits
+   within phase 10's bound of one process's and the greedy tokens equal
+   to one process's, one flash launch a rank in the prefill and none in
+   decode; one Moniqua 8-bit training step of one worker (1 x 1024
+   tokens), its loss within 1e-4 of one process's and equal on every
+   rank; each of the 12 leaves' Moniqua round on ring(2) at 8 and 1 bits
+   ``torch.equal`` to one process's cut alike.  The launches are added to
+   the kernels line, (a)'s records to the flash kernels' entries.
+
+Phase 7 also runs each sweep case with the log-sum-exp output (``k0 =
+0``): its output bitwise the run without it, its ``lse`` within
+``LSE_RTOL`` of the plain version's.
 
 The second-to-last lines are the kernels' JSON summary and the nvidia-smi
 line; the last line is the device contract JSON.
@@ -680,6 +711,10 @@ FLASH_PAD = (32, 4096, 80)
 # phase 7's head dims outside the configs'
 FLASH_PAD_DIMS = (33, 80, 160, 192, 256)
 GQA_MAIN = 3                               # its query heads per KV head (24/8)
+# a flash kernel's log-sum-exp against its plain version's, relative: the
+# two sum the float32 exponentials in other orders (bfloat16: the same
+# float32 arithmetic on bfloat16 inputs, held looser)
+LSE_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 # float32 serving checks (phase 9): the flash path and the token-by-token
 # decode against prefill, each within this share of max|logit|
 F32_LOGIT_TOL = 1e-3
@@ -692,6 +727,20 @@ F32_LOGIT_TOL = 1e-3
 # 28 layers such gaps grow to a few percent of the largest logit.  The
 # bound allows 0.1.
 BF16_GAP_BOUND = 0.1
+
+
+def lse_close(got, want, dtype):
+    """A kernel's ``lse`` against its plain version's -> (ok, worst
+    relative error over the finite entries): the same rows ``-inf`` (no
+    valid key), none NaN, the rest within ``LSE_RTOL[dtype]`` of
+    ``max(|lse|, 1)``."""
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or bool(got.isnan().any()):
+        return False, math.inf
+    if not bool(fin.any()):
+        return True, 0.0
+    rel = float(((got - want).abs() / want.abs().clamp(min=1.0))[fin].max())
+    return rel <= LSE_RTOL[dtype], rel
 
 
 def serve_config(**over):
@@ -747,6 +796,34 @@ def profile_device(fn, what, card):
               f"{e.count:6d}x  {e.key[:90]}")
 
 
+def flash_sweep():
+    """Phase 7's sweep cases, ``(causal, Sq, Sk, window, query blocks, KV
+    blocks, head dim)`` (``tools/flash_bitwise.py`` runs them too): the
+    reference tests' (S 256/384/128/130 with windows 0/100/32/0, and
+    non-causal Sq=130/Sk=256) with MHA at head dims 64, 96 and 128, then
+    grouped-query attention with g = 3 (llama3.2-3b's 24 / 8), 2 and, at
+    head dim 96, 4; head dim 96 also at ragged Sq != Sk, causal and not;
+    then head dims no config has, each run in the next instantiation up
+    with zero columns (33: padded to 40 by the wrapper; 80 in 96, 160 in
+    192) or in its own (192, 256): causal with a window, non-causal at
+    ragged Sq != Sk, and at 256 grouped-query attention with g = 2."""
+    cases = [(True, 256, 256, 0), (True, 384, 384, 100), (True, 128, 128, 32),
+             (True, 130, 130, 0), (False, 130, 256, 0)]
+    cases96 = [(True, 200, 300, 0), (False, 130, 200, 0)]
+    out = []
+    for case in cases + cases96:
+        heads = [((4, 4), 96), ((4, 1), 96)]
+        if case not in cases96:
+            heads += [((4, 4), 64), ((4, 4), 128), ((6, 2), 128),
+                      ((4, 2), 128), ((6, 2), 64)]
+        out += [case + (bh, bh_kv, d) for (bh, bh_kv), d in heads]
+    for d in FLASH_PAD_DIMS:
+        out += [(True, 384, 384, 100, 4, 4, d), (False, 130, 200, 0, 4, 4, d)]
+        if d == 256:
+            out.append((True, 256, 256, 0, 4, 2, d))
+    return out
+
+
 def serving_phases(dev, timer, card, flat, B8, flat110):
     """Phases 7-11 (``flat110``: phase 2's ResNet-110 buckets by bit
     width); returns the kernels-line entries of the serving slice's
@@ -780,12 +857,21 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
 
     def flash_case(what, q, k, v, **kw):
         """Hold ``kfa.flash_attention`` (the route dtype and head dim pick)
-        to the plain version in float32 on the same inputs -> max abs err,
-        worst error / tolerance, median |plain|."""
-        routed[kfa.route(q).__name__] += 1
+        to the plain version in float32 on the same inputs, and its run
+        with the log-sum-exp output (``k0 = 0``) to its run without,
+        bitwise, its ``lse`` to the plain version's (``LSE_RTOL``) -> max
+        abs err, worst error / tolerance, median |plain|."""
+        routed[kfa.route(q).__name__] += 2
         got = kfa.flash_attention(q, k, v, **kw)
+        got_l, lse = kfa.flash_attention(q, k, v, k0=0, lse=True, **kw)
+        check(torch.equal(got, got_l), what + ": the output with lse != "
+              "without")
         want = kfa.flash_attention_plain(q.float(), k.float(), v.float(),
                                          **kw)
+        _, want_lse = kfa.flash_attention_plain(
+            q.float(), k.float(), v.float(), lse=True, **kw)
+        ok, lerr = lse_close(lse, want_lse, q.dtype)
+        check(ok, what + f": lse != plain (relative {lerr:.3g})")
         check(got.dtype == q.dtype and got.shape == q.shape,
               what + ": dtype/shape")
         ok, err, ratio = kfa.flash_close(got, want)
@@ -793,47 +879,17 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
               f"tolerance)")
         return err, ratio, float(want.abs().median())
 
-    cases = [(True, 256, 256, 0), (True, 384, 384, 100), (True, 128, 128, 32),
-             (True, 130, 130, 0), (False, 130, 256, 0)]
     n = 0
-    # head dim 96 also at ragged Sq != Sk, causal and not
-    cases96 = [(True, 200, 300, 0), (False, 130, 200, 0)]
-    for causal, sq, sk, window in cases + cases96:
-        # (query blocks, KV blocks): MHA at head dims 64, 96 and 128, then
-        # grouped-query attention with g = 3 (llama3.2-3b's 24 / 8), 2 and,
-        # at head dim 96, 4
-        heads = [((4, 4), 96), ((4, 1), 96)]
-        if (causal, sq, sk, window) not in cases96:
-            heads += [((4, 4), 64), ((4, 4), 128), ((6, 2), 128),
-                      ((4, 2), 128), ((6, 2), 64)]
-        for (bh, bh_kv), d in heads:
-            for dtype in (torch.float32, torch.bfloat16):
-                q = torch.randn((bh, sq, d), generator=gen).to(dtype).to(dev)
-                k, v = (torch.randn((bh_kv, sk, d), generator=gen).to(dtype)
-                        .to(dev) for _ in range(2))
-                flash_case(f"flash {dtype} causal={causal} sq={sq} sk={sk} "
-                           f"window={window} d={d} g={bh // bh_kv}", q, k, v,
-                           scale=1.0 / math.sqrt(d), causal=causal,
-                           window=window)
-                n += 1
-    # head dims no config has, each run in the next instantiation up with
-    # zero columns (33: padded to 40 by the wrapper; 80 in 96, 160 in 192)
-    # or in its own (192, 256): causal with a window, non-causal at ragged
-    # Sq != Sk, and at 256 grouped-query attention with g = 2
-    for d in FLASH_PAD_DIMS:
-        pad_cases = [(True, 384, 384, 100, 4, 4), (False, 130, 200, 0, 4, 4)]
-        if d == 256:
-            pad_cases.append((True, 256, 256, 0, 4, 2))
-        for causal, sq, sk, window, bh, bh_kv in pad_cases:
-            for dtype in (torch.float32, torch.bfloat16):
-                q = torch.randn((bh, sq, d), generator=gen).to(dtype).to(dev)
-                k, v = (torch.randn((bh_kv, sk, d), generator=gen).to(dtype)
-                        .to(dev) for _ in range(2))
-                flash_case(f"flash {dtype} causal={causal} sq={sq} sk={sk} "
-                           f"window={window} d={d} g={bh // bh_kv}", q, k, v,
-                           scale=1.0 / math.sqrt(d), causal=causal,
-                           window=window)
-                n += 1
+    for causal, sq, sk, window, bh, bh_kv, d in flash_sweep():
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((bh, sq, d), generator=gen).to(dtype).to(dev)
+            k, v = (torch.randn((bh_kv, sk, d), generator=gen).to(dtype)
+                    .to(dev) for _ in range(2))
+            flash_case(f"flash {dtype} causal={causal} sq={sq} sk={sk} "
+                       f"window={window} d={d} g={bh // bh_kv}", q, k, v,
+                       scale=1.0 / math.sqrt(d), causal=causal,
+                       window=window)
+            n += 1
     bh, s_main, d_main = FLASH_MAIN
     kv_main = bh // GQA_MAIN            # the prefill's KV blocks
     fa_kw = dict(scale=1.0 / math.sqrt(d_main), causal=True, window=0)
@@ -849,10 +905,14 @@ def serving_phases(dev, timer, card, flat, B8, flat110):
             f32_main = (qm, km, vm)
     torch.cuda.synchronize()
     check(launches() == routed, f"flash sweep launches {launches()}, want "
-          f"{routed} (one per case on the route its dtype and head dim pick)")
+          f"{routed} (two per case on the route its dtype and head dim "
+          f"pick: without and with lse)")
     print(f"phase 7: flash kernels == plain version in {n} sweep cases "
           f"(float32 rtol=atol=2e-5; bfloat16 atol 0.03 and one bfloat16 "
-          f"ulp + the float32 tolerance) and at {list(FLASH_MAIN)} causal: "
+          f"ulp + the float32 tolerance), each run with lse (k0 = 0) == "
+          f"without bitwise and its lse == plain's (relative "
+          f"{LSE_RTOL[torch.float32]} float32, {LSE_RTOL[torch.bfloat16]} "
+          f"bfloat16) and at {list(FLASH_MAIN)} causal: "
           + ", ".join(f"{dt} with {kv} KV blocks max abs {e:.4g} ({r:.3g} x "
                       f"tolerance, median |plain| {m:.4g})"
                       for (dt, kv), (e, r, m) in main.items())
@@ -2594,7 +2654,8 @@ def tiered_phase(dev, card, model, batches, X_cpu):
 OBS_LAYOUTS = (("ring", None), ("ring", TRAIN_MASK), ("two_tier", None))
 OBS_ROUTES = (("bucketed", 1), ("bucketed", 5), ("per_leaf", 1))
 OBS_L2_RTOL = 1e-5
-OBS_TURNS = 4                  # in-turn repeats of each host-clock timing
+OBS_TURNS = 2                  # in-turn repeats of each host-clock timing
+OBS_ADPSGD_ITERS = 50          # AD-PSGD telemetry off and on, bitwise
 OBS_BAD_THETA = 0.05           # an undersized theta (tests/test_obs.py)
 
 
@@ -2883,40 +2944,40 @@ def obs_phase(dev, card, model, batches, X_cpu, trained):
     cfg = adpsgd.ADPSGDConfig(topo=ring(N_WORKERS),
                               codec=MoniquaCodec(spec8), theta=2.0,
                               max_delay=ADPSGD_DELAY, quantized=True)
-    sched = adpsgd.make_schedule(N_WORKERS, ADPSGD_ITERS, cfg, seed=0)
-    # one run each (a second pair only timed again, 4 x 200 iterations
-    # took 42 s of the phase on a slow host)
+    sched = adpsgd.make_schedule(N_WORKERS, OBS_ADPSGD_ITERS, cfg, seed=0)
+    # one run each, 50 iterations (4 x 200 iterations took 42 s of the
+    # phase on a slow host)
     ad, it_ms = {}, {}
     for tel in (False, True):
         calls[0] = 0
         zero()
         t1 = time.perf_counter()
-        res = adpsgd.run(x0, resnet_grad, 0.1, ADPSGD_ITERS,
+        res = adpsgd.run(x0, resnet_grad, 0.1, OBS_ADPSGD_ITERS,
                          dataclasses.replace(cfg, telemetry=tel),
                          schedule=sched)
         got = read()
         it_ms.setdefault(tel, []).append(
-            1e3 * (time.perf_counter() - t1) / ADPSGD_ITERS)
+            1e3 * (time.perf_counter() - t1) / OBS_ADPSGD_ITERS)
         add(counted, got)
         ad[tel] = (res, got)
     check(torch.equal(ad[False][0][0], ad[True][0][0]),
           "AD-PSGD telemetry on != off (X)")
     enc_off, enc_on = (ad[False][1]["moniqua_encode"],
                        ad[True][1]["moniqua_encode"])
-    check(enc_off == ADPSGD_ITERS and enc_on == 3 * ADPSGD_ITERS,
+    check(enc_off == OBS_ADPSGD_ITERS and enc_on == 3 * OBS_ADPSGD_ITERS,
           f"AD-PSGD encodes {enc_off} / {enc_on}")
     check(ad[True][1]["moniqua_decode"] == ad[False][1]["moniqua_decode"]
-          == 2 * ADPSGD_ITERS, "AD-PSGD point decodes")
+          == 2 * OBS_ADPSGD_ITERS, "AD-PSGD point decodes")
     htr = ad[True][0][2]
-    check(tuple(htr["consensus_inf"].shape) == (ADPSGD_ITERS,),
+    check(tuple(htr["consensus_inf"].shape) == (OBS_ADPSGD_ITERS,),
           "AD-PSGD health trace shape")
-    print(f"run adpsgd-moniqua telemetry=True ({ADPSGD_ITERS} iterations, "
+    print(f"run adpsgd-moniqua telemetry=True ({OBS_ADPSGD_ITERS} iterations, "
           f"deterministic cuDNN): X == telemetry-off bitwise; encodes "
           f"{enc_off} -> {enc_on} (two extra an iteration); edge alias "
           f"total {int(htr['alias_count'].sum())}, max consensus_inf "
           f"{float(htr['consensus_inf'].max()):.6g}", flush=True)
     print(f"time: AD-PSGD moniqua iteration (ResNet-20 gradient, mean of "
-          f"{ADPSGD_ITERS}), host clock, one run each: telemetry "
+          f"{OBS_ADPSGD_ITERS}), host clock, one run each: telemetry "
           f"off " + ", ".join(f"{v:.3f}" for v in it_ms[False]) + " ms | on "
           + ", ".join(f"{v:.3f}" for v in it_ms[True]) + f" ms {card}",
           flush=True)
@@ -4733,13 +4794,17 @@ FSDP_RANKS = 4                 # gloo ranks on the one card
 # (e)-(h) came: a forward's re-gathers cost ~4 s a layer, and (g)'s
 # expert leaves span 32 blocks of rows where (c)'s at 2 layers spanned 2)
 FSDP_SERVE_LAYERS, FSDP_TRAIN_LAYERS, FSDP_ROUND_LAYERS = 1, 1, 1
-# (b)'s steps (MESH_STEPS, 3, until PR 31); (h) takes MESH_STEPS
-FSDP_B_STEPS = 2
+# (b)'s and (h)'s steps (a step a rank takes 13-24 s)
+FSDP_B_STEPS = FSDP_H_STEPS = 2
 FSDP_KV_LAYERS = 2             # chatglm3-6b: depth 28 -> 2
 # (a): every decode token re-gathers a rank's 2.1 B parameters over data
 # through gloo and the host (5.5-8 s a token on one card): the prefill's
 # token and one decode step's, each step's logits against one process's
 FSDP_PROMPT, FSDP_GREEDY = 2048, 2
+# the decode cache's ring: the prompt and its tokens, rounded up to a
+# multiple of the model axes (2, 4): (d)'s 2 KV heads do not divide model
+# = 4, so its cache lies on the sequence dim, 1/4 of the slots a rank
+FSDP_SLOTS = FSDP_PROMPT + FSDP_RANKS
 FSDP_SEQ, FSDP_BATCH = 1024, 4  # (b): one worker, 4 x 1024 tokens a step
 FSDP_ROUND_N = 2               # (c): ring(2) over (b)'s leaves
 FSDP_TIMEOUT = 900             # seconds the four ranks may take together
@@ -4753,7 +4818,7 @@ FSDP_LOSS_RTOL = 1e-4
 # batch, which each run measures (on an H100: momentum 0.0124 and 0.254,
 # params change, a few bf16 ulps, 0.077 and 1.68)
 FSDP_STATE_RTOL = {"mom": 0.05, "dp": 0.3}
-# (e)-(h): the MoE family split: dbrx-132b served at 2 layers on (data=2,
+# (e)-(h): the MoE family split: dbrx-132b served at 1 layer on (data=2,
 # model=2) and its round, grok-1-314b at 1 layer on (data=1, model=4),
 # dbrx-132b trained at 1 layer with its experts' d_ff cut.  Published, 1
 # layer is 4.49 B parameters, ~85 GB in one process (~19 bytes a
@@ -4764,7 +4829,8 @@ FSDP_STATE_RTOL = {"mom": 0.05, "dp": 0.3}
 # ~1.0e-3 GiB a rank, so 8192 = 128 x 64 leaves each rank ~16.3 GiB
 # (qwen2-72b (b)'s take 15.92) and ~6 GiB of the card spare
 FSDP_MOE_ARCH, FSDP_GROK_ARCH = "dbrx-132b", "grok-1-314b"
-FSDP_MOE_LAYERS, FSDP_GROK_LAYERS, FSDP_MOE_TRAIN_LAYERS = 2, 1, 1
+# (e) and (g) at 1 layer (at 2: 32-34 s of (e), 19-23 s of (g))
+FSDP_MOE_LAYERS, FSDP_GROK_LAYERS, FSDP_MOE_TRAIN_LAYERS = 1, 1, 1
 FSDP_MOE_TRAIN_DFF = 8192
 # (h): the bf16 split routes 1-8% of the routings otherwise than one
 # process (a top-k near-tie moved by its summation order, counted in (e)
@@ -4808,13 +4874,14 @@ def fsdp_trainer_config(steps):
                          seed=0)
 
 
-def in_turns(rank: int, fn):
-    """``fn()`` on each rank of the default group in turn, the card's
-    memory emptied after each: a whole draw on one rank at a time."""
+def in_turns(rank: int, fn, group: int = 1):
+    """``fn()`` on the ranks of the default group in turns of ``group``
+    ranks, the card's memory emptied after each: a whole draw on
+    ``group`` ranks at a time."""
     import torch.distributed as dist
     out = None
-    for r in range(dist.get_world_size()):
-        if r == rank:
+    for r in range(0, dist.get_world_size(), group):
+        if r <= rank < r + group:
             out = fn()
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -4822,27 +4889,51 @@ def in_turns(rank: int, fn):
     return out
 
 
-def fsdp_serve(rank, model, mesh, rules, ref, launches, res, key):
-    """One rank's prefill and ``FSDP_GREEDY - 1`` decode steps of its rows
-    of the 2-row serving batch, fed one process's greedy tokens: the
-    weights drawn whole one rank at a time and cut to its shards; each
-    step's last-position logits against ``ref`` (one process's:
-    ``logits`` ``[FSDP_GREEDY, 2, 1, V]``, ``tokens`` ``[2,
-    FSDP_GREEDY]``)."""
+def warm_draw(dev) -> None:
+    """Start CUDA, cuBLAS and the init's kernels (the truncated normal's
+    uniform, erfinv and clamp, the bfloat16 cast) on every rank at once,
+    and load what the first ``meta`` init loads: ``erfinv_`` on ``meta``
+    runs a reference implementation that imports ``torch._dynamo`` (and
+    with it sympy and DTensor), 9.4-11.3 s a rank on the card's host with
+    16 ranks (``serve_step.serving_pspecs`` builds the params on ``meta``),
+    which the in-turn weight draws paid one group after another: phase
+    27's first draw took 39.5-49.4 s, the later ones 0.5-6.6 s."""
+    from repro_torch.models import layers as L
+    warm = torch.randn((1024, 1024), device=dev)
+    float((warm @ warm).sum())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    float(L.truncated_normal(gen, (1024, 1024), 0.02, torch.bfloat16)
+          .float().sum())
+    torch.empty(8, device="meta").uniform_(0, 1).erfinv_()
+    del warm
+
+
+def fsdp_serve(rank, model, mesh, rules, ref, launches, res, key,
+               prompt=FSDP_PROMPT, greedy=FSDP_GREEDY, rows_n=SERVE_BATCH,
+               slots=FSDP_SLOTS, group=1, phase=27, ring=None):
+    """One rank's prefill and ``greedy - 1`` decode steps of its rows of
+    the ``rows_n``-row serving batch of ``prompt`` tokens, fed one
+    process's greedy tokens, on a cache of ``slots``: the weights drawn
+    whole ``group`` ranks at a time and cut to its shards; each step's
+    last-position logits against ``ref`` (one process's, ``serve_ref``:
+    ``logits`` ``[greedy, rows_n, 1, V]``, ``tokens`` ``[rows_n,
+    greedy]``); the cache's bytes a rank.  ``ring = (slots, steps)``: then
+    also ``steps`` decode steps on a fresh ring of ``slots``, fed the
+    prompt's tokens, against ``ref["ring_logits"]`` (``ring_gaps``)."""
     from repro_torch.configs.base import InputShape
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.train import serve_step as SS
     t0 = time.perf_counter()
     P = in_turns(rank, lambda: SS.shard_serving_params(
-        model, model.init(model.generator(0)), mesh, rules))
+        model, model.init(model.generator(0)), mesh, rules), group)
     if rank == 0:
-        print(f"phase 27 rank 0: ({key}) weights drawn whole and cut, one "
-              f"rank at a time, in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        print(f"phase {phase} rank 0: ({key}) weights drawn whole and cut, "
+              f"{group} rank(s) at a time, in {time.perf_counter() - t0:.1f}"
+              f" s", flush=True)
     batch = SyntheticLMPipeline(model, InputShape(
-        "serve_prefill", FSDP_PROMPT, SERVE_BATCH, "prefill"), 1,
+        "serve_prefill", prompt, rows_n, "prefill"), 1,
         seed=1).global_batch(0)
-    lo, hi = SS.batch_rows(SERVE_BATCH, mesh, rules)
+    lo, hi = SS.batch_rows(rows_n, mesh, rules)
     rows = {k: v[lo:hi] for k, v in batch.items()}
     prefill = SS.make_prefill_step(model, mesh=mesh, rules=rules)
     moe = model.cfg.family == "moe"
@@ -4856,27 +4947,47 @@ def fsdp_serve(rank, model, mesh, rules, ref, launches, res, key):
         res[f"{key}_ttft_ms"] = 1e3 * (time.perf_counter() - t0)
         res[f"{key}_launches"] = launches.read()
         cache = SS.make_cache(model, hi - lo, InputShape(
-            "serve_decode", FSDP_PROMPT + FSDP_GREEDY, SERVE_BATCH,
-            "decode"), mesh=mesh, rules=rules)
+            "serve_decode", slots, rows_n, "decode"), mesh=mesh,
+            rules=rules)
         serve = SS.make_serve_step(model, mesh=mesh, rules=rules)
         res[f"{key}_cache_k"] = list(cache["layers"]["k"].shape)
+        res[f"{key}_cache_bytes"] = sum(
+            a.numel() * a.element_size() for a in cache["layers"].values())
         toks = ref["tokens"][lo:hi].to(steps[0].device)
+        launches.zero()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for s in range(FSDP_GREEDY - 1):
+        for s in range(greedy - 1):
             out, cache = serve(P, cache, toks[:, s:s + 1])
             steps.append(out)
         torch.cuda.synchronize()
         res[f"{key}_token_ms"] = 1e3 * (time.perf_counter() - t0) / (
-            FSDP_GREEDY - 1)
+            greedy - 1)
+        res[f"{key}_decode_launches"] = launches.read()
+    if ring is not None:
+        rslots, rsteps = ring
+        rcache = SS.make_cache(model, hi - lo, InputShape(
+            "serve_decode", rslots, rows_n, "decode"), mesh=mesh,
+            rules=rules)
+        rtoks = rows["tokens"].to(steps[0].device)
+        gaps = []
+        for s in range(rsteps):
+            lg, rcache = serve(P, rcache, rtoks[:, s:s + 1])
+            want = ref["ring_logits"][s][lo:hi].to(lg.device)
+            check(bool(torch.isfinite(lg).all()), f"phase {phase} {key} "
+                  f"ring step {s} logits")
+            gaps.append(float((lg - want).abs().max() / want.abs().max()))
+        res[f"{key}_ring_gaps"] = gaps
+        res[f"{key}_ring_k"] = list(rcache["layers"]["k"].shape)
+        del rcache
     if moe:
         res[f"{key}_rerouted"] = rerouted(routes.seen, ref["routes"], lo, hi)
-    check(int(cache["pos"]) == FSDP_GREEDY - 1, f"phase 27 {key} decode")
+    check(int(cache["pos"]) == greedy - 1, f"phase {phase} {key} decode")
     V = model.cfg.vocab_size
     res[f"{key}_gaps"], tokens = [], []
     for s, lg in enumerate(steps):
-        check(bool(torch.isfinite(lg).all()), f"phase 27 {key} step {s} "
-              f"logits")
+        check(bool(torch.isfinite(lg).all()), f"phase {phase} {key} step "
+              f"{s} logits")
         want = ref["logits"][s][lo:hi].to(lg.device)
         res[f"{key}_gaps"].append(float((lg - want).abs().max()
                                         / want.abs().max()))
@@ -4916,7 +5027,8 @@ def block_encode_check(dev) -> int:
     return n
 
 
-def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c"):
+def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c", group=1,
+                phase=27):
     """(c): the Moniqua round of each leaf of qwen2-72b at
     ``FSDP_ROUND_LAYERS`` (``cfg`` another config: (g)'s dbrx-132b, whose
     expert leaves split on two dims past their layer and expert dims
@@ -4925,7 +5037,8 @@ def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c"):
     tensor-parallel shard, ``torch.equal`` to the same cut of one
     process's round of the whole leaf (each rank computes that in turn);
     the split rounds' encode and decode-reduce launches, under ``res``
-    keys prefixed ``g_`` for (g)."""
+    keys prefixed ``KEY_`` for another ``key`` than (c); the one-process
+    rounds ``group`` ranks at a time."""
     from repro_torch import tree
     from repro_torch.comm import fsdp
     from repro_torch.comm import tensor_parallel as TP
@@ -4944,6 +5057,8 @@ def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c"):
                                          stacked=True))
     shapes = [tuple(a.shape) for a in tree.leaves(TS.abstract_params(model))]
     dtype = torch.bfloat16
+    shape_of = mesh_shape_dict(mesh)
+    m_n, d_n = shape_of["model"], shape_of["data"]
     r_m, r_d = (int(mesh.get_local_rank("model")),
                 int(mesh.get_local_rank("data")))
     n_enc = n_dr = 0
@@ -4957,8 +5072,8 @@ def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c"):
         seed = 0x5EED27 + i
 
         def cut(a):
-            return TP.shard(TP.shard(a, md, r_m, 2), dd, r_d,
-                            2).contiguous().clone()
+            return TP.shard(TP.shard(a, md, r_m, m_n), dd, r_d,
+                            d_n).contiguous().clone()
 
         def one_process():
             # the leaf drawn whole once for both rounds, one rank at a time
@@ -4967,7 +5082,7 @@ def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c"):
                                 device=model.dev, dtype=dtype)
             return cut(whole), [cut(hp.engine().mix(
                 (whole,), theta=2.0, seed=seed).x[0]) for _, hp in hps]
-        x, wants = in_turns(rank, one_process)
+        x, wants = in_turns(rank, one_process, group)
         for (bits, hp), want in zip(hps, wants):
             e0, d0 = kenc.encode.launches, kdr.decode_reduce.launches
             torch.cuda.synchronize()
@@ -4978,7 +5093,7 @@ def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c"):
             secs += time.perf_counter() - t0
             n_enc += kenc.encode.launches - e0
             n_dr += kdr.decode_reduce.launches - d0
-            check(torch.equal(got, want), f"phase 27 ({key}) rank {rank}: "
+            check(torch.equal(got, want), f"phase {phase} ({key}) rank {rank}: "
                   f"leaf {i} {list(shape)} at {bits} bits != one process's "
                   f"round, cut alike")
             del got
@@ -5025,13 +5140,11 @@ def fsdp_child(rank: int, store_path: str, out_dir: str) -> int:
     res = {"rank": rank}
     launches = Launches()
     refs = torch.load(os.path.join(out_dir, "refs.pt"))
-    # every rank starts its CUDA context, allocator, generator and cuBLAS
-    # here, all at once: the first weights are drawn one rank at a time,
-    # and with each rank starting CUDA in its turn that draw took 49.4 s
+    # every rank starts its CUDA context, allocator, generator, cuBLAS and
+    # the init's kernels here, all at once: the first weights are drawn
+    # one rank at a time
     from repro_torch.device import resolve_device
-    warm = torch.randn((1024, 1024), device=resolve_device("cuda"))
-    float((warm @ warm).sum())
-    del warm
+    warm_draw(resolve_device("cuda"))
     try:
         # gloo groups (the ranks share the card): the meshes' device type
         # is the CPU, the tensors the card's
@@ -5096,7 +5209,7 @@ def fsdp_child(rank: int, store_path: str, out_dir: str) -> int:
         done("g")
         # -- (h) dbrx-132b trained -----------------------------------------
         tr = Trainer(Model(moe_train_config(), "cuda"),
-                     fsdp_trainer_config(MESH_STEPS),
+                     fsdp_trainer_config(FSDP_H_STEPS),
                      InputShape("lm_train", FSDP_SEQ, FSDP_BATCH, "train"),
                      mesh=mesh, rules=rules)
         state = in_turns(rank, tr.init_state)
@@ -5129,7 +5242,7 @@ def fsdp_train_one(batch, dev, ref=None, cfg=None, keep=True):
     from repro_torch.models.model_factory import Model
     from repro_torch.train.trainer import Trainer
     tr = Trainer(Model(cfg or fsdp_config(FSDP_TRAIN_LAYERS), "cuda"),
-                 fsdp_trainer_config(MESH_STEPS if cfg else FSDP_B_STEPS),
+                 fsdp_trainer_config(FSDP_H_STEPS if cfg else FSDP_B_STEPS),
                  InputShape("lm_train", FSDP_SEQ, batch, "train"))
     state = tr.init_state()
     keep = keep and ref is None
@@ -5178,6 +5291,58 @@ def state_gaps(got, ref, dev, cut=None):
     return {"mom": mom, "dp": dp}
 
 
+def serve_ref(cfg, prompt=FSDP_PROMPT, greedy=FSDP_GREEDY,
+              rows_n=SERVE_BATCH, slots=FSDP_SLOTS, ring=None):
+    """One process's serving of ``cfg`` (the weights drawn from seed 0):
+    the prefill of ``rows_n`` x ``prompt`` tokens and ``greedy - 1``
+    decode steps from an empty cache of ``slots``, each fed the previous
+    greedy token -> ``{"logits": [greedy, rows_n, 1, V], "tokens":
+    [rows_n, greedy]}`` on the host (and the MoE family's routings).
+    ``ring = (slots, steps)``: also ``ring_logits [steps, rows_n, 1, V]``,
+    ``steps`` decode steps on a fresh ring of ``slots`` fed the prompt's
+    tokens."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train import serve_step as SS
+    model = Model(cfg, "cuda")
+    V = cfg.vocab_size
+    P = model.init(model.generator(0))
+    batch = SyntheticLMPipeline(model, InputShape(
+        "serve_prefill", prompt, rows_n, "prefill"), 1,
+        seed=1).global_batch(0)
+    moe = cfg.family == "moe"
+    with (RouteRecorder() if moe else contextlib.nullcontext()) as rec:
+        logits = [SS.make_prefill_step(model)(P, batch)]
+        toks = [logits[0][:, -1, :V].argmax(-1, keepdim=True).int()]
+        cache = SS.make_cache(model, rows_n, InputShape(
+            "serve_decode", slots, rows_n, "decode"))
+        serve = SS.make_serve_step(model)
+        for _ in range(greedy - 1):
+            lg, cache = serve(P, cache, toks[-1])
+            logits.append(lg)
+            toks.append(lg[:, -1, :V].argmax(-1, keepdim=True).int())
+    ring_logits = []
+    if ring is not None:
+        rcache = SS.make_cache(model, rows_n, InputShape(
+            "serve_decode", ring[0], rows_n, "decode"))
+        for s in range(ring[1]):
+            lg, rcache = serve(P, rcache, batch["tokens"][:, s:s + 1])
+            ring_logits.append(lg.cpu())
+        del rcache
+    ref = {"logits": torch.stack([x.cpu() for x in logits]),
+           "tokens": torch.cat(toks, 1).cpu(),
+           "cache_bytes": sum(a.numel() * a.element_size()
+                              for a in cache["layers"].values())}
+    if moe:
+        ref["routes"] = [t.cpu() for t in rec.seen]
+    if ring is not None:
+        ref["ring_logits"] = torch.stack(ring_logits)
+    del P, batch, model, cache, logits, toks, rec
+    torch.cuda.empty_cache()
+    return ref
+
+
 def fsdp_phase(dev, card):
     """Phase 27: FSDP weights over ``data`` under the hierarchical rules
     and replicated-KV GQA over ``model``, four gloo ranks on the one card
@@ -5217,36 +5382,11 @@ def fsdp_phase(dev, card):
     half_gaps = fsdp_train_one(FSDP_BATCH // 2, dev, one)["gaps"]
     one_h = fsdp_train_one(FSDP_BATCH, dev, cfg=moe_train_config(),
                            keep=False)
-    refs = {}
-    for key, cfg in (("a", fsdp_config(FSDP_SERVE_LAYERS)),
-                     ("d", lm_config(FSDP_KV_ARCH, layers=FSDP_KV_LAYERS)),
-                     ("e", lm_config(FSDP_MOE_ARCH, layers=FSDP_MOE_LAYERS)),
-                     ("f", lm_config(FSDP_GROK_ARCH,
-                                     layers=FSDP_GROK_LAYERS))):
-        model = Model(cfg, "cuda")
-        V = cfg.vocab_size
-        P = model.init(model.generator(0))
-        batch = SyntheticLMPipeline(model, InputShape(
-            "serve_prefill", FSDP_PROMPT, SERVE_BATCH, "prefill"), 1,
-            seed=1).global_batch(0)
-        moe = cfg.family == "moe"
-        with (RouteRecorder() if moe else contextlib.nullcontext()) as rec:
-            logits = [SS.make_prefill_step(model)(P, batch)]
-            toks = [logits[0][:, -1, :V].argmax(-1, keepdim=True).int()]
-            cache = SS.make_cache(model, SERVE_BATCH, InputShape(
-                "serve_decode", FSDP_PROMPT + FSDP_GREEDY, SERVE_BATCH,
-                "decode"))
-            serve = SS.make_serve_step(model)
-            for _ in range(FSDP_GREEDY - 1):
-                lg, cache = serve(P, cache, toks[-1])
-                logits.append(lg)
-                toks.append(lg[:, -1, :V].argmax(-1, keepdim=True).int())
-        refs[key] = {"logits": torch.stack([x.cpu() for x in logits]),
-                     "tokens": torch.cat(toks, 1).cpu()}
-        if moe:
-            refs[key]["routes"] = [t.cpu() for t in rec.seen]
-        del P, batch, model, cache, logits, toks, rec
-        torch.cuda.empty_cache()
+    refs = {key: serve_ref(cfg) for key, cfg in (
+        ("a", fsdp_config(FSDP_SERVE_LAYERS)),
+        ("d", lm_config(FSDP_KV_ARCH, layers=FSDP_KV_LAYERS)),
+        ("e", lm_config(FSDP_MOE_ARCH, layers=FSDP_MOE_LAYERS)),
+        ("f", lm_config(FSDP_GROK_ARCH, layers=FSDP_GROK_LAYERS)))}
     torch.save(refs, os.path.join(out_dir, "refs.pt"))
     t_one = time.perf_counter() - t_phase
     print(f"phase 27: one process's references in {t_one:.1f} s",
@@ -5295,7 +5435,7 @@ def fsdp_phase(dev, card):
               f"{FSDP_TRAIN_LAYERS} bf16 flash a step and no gossip (one "
               f"worker)")
         trh = x["h_train_launches"]
-        check(trh["flash_attention_tc"] == MESH_STEPS * FSDP_MOE_TRAIN_LAYERS
+        check(trh["flash_attention_tc"] == FSDP_H_STEPS * FSDP_MOE_TRAIN_LAYERS
               and trh["moniqua_encode"] == 0
               and trh["moniqua_decode_reduce"] == 0,
               f"phase 27 (h) rank {r}: training launches {trh}, want "
@@ -5383,11 +5523,25 @@ def fsdp_phase(dev, card):
           f"a rank; greedy tokens a step, equal over model: "
           f"{[x['a_tokens'] for x in res if x['coords'][1] == 0]} (one "
           f"process {refs['a']['tokens'].T.tolist()})", flush=True)
+    # (d)'s 2 KV heads do not divide model = 4: a rank holds every KV
+    # head over a quarter of the ring (the kv_seq cache its specs name),
+    # where it held the whole ring before
+    d_bytes = [x["d_cache_bytes"] for x in res]
+    check(all(4 * b == refs["d"]["cache_bytes"] for b in d_bytes),
+          f"phase 27 (d): a rank's cache {d_bytes} bytes, want a quarter "
+          f"of the whole ring's {refs['d']['cache_bytes']}")
+    check(all(x["d_tokens"] == refs["d"]["tokens"].T.tolist()
+              for x in res),
+          f"phase 27 (d): greedy tokens {res[0]['d_tokens']} != one "
+          f"process's {refs['d']['tokens'].T.tolist()}")
     print(f"phase 27 (d): {FSDP_KV_ARCH} ({FSDP_KV_LAYERS} layers, bf16, 32 "
           f"heads, 2 KV heads replicated) on (data=1, model=4): split vs "
           f"one process {[[round(g, 5) for g in x['d_gaps']] for x in res]}"
-          f" x max|logit|; cache k {res[0]['d_cache_k']} a rank; greedy "
-          f"tokens {res[0]['d_tokens']} (one process "
+          f" x max|logit|; cache k {res[0]['d_cache_k']} a rank (the "
+          f"kv_seq cache: every KV head over {FSDP_SLOTS} / 4 slots), "
+          f"{d_bytes[0]} bytes a rank against the whole ring's "
+          f"{refs['d']['cache_bytes']} (what each rank held before); "
+          f"greedy tokens {res[0]['d_tokens']} (one process "
           f"{refs['d']['tokens'].T.tolist()})", flush=True)
     for key, arch, layers, shape in (
             ("e", FSDP_MOE_ARCH, FSDP_MOE_LAYERS, "(data=2, model=2)"),
@@ -5462,6 +5616,400 @@ def fsdp_phase(dev, card):
           f"({t_one:.1f} s of one process, {t_ranks:.1f} s of ranks); "
           f"launches on its paths {counted} {card}", flush=True)
     return counted
+
+
+# -- phase 28: context-parallel attention over model ---------------------------
+
+CP_SHARES = 16                 # (a): the keys of [48, 4096, 128] in 16 shares
+CP_WINDOW = 1000               # (a)'s windowed case
+CP_RANKS = 16                  # (b): gloo ranks on the one card, (data=1,
+                               # model=16): llama3.2-3b's 24 heads do not
+                               # divide 16, its d_ff and padded vocab do
+CP_LAYERS = 1                  # llama3.2-3b: depth 28 -> 1, widths published
+CP_PROMPT, CP_GREEDY = 1024, 5  # a 1 x 1024 prefill, its token and 4 decoded
+CP_SLOTS = 1040                # the decode ring: >= 1029, a multiple of 16
+CP_RING = (16, 20)             # a ring of 16 slots (1 a rank), 20 steps: past
+                               # each rank's slot and the ring's end
+CP_SEQ, CP_BATCH = 1024, 1     # one training step, one worker
+CP_GROUP = 4                   # ranks that draw the whole weights at once
+CP_TIMEOUT = 600               # seconds the 16 ranks may take together
+
+
+def cp_kernels(dev, timer, card):
+    """Phase 28 (a): both flash kernels at llama3.2-3b's serving attention
+    ``[48, 4096, 128]`` (16 KV blocks, group 3), float32 and bfloat16, the
+    keys cut into ``CP_SHARES`` shares: each share's ``(out, lse)`` at its
+    ``k0`` against the plain version (``flash_close``; ``lse_close``), their
+    merge against the whole kernel's output (``flash_close``, in bfloat16
+    plus one bfloat16 rounding of each share's output, weighted), the
+    merged ``lse`` against the whole one's; a share whose rows are all
+    masked (0 and ``-inf``), and the same with a window of ``CP_WINDOW``.
+    Then each kernel's time with ``lse`` off and on at the whole shape and
+    at the heaviest share, beside SDPA and the bound.  Returns the records
+    for the kernels line, by kernel."""
+    from repro_torch.comm import tensor_parallel as TP
+    from repro_torch.kernels import cost
+    from repro_torch.kernels import flash_attention as kfa
+    t0 = time.perf_counter()
+    bh, s, d = FLASH_MAIN
+    hk = bh // GQA_MAIN
+    n = s // CP_SHARES
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(28)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((bh, s, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        fn = kfa.route(q)
+        name = fn.__name__
+        worst = {"out": 0.0, "ratio": 0.0, "lse": 0.0, "merge": 0.0}
+        for window in (0, CP_WINDOW):
+            kw = dict(scale=1.0 / math.sqrt(d), causal=True, window=window)
+            whole, lse_w = fn(q, k, v, lse=True, **kw)
+            outs, lses = [], []
+            for r in range(CP_SHARES):
+                k0 = r * n
+                ks, vs = (t[:, k0:k0 + n].contiguous() for t in (k, v))
+                o, lse = fn(q, ks, vs, k0=k0, lse=True, **kw)
+                po, pl = kfa.flash_attention_plain(
+                    q.float(), ks.float(), vs.float(), k0=k0, lse=True, **kw)
+                ok, err, ratio = kfa.flash_close(o, po)
+                check(ok, f"phase 28 (a) {name} window {window} share {r}: "
+                      f"out != plain (max abs {err:.3g}, {ratio:.3g} x "
+                      f"tolerance)")
+                ok, lerr = lse_close(lse, pl, dtype)
+                check(ok, f"phase 28 (a) {name} window {window} share {r}:"
+                      f" lse != plain (relative {lerr:.3g})")
+                worst["out"] = max(worst["out"], err)
+                worst["ratio"] = max(worst["ratio"], ratio)
+                worst["lse"] = max(worst["lse"], lerr)
+                outs.append(o)
+                lses.append(lse)
+                del po, pl
+            L = torch.stack(lses)
+            merged, lse_m, _ = TP.merge_shares(
+                torch.stack(outs), L, lambda t: t.amax(0),
+                lambda t: t.sum(0))
+            # each share's weight in the merge, exp(lse_r - lse)
+            w = torch.where(torch.isfinite(L), torch.exp(L - lse_m), 0.0)
+            want = whole.float()
+            err = (merged.float() - want).abs()
+            tol = 2e-5 * (1 + want.abs())
+            if dtype == torch.bfloat16:
+                # each share's output is one bf16 rounding, the merge
+                # another; the whole kernel's one
+                tol = tol + kfa.bf16_ulp(want) + sum(
+                    wr[..., None] * kfa.bf16_ulp(o.float())
+                    for wr, o in zip(w, outs))
+            check(bool((err <= tol).all()), f"phase 28 (a) {name} window "
+                  f"{window}: the merge of {CP_SHARES} shares != the whole "
+                  f"kernel (max abs {float(err.max()):.3g}, "
+                  f"{float((err / tol).max()):.3g} x tolerance)")
+            ok, lerr = lse_close(lse_m, lse_w, dtype)
+            check(ok, f"phase 28 (a) {name} window {window}: merged lse != "
+                  f"the whole kernel's (relative {lerr:.3g})")
+            worst["merge"] = max(worst["merge"], float(err.max()))
+            del outs, lses, L, merged, lse_m, w, whole, lse_w, err, tol
+        # a share whose rows are all masked: the first n query rows
+        # (positions 0..n-1) against the last share's keys
+        o, lse = fn(q[:, :n].contiguous(), k[:, s - n:].contiguous(),
+                    v[:, s - n:].contiguous(), k0=s - n, lse=True,
+                    scale=1.0 / math.sqrt(d))
+        check(bool((o == 0).all()) and bool((lse == -math.inf).all()),
+              f"phase 28 (a) {name}: an all-masked share gave out != 0 or "
+              f"lse != -inf")
+        # times: lse off and on, the whole shape and the heaviest share,
+        # share 0 (keys 0..n-1 at k0 0: every row past n - 1 reads all n)
+        kw = dict(scale=1.0 / math.sqrt(d), causal=True)
+        ks, vs = k[:, :n].contiguous(), v[:, :n].contiguous()
+        bf16 = dtype == torch.bfloat16
+        peak = BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S / 3
+        times = {}
+        for what, kk, vv in (("whole", k, v), ("share", ks, vs)):
+            pairs = cost.attended_pairs(s, kk.shape[1], True, 0, 0)
+            flops = 4 * d * bh * pairs
+            nbytes = (2 * bh * s + 2 * hk * kk.shape[1]) * d * q.element_size()
+            by_bytes = (nbytes + 4 * bh * s) / HBM_BYTES_PER_S
+            by_ops = flops / peak
+            times[what] = dict(
+                ms=timer(lambda: fn(q, kk, vv, **kw), reps=20, warmup=2),
+                lse_ms=timer(lambda: fn(q, kk, vv, lse=True, **kw),
+                             reps=20, warmup=2),
+                bound_ms=1e3 * max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes > by_ops else "operations")
+        times["whole"]["library_ms"] = timer(
+            lambda: sdpa(q[None], k[None], v[None], is_causal=True,
+                         enable_gqa=True), reps=20, warmup=2)
+        times["whole"]["plain_ms"] = timer(
+            lambda: kfa.flash_attention_plain(q, k, v, lse=True, **kw),
+            reps=3, warmup=1)
+        times["share"]["plain_ms"] = timer(
+            lambda: kfa.flash_attention_plain(q, ks, vs, lse=True, **kw),
+            reps=5, warmup=1)
+        for what, t in times.items():
+            tf32 = t["bound_by"] == "operations" and not bf16
+            print(f"time: phase 28 (a) {name} {list(FLASH_MAIN)} {dtype} "
+                  f"causal, {hk} KV blocks, {what} "
+                  f"{'' if what == 'whole' else f'(keys 0..{n - 1}) '}"
+                  f"lse off {t['ms']:.4f} ms, on {t['lse_ms']:.4f} ms (the "
+                  f"lse store {t['lse_ms'] - t['ms']:+.4f} ms) | plain "
+                  f"{t['plain_ms']:.3f} ms"
+                  + (f" | scaled_dot_product_attention (enable_gqa) "
+                     f"{t['library_ms']:.4f} ms" if "library_ms" in t
+                     else "")
+                  + f" | bound {t['bound_ms']:.4f} ms ({t['bound_by']}"
+                  f"{' x3 at the TF32 peak' if tf32 else ''}) {card}",
+                  flush=True)
+        rec[name] = dict(shares=CP_SHARES, max_abs_err=worst["out"],
+                         tolerance_ratio=worst["ratio"],
+                         lse_rel_err=worst["lse"],
+                         merge_max_abs_err=worst["merge"], **{
+                             f"{what}_{k_}": v_ for what, t in times.items()
+                             for k_, v_ in t.items()})
+        print(f"phase 28 (a): {name} {list(FLASH_MAIN)} {dtype}, {hk} KV "
+              f"blocks, causal and window {CP_WINDOW}: {CP_SHARES} shares "
+              f"at their k0 == plain (max abs {worst['out']:.4g}, "
+              f"{worst['ratio']:.3g} x tolerance; lse relative "
+              f"{worst['lse']:.3g}); their merge == the whole kernel (max "
+              f"abs {worst['merge']:.4g}); an all-masked share 0 and -inf",
+              flush=True)
+        del q, k, v, ks, vs, o, lse
+        torch.cuda.empty_cache()
+    print(f"phase 28 (a) took {time.perf_counter() - t0:.1f} s", flush=True)
+    return rec
+
+
+def cp_child(rank: int, store_path: str, out_dir: str) -> int:
+    """One rank of phase 28 (b) (``chip_smoke.py --cp-rank RANK STORE
+    DIR``): a gloo group of ``CP_RANKS`` ranks on the one card, the mesh
+    ``(data=1, model=16)``, the decentralized rules: llama3.2-3b at
+    published widths, ``CP_LAYERS`` layer, bfloat16, its 24 heads run
+    context-parallel.  (s) a 1 x ``CP_PROMPT`` prefill and ``CP_GREEDY -
+    1`` decode steps fed one process's tokens (``fsdp_serve``); (t) one
+    Moniqua 8-bit training step of one worker through ``Trainer(mesh=,
+    rules=)``; (r) the Moniqua round of each leaf on ring(2) at 8 and 1
+    bits on this rank's shard, ``torch.equal`` to one process's cut alike
+    (``fsdp_rounds``).  Writes ``rank<R>.json``."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.base import InputShape
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model_factory import Model
+    from repro_torch.models.sharding import ShardingRules
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path,
+                                                         CP_RANKS),
+                            rank=rank, world_size=CP_RANKS,
+                            timeout=datetime.timedelta(seconds=300))
+    # seconds since this process started: where a rank's start goes
+    res = {"rank": rank, "clock": {"group": time.perf_counter() - T_START}}
+    launches = Launches()
+    refs = torch.load(os.path.join(out_dir, "refs.pt"))
+    warm_draw(resolve_device("cuda"))
+    res["clock"]["warm"] = time.perf_counter() - T_START
+    dist.barrier()
+    res["clock"]["every_rank"] = time.perf_counter() - T_START
+    try:
+        mesh = make_host_mesh(data=1, model=CP_RANKS, device_type="cpu")
+        rules = ShardingRules("decentralized")
+        cfg = lm_config(SERVE_ARCH, layers=CP_LAYERS)
+        t0 = time.perf_counter()
+
+        def done(part):
+            res[f"{part}_s"] = time.perf_counter() - t0
+            if rank == 0:
+                print(f"phase 28 rank 0: ({part}) done at "
+                      f"{res[part + '_s']:.1f} s", flush=True)
+        # -- (s) serving -------------------------------------------------
+        fsdp_serve(rank, Model(cfg, "cuda"), mesh, rules, refs["s"],
+                   launches, res, "s", prompt=CP_PROMPT, greedy=CP_GREEDY,
+                   rows_n=1, slots=CP_SLOTS, group=CP_GROUP, phase=28,
+                   ring=CP_RING)
+        done("s")
+        # -- (t) one training step ---------------------------------------
+        tr = Trainer(Model(cfg, "cuda"), fsdp_trainer_config(1),
+                     InputShape("lm_train", CP_SEQ, CP_BATCH, "train"),
+                     mesh=mesh, rules=rules)
+        state = in_turns(rank, tr.init_state, CP_GROUP)
+        torch.cuda.reset_peak_memory_stats()
+        launches.zero()
+        out = tr.run(state)
+        res["train_launches"] = launches.read()
+        res["peak"] = torch.cuda.max_memory_allocated()
+        res["step_ms"] = 1e3 * out["history"][-1]["wall"]
+        res["losses"] = [h["loss"] for h in out["history"]]
+        res["bytes_per_step"] = out["bytes_per_step"]
+        del out, state, tr
+        torch.cuda.empty_cache()
+        done("t")
+        # -- (r) the Moniqua round on the shards -------------------------
+        fsdp_rounds(rank, mesh, rules, res, cfg=cfg, key="r",
+                    group=CP_GROUP, phase=28)
+        done("r")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def cp_phase(dev, timer, card):
+    """Phase 28: context-parallel attention over ``model`` (the
+    reference's ``kv_seq``).  (a) the kernels' shares and merge
+    (``cp_kernels``); (b) llama3.2-3b at published widths, ``CP_LAYERS``
+    layer, on ``(data=1, model=16)`` in ``CP_RANKS`` gloo processes on the
+    card (``cp_child``), against one process first: the prefill's and
+    each decode step's last-position logits within ``BF16_GAP_BOUND`` x
+    max|logit|, the greedy tokens equal to one process's on every rank,
+    one flash launch a rank in the prefill (its share of the keys, at its
+    offset, with ``lse``) and none in decode (the plain masked softmax on
+    its slots); the training step's loss within ``FSDP_LOSS_RTOL`` of one
+    process's and equal on every rank, one flash launch a rank; each
+    leaf's round bitwise one process's cut alike, one encode and one
+    decode-reduce a leaf a round; a rank's decode cache every KV head over
+    ``CP_SLOTS / 16`` slots.  Returns the kernels-line records of (a) and
+    the ranks' launches by kernels-line entry."""
+    import shutil
+    from repro_torch.models.model_factory import Model
+    from repro_torch.configs.base import InputShape
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    rec = cp_kernels(dev, timer, card)
+    out_dir = os.path.join(ROOT, "build", "cp28")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    # -- one process ------------------------------------------------------
+    t0 = time.perf_counter()
+    cfg = lm_config(SERVE_ARCH, layers=CP_LAYERS)
+    refs = {"s": serve_ref(cfg, CP_PROMPT, CP_GREEDY, 1, CP_SLOTS,
+                           ring=CP_RING)}
+    tr = Trainer(Model(cfg, "cuda"), fsdp_trainer_config(1),
+                 InputShape("lm_train", CP_SEQ, CP_BATCH, "train"))
+    out = tr.run()
+    one = {"losses": [h["loss"] for h in out["history"]],
+           "bytes": out["bytes_per_step"]}
+    del out, tr
+    torch.cuda.empty_cache()
+    torch.save(refs, os.path.join(out_dir, "refs.pt"))
+    t_one = time.perf_counter() - t0
+    print(f"phase 28 (b): one process's references in {t_one:.1f} s",
+          flush=True)
+    # -- the ranks ----------------------------------------------------------
+    store = os.path.join(out_dir, "store")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--cp-rank", str(r), store, out_dir])
+             for r in range(CP_RANKS)]
+    deadline = time.monotonic() + CP_TIMEOUT
+    try:
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_ranks = time.perf_counter() - t0
+    check(rcs == [0] * CP_RANKS, f"phase 28 (b): the ranks exited {rcs}")
+    res = []
+    for r in range(CP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    counted = {}
+    n_leaves = res[0]["r_round_leaves"]
+    ref_tokens = refs["s"]["tokens"].T.tolist()
+    for r, x in enumerate(res):
+        pre, dec, trn = (x["s_launches"], x["s_decode_launches"],
+                         x["train_launches"])
+        check(pre["flash_attention_tc"] == CP_LAYERS
+              and pre["flash_attention_f32tc"] == 0,
+              f"phase 28 (b) rank {r}: prefill launches {pre}")
+        check(not any(dec.values()), f"phase 28 (b) rank {r}: decode "
+              f"launches {dec}, want none (the plain softmax on its slots)")
+        check(trn["flash_attention_tc"] == CP_LAYERS
+              and trn["moniqua_encode"] == 0
+              and trn["moniqua_decode_reduce"] == 0,
+              f"phase 28 (b) rank {r}: training launches {trn}, want "
+              f"{CP_LAYERS} bf16 flash and no gossip (one worker)")
+        check(x["r_round_launches"] == {"moniqua_encode": 2 * n_leaves,
+                                        "moniqua_decode_reduce":
+                                        2 * n_leaves},
+              f"phase 28 (b) rank {r}: round launches "
+              f"{x['r_round_launches']}")
+        check(max(x["s_gaps"]) <= BF16_GAP_BOUND,
+              f"phase 28 (b) rank {r}: split vs one-process logits "
+              f"{x['s_gaps']} x max|logit| > {BF16_GAP_BOUND}")
+        check(max(x["s_ring_gaps"]) <= BF16_GAP_BOUND,
+              f"phase 28 (b) rank {r}: {CP_RING[1]} steps on a ring of "
+              f"{CP_RING[0]} slots vs one process's: {x['s_ring_gaps']} x "
+              f"max|logit| > {BF16_GAP_BOUND}")
+        check(x["s_tokens"] == ref_tokens, f"phase 28 (b) rank {r}: greedy "
+              f"tokens {x['s_tokens']} != one process's {ref_tokens}")
+        check(CP_RANKS * x["s_cache_bytes"] == refs["s"]["cache_bytes"],
+              f"phase 28 (b) rank {r}: cache {x['s_cache_bytes']} bytes, "
+              f"want 1/{CP_RANKS} of {refs['s']['cache_bytes']}")
+        check(x["losses"] == res[0]["losses"]
+              and x["bytes_per_step"] == res[0]["bytes_per_step"],
+              f"phase 28 (b): rank {r}'s loss or bytes != rank 0's")
+        for k in Launches.KEYS:
+            counted[k] = counted.get(k, 0) + pre[k] + trn[k] + \
+                x["r_round_launches"].get(k, 0)
+    losses = res[0]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+    check(all(map(math.isfinite, losses)) and max(gaps) <= FSDP_LOSS_RTOL,
+          f"phase 28 (b): losses {losses} vs one process's "
+          f"{one['losses']} (rtol {FSDP_LOSS_RTOL})")
+    print(f"phase 28 (b): {SERVE_ARCH} ({CP_LAYERS} layer, bf16, "
+          f"{cfg.num_heads} heads context-parallel over model = "
+          f"{CP_RANKS}, its {cfg.num_kv_heads} KV heads' cache on the "
+          f"sequence) on (data=1, model={CP_RANKS}): split vs one "
+          f"process {[round(g, 5) for g in res[0]['s_gaps']]} x max|logit| "
+          f"(rank 0; worst rank "
+          f"{max(max(x['s_gaps']) for x in res):.5f}; the prefill's and "
+          f"{CP_GREEDY - 1} decode steps', bound {BF16_GAP_BOUND}); greedy "
+          f"tokens equal on every rank and to one process's: {ref_tokens}; "
+          f"{CP_RING[1]} steps on a ring of {CP_RING[0]} slots (cache k "
+          f"{res[0]['s_ring_k']} a rank: past each rank's slots and the "
+          f"ring's end) {max(max(x['s_ring_gaps']) for x in res):.5f} x "
+          f"max|logit| at worst; "
+          f"cache k {res[0]['s_cache_k']} a rank, {res[0]['s_cache_bytes']} "
+          f"bytes (one process {refs['s']['cache_bytes']}); one training "
+          f"step (one worker, {CP_BATCH} x {CP_SEQ} tokens): loss "
+          f"{losses} vs one process's {one['losses']} (relative gap "
+          f"{max(gaps):.3g}, bound {FSDP_LOSS_RTOL}), equal on every rank; "
+          f"the Moniqua round of the {n_leaves} leaves on ring("
+          f"{FSDP_ROUND_N}) at 8 and 1 bits, each rank's shard torch.equal "
+          f"to one process's cut alike; bytes/step "
+          f"{res[0]['bytes_per_step']} (one process {one['bytes']})",
+          flush=True)
+    print(f"time: phase 28 (b) the ranks' start, seconds since each "
+          f"process started (gloo group joined, CUDA and the init's kernels "
+          f"warm, every rank there): "
+          f"{[[round(v, 1) for v in x['clock'].values()] for x in res]}",
+          flush=True)
+    for x in res[:1] + res[-1:]:
+        print(f"time: phase 28 rank {x['rank']}: (s) 1 x {CP_PROMPT} "
+              f"prefill (time to the first token, its first call) "
+              f"{x['s_ttft_ms']:.2f} ms, decode {x['s_token_ms']:.3f} ms a "
+              f"token; (t) step {x['step_ms']:.3f} ms (its first, host "
+              f"clock), max_memory_allocated {x['peak'] / 2 ** 30:.2f} GiB; "
+              f"(r) {x['r_round_ms']:.2f} ms a round of {n_leaves} leaves "
+              f"{card}; parts done at "
+              f"{[round(x[p + '_s'], 1) for p in 'str']} s", flush=True)
+    print(f"phase 28: context-parallel attention passed in "
+          f"{time.perf_counter() - t_phase:.1f} s ({t_one:.1f} s of one "
+          f"process, {t_ranks:.1f} s of {CP_RANKS} ranks); launches on its "
+          f"paths {counted} {card}", flush=True)
+    return rec, counted
 
 
 def main() -> int:
@@ -5921,9 +6469,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     CLOCK.done("phase 26")
     p27_counts = fsdp_phase(dev, card)
+    torch.cuda.empty_cache()
     CLOCK.done("phase 27")
+    cp_rec, p28_counts = cp_phase(dev, timer, card)
+    CLOCK.done("phase 28")
     for counts in (lm_counts, p22_counts, p23_counts, p24_counts,
-                   p25_counts, p26_counts, p27_counts):
+                   p25_counts, p26_counts, p27_counts, p28_counts):
         for name, n in counts.items():
             extra[name] = extra.get(name, 0) + n
     for k in kernels:
@@ -5932,7 +6483,9 @@ def main() -> int:
             k["train"] = train_flash
             k["phase22"] = p22_flash
             k["phase23"] = p23_flash
-    print(f"launches on phases 17-27's paths, added to the kernels line: "
+        if k["name"] in cp_rec:
+            k["context_parallel"] = cp_rec[k["name"]]
+    print(f"launches on phases 17-28's paths, added to the kernels line: "
           f"{extra}", flush=True)
     print(f"time: chip_smoke.py took {time.perf_counter() - T_START:.1f} s "
           f"since it started {card}", flush=True)
@@ -5950,4 +6503,6 @@ if __name__ == "__main__":
         sys.exit(tp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["--fsdp-rank"]:
         sys.exit(fsdp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--cp-rank"]:
+        sys.exit(cp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

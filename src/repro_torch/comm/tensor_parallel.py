@@ -22,6 +22,13 @@ Megatron's two operators:
   identity backward (after a row-parallel matmul, the vocab-parallel
   embedding and loss).
 
+Context-parallel attention (``models/layers.py``, where the query heads
+do not divide ``model``: the reference's ``kv_seq``) adds a third,
+:func:`merge_attention`: each rank's attention over its share of the keys,
+``(out_r, lse_r)``, merged into the whole attention's ``(out, lse)`` by
+two all-reduces (the max of ``lse``, then the weighted sums), its
+backward local.
+
 Each is a ``torch.autograd.Function`` in the ``forward`` /
 ``setup_context`` form with its own ``vmap`` rule: under
 ``torch.func.vmap(torch.func.grad(loss))`` the rule all-reduces the whole
@@ -363,6 +370,78 @@ def reduce_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
     sums over ``data``); the identity backward."""
     g = current(axis)
     return x if g is None else _AllReduce.apply(x, "sum", g.group)
+
+
+def merge_shares(out: torch.Tensor, lse: torch.Tensor, amax, total):
+    """The arithmetic of the merge of attention over shares of the keys:
+    ``m`` = the max of ``lse_r`` over the shares (0 where every share is
+    ``-inf``), ``e_r = exp(lse_r - m)``, and one sum of ``[e_r out_r,
+    e_r]`` in float32: ``out = sum_r e_r out_r / sum_r e_r`` (each share's
+    output weighted by ``exp(lse_r - lse)``) and ``lse = m + ln sum_r
+    e_r``.  ``amax`` and ``total`` reduce over the shares: all-reduces over
+    ranks (:func:`merge_attention`), or ``amax(0)`` and ``sum(0)`` over
+    shares stacked on dim 0.  Returns ``(out in out_r's dtype, lse, out in
+    float32)``."""
+    m = amax(lse)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    e = torch.exp(lse - m)[..., None]
+    tot = total(torch.cat([e * out.float(), e], dim=-1))
+    den = tot[..., -1:]
+    merged = tot[..., :-1] / torch.where(den > 0, den, 1.0)
+    return merged.to(out.dtype), m + torch.log(den[..., 0]), merged
+
+
+class _MergeAttention(torch.autograd.Function):
+    """The merge of the ranks' attention over their shares of the keys.
+    Forward: :func:`merge_shares` with the max and the sum all-reduced
+    over ``group``.  Every rank holds the same all-reduced sums, so the
+    result is bitwise equal on every rank.  Backward, with no collective:
+    ``w_r = exp(lse_r - lse)``, ``d out_r = w_r g_out`` and ``d lse_r =
+    w_r (g_lse + <g_out, out_r - out>)``."""
+
+    @staticmethod
+    def forward(out, lse, group):
+        return merge_shares(out, lse,
+                            lambda t: _all_reduce(t, "max", group),
+                            lambda t: _all_reduce(t, "sum", group))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        out, lse, _ = inputs
+        ctx.save_for_backward(out, lse, output[1], output[2])
+        ctx.set_materialize_grads(True)
+        ctx.mark_non_differentiable(output[2])
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse, _):
+        out, lse, lse_m, merged = ctx.saved_tensors
+        w = torch.where(torch.isfinite(lse), torch.exp(lse - lse_m), 0.0)
+        dot = (g_out.float() * (out.float() - merged)).sum(-1)
+        return ((w[..., None] * g_out.float()).to(out.dtype),
+                w * (g_lse + dot), None)
+
+    @staticmethod
+    def vmap(info, in_dims, out, lse, group):
+        n = info.batch_size
+
+        def lead(t, d):
+            return t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+        return (_MergeAttention.apply(lead(out, in_dims[0]),
+                                      lead(lse, in_dims[1]), group),
+                (0, 0, 0))
+
+
+def merge_attention(out: torch.Tensor, lse: torch.Tensor, axis: str):
+    """The whole attention ``(out, lse)`` from every rank of ``axis``'s
+    attention over its share of the keys: ``out [..., D]`` (any float
+    dtype) and ``lse [...]`` (``out.shape[:-1]``, float32, natural log,
+    ``-inf`` where a rank's share has no valid key for the row).  Outside
+    a split of ``axis`` the inputs themselves."""
+    g = current(axis)
+    if g is None:
+        return out, lse
+    merged, lse_m, _ = _MergeAttention.apply(out, lse, g.group)
+    return merged, lse_m
 
 
 def max_over(x: torch.Tensor, axis: str) -> torch.Tensor:

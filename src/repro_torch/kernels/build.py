@@ -46,9 +46,9 @@ SIGNATURES = {
                               _P),
     "moniqua_decode": (_P, _P, _I, _P, _I64, _I64, _P, _I, _I, _P),
     "flash_attention_tc": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
-                           ctypes.c_float, _I, _I64, _P),
+                           ctypes.c_float, _I, _I64, _I64, _P, _P),
     "flash_attention_f32tc": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
-                              ctypes.c_float, _I, _I64, _P),
+                              ctypes.c_float, _I, _I64, _I64, _P, _P),
 }
 # nvcc flags of each source
 FLAGS = {"moniqua_encode": CODEC_FLAGS, "moniqua_decode_reduce": CODEC_FLAGS,

@@ -41,13 +41,16 @@ def decode_reduce_ops(m: int) -> int:
     return 11 + 14 * m + 1
 
 
-def attended_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs that ``sq`` query rows attend over ``sk`` keys:
-    all of them, or under ``causal`` key ``j <= i`` (and ``j > i - window``
-    when ``window``), the mask of ``flash_attention.causal_mask``."""
+def attended_pairs(sq: int, sk: int, causal: bool, window: int,
+                   k0: int = 0) -> int:
+    """(query, key) pairs that ``sq`` query rows attend over ``sk`` keys
+    whose first sits at position ``k0``: all of them, or under ``causal``
+    key ``j + k0 <= i`` (and ``j + k0 > i - window`` when ``window``), the
+    mask of ``flash_attention.causal_mask``: the work of a context-parallel
+    rank's share of the keys."""
     if not causal:
         return sq * sk
-    i = np.arange(sq, dtype=np.int64)
+    i = np.arange(sq, dtype=np.int64) - k0
     hi = np.minimum(i, sk - 1)
     lo = np.maximum(i - window + 1, 0) if window else np.zeros_like(i)
     return int(np.clip(hi - lo + 1, 0, None).sum())

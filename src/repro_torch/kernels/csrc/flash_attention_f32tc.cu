@@ -12,12 +12,22 @@
 // the staged tiles are zero-filled like rows past Sq or Sk, so they add
 // exact zeros to every score, and only columns < d are stored.  Per query row i and key j, as the reference computes:
 //   s_ij = (q_i . k_j) * scale in float32; valid: i < Sq, j < Sk and, when
-//   causal, j <= i and (window == 0 or j > i - window); masked scores are
+//   causal, j + k0 <= i and (window == 0 or j + k0 > i - window), where
+//   k0 >= 0 is the absolute position of key 0 (0 for a whole sequence; a
+//   context-parallel rank's first key of its share); masked scores are
 //   the finite sentinel -1e30; running max m, denominator l and numerator
 //   acc, rescaled by alpha at each key tile; out = acc / max(l, 1e-30).
 //   (A row's first live tile may be fully masked: it adds exp(0) = 1
 //   garbage that the next valid tile wipes with alpha = 0.)  The softmax is
-//   taken in base 2, on s_ij * log2(e), which is the same function.
+//   taken in base 2, on s_ij * log2(e), which is the same function.  A row
+//   with no valid key at all (possible only at k0 > 0) gets out = 0.
+//   With `lse` given, the kernel also writes lse[bh, i], float32, the
+//   natural-log log-sum-exp of the row's valid scaled scores,
+//   ln sum_j exp(s_ij) = m2 ln 2 + ln l from the base-2 running max m2 and
+//   sum l; -inf for a row with no valid key: what a merge of the shares of
+//   the keys needs (out = sum_r exp(lse_r - lse) out_r).  At k0 = 0
+//   without lse the kernel computes what it computed before either
+//   existed, bit for bit.
 //
 // Precision.  One TF32 product keeps 11 significant bits of each operand,
 // which cannot meet float32's rtol = atol = 2e-5.  3xTF32 does: each operand
@@ -45,7 +55,7 @@
 //   BM = BN = 64; at 256, 2.886 against 3.30 with BM = BN = 64 and 3.70
 //   with BM = 64, BN = 32.  Key tiles past the causal
 //   frontier or wholly before the window are skipped; the CTAs with the
-//   most live tiles (the last query tiles) are launched first.
+//   most live tiles (the last query tiles, at every k0) are launched first.
 // - Q (once) and each K and V tile are staged in shared memory with
 //   cp.async (16-byte copies, rows past Sq or Sk and columns past d
 //   zero-filled), one stage:
@@ -160,9 +170,9 @@ __global__ void __launch_bounds__(Tile<D, BM, BN>::kThreads,
                                   Tile<D, BM, BN>::kMinBlocks)
     fa_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
-                    int64_t bh_count, int64_t group, int64_t sq, int64_t sk,
-                    int d, float scale, int causal, int64_t window,
-                    int64_t nq_blocks) {
+                    float* __restrict__ lse, int64_t bh_count, int64_t group,
+                    int64_t sq, int64_t sk, int d, float scale, int causal,
+                    int64_t window, int k0, int64_t nq_blocks) {
   using T = Tile<D, BM, BN>;
   constexpr int ST = T::ST;
   constexpr int KS = D / 8;        // k-steps of S = Q K^T
@@ -183,19 +193,23 @@ __global__ void __launch_bounds__(Tile<D, BM, BN>::kThreads,
   const float* kg = k + (bh / group) * sk * d;  // GQA: this head's KV head
   const float* vg = v + (bh / group) * sk * d;
 
+  // the CTA's query rows q_lo..q_hi, its rows below Sq and this warp's
+  // rows g and g + 8 of its 16 (row0, row1) in key coordinates, less
+  // k0: key j (at position j + k0) is valid for a row at r when j <= r
+  // (and j > r - window), so the loop below is the kernel's loop without
+  // an offset
+  const int q_lo = q0 - k0, q_hi = q_lo + BM - 1, sq_k = sq32 - k0;
   // the live key tiles [j_begin, j_end)
-  const int q_lo = q0, q_hi = q0 + BM - 1;
   const int nk = (sk32 + BN - 1) / BN;
   int j_begin = 0, j_end = nk;
   if (causal) {
-    j_end = q_hi / BN + 1 < nk ? q_hi / BN + 1 : nk;
+    j_end = q_hi < 0 ? 0 : (q_hi / BN + 1 < nk ? q_hi / BN + 1 : nk);
     const int first = q_lo - w32 + 1;  // the first key row q_lo sees
     if (w32 && first > 0) j_begin = first / BN;
   }
 
   load_rows<D, BM, T::kThreads>(sQ, q + bh * sq * d, q0, sq32, d, tid);
-  // this warp's query rows g and g + 8 of its 16
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int row0 = q_lo + warp * 16 + g, row1 = row0 + 8;
   const float* qw = sQ + (warp * 16 + g) * ST + t;
   const float scale2 = scale * kLog2e;
 
@@ -240,7 +254,7 @@ __global__ void __launch_bounds__(Tile<D, BM, BN>::kThreads,
 
     // scale (into base 2) and mask; element e of block n is row
     // (e < 2 ? row0 : row1), key k_lo + 8 n + 2 t + (e & 1)
-    const bool whole = k_lo + BN <= sk32 && q_hi < sq32 &&
+    const bool whole = k_lo + BN <= sk32 && q_hi < sq_k &&
                        (!causal || (k_lo + BN - 1 <= q_lo &&
                                     (!w32 || k_lo > q_hi - w32)));
 #pragma unroll
@@ -251,7 +265,7 @@ __global__ void __launch_bounds__(Tile<D, BM, BN>::kThreads,
         if (!whole) {
           const int iq = e < 2 ? row0 : row1;
           const int jk = k_lo + 8 * n + 2 * t + (e & 1);
-          valid = iq < sq32 && jk < sk32;
+          valid = iq < sq_k && jk < sk32;
           if (causal) {
             valid = valid && jk <= iq;
             if (w32) valid = valid && jk > iq - w32;
@@ -314,9 +328,14 @@ __global__ void __launch_bounds__(Tile<D, BM, BN>::kThreads,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(kFull, l[r], 1);
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
-    const int iq = r ? row1 : row0;
+    const int iq = (r ? row1 : row0) + k0;  // back to the query's row
     if (iq >= sq32) continue;
-    const float den = fmaxf(l[r], 1e-30f);
+    // a row whose max is still the sentinel saw no valid key: out = 0
+    const float den = m[r] == kNegInf ? INFINITY : fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && t == 0)
+      lse[bh * sq + iq] = m[r] == kNegInf
+                              ? -INFINITY
+                              : m[r] * 0.6931471805599453f + logf(l[r]);
     float* orow = o + (bh * sq + iq) * d + 2 * t;
     // columns 8 n + 2 t and + 1 lie both below d or both past it (8 | d)
 #pragma unroll
@@ -329,8 +348,9 @@ __global__ void __launch_bounds__(Tile<D, BM, BN>::kThreads,
 
 template <int D, int BM, int BN>
 int launch(const float* q, const float* k, const float* v, float* o,
-           int64_t bh, int64_t group, int64_t sq, int64_t sk, int d,
-           float scale, int causal, int64_t window, cudaStream_t stream) {
+           float* lse, int64_t bh, int64_t group, int64_t sq, int64_t sk,
+           int d, float scale, int causal, int64_t window, int k0,
+           cudaStream_t stream) {
   using T = Tile<D, BM, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       fa_f32tc_kernel<D, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -340,8 +360,8 @@ int launch(const float* q, const float* k, const float* v, float* o,
   const int64_t blocks = nq * bh;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   fa_f32tc_kernel<D, BM, BN><<<(unsigned)blocks, T::kThreads, T::SMEM,
-                               stream>>>(q, k, v, o, bh, group, sq, sk, d,
-                                         scale, causal, window, nq);
+                               stream>>>(q, k, v, o, lse, bh, group, sq, sk,
+                                         d, scale, causal, window, k0, nq);
   return (int)cudaGetLastError();
 }
 
@@ -349,43 +369,49 @@ int launch(const float* q, const float* k, const float* v, float* o,
 
 // Returns the launch's cudaError_t (0 on success).  q, k, v, o are float32,
 // 16-byte aligned; q, o [bh, sq, d], k, v [bh_kv, sk, d] with bh_kv dividing
-// bh; d is a multiple of 8 up to 256.  `window` is read only when `causal`
-// is set.
+// bh; d is a multiple of 8 up to 256.  `window` and `k0` (key 0's position,
+// >= 0) are read only when `causal` is set.  `lse` is null or float32
+// [bh, sq].
 extern "C" int flash_attention_f32tc(const void* q, const void* k,
                                      const void* v, void* o, int64_t bh,
                                      int64_t bh_kv, int64_t sq, int64_t sk,
                                      int d, float scale, int causal,
-                                     int64_t window, void* stream) {
+                                     int64_t window, int64_t k0, void* lse,
+                                     void* stream) {
   // rows and key indices are 32-bit inside the kernel (int64_t ones took
   // the registers that the D = 256 instantiation spilled)
   constexpr int64_t kMaxRows = 0x7fffffffLL - 2 * 128;
   if (bh < 0 || sq < 0 || sk < 0 || bh_kv < 1 || bh % bh_kv ||
-      sq > kMaxRows || sk > kMaxRows || window < 0)
+      sq > kMaxRows || sk > kMaxRows || window < 0 || k0 < 0 ||
+      k0 > kMaxRows - sk || k0 > kMaxRows - sq)
     return (int)cudaErrorInvalidValue;
   if (d < 8 || d > 256 || d % 8) return (int)cudaErrorInvalidValue;
   if (bh == 0 || sq == 0) return 0;
-  // a window wider than every query row's reach masks nothing more
+  // a window wider than every query row's reach masks nothing more (key
+  // positions are >= 0)
   const int64_t w = causal && window ? (window < sq + 1 ? window : sq + 1)
                                      : 0;
+  const int kk0 = causal ? (int)k0 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(o);
+  float* lt = static_cast<float*>(lse);
   const int64_t g = bh / bh_kv;
   // <D, query rows, key tile> at the smallest D >= d
   if (d <= 64)
-    return launch<64, 64, 64>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
-                              causal, w, s);
+    return launch<64, 64, 64>(qt, kt, vt, ot, lt, bh, g, sq, sk, d, scale,
+                              causal, w, kk0, s);
   if (d <= 96)
-    return launch<96, 64, 64>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
-                              causal, w, s);
+    return launch<96, 64, 64>(qt, kt, vt, ot, lt, bh, g, sq, sk, d, scale,
+                              causal, w, kk0, s);
   if (d <= 128)
-    return launch<128, 64, 64>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
-                               causal, w, s);
+    return launch<128, 64, 64>(qt, kt, vt, ot, lt, bh, g, sq, sk, d, scale,
+                               causal, w, kk0, s);
   if (d <= 192)
-    return launch<192, 128, 64>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
-                                causal, w, s);
-  return launch<256, 128, 32>(qt, kt, vt, ot, bh, g, sq, sk, d, scale,
-                              causal, w, s);
+    return launch<192, 128, 64>(qt, kt, vt, ot, lt, bh, g, sq, sk, d, scale,
+                                causal, w, kk0, s);
+  return launch<256, 128, 32>(qt, kt, vt, ot, lt, bh, g, sq, sk, d, scale,
+                              causal, w, kk0, s);
 }

@@ -11,10 +11,20 @@
 // jnp.repeat of the KV heads, done here without a copy.  Per query row i
 // and key j, as the reference computes:
 //   s_ij = (q_i . k_j) * scale in float32 (exact bf16 products, float32
-//   sums); valid: j < Sk and, when causal, j <= i and (window == 0 or
-//   j > i - window); masked scores are the finite sentinel -1e30; running
+//   sums); valid: j < Sk and, when causal, j + k0 <= i and (window == 0 or
+//   j + k0 > i - window), where k0 >= 0 is the absolute position of key 0
+//   (0 for a whole sequence; a context-parallel rank's first key of its
+//   share); masked scores are the finite sentinel -1e30; running
 //   max m, denominator l and numerator acc, rescaled by
 //   alpha = exp(m_old - m_new) at each key tile; out = acc / max(l, 1e-30).
+//   A row with no valid key (possible only at k0 > 0) gets out = 0.
+//   With `lse` given, the kernel also writes lse[bh, i], float32, the
+//   natural-log log-sum-exp of the row's valid scaled scores:
+//   ln sum_j exp(s_ij), from the base-2 running max and sum below as
+//   m2 ln 2 + ln l; -inf for a row with no valid key.  These are what a
+//   merge of the shares of the keys needs (out = sum_r exp(lse_r - lse)
+//   out_r).  At k0 = 0 without lse the kernel computes what it computed
+//   before either existed, bit for bit.
 //
 // Head dims.  The kernel is instantiated at D = 64, 96, 128, 192 and 256;
 // d runs at the smallest D >= d.  The tensor maps span d columns, so TMA
@@ -31,7 +41,9 @@
 // at [16, 4096, 256]: 137.5 GFLOP, 0.139 ms.
 //
 // Design.  A CTA takes 128 query rows of one bh (the reference's block) and
-// walks the live key tiles of BN rows, heaviest query blocks first.
+// walks the live key tiles of BN rows, heaviest query blocks first (under
+// causal a query block's live tiles grow with its index at every k0, so
+// the last blocks are the heaviest).
 // The CTA is two warpgroups, 64 query rows each.  Thread 0 starts every
 // load with TMA (3-D tensor maps over [heads, rows, d], rows past Sq or Sk
 // and columns past d zero-filled): Q once, then K and V into a ring of
@@ -390,9 +402,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     fa_kernel_tc(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map,
-                 __nv_bfloat16* __restrict__ out, int bh_count, int group,
-                 int sq, int sk, float scale, int causal, int window,
-                 int nq_blocks) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int bh_count, int group, int sq, int sk, float scale,
+                 int causal, int window, int k0, int nq_blocks) {
   using Sm = Smem<D, BN, STAGES>;
   constexpr int PC = Sm::PC;           // columns of a panel
   constexpr int P = D / PC;            // panels of a row
@@ -406,12 +418,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int bh = (int)(blockIdx.x % bh_count);
   const int q0 = qblk * kBlockM;
   // the CTA's live key tiles [j_begin, j_end), as the reference skips its
-  // blocks: past the causal frontier, or wholly before the window
+  // blocks: past the causal frontier, or wholly before the window (key j
+  // sits at position j + k0)
   const int nk = (sk + BN - 1) / BN;
   int j_begin = 0, j_end = nk;
   if (causal) {
-    j_end = min(nk, (q0 + kBlockM - 1) / BN + 1);
-    if (window) j_begin = max(0, q0 - window + 1) / BN;
+    const int last = q0 + kBlockM - 1 - k0;  // the last key row q0 + 127 sees
+    j_end = last < 0 ? 0 : min(nk, last / BN + 1);
+    if (window) j_begin = max(0, q0 - window + 1 - k0) / BN;
   }
 
   if (threadIdx.x == 0) {
@@ -436,12 +450,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_kv(sm, &k_map, &v_map, t, j_begin + t, kvh);
   }
 
-  // warpgroup wg owns query rows qa..qa+63; this thread owns
-  // rows row_a and row_a + 8 and, of each 8-column chunk i of S and O,
-  // columns 8 i + col0 and + 1 (the wgmma accumulator's layout)
+  // warpgroup wg owns query rows q0 + 64 wg .. + 63; this thread owns
+  // two rows and, of each 8-column chunk i of S and O, columns 8 i + col0
+  // and + 1 (the wgmma accumulator's layout).  qa, qb, row_a and row_b are
+  // those rows in key coordinates, less k0: key j is valid for a row at
+  // qa when j <= qa (and j > qa - window), so the loop below is the
+  // kernel's loop without an offset (an offset added in the loop made it
+  // 9% slower at [48, 4096, 128], PERF.md)
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-  const int qa = q0 + wg * 64, qb = qa + 63;
+  const int qa = q0 + wg * 64 - k0, qb = qa + 63;
   const int row_a = qa + warp * 16 + lane / 4, row_b = row_a + 8;
   const int col0 = 2 * (lane % 4);
   const __nv_bfloat16* q_wg = &sm.q[0][wg * 64 * PC];
@@ -571,10 +589,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  // a row whose max is still the sentinel saw no valid key: its l and acc
+  // hold only the masked scores' exp2(0) terms, so its output is 0
+  const float den_a = m_a == kNegInf ? INFINITY : fmaxf(l_a, 1e-30f);
+  const float den_b = m_b == kNegInf ? INFINITY : fmaxf(l_b, 1e-30f);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = h ? row_b : row_a;
+    const int row = (h ? row_b : row_a) + k0;  // back to the query's row
     const float den = h ? den_b : den_a;
     if (row >= sq) continue;
     __nv_bfloat16* orow = out + ((int64_t)bh * sq + row) * D + col0;
@@ -583,6 +604,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
           __floats2bfloat162_rn(acc[4 * i + 2 * h] / den,
                                 acc[4 * i + 2 * h + 1] / den);
+    if (lse != nullptr && col0 == 0) {
+      const float m = h ? m_b : m_a, l = h ? l_b : l_a;
+      lse[(int64_t)bh * sq + row] =
+          m == kNegInf ? -INFINITY : m * 0.6931471805599453f + logf(l);
+    }
   }
 }
 
@@ -637,9 +663,9 @@ bool make_map(CUtensorMap* map, const void* base, int64_t heads,
 
 // Q boxes are kBlockM rows, K and V boxes BN rows; all span d columns.
 template <int D, int BN, int STAGES>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
-           int64_t bh_kv, int64_t sq, int64_t sk, int d, float scale,
-           int causal, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int64_t bh, int64_t bh_kv, int64_t sq, int64_t sk, int d,
+           float scale, int causal, int window, int k0, cudaStream_t stream) {
   using Sm = Smem<D, BN, STAGES>;
   CUtensorMap q_map, k_map, v_map;
   if (!make_map(&q_map, q, bh, sq, d, Sm::PC, kBlockM) ||
@@ -655,8 +681,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
   if (nq * bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   fa_kernel_tc<D, BN, STAGES>
       <<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
-          q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), (int)bh,
-          (int)(bh / bh_kv), (int)sq, (int)sk, scale, causal, window,
+          q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, (int)bh,
+          (int)(bh / bh_kv), (int)sq, (int)sk, scale, causal, window, k0,
           (int)nq);
   return (int)cudaGetLastError();
 }
@@ -667,39 +693,45 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
 // k, v [bh_kv, sk, d] bfloat16, o [bh, sq, D] bfloat16 with D the
 // instantiation d runs at (its columns d..D-1 come out zero), all
 // contiguous and 16-byte aligned; bh_kv divides bh; d is a multiple of 8
-// up to 256; sk >= 1.  `window` is read only when `causal` is set.
+// up to 256; sk >= 1.  `window` and `k0` (key 0's position, >= 0) are read
+// only when `causal` is set.  `lse` is null or float32 [bh, sq].
 extern "C" int flash_attention_tc(const void* q, const void* k,
                                   const void* v, void* o, int64_t bh,
                                   int64_t bh_kv, int64_t sq, int64_t sk,
                                   int d, float scale, int causal,
-                                  int64_t window, void* stream) {
+                                  int64_t window, int64_t k0, void* lse,
+                                  void* stream) {
   constexpr int64_t kMaxRows = 0x7fffffffLL - 2 * kBlockM;
   if (bh < 0 || bh > 0x7fffffffLL || bh_kv < 1 || bh % bh_kv || sq < 0 ||
       sk < 1 || sq > kMaxRows || sk > kMaxRows || window < 0 || d < 8 ||
-      d > 256 || d % 8)
+      d > 256 || d % 8 || k0 < 0 || k0 > kMaxRows - sk ||
+      k0 > kMaxRows - sq)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
       15)
     return (int)cudaErrorInvalidValue;
   if (bh == 0 || sq == 0) return 0;
-  // a window wider than every query row's reach masks nothing more
+  // a window wider than every query row's reach masks nothing more (key
+  // positions are >= 0)
   const int w = causal && window ? (int)(window < sq + 1 ? window : sq + 1)
                                  : 0;
+  const int kk0 = causal ? (int)k0 : 0;
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // <D, key tile, stages> at the smallest D >= d
   if (d <= 64)
-    return launch<64, 128, 4>(q, k, v, o, bh, bh_kv, sq, sk, d, scale,
-                              causal, w, s);
+    return launch<64, 128, 4>(q, k, v, o, l, bh, bh_kv, sq, sk, d, scale,
+                              causal, w, kk0, s);
   if (d <= 96)
-    return launch<96, 128, 4>(q, k, v, o, bh, bh_kv, sq, sk, d, scale,
-                              causal, w, s);
+    return launch<96, 128, 4>(q, k, v, o, l, bh, bh_kv, sq, sk, d, scale,
+                              causal, w, kk0, s);
   if (d <= 128)
-    return launch<128, 128, 3>(q, k, v, o, bh, bh_kv, sq, sk, d, scale,
-                               causal, w, s);
+    return launch<128, 128, 3>(q, k, v, o, l, bh, bh_kv, sq, sk, d, scale,
+                               causal, w, kk0, s);
   if (d <= 192)
-    return launch<192, 64, 3>(q, k, v, o, bh, bh_kv, sq, sk, d, scale,
-                              causal, w, s);
-  return launch<256, 64, 2>(q, k, v, o, bh, bh_kv, sq, sk, d, scale, causal,
-                            w, s);
+    return launch<192, 64, 3>(q, k, v, o, l, bh, bh_kv, sq, sk, d, scale,
+                              causal, w, kk0, s);
+  return launch<256, 64, 2>(q, k, v, o, l, bh, bh_kv, sq, sk, d, scale,
+                            causal, w, kk0, s);
 }

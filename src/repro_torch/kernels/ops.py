@@ -209,7 +209,9 @@ class _FlashSDPA(torch.autograd.Function):
     at KV-head count); backward recomputes through the masked-softmax
     oracle, as the reference's ``custom_vjp`` does, by the VJP written out
     as tensor ops (``flash_attention.sdpa_ref_vjp``), so dK and dV come back
-    summed over each group at KV-head shape.
+    summed over each group at KV-head shape.  With ``lse`` the forward
+    returns ``(o, lse)`` and the backward carries ``lse``'s cotangent too;
+    ``k0`` is key 0's position (a context-parallel share of the keys).
 
     In the ``forward`` / ``setup_context`` form with its own ``vmap`` rule,
     so that ``torch.func.vmap(torch.func.grad(loss))`` (the train step's
@@ -218,24 +220,26 @@ class _FlashSDPA(torch.autograd.Function):
     The backward needs no rule: its tensor ops batch under ``vmap``."""
 
     @staticmethod
-    def forward(q, k, v, scale, causal, window):
+    def forward(q, k, v, scale, causal, window, k0, lse):
         return _fa.flash_attention(q, k, v, scale=scale, causal=causal,
-                                   window=window)
+                                   window=window, k0=k0, lse=lse)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, scale, causal, window = inputs
+        q, k, v, scale, causal, window, k0, lse = inputs
         ctx.save_for_backward(q, k, v)
-        ctx.cfg = (scale, causal, window)
+        ctx.cfg = (scale, causal, window, k0)
+        ctx.lse = lse
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *g_lse):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = _fa.sdpa_ref_vjp(q, k, v, g, *ctx.cfg)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = _fa.sdpa_ref_vjp(q, k, v, g, *ctx.cfg,
+                                      g_lse=g_lse[0] if ctx.lse else None)
+        return dq, dk, dv, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, scale, causal, window):
+    def vmap(info, in_dims, q, k, v, scale, causal, window, k0, lse):
         """``q [n, BH, S, D]``, ``k, v [n, BHkv, Sk, D]`` -> one launch on
         ``[n BH, S, D]`` and ``[n BHkv, Sk, D]`` (an unbatched operand is
         expanded first).  Query block ``w BH + b`` reads KV block ``(w BH +
@@ -246,18 +250,24 @@ class _FlashSDPA(torch.autograd.Function):
             t = t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
             return t.reshape(-1, *t.shape[2:]).contiguous()
 
-        o = _FlashSDPA.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
-                             fold(v, in_dims[2]), scale, causal, window)
-        return o.unflatten(0, (n, -1)), 0
+        out = _FlashSDPA.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                               fold(v, in_dims[2]), scale, causal, window,
+                               k0, lse)
+        if lse:
+            return (out[0].unflatten(0, (n, -1)),
+                    out[1].unflatten(0, (n, -1))), (0, 0)
+        return out.unflatten(0, (n, -1)), 0
 
 
 def flash_sdpa(q, k, v, *, scale: float, causal: bool = True,
-               window: int = 0) -> torch.Tensor:
+               window: int = 0, k0: int = 0, lse: bool = False):
     """Differentiable flash attention on ``q [..., S, H, D]`` and
     ``k, v [..., Sk, Hkv, D]`` with ``Hkv`` dividing ``H`` (grouped-query
     attention: query head ``h`` reads KV head ``h // (H / Hkv)``, with no
     copy): heads are folded into ``[B*H, S, D]`` and ``[B*Hkv, Sk, D]`` for
-    the kernel and unfolded after."""
+    the kernel and unfolded after.  ``k0``: key 0's position (under
+    ``causal`` key ``j`` is valid for query ``i`` iff ``j + k0 <= i``).
+    With ``lse`` returns ``(out, lse [..., H, S] float32)``."""
     *lead, S, H, D = q.shape
     Sk = k.shape[-3]
 
@@ -265,5 +275,9 @@ def flash_sdpa(q, k, v, *, scale: float, causal: bool = True,
         return t.movedim(-2, -3).reshape(-1, s, D).contiguous()
 
     o = _FlashSDPA.apply(fold(q, S), fold(k, Sk), fold(v, Sk), scale,
-                         causal, window)
+                         causal, window, k0, lse)
+    if lse:
+        o, l = o
+        return (o.reshape(*lead, H, S, D).movedim(-3, -2),
+                l.reshape(*lead, H, S))
     return o.reshape(*lead, H, S, D).movedim(-3, -2)

@@ -21,10 +21,12 @@ tests); without a card, ``--device cuda`` raises.  ``--mesh cpu`` (the
 default) keeps the reference's meaning: the workers are a tensor axis on
 one device, and ``--multi-pod`` is ignored, as in the reference.  On the
 production mesh the process group comes from the environment ``torchrun``
-sets (``init_process_group`` with its ``env://``, NCCL on the cards);
-what the port does not run there yet (heads the ``model`` axis does not
-divide, the families other than the dense and MoE ones) exits 2 with the
-``NotImplementedError`` naming ROADMAP #13e.
+sets (``init_process_group`` with its ``env://``, NCCL on the cards).
+The default, llama3.2-3b, runs there under the decentralized rules with
+context-parallel attention (its 24 heads do not divide ``model`` = 16).
+What the port does not run there yet (the families other than the dense
+and MoE ones) exits 2 with the ``NotImplementedError`` naming ROADMAP
+#13e.
 """
 from __future__ import annotations
 

@@ -17,9 +17,7 @@ through the full masked matrix.
 
 Each ``*_pspecs`` gives the tree of *logical axis tuples* of the matching
 ``init_*`` tree, leaf for leaf the reference's; ``models/sharding.py``
-resolves them into mesh axes.  ``_context_parallel_kv`` is the reference's
-sharding constraint on K/V: the identity outside a launcher's constraint
-context.
+resolves them into mesh axes.
 
 Tensor parallelism (``comm/tensor_parallel.py``, the mesh's ``model``
 axis): a rank's attention weights hold its share of the query and KV heads
@@ -31,11 +29,31 @@ The head counts are read from the tensors, never from ``cfg``; the input
 goes through ``copy_to`` and the output through ``reduce_sum`` on
 ``model``, both the identity without a ``model`` split.  Where ``model``
 divides the KV heads GQA's head mapping stays local; where it does not
-(replicated-KV GQA, ``sharding.kv_groups``) ``wk``/``wv``/``bk``/``bv``
-are whole on every rank, each rank projects the run of KV heads its query
-heads read (every KV head in decode, whose cache holds them all) and the
-weights' gradients are all-reduced over ``model`` (``copy_to`` on the
-weight).
+(replicated-KV GQA) ``wk``/``wv``/``bk``/``bv`` are whole on every rank,
+each rank projects the run of KV heads its query heads read
+(:func:`kv_span`; where they do not read whole groups of one KV head,
+``sharding.kv_groups`` is ``None``, expanded to its query heads, group 1,
+before the kernel) and the weights' gradients are all-reduced over
+``model`` (``copy_to`` on the weight).
+
+Context parallelism (the reference's ``kv_seq``): where ``model`` does
+not divide the query heads, every attention weight is whole on every rank
+(``safe_pspec`` replicates ``heads`` and ``kv``) and each rank projects
+Q, K and V whole, attends its share ``[r S/M, (r+1) S/M)`` of the keys
+through the flash kernel at key offset ``k0 = r S/M`` with the rows'
+log-sum-exp, and the shares merge over ``model``
+(``tensor_parallel.merge_attention``): the output is whole and bitwise
+equal on every rank, so ``wo`` takes no ``reduce_sum``; Q, K and V go
+through ``copy_to``, so their gradients, and every attention weight's,
+are summed over the shares and whole on every rank
+(:func:`_context_parallel_kv`).  Decode, wherever ``model`` does not
+divide the KV heads (the reference's ``kv_div`` false): each rank's cache
+holds every KV head over its ``W/M`` slots of the ring
+(:func:`init_attn_cache`), the new token's K/V are written by the rank
+that owns slot ``pos % W``, and each rank attends its slots for every
+query head (the one-token Q all-gathered where the heads are split) with
+the plain masked softmax and its log-sum-exp, merged, then keeps its
+heads for ``wo``.
 
 FSDP (``comm/fsdp.py``, the hierarchical rules' ``data`` axis): a rank
 holds its shard of each weight's ``embed`` dim and gathers the weight
@@ -61,6 +79,7 @@ from repro_torch.models import sharding as SH
 # are one function
 from repro_torch.kernels.flash_attention import causal_mask
 from repro_torch.kernels.flash_attention import sdpa as _sdpa
+from repro_torch.kernels.flash_attention import sdpa_lse as _sdpa_lse
 
 
 def truncated_normal(gen: torch.Generator, shape, scale, dtype
@@ -171,30 +190,66 @@ def attention_pspecs(cfg):
     return s
 
 
-def _context_parallel_kv(k, v, nh):
+def context_parallel(cfg) -> bool:
+    """Whether attention runs context-parallel: a ``model`` split that does
+    not divide the query heads (the reference's ``_context_parallel_kv``
+    fallback)."""
+    m = TP.size("model")
+    return m > 1 and cfg.num_heads % m != 0
+
+
+def _context_parallel_kv(q, k, v, nh):
     """The reference's fallback when the heads do not divide the model
-    axis: K/V's sequence dim constrained onto it (context-parallel
-    attention).  The identity outside a launcher's constraint context and
-    on a model axis of 1; over a larger one ``constrain`` raises (ROADMAP
-    #13e)."""
-    if nh % max(SH.mesh_axis_size("model"), 1) == 0:
-        return k, v                       # heads shard cleanly: leave it
+    axis: K/V's sequence dim on it.  Returns ``(q, k, v, k0)``: where the
+    resolved ``kv_seq`` spec splits the keys, the whole Q through
+    ``copy_to`` and this rank's share ``[k0, k0 + S/M)`` of the whole K
+    and V through ``copy_to`` (each rank's share adds its part to their
+    gradients); else the inputs and ``k0 = None`` (no ``model`` split,
+    heads that divide it, or ``S % M != 0``, which ``safe_pspec``
+    replicates: every rank attends the whole sequence, as the
+    reference)."""
+    m = TP.size("model")
+    if m == 1 or nh % m == 0:
+        return q, k, v, None              # heads shard cleanly: leave it
     k = SH.constrain(k, None, "kv_seq", None, None)
     v = SH.constrain(v, None, "kv_seq", None, None)
-    return k, v
+    s = k.shape[-3]
+    if s % m:
+        return q, k, v, None
+    q, k, v = (TP.copy_to(t, "model") for t in (q, k, v))
+    n = s // m
+    k0 = TP.rank("model") * n
+    return q, k.narrow(-3, k0, n), v.narrow(-3, k0, n), k0
 
 
 def kv_span(cfg):
     """Replicated-KV GQA: the KV heads ``(k0, k1)`` this rank's query
-    heads read, or ``None`` when the KV heads split over ``model`` like
-    the query heads (or there is no ``model`` split)."""
+    heads read (a contiguous run), or ``None`` when the KV heads split
+    over ``model`` like the query heads, there is no ``model`` split, or
+    attention runs context-parallel (every weight whole)."""
     m = TP.size("model")
-    if m == 1 or cfg.num_kv_heads % m == 0:
+    if m == 1 or cfg.num_kv_heads % m == 0 or context_parallel(cfg):
         return None
-    nkv_l, _ = SH.kv_groups(cfg.num_heads, cfg.num_kv_heads, m)
+    nh_l = cfg.num_heads // m
     g = cfg.num_heads // cfg.num_kv_heads
-    k0 = TP.rank("model") * (cfg.num_heads // m) // g
-    return k0, k0 + nkv_l
+    r = TP.rank("model")
+    return r * nh_l // g, ((r + 1) * nh_l - 1) // g + 1
+
+
+def _kv_index(cfg, span, device):
+    """Where a rank's query heads do not read whole groups of one KV head
+    (``sharding.kv_groups`` is ``None``): the index into the span's KV
+    heads of each of its query heads, which expands K and V to group 1;
+    ``None`` otherwise."""
+    m = TP.size("model")
+    if span is None or SH.kv_groups(cfg.num_heads, cfg.num_kv_heads,
+                                    m) is not None:
+        return None
+    nh_l = cfg.num_heads // m
+    h0 = TP.rank("model") * nh_l
+    heads = torch.arange(h0, h0 + nh_l, device=device)
+    return torch.div(heads, cfg.num_heads // cfg.num_kv_heads,
+                     rounding_mode="floor") - span[0]
 
 
 def _proj_heads(x, w, **kw):
@@ -205,8 +260,9 @@ def _proj_heads(x, w, **kw):
 
 def _project_qkv(p, cfg, x, all_kv=False):
     """Q, K and V of ``x``.  Replicated-KV GQA: K and V of the run of KV
-    heads this rank's query heads read (:func:`kv_span`), or of every KV
-    head with ``all_kv``."""
+    heads this rank's query heads read (:func:`kv_span`; expanded to its
+    query heads, group 1, where they do not read whole groups), or of
+    every KV head with ``all_kv``."""
     span = kv_span(cfg)
     kw = {}
     if span is not None:
@@ -225,14 +281,19 @@ def _project_qkv(p, cfg, x, all_kv=False):
     if cfg.qkv_bias:
         q, k, v = (q + FS.gather(p["bq"], None), k + kv_bias("bk"),
                    v + kv_bias("bv"))
+    idx = None if all_kv else _kv_index(cfg, span, k.device)
+    if idx is not None:
+        k, v = k.index_select(-2, idx), v.index_select(-2, idx)
     return q, k, v
 
 
-def _out_proj(out, wo):
+def _out_proj(out, wo, whole=False):
     """``einsum("...nh,nhd->...d", out, wo)`` as one matrix product, the
-    partial sums added over ``model`` (``wo`` gathered over ``data`` under
-    FSDP)."""
-    return TP.reduce_sum(FS.matmul(out.flatten(-2), wo, 2, k=2), "model")
+    partial sums added over ``model`` unless ``whole`` (context-parallel
+    attention: every head's output and ``wo`` whole on every rank; ``wo``
+    gathered over ``data`` under FSDP)."""
+    y = FS.matmul(out.flatten(-2), wo, 2, k=2)
+    return y if whole else TP.reduce_sum(y, "model")
 
 
 def _gqa_expand(k, nh):
@@ -284,9 +345,13 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
     default); ``flash_attention=False`` asks for the plain masked softmax,
     the oracle.  Cross and bidirectional attention take the plain route
     with an all-true mask, as in the reference.  Under a ``model`` split
-    the heads are this rank's, the output its partial sum all-reduced."""
+    the heads are this rank's, the output its partial sum all-reduced;
+    context-parallel (:func:`context_parallel`), every head whole and the
+    flash route over this rank's share of the keys, merged (the plain
+    route attends the whole sequence on every rank)."""
     hd = cfg.hd
-    q, k, v = _project_qkv(p, cfg, TP.copy_to(x, "model"))
+    cp = context_parallel(cfg)
+    q, k, v = _project_qkv(p, cfg, x if cp else TP.copy_to(x, "model"))
     nh = q.shape[-2]                     # this rank's query heads
     if cross_kv is not None:
         k, v = cross_kv
@@ -299,12 +364,16 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
     scale = 1.0 / math.sqrt(hd)
     if cfg.flash_attention and cross_kv is None and not bidir:
         # the kernel reads the KV heads itself
-        k, v = _context_parallel_kv(k, v, cfg.num_heads)
-        out = kops.flash_sdpa(q, k, v, scale=scale, causal=True,
-                              window=window)
-        return _out_proj(out, p["wo"])
+        q, k, v, k0 = _context_parallel_kv(q, k, v, cfg.num_heads)
+        if k0 is None:
+            out = kops.flash_sdpa(q, k, v, scale=scale, causal=True,
+                                  window=window)
+        else:
+            out, lse = kops.flash_sdpa(q, k, v, scale=scale, causal=True,
+                                       window=window, k0=k0, lse=True)
+            out, _ = TP.merge_attention(out, lse.transpose(-1, -2), "model")
+        return _out_proj(out, p["wo"], whole=cp)
     k, v = _gqa_expand(k, nh), _gqa_expand(v, nh)
-    k, v = _context_parallel_kv(k, v, cfg.num_heads)
     if cross_kv is not None or bidir:
         out = _sdpa(q, k, v, torch.ones((sq, sk), dtype=torch.bool,
                                         device=x.device), scale)
@@ -314,7 +383,7 @@ def attention(p, cfg, x, positions, *, window=0, cross_kv=None, bidir=False):
     else:
         out = _sdpa(q, k, v, causal_mask(sq, sk, window, device=x.device),
                     scale)
-    return _out_proj(out, p["wo"])
+    return _out_proj(out, p["wo"], whole=cp)
 
 
 def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
@@ -329,52 +398,100 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
     token is not affordable.  ``cross=True``: attend over a pre-filled
     cache and write nothing (whisper's cross-attention; ``pos`` is then the
     encoder length, slots ``>= pos`` masked).  Returns ``(out, cache)``,
-    the same dict.  Under a ``model`` split the cache holds this rank's KV
-    heads, or every KV head (replicated-KV GQA: the rank projects them all
-    and reads the run its query heads need).
+    the same dict.  Under a ``model`` split that divides the KV heads the
+    cache holds this rank's KV heads; where it does not, every KV head over
+    this rank's ``W/M`` slots (:func:`init_attn_cache`, the reference's
+    ``kv_seq`` cache): the rank that owns slot ``pos % W`` writes the new
+    token, every rank attends its slots for every query head, and the
+    shares merge over ``model``.
     """
     hd = cfg.hd
-    q, k, v = _project_qkv(p, cfg, TP.copy_to(x, "model"), all_kv=True)
+    cp = context_parallel(cfg)
+    q, k, v = _project_qkv(p, cfg, x if cp else TP.copy_to(x, "model"),
+                           all_kv=True)
     nh = q.shape[-2]
     ck, cv = cache["k"], cache["v"]
-    W = ck.shape[-3]
-    slot_ids = torch.arange(W, device=ck.device)
+    scale = 1.0 / math.sqrt(hd)
     if cross:
-        valid = slot_ids < pos
-    else:
-        if cfg.rope_fraction > 0:
-            cos, sin, rot = rope_cos_sin(pos.reshape(1), hd, cfg.rope_theta,
-                                         cfg.rope_fraction)
-            q = apply_rope(q, cos, sin, rot)
-            k = apply_rope(k, cos, sin, rot)
-        dim = ck.dim() - 3
-        slot = torch.remainder(pos, W).reshape(1).long()
-        ck.index_copy_(dim, slot, k.to(ck.dtype))
-        cv.index_copy_(dim, slot, v.to(cv.dtype))
-        # absolute position currently stored in each slot
-        slot_pos = pos - torch.remainder(pos - slot_ids, W)
-        valid = (slot_pos >= 0) & (slot_pos <= pos)
-        if window:
-            valid &= slot_pos > pos - window
-    span = kv_span(cfg)
-    if span is not None and not cross:
-        ck = ck.narrow(-2, span[0], span[1] - span[0])
-        cv = cv.narrow(-2, span[0], span[1] - span[0])
-    kk = _gqa_expand(ck, nh)
-    vv = _gqa_expand(cv, nh)
-    kk, vv = _context_parallel_kv(kk, vv, cfg.num_heads)
-    out = _sdpa(q, kk, vv, valid[None, None, :], 1.0 / math.sqrt(hd))
-    out = _out_proj(out, p["wo"])
-    return out, cache
+        valid = torch.arange(ck.shape[-3], device=ck.device) < pos
+        out = _sdpa(q, _gqa_expand(ck, nh), _gqa_expand(cv, nh),
+                    valid[None, None, :], scale)
+        return _out_proj(out, p["wo"], whole=cp), cache
+    if cfg.rope_fraction > 0:
+        cos, sin, rot = rope_cos_sin(pos.reshape(1), hd, cfg.rope_theta,
+                                     cfg.rope_fraction)
+        q = apply_rope(q, cos, sin, rot)
+        k = apply_rope(k, cos, sin, rot)
+    seq = kv_seq_cache(cfg)
+    r = TP.rank("model") if seq else 0
+    wl = ck.shape[-3]                             # this rank's slots
+    W = cache_ring(cfg, ck)
+    dim = ck.dim() - 3
+    slot = torch.remainder(pos, W).reshape(1).long()
+    k, v = k.to(ck.dtype), v.to(cv.dtype)
+    if seq:
+        # only the slot's owner writes the new token (a select on the
+        # device: no host sync)
+        local = slot - r * wl
+        own = (local >= 0) & (local < wl)
+        slot = local.clamp(0, wl - 1)
+        k = torch.where(own, k, ck.index_select(dim, slot))
+        v = torch.where(own, v, cv.index_select(dim, slot))
+    ck.index_copy_(dim, slot, k)
+    cv.index_copy_(dim, slot, v)
+    # absolute position currently stored in each of this rank's slots
+    slot_ids = r * wl + torch.arange(wl, device=ck.device)
+    slot_pos = pos - torch.remainder(pos - slot_ids, W)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window:
+        valid &= slot_pos > pos - window
+    if not seq:
+        out = _sdpa(q, _gqa_expand(ck, nh), _gqa_expand(cv, nh),
+                    valid[None, None, :], scale)
+        return _out_proj(out, p["wo"]), cache
+    if not cp:
+        q = TP.gather_dim(q, -2, "model")         # every query head
+    out, lse = _sdpa_lse(q, _gqa_expand(ck, q.shape[-2]),
+                         _gqa_expand(cv, q.shape[-2]), valid[None, None, :],
+                         scale)
+    out, _ = TP.merge_attention(out, lse.transpose(-1, -2), "model")
+    if not cp:
+        out = out.narrow(-2, TP.rank("model") * nh, nh)   # this rank's heads
+    return _out_proj(out, p["wo"], whole=cp), cache
+
+
+def kv_seq_cache(cfg) -> bool:
+    """Whether a rank's decode cache is its run of the ring's slots (the
+    reference's ``kv_seq`` cache): under a ``model`` split that does not
+    divide the KV heads."""
+    m = TP.size("model")
+    return m > 1 and cfg.num_kv_heads % m != 0
+
+
+def cache_ring(cfg, k: torch.Tensor) -> int:
+    """The ring's length W from a rank's K cache ``[..., slots, nkv, hd]``:
+    its slots, times M on the ``kv_seq`` cache."""
+    return k.shape[-3] * (TP.size("model") if kv_seq_cache(cfg) else 1)
 
 
 def init_attn_cache(batch_dims, cfg, length, dtype, device, stack=()):
-    """Zeroed K/V ``[*stack, *batch_dims, length, nkv, hd]``; under a
-    ``model`` split ``nkv`` is this rank's share of the KV heads (all of
-    them under replicated-KV GQA)."""
+    """Zeroed K/V ``[*stack, *batch_dims, length, nkv, hd]``.  Under a
+    ``model`` split of M: ``nkv / M`` KV heads where M divides the KV
+    heads; else every KV head over ``length / M`` slots, this rank's run of
+    the ring (the reference's ``kv_seq`` cache, which
+    ``train.serve_step.cache_pspecs`` names).  A ring that M does not
+    divide raises ``NotImplementedError`` (#13e): its spec replicates it,
+    and a rank's slots would not tell the two layouts apart."""
     nkv = cfg.num_kv_heads
-    if kv_span(cfg) is None:
-        nkv //= TP.size("model")
+    m = TP.size("model")
+    if kv_seq_cache(cfg):
+        if length % m:
+            raise NotImplementedError(
+                f"a decode cache of {length} slots does not split over "
+                f"model={m} (nor do its {nkv} KV heads): {SH.TODO_13E}")
+        length //= m
+    else:
+        nkv //= m
     shape = (*stack, *batch_dims, length, nkv, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

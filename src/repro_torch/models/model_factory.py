@@ -20,8 +20,11 @@ reference.
 
 Under a ``model`` split (``launch.mesh.mesh_context``, the dense and MoE
 families only) ``params`` are this rank's shards, ``init_cache`` holds its
-KV heads, ``loss`` is the vocab-parallel cross-entropy (the same value on
-every rank), and the serving logits come back whole on every rank.
+cut of the cache that ``train.serve_step.cache_pspecs`` names (its KV
+heads where ``model`` divides them, else every KV head over its share of
+the ring's slots: the reference's ``kv_seq``), ``loss`` is the
+vocab-parallel cross-entropy (the same value on every rank), and the
+serving logits come back whole on every rank.
 """
 from __future__ import annotations
 
@@ -268,8 +271,9 @@ class Model:
         cfg = self.cfg
         if cfg.family in LM_FAMILIES + ("vlm",):
             # ring-buffer semantics: a cache shorter than the context is a
-            # sliding window of exactly its own length
-            ring = cache["layers"]["k"].shape[-3]
+            # sliding window of exactly its own length, the whole ring's
+            # where a rank holds its run of the slots
+            ring = L.cache_ring(cfg, cache["layers"]["k"])
             logits, cache = T.decode_step(params, cfg, cache, token,
                                           window=ring)
             return TP.gather_dim(logits, -1, "model"), cache

@@ -21,21 +21,25 @@ What the port runs of it: the worker axes, as blocks of workers on ranks
 (``comm/workers.py``), and for the dense and MoE decoder families the
 ``model`` axis (``comm/tensor_parallel.py``: heads, MLP or each expert's
 ``d_ff``, and vocabulary split, Megatron's all-reduces; KV heads
-replicated where ``model`` does not divide them; the expert dim and the
-router whole on every rank) under either rules, and the hierarchical
-rules' FSDP ``embed -> data`` (``comm/fsdp.py``: weights gathered where
-used, gradients reduce-scattered).  Any other spec over a mesh axis of
-size > 1 (``model`` or ``data`` on another family, a ``model`` axis that
-does not divide the heads, which the reference meets with
-context-parallel ``kv_seq``) raises ``NotImplementedError``
-(:func:`check_runnable`, :func:`tensor_parallel_refusal`): those are
-ROADMAP Queue 1 #13e.
+replicated where ``model`` does not divide them, each rank projecting the
+run its query heads read; the expert dim and the router whole on every
+rank; where ``model`` does not divide the query heads, the reference's
+context-parallel ``kv_seq``: the attention weights whole on every rank,
+each rank attending its share of the keys and the shares merged, and the
+decode caches split on their sequence dim wherever the KV heads do not
+divide ``model``, ``models/layers.py``) under either rules, and the
+hierarchical rules' FSDP ``embed -> data`` (``comm/fsdp.py``: weights
+gathered where used, gradients reduce-scattered).  Any other spec over a
+mesh axis of size > 1 (``model`` or ``data`` on another family) raises
+``NotImplementedError`` (:func:`check_runnable`,
+:func:`tensor_parallel_refusal`): those are ROADMAP Queue 1 #13e.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import sys
 from typing import Iterator, Optional, Sequence, Tuple
 
 # the families whose weights split over ``model`` and FSDP ``data``
@@ -247,10 +251,11 @@ def tensor_parallel_refusal(cfg, rules: ShardingRules,
     ``model`` axis or the rules' FSDP ``data`` axis (a message naming
     #13e), or ``None`` when it can: the dense decoder family and the MoE
     family (the expert dim whole on every rank, as the reference's
-    ``"experts": None``), under either rules; ``model`` dividing the query
-    heads (replicated-KV GQA where it does not divide the KV heads, when
-    each rank's query heads read whole groups, :func:`kv_groups`), the MLP
-    or each expert's ``d_ff`` and the padded vocabulary; ``data`` dividing
+    ``"experts": None``), under either rules; any head counts (where
+    ``model`` does not divide the KV heads, replicated-KV GQA; where it
+    does not divide the query heads, context-parallel attention,
+    ``models/layers.py``); ``model`` dividing the MLP or each expert's
+    ``d_ff`` and the padded vocabulary; ``data`` dividing
     ``d_model``; and every split leaf's code rows a whole number of bytes
     at any width (a multiple of 8): ``head_dim``, ``d_model / data`` and
     ``d_ff / model``, of which the columns of every split leaf's view
@@ -267,14 +272,6 @@ def tensor_parallel_refusal(cfg, rules: ShardingRules,
         why = (f"tensor-parallel and FSDP weights are ported for the "
                f"{' and '.join(SPLIT_FAMILIES)} families only, not "
                f"{getattr(cfg, 'family', type(cfg).__name__)!r}")
-    elif m > 1 and cfg.num_heads % m:
-        why = (f"{cfg.num_heads} heads do not split over model={m} (the "
-               f"reference falls back to context-parallel 'kv_seq')")
-    elif m > 1 and cfg.num_kv_heads % m and kv_groups(
-            cfg.num_heads, cfg.num_kv_heads, m) is None:
-        why = (f"{cfg.num_kv_heads} KV heads replicated over model={m}: "
-               f"a rank's {cfg.num_heads // m} query heads do not read "
-               f"whole groups of one KV head")
     else:
         vocab = -(-cfg.vocab_size // 256) * 256
         for name, v, axis, k in (("d_ff", cfg.d_ff, "model", m),
@@ -368,23 +365,28 @@ def mesh_axis_size(name: str, default: int = 1) -> int:
 def constrain(x, *logical: Optional[str]):
     """The identity outside a constraint context.  Inside one the names
     resolve (``safe_pspec``) against the context's mesh; a spec over a
-    non-worker axis of size > 1 raises (ROADMAP #13e); a DTensor is
-    redistributed to the spec's placements on its own mesh; a plain tensor
-    is already the rank's block of the worker axes (or, inside the vmapped
-    step, one worker's) and comes back as it is.  The tensor-parallel
-    layers call no ``constrain`` over ``model``: their collectives are
-    written out (``comm/tensor_parallel.py``), and a constraint over it,
-    such as the context-parallel ``kv_seq``, still raises."""
+    non-worker axis of size > 1 raises (ROADMAP #13e), except the
+    context-parallel ``kv_seq`` on ``model``; a DTensor is redistributed
+    to the spec's placements on its own mesh; a plain tensor is already
+    the rank's block of the worker axes (or, inside the vmapped step, one
+    worker's) and comes back as it is.  The tensor-parallel layers call no
+    other ``constrain`` over ``model``: their collectives are written out
+    (``comm/tensor_parallel.py``), and ``models.layers._context_parallel_kv``
+    cuts this rank's share of a ``kv_seq`` dim itself, where the resolved
+    spec splits it."""
     ctx = _CONSTRAINT_CTX.get()
     if ctx is None:
         return x
     rules, ms = ctx
     spec = safe_pspec(tuple(x.shape), rules.pspec(*logical), ms)
-    bad = unrunnable_axes(spec, rules, ms)
+    bad = unrunnable_axes(spec, rules, ms,
+                          ("model",) if "kv_seq" in logical else ())
     if bad:
         raise NotImplementedError(
             f"constrain to {spec!r} over {bad} of mesh {ms}: {TODO_13E}")
-    from torch.distributed.tensor import DTensor
-    if isinstance(x, DTensor):
+    # a DTensor exists only once its module is loaded: a plain tensor does
+    # not pay that import (seconds, on a host shared by many ranks)
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is not None and isinstance(x, dt.DTensor):
         return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
     return x

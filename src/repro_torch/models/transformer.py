@@ -257,7 +257,9 @@ def cache_len(cfg, shape) -> int:
 
 def init_cache(cfg, batch, length, device):
     """Zeroed K/V ring buffers ``[num_layers, batch, length, nkv, hd]`` and
-    ``pos``, a 0-dim int32 tensor on ``device``."""
+    ``pos``, a 0-dim int32 tensor on ``device``; under a ``model`` split
+    this rank's cut (``layers.init_attn_cache``: its KV heads, or every KV
+    head over its ``length / M`` slots)."""
     dev = torch.device(device)
     return {"layers": L.init_attn_cache((batch,), cfg, length, dtype_of(cfg),
                                         dev, stack=(cfg.num_layers,)),

@@ -9,9 +9,11 @@ under ``torch.no_grad`` inside a profiler range (``serve.prefill`` /
 
 With ``mesh=`` and ``rules=`` the steps run under ``mesh_context``: the
 params are this rank's shards over ``model`` (``shard_serving_params``),
-the cache holds its KV heads (``make_cache``; every KV head under
-replicated-KV GQA), and the logits come back whole over the vocabulary on
-every rank.  The batch is the caller's rows.  Under the hierarchical
+the cache is this rank's cut of what :func:`cache_pspecs` names
+(``make_cache``: its KV heads where ``model`` divides them, else every KV
+head over its ``1/M`` of the ring's slots, the context-parallel ``kv_seq``
+cache), and the logits come back whole over the vocabulary on every
+rank.  The batch is the caller's rows.  Under the hierarchical
 rules the params are also cut over ``data`` (FSDP: each layer gathers its
 weights where it uses them) and ``global_batch`` lies on ``data``: each
 ``data`` rank serves its rows of the global batch (:func:`batch_rows`),
@@ -81,8 +83,9 @@ def make_serve_step(model: Model, *, mesh=None,
 
 def make_cache(model: Model, batch: int, shape: InputShape, *, mesh=None,
                rules: Optional[ShardingRules] = None) -> PyTree:
-    """``model.init_cache(batch, shape)``, on a mesh this rank's KV heads;
-    ``batch`` is this rank's rows (:func:`batch_rows`)."""
+    """``model.init_cache(batch, shape)``, on a mesh this rank's cut of
+    what :func:`cache_pspecs` names (its KV heads, or its share of the
+    slots); ``batch`` is this rank's rows (:func:`batch_rows`)."""
     with _mesh(model, mesh, rules)():
         return model.init_cache(batch, shape)
 
@@ -133,3 +136,25 @@ def cache_pspecs(model: Model, shape: InputShape, rules: ShardingRules,
         return safe_pspec(tuple(leaf.shape), rules.pspec(*names), mesh_shape)
     return resolve_tree(model.cache_logical(kv_div=kv_div),
                         abstract_cache(model, shape), resolve)
+
+
+def cache_cut(model: Model, shape: InputShape, rules: ShardingRules,
+              mesh_shape, axes=None) -> PyTree:
+    """A rank's cut of each leaf of :func:`abstract_cache` by
+    :func:`cache_pspecs`, as ``meta`` tensors: every dim divided by the
+    sizes of the mesh axes its spec entry names (only those in ``axes``,
+    if given)."""
+    from repro_torch import tree
+    specs = cache_pspecs(model, shape, rules, mesh_shape)
+
+    def cut(leaf, spec):
+        dims = list(leaf.shape)
+        for i, entry in enumerate(spec):
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                if a is not None and (axes is None or a in axes):
+                    dims[i] //= mesh_shape[a]
+        return torch.empty(dims, dtype=leaf.dtype, device="meta")
+    ab = abstract_cache(model, shape)
+    leaves, td = tree.flatten(ab)
+    return tree.unflatten(td, [cut(a, s) for a, s in
+                               zip(leaves, tree.leaves(specs))])

@@ -31,10 +31,13 @@ multi_pod=True])``) those families' weights are also split over
 one pod, every rank holding all of them), each rank's state is its cut of
 the one-process init over ``data`` and ``model``, it takes its ``data``
 share of every worker's batch rows, and the gossip is the per-leaf round
-on the shards.  Everything else on a ``model`` or FSDP axis > 1 (other
-families, heads the axis does not divide, KV heads replicated in groups
-a rank cannot read whole, other wires or update rules, the bucketed
-path, two tiers, the stale overlap, presence masks, telemetry) and any
+on the shards.  Heads that the ``model`` axis does not divide run
+context-parallel (``models/layers.py``: the attention weights whole on
+every rank, the keys split over ``model``), and KV heads replicated in
+groups a rank cannot read whole are expanded to its query heads.
+Everything else on a ``model`` or FSDP axis > 1 (other families, other
+wires or update rules, the bucketed path, two tiers, the stale overlap,
+presence masks, telemetry) and any
 state spec over another mesh axis of size > 1 raise
 ``NotImplementedError`` (ROADMAP #13e) at construction: nothing is
 replicated silently.

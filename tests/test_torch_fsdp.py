@@ -29,8 +29,18 @@ the gathered results against it, with ``tests/test_torch_tensor_parallel
   state bitwise (in the ranks); the losses within ``rtol=1e-5`` of the
   port's one-process trainer, the checkpoint's params within two steps'
   bound of it, elements up to Lemma 2's one-round bound beyond it counted;
-* float32 prefill and 4 cached decode steps within 1e-4 x max|logit|;
+* float32 prefill and 4 cached decode steps within 1e-4 x max|logit|,
+  the cache a rank holds the cut its specs name (checked in the ranks);
 * every out-of-scope case refused at construction, naming #13e.
+
+The head counts of ``C.SPLIT_WORLDS`` run at the same bounds (gradients,
+a train step with its code flips counted, prefill and decode, and 12
+decode steps on a ring of 8 slots, past each rank's and past the ring's
+end): reduced
+qwen2-72b with 3 query heads over 1 KV head on ``(data=2, model=2)``
+(context-parallel attention under FSDP, the decode cache on its sequence
+dim), reduced chatglm3-6b with 24 query heads over 6 KV heads on
+``(data=1, model=4)`` (KV groups a rank cannot read whole).
 
 Reduced dbrx-132b (E 4, top-2, group 64) runs on ``(data=2, model=2)``
 and ``(pod=2, data=2)`` too (``C.MOE_WORLDS``), its experts split on
@@ -74,9 +84,10 @@ WORLDS = tuple(C.WORLDS)
 ROUND_KEY = jax.random.PRNGKey(5)
 
 
-def _jcfg(arch):
+def _jcfg(name):
+    arch, over = C.arch_of(name)
     return dataclasses.replace(jget_config(arch).reduced(), dtype="float32",
-                               flash_attention=False, **C.OVERRIDES[arch])
+                               flash_attention=False, **over)
 
 
 def _inputs(path):
@@ -88,7 +99,7 @@ def _inputs(path):
            "seed_step": np.array(int(jops._key_to_seed(
                jax.random.split(key_step)[1])))}
     trees = {}
-    for a in C.ARCHS:
+    for a in C.ALL_ARCHS:
         jm = jbuild(_jcfg(a))
         p = jm.init(jax.random.PRNGKey(0))
         # non-zero QKV biases, so their gathers and reductions show
@@ -157,6 +168,19 @@ def _train_step_ref(jm, jX, batch, key_step):
             float(met["loss"]), int(met["wire_bytes"]))
 
 
+def _decode_ref(jm, P, toks, slots, steps):
+    """The reference's logits of ``steps`` cached decode steps from an
+    empty ring of ``slots``, fed ``toks``."""
+    cache = jm.init_cache(C.SERVE_B, JShape("d", slots, C.SERVE_B,
+                                            "decode"))
+    decode = jax.jit(jm.decode_step)
+    dec = []
+    for s in range(steps):
+        lg, cache = decode(P, cache, toks[:, s:s + 1])
+        dec.append(np.asarray(lg))
+    return np.stack(dec)
+
+
 def _reference(inp, trees, key_step):
     """Every number the ranks are held to, from the JAX package."""
     ref = {}
@@ -171,18 +195,14 @@ def _reference(inp, trees, key_step):
         toks = jnp.asarray(inp[f"{a}/serve"])
         prefill = jax.jit(lambda p, t: jm.prefill_logits(
             p, {"tokens": t}, last_only=False))(P, toks[:, :C.SERVE_S])
-        cache = jm.init_cache(C.SERVE_B, JShape(
-            "d", C.SERVE_S + C.DECODE, C.SERVE_B, "decode"))
-        decode = jax.jit(jm.decode_step)
-        dec = []
-        for s in range(C.DECODE):
-            lg, cache = decode(P, cache, toks[:, s:s + 1])
-            dec.append(np.asarray(lg))
-        ref[f"serve-{a}"] = (np.asarray(prefill), np.stack(dec))
+        ref[f"serve-{a}"] = (np.asarray(prefill), _decode_ref(
+            jm, P, toks, C.SERVE_S + C.DECODE, C.DECODE))
+        if a in C.SPLIT_ARCHS:
+            ref[f"ring-{a}"] = _decode_ref(jm, P, toks, C.RING, C.RING_STEPS)
         ref[f"step-{a}"] = _train_step_ref(jm, jX, batch, key_step)
         for wire, spec in C.ROUNDS.items():
             if a == C.KV_ARCH and wire != "moniqua8" or (
-                    a == C.MOE_ARCH and wire == "full"):
+                    a == C.MOE_ARCH and wire == "full") or a in C.SPLIT_ARCHS:
                 continue
             # the reference's bucketed Moniqua round is its per-leaf round
             # bit for bit (its bucket invariants): fewer eager compiles
@@ -323,6 +343,82 @@ def test_prefill_and_decode_match_reference(results, world):
                          ref[f"serve-{arch}"]):
         assert got.shape == want.shape and got.dtype == np.float32
         assert (np.abs(got - want).max() / np.abs(want).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("world", list(C.SPLIT_WORLDS))
+def test_split_heads_loss_and_grads_match_reference(results, world):
+    """Reduced qwen2-72b with 3 query heads on ``(data=2, model=2)``
+    (context-parallel attention) and reduced chatglm3-6b with 24 query
+    heads over 6 KV heads on ``(data=1, model=4)`` (KV groups a rank cannot
+    read whole): loss and gradients at the bounds above."""
+    ref, _, res = results
+    arrays, _ = res[world]
+    arch = C.SPLIT_WORLDS[world]
+    loss, grads = ref[f"grads-{arch}"]
+    np.testing.assert_allclose(arrays[f"grads-{arch}/loss"], loss,
+                               rtol=1e-5)
+    got = _leaves(arrays, f"grads-{arch}/grads")
+    assert len(got) == len(grads)
+    for c, a in zip(got, grads):
+        assert c.shape == a.shape
+        np.testing.assert_allclose(c, a, rtol=0,
+                                   atol=1e-4 * float(np.abs(a).max()))
+
+
+@pytest.mark.parametrize("world", list(C.SPLIT_WORLDS))
+def test_split_heads_train_step_matches_reference(results, world):
+    """Their train step: params within ``1e-6 + lr 1e-4 max|d|``, or one
+    Lemma 2 cell beyond it where a code rounds the other way (the split's
+    gradients differ from one process's in the last bits): counted, under
+    1e-4 of the elements."""
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import delta_for_bits
+    ref, _, res = results
+    arrays, _ = res[world]
+    arch = C.SPLIT_WORLDS[world]
+    params, mom, loss, wire_bytes = ref[f"step-{arch}"]
+    got = _leaves(arrays, f"step-{arch}/x")
+    assert len(got) == len(params)
+    cell = 2 * (1 - 1 / 3) * delta_for_bits(8, True) * float(
+        modulo.b_theta(C.THETA, delta_for_bits(8, True), "cpu"))
+    flips = total = 0
+    for c, a, d in zip(got, params, mom):
+        tol = 1e-6 + C.LR * 1e-4 * np.abs(d).max()
+        err = np.abs(c - a)
+        assert float(err.max()) <= tol + cell * 1.001
+        flips += int((err > tol).sum())
+        total += err.size
+    assert flips <= 1e-4 * total, (flips, total)
+    np.testing.assert_allclose(float(arrays[f"step-{arch}/loss"]), loss,
+                               rtol=1e-5)
+    assert int(arrays[f"step-{arch}/wire_bytes"]) == wire_bytes
+
+
+@pytest.mark.parametrize("world", list(C.SPLIT_WORLDS))
+def test_split_heads_prefill_and_decode_match_reference(results, world):
+    ref, _, res = results
+    arrays, _ = res[world]
+    arch = C.SPLIT_WORLDS[world]
+    for got, want in zip((arrays[f"serve-{arch}/prefill"],
+                          arrays[f"serve-{arch}/decode"]),
+                         ref[f"serve-{arch}"]):
+        assert got.shape == want.shape and got.dtype == np.float32
+        assert (np.abs(got - want).max() / np.abs(want).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("world", list(C.SPLIT_WORLDS))
+def test_split_heads_ring_decode_matches_reference(results, world):
+    """``C.RING_STEPS`` decode steps on a ring of ``C.RING`` slots, the
+    cache on its sequence dim (``C.RING / M`` slots a rank): the steps
+    past rank 0's slots, on every rank's and past the ring's end attend
+    the whole ring, as the reference's; the logits within 1e-4 x
+    max|logit|."""
+    ref, _, res = results
+    arrays, _ = res[world]
+    arch = C.SPLIT_WORLDS[world]
+    got, want = arrays[f"ring-{arch}/decode"], ref[f"ring-{arch}"]
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert (np.abs(got - want).max() / np.abs(want).max()) <= 1e-4
 
 
 @pytest.mark.parametrize("world", C.MOE_WORLDS)

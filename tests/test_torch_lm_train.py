@@ -175,7 +175,7 @@ def test_flash_backward_matches_autograd(dtype, causal, window):
                      tfa.expand_kv(qkv[2], 3), 0.25, causal, window)
     want = torch.autograd.grad(o, qkv, go)
     qkv = [t.clone().requires_grad_() for t in (q, k, v)]
-    o = tops._FlashSDPA.apply(*qkv, 0.25, causal, window)
+    o = tops._FlashSDPA.apply(*qkv, 0.25, causal, window, 0, False)
     got = torch.autograd.grad(o, qkv, go)
     for a, c in zip(want, got):
         assert c.shape == a.shape and c.dtype == a.dtype
@@ -199,7 +199,7 @@ def test_flash_vmap_rule_equals_a_loop(in_dims):
         q, k, v = (t.movedim(0, 1).contiguous() for t in (q, k, v))
 
     def f(q, k, v):
-        return tops._FlashSDPA.apply(q, k, v, 0.25, True, 9)
+        return tops._FlashSDPA.apply(q, k, v, 0.25, True, 9, 0, False)
 
     def take(t, d, w):
         return t if d is None else t.select(d, w)

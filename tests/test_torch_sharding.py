@@ -6,7 +6,11 @@ then the resolved ``params_pspecs``, ``state_pspecs``, ``batch_pspecs`` and
 llama3.2-3b and dbrx-132b) equal the reference's, path for path, at the
 single-pod, multi-pod and two-tier mesh shapes, with both ``kv_div``
 values; the mesh factories on torch's fake process group (no ranks run);
-and a weight-sharding mesh refused with ``NotImplementedError`` (#13e).
+a weight-sharding mesh refused with ``NotImplementedError`` (#13e) for the
+families the port does not split, and admitted for the dense family at
+head counts ``model`` does not divide (context-parallel attention); the
+decode cache a rank holds on the production mesh, on ``meta``, is the cut
+its resolved ``cache_pspecs`` name.
 """
 import jax
 import numpy as np
@@ -278,13 +282,15 @@ def test_mesh_factories_shapes(fake_world):
 
 
 def test_weight_sharding_mesh_raises_13e(fake_world):
-    """The production mesh's model axis (16) shards the heads, MLP and
-    vocab: the trainer refuses it rather than replicating them."""
+    """The production mesh's model axis (16) on a family whose weights the
+    port does not split (whisper-base, ROADMAP #13e.4): the trainer
+    refuses it rather than replicating them.  (The dense family runs there
+    since context-parallel attention: below.)"""
     from repro_torch.launch import mesh as M
     from repro_torch.models.model_factory import Model
     from repro_torch.train.trainer import Trainer, TrainerConfig
     mesh = M.make_production_mesh(device_type="cpu")
-    model = Model(get_config("llama3.2-3b").reduced(), "cpu")
+    model = Model(get_config("whisper-base").reduced(), "cpu")
     tc = TrainerConfig(n_workers=16, steps=1)
     with pytest.raises(NotImplementedError, match="#13e"):
         Trainer(model, tc, InputShape("t", 32, 16, "train"), mesh=mesh,
@@ -301,10 +307,13 @@ def test_placements_of_resolved_specs(fake_world):
 
 
 def test_constrain_raises_on_the_model_axis():
+    """A constraint over ``model`` raises, except the context-parallel
+    ``kv_seq``, whose share ``models.layers._context_parallel_kv`` cuts."""
     x = torch.zeros((4, 32, 2, 8))
     with SH.constraint_context(ShardingRules("decentralized"), MESH_1POD):
         with pytest.raises(NotImplementedError, match="#13e"):
-            SH.constrain(x, None, "kv_seq", None, None)
+            SH.constrain(x, None, "mlp", None, None)
+        assert SH.constrain(x, None, "kv_seq", None, None) is x
 
 
 def test_indivisible_worker_split_is_refused(fake_world):
@@ -324,3 +333,62 @@ def test_indivisible_worker_split_is_refused(fake_world):
     with pytest.raises(ValueError, match="do not split"):
         Trainer(model, TrainerConfig(n_workers=6, steps=1, wire="ef_qsgd"),
                 lambda k: {}, mesh=mesh, rules=rules)
+
+
+@pytest.mark.parametrize("arch,mode", [("llama3.2-3b", "decentralized"),
+                                       ("chatglm3-6b", "decentralized"),
+                                       ("qwen2-72b", "hierarchical")])
+def test_production_mesh_admits_heads_model_does_not_divide(arch, mode):
+    """The published dense configs on the production mesh (model 16):
+    llama3.2-3b's 24 heads and 8 KV heads, chatglm3-6b's 32 over 2,
+    qwen2-72b's 64 over 8 (FSDP over data): context-parallel attention or
+    replicated-KV GQA, none refused; the attention weights of the heads
+    case resolve whole over ``model`` (``safe_pspec`` replicates
+    ``heads`` and ``kv``)."""
+    cfg = get_config(arch)
+    rules = ShardingRules(mode)
+    assert SH.tensor_parallel_refusal(cfg, rules, MESH_1POD) is None
+    if cfg.num_heads % MESH_1POD["model"]:
+        specs = SS.serving_pspecs(build_model(cfg, device="meta"), rules,
+                                  MESH_1POD)
+        for leaf, spec in specs["blocks"]["attn"].items():
+            assert "model" not in [a for e in spec for a in
+                                   (e if isinstance(e, tuple) else (e,))], \
+                (leaf, spec)
+
+
+@pytest.mark.parametrize("arch,mode", [("qwen2-72b", "hierarchical"),
+                                       ("llama3.2-3b", "decentralized"),
+                                       ("chatglm3-6b", "decentralized")])
+def test_decode_cache_a_rank_holds_is_its_specs_cut(fake_world, arch, mode):
+    """The cache a rank of the production mesh ``(data=16, model=16)``
+    holds for ``decode_32k`` (built on ``meta``: nothing allocated) is the
+    cut of ``abstract_cache`` its resolved ``cache_pspecs`` name over
+    ``model`` and the rules' FSDP axis (the batch rows it serves): the KV
+    heads do not divide 16, so every KV head over 32768 / 16 slots.  For
+    qwen2-72b under the hierarchical rules (8 rows a ``data`` rank, 80
+    layers, 8 KV heads of 128, K and V in bfloat16) that is 5 GiB; a
+    cache of every slot, as each rank held before, is 80 GiB."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.launch import mesh as M
+    mesh = M.make_production_mesh(device_type="cpu")
+    rules = ShardingRules(mode)
+    model = dataclasses.replace(build_model(get_config(arch), device="cpu"),
+                                device="meta")
+    shape = get_input_shape("decode_32k")
+    lo, hi = SS.batch_rows(shape.global_batch, mesh, rules)
+    got = SS.make_cache(model, hi - lo, shape, mesh=mesh, rules=rules)
+    axes = ("model",) + ((rules.fsdp_axis,) if rules.fsdp_axis else ())
+    want = SS.cache_cut(model, shape, rules, MESH_1POD, axes=axes)
+    g_leaves, w_leaves = tree.leaves(got), tree.leaves(want)
+    assert [a.shape for a in g_leaves] == [w.shape for w in w_leaves]
+    assert all(a.device.type == "meta" for a in g_leaves)
+    nbytes = sum(a.numel() * a.element_size() for a in g_leaves)
+    whole_slots = sum(a.numel() * a.element_size() for a in
+                      tree.leaves(got["layers"])) * MESH_1POD["model"]
+    assert got["layers"]["k"].shape[2] * 16 == 32768
+    if arch == "qwen2-72b":
+        assert hi - lo == 8
+        assert nbytes <= 5 * 2 ** 30 + 64
+        assert whole_slots == 80 * 2 ** 30

@@ -17,7 +17,13 @@ The worlds: ``d2`` and ``d2m2``, the hierarchical rules on one pod
 worker, FSDP over ``data``); ``p2d2``, the hierarchical rules across pods
 (``(pod=2, data=2, model=1)``: two workers a pod); ``m4``, replicated-KV
 GQA (chatglm3-6b's 2 KV heads under 4 query heads on ``(data=1,
-model=4)``, the decentralized rules).  ``d2m2`` and ``p2d2`` also run
+model=4)``, the decentralized rules).  ``d2m2`` and ``m4`` also run a
+head count their ``model`` axis does not split cleanly (``SPLIT_WORLDS``:
+its gradients, a train step and its serving): reduced qwen2-72b with 3
+query heads over 1 KV head on ``d2m2``, context-parallel attention under
+the hierarchical rules; reduced chatglm3-6b with 24 query heads over 6 KV
+heads on ``m4``, KV groups of 4 that a rank's 6 query heads cannot read
+whole.  ``d2m2`` and ``p2d2`` also run
 reduced dbrx-132b (``MOE_WORLDS``: E 4, top-2, group 64): its gradients,
 its Moniqua 8-bit and 1-bit rounds (the router's rows of 4 codes padded
 to a byte, as one process pads them), a train step and its serving, on
@@ -62,9 +68,20 @@ ARCHS = (ARCH, KV_ARCH, MOE_ARCH)
 # reduced qwen2-72b keeps 4 KV heads under 4 query heads: GQA 4:2 by
 # override; reduced chatglm3-6b has 4 heads and 2 KV heads already
 OVERRIDES = {ARCH: dict(num_kv_heads=2), KV_ARCH: {}, MOE_ARCH: {}}
+# head counts that a world's model axis does not split cleanly, each an
+# arch of its own: name -> (arch, overrides); the world that runs it
+SPLIT_ARCHS = {"qwen2-72b@h3kv1": (ARCH, dict(num_heads=3, num_kv_heads=1)),
+               "chatglm3-6b@h24kv6": (KV_ARCH, dict(num_heads=24,
+                                                    num_kv_heads=6))}
+SPLIT_WORLDS = {"d2m2": "qwen2-72b@h3kv1", "m4": "chatglm3-6b@h24kv6"}
+ALL_ARCHS = ARCHS + tuple(SPLIT_ARCHS)
 N, B, S = 4, 2, 32            # workers, sequences a worker, tokens
 THETA, LR = 2.0, 0.1
 SERVE_B, SERVE_S, DECODE = 2, 24, 4
+# the decode ring of the ``ring-`` cases: RING_STEPS tokens from an empty
+# ring of RING slots, past every rank's RING / M slots of a kv_seq cache
+# and past the ring's end (the oldest slots overwritten)
+RING, RING_STEPS = 8, 12
 # world -> (ranks, mesh shape, rules mode, multi_pod, arch)
 WORLDS = {
     "d2": (2, dict(data=2, model=1), "hierarchical", False, ARCH),
@@ -81,9 +98,9 @@ FAMILY_ARCHS = {"zamba": "zamba2-1.2b", "xlstm": "xlstm-125m",
 REFUSALS = {
     "d2": ("hierarchical-xlstm", "wire-qsgd", "path-bucketed", "rule-choco",
            "overlap-stale"),
-    "d2m2": ("hierarchical-whisper", "kv_seq", "family-zamba", "telemetry"),
+    "d2m2": ("hierarchical-whisper", "family-zamba", "telemetry"),
     "p2d2": ("hierarchical-vlm", "presence"),
-    "m4": ("kv-groups", "family-xlstm"),
+    "m4": ("family-xlstm",),
 }
 # the NCCL run: one process on a card against the split on four cards,
 # float32 gradients and logits within this share of their largest entry
@@ -105,16 +122,24 @@ def case_names(world):
     if world in MOE_WORLDS:
         names += [f"{c}-{MOE_ARCH}" for c in (
             "grads", "round-moniqua8", "round-moniqua1", "step", "serve")]
+    if world in SPLIT_WORLDS:
+        names += [f"{c}-{SPLIT_WORLDS[world]}" for c in (
+            "grads", "step", "serve", "ring")]
     return names + [f"refuse-{r}" for r in REFUSALS[world]]
 
 
-def config(arch, **over):
-    """The reduced ``arch`` (with its override) in float32, the flash
-    route (its plain version on the CPU)."""
+def arch_of(name):
+    """``(arch, overrides)`` of an entry of ``ALL_ARCHS``."""
+    return SPLIT_ARCHS.get(name, (name, OVERRIDES.get(name, {})))
+
+
+def config(name, **over):
+    """The reduced arch of ``name`` (with its overrides) in float32, the
+    flash route (its plain version on the CPU)."""
     from repro_torch.configs import get_config
-    kw = dict(OVERRIDES[arch], **over)
+    arch, kw = arch_of(name)
     return dataclasses.replace(get_config(arch).reduced(), dtype="float32",
-                               flash_attention=True, **kw)
+                               flash_attention=True, **dict(kw, **over))
 
 
 def abstract(cfg):
@@ -133,7 +158,7 @@ def port_inputs(path: str, seed: int = 0) -> None:
     from repro_torch.models.model_factory import Model
     rng = np.random.default_rng(seed)
     out = {"seed_round": np.array(0x5EED1), "seed_step": np.array(0x5EED2)}
-    for a in ARCHS:
+    for a in ALL_ARCHS:
         cfg = config(a)
         p = Model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
         for i, leaf in enumerate(tree.leaves(p)):
@@ -226,11 +251,11 @@ class Runner:
         return convert.shard_params(X, specs, self.M.split_groups(
             self.mesh, self.rules))
 
-    def stacked(self, model):
+    def stacked(self, model, arch=None):
         """This rank's workers, batch rows and shards of the inputs of
-        ``model``'s arch."""
+        ``arch`` (by default ``model``'s)."""
         from repro_torch import tree
-        arch = model.cfg.name
+        arch = arch or model.cfg.name
         td, shapes = abstract(model.cfg)
         lo, hi = self.rows()
         X = tree.unflatten(td, [torch.from_numpy(
@@ -334,7 +359,7 @@ class Runner:
         from repro_torch.comm import workers
         arch = arch or self.arch
         model = self.model(arch)
-        X, batch = self.stacked(model)
+        X, batch = self.stacked(model, arch)
         with self.context(model):
             g, loss = torch.func.vmap(torch.func.grad_and_value(model.loss))(
                 X, batch)
@@ -378,7 +403,7 @@ class Runner:
         from repro_torch.train import train_step as TS
         model = self.model(arch)
         case = "step" + (f"-{arch}" if arch else "")
-        X, batch = self.stacked(model)
+        X, batch = self.stacked(model, arch)
         hp = self.hyper("moniqua8")
         step_fn = TS.make_train_step(model, hp, TS.TrainStepConfig(
             algo="moniqua", sgd=sgd.SGDConfig(momentum=0.9,
@@ -434,9 +459,11 @@ class Runner:
         return (same and same_run,
                 f"restore bitwise {same}; step and generator {same_run}")
 
-    def serve(self, arch=None):
+    def serve(self, arch=None, ring=False):
         """Prefill and ``DECODE`` cached steps of this rank's rows of the
-        serving batch on its shards; the logits gathered over ``data``."""
+        serving batch on its shards; the logits gathered over ``data``.
+        With ``ring``, ``RING_STEPS`` steps on a ring of ``RING`` slots
+        instead."""
         from repro_torch import tree
         from repro_torch.comm import fsdp
         from repro_torch.comm import tensor_parallel as TP
@@ -454,22 +481,35 @@ class Runner:
         lo, hi = SS.batch_rows(SERVE_B, **kw)
         toks = torch.from_numpy(self.inp[f"{arch}/serve"][lo:hi]).to(
             self.device)
-        prefill = SS.make_prefill_step(model, last_only=False, **kw)
-        logits = prefill(P, {"tokens": toks[:, :SERVE_S]})
-        cache = SS.make_cache(model, hi - lo, InputShape(
-            "d", SERVE_S + DECODE, SERVE_B, "decode"), **kw)
+        case, slots, steps = ((f"ring-{arch}", RING, RING_STEPS) if ring
+                              else (f"serve-{arch}", SERVE_S + DECODE,
+                                    DECODE))
+        logits = []
+        if not ring:
+            prefill = SS.make_prefill_step(model, last_only=False, **kw)
+            logits = [prefill(P, {"tokens": toks[:, :SERVE_S]})]
+        dshape = InputShape("d", slots, SERVE_B, "decode")
+        cache = SS.make_cache(model, hi - lo, dshape, **kw)
+        # the cache a rank holds is the cut its specs name over model, its
+        # batch dim (dim 1 of K and V) the rows it serves
+        want = SS.cache_cut(model, dshape, self.rules, self.shape(),
+                            axes=("model",))
+        cut = all(a.shape[:1] + a.shape[2:] == w.shape[:1] + w.shape[2:]
+                  for a, w in zip(tree.leaves(cache), tree.leaves(want)))
         step = SS.make_serve_step(model, **kw)
         outs = []
-        for s in range(DECODE):
+        for s in range(steps):
             lg, cache = step(P, cache, toks[:, s:s + 1])
             outs.append(lg)
         with self.context(model):
             whole = [TP.gather_dim(t, 0, fsdp.AXIS)
-                     for t in [logits] + outs]
-        self.arrays[f"serve-{arch}/prefill"] = whole[0].cpu().numpy()
-        self.arrays[f"serve-{arch}/decode"] = torch.stack(
-            whole[1:]).cpu().numpy()
-        return True, f"cache k {tuple(cache['layers']['k'].shape)}"
+                     for t in logits + outs]
+        if not ring:
+            self.arrays[f"{case}/prefill"] = whole[0].cpu().numpy()
+        self.arrays[f"{case}/decode"] = torch.stack(
+            whole[len(logits):]).cpu().numpy()
+        return cut, (f"cache k {tuple(cache['layers']['k'].shape)}, the "
+                     f"specs' cut {tuple(want['layers']['k'].shape)}")
 
     def refuse(self, what):
         """Each out-of-scope case raises ``NotImplementedError`` naming
@@ -486,11 +526,6 @@ class Runner:
         if family is not None:
             model = Model(get_config(FAMILY_ARCHS[family]).reduced(),
                           self.device)
-        elif what == "kv_seq":
-            model = self.model(num_heads=3, num_kv_heads=1)
-        elif what == "kv-groups":
-            # 6 query heads a rank over groups of 4: neither divides
-            model = self.model(num_heads=24, num_kv_heads=6)
         elif what == "wire-qsgd":
             tc["wire"] = "qsgd"
         elif what == "path-bucketed":
@@ -522,6 +557,12 @@ class Runner:
                     f"round-moniqua1-{a}": lambda: self.round("moniqua1", a),
                     f"step-{a}": lambda: self.step(a),
                     f"serve-{a}": lambda: self.serve(a)})
+        s = SPLIT_WORLDS.get(self.world)
+        if s is not None:
+            out.update({f"grads-{s}": lambda: self.grads(s),
+                        f"step-{s}": lambda: self.step(s),
+                        f"serve-{s}": lambda: self.serve(s),
+                        f"ring-{s}": lambda: self.serve(s, ring=True)})
         for r in REFUSALS[self.world]:
             out[f"refuse-{r}"] = lambda r=r: self.refuse(r)
         return out
@@ -549,7 +590,14 @@ def compare(got: dict, want: dict, case: str, tol: float):
                   and not k.startswith("trainer/ckpt/"))
     if not keys or any(k not in got for k in keys):
         return False, "arrays missing"
-    worst, ok = 0.0, True
+    # a head count the split attends otherwise (context-parallel, or KV
+    # expanded): its step's round may round a code one cell the other way
+    # where the gradients differ in the last bits, counted as the CPU
+    # tests count them (Lemma 2's 2 (1 - w_ii) delta B, under 1e-4 of the
+    # elements)
+    cell = (lemma2_cell() if case.startswith("step-")
+            and case[5:] in SPLIT_ARCHS else 0.0)
+    worst, ok, flips, total = 0.0, True, 0, 0
     for k in keys:
         a, b = np.asarray(got[k], np.float64), np.asarray(want[k],
                                                           np.float64)
@@ -559,8 +607,24 @@ def compare(got: dict, want: dict, case: str, tol: float):
         scale = float(np.abs(b).max()) if b.size else 1.0
         bound = 0.0 if case.startswith("round-") else tol * (scale or 1.0)
         worst = max(worst, gap / (scale or 1.0))
+        if cell and "/x/" in k:
+            flips += int((np.abs(a - b) > bound).sum())
+            total += a.size
+            bound += cell * 1.001
         ok = ok and gap <= bound
-    return ok, f"largest gap {worst:.3e} of the largest entry"
+    ok = ok and flips <= 1e-4 * max(total, 1)
+    return ok, (f"largest gap {worst:.3e} of the largest entry"
+                + (f", {flips} of {total} elements a code cell off"
+                   if cell else ""))
+
+
+def lemma2_cell() -> float:
+    """Lemma 2's bound on what one 8-bit round moves a worker of ring(4)
+    where one code rounds the other way: 2 (1 - w_ii) delta B."""
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import delta_for_bits
+    d = delta_for_bits(8, True)
+    return 2 * (1 - 1 / 3) * d * float(modulo.b_theta(THETA, d, "cpu"))
 
 
 # -- the CLI on a small production mesh ---------------------------------------

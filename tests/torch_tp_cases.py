@@ -4,9 +4,11 @@
 joins a gloo group of WORLD ranks (2 or 4) through the ``FileStore`` at
 STORE, lays them out as the mesh ``(data, model) = MESHES[WORLD]``, reads
 the cases' inputs from the ``.npz`` at INPUTS (stacked float32 params of
-the reduced dense archs and of reduced dbrx-132b, token batches, the round
-and step seeds, serving tokens; ``tests/test_torch_tensor_parallel.py``
-draws them from the JAX reference's init), runs every case of ``CASES``
+the reduced dense archs, of their head counts that ``model`` = 2 does not
+split cleanly (``SPLIT_ARCHS``) and of reduced dbrx-132b, token batches,
+the round and step seeds, serving tokens;
+``tests/test_torch_tensor_parallel.py`` draws them from the JAX
+reference's init), runs every case of ``CASES``
 on its block of workers and
 its shards of the weights, gathers each result whole and, on rank 0,
 writes the arrays to ``OUT + ".npz"`` and the checks made in the ranks
@@ -40,10 +42,25 @@ MOE_ARCH = ARCHS[2]            # reduced: E 4, top-2, group 64
 N, B, S = 4, 2, 32            # workers, sequences a worker, tokens
 THETA, LR = 2.0, 0.1
 SERVE_B, SERVE_S, DECODE = 2, 24, 4
+# the decode ring of the ``ring-`` cases: RING_STEPS tokens from an empty
+# ring of RING slots, past every rank's RING / M slots of a kv_seq cache
+# and past the ring's end (the oldest slots overwritten)
+RING, RING_STEPS = 8, 12
 MESHES = {2: (1, 2), 4: (2, 2)}
 ROUNDS = {"moniqua8": (8, True), "moniqua1": (1, False), "full": None}
-REFUSALS = ("heads", "kv-heads", "hierarchical-whisper", "family-vlm",
-            "wire-qsgd", "path-bucketed", "rule-choco", "serve-heads")
+# head counts that model = 2 does not split cleanly, each run as an arch of
+# its own (gradients, a train step, serving): 3 query heads, which run
+# context-parallel (the keys split over model, the attention weights whole
+# on every rank, the decode cache on its sequence dim); 6 query heads over
+# 3 KV heads, whose groups of 2 a rank's 3 query heads cannot read whole
+# (each rank projects the KV heads it reads and expands them to its heads)
+SPLIT_ARCHS = {"llama3.2-3b@h3": ("llama3.2-3b",
+                                  dict(num_heads=3, num_kv_heads=3)),
+               "chatglm3-6b@h6kv3": ("chatglm3-6b",
+                                     dict(num_heads=6, num_kv_heads=3))}
+ALL_ARCHS = ARCHS + tuple(SPLIT_ARCHS)
+REFUSALS = ("hierarchical-whisper", "family-vlm", "wire-qsgd",
+            "path-bucketed", "rule-choco")
 # the families still refused on a split (ROADMAP #13e.4) by their configs
 FAMILY_ARCHS = {"whisper": "whisper-base", "vlm": "phi-3-vision-4.2b"}
 # the full-width cell of the NCCL run (chip_smoke.py phase 21's)
@@ -60,19 +77,27 @@ CARD_TOL = 1e-4
 def case_names():
     """Every case of a world: the checks the ranks make themselves, and
     the arrays the test holds against the reference."""
-    return (["ops"] + [f"grads-{a}" for a in ARCHS]
+    return (["ops"] + [f"grads-{a}" for a in ALL_ARCHS]
             + [f"round-{w}" for w in ROUNDS] + ["step", "trainer"]
-            + [f"round-moniqua8-{MOE_ARCH}", f"step-{MOE_ARCH}"]
-            + [f"serve-{a}" for a in ARCHS]
+            + [f"round-moniqua8-{MOE_ARCH}"]
+            + [f"step-{a}" for a in (MOE_ARCH,) + tuple(SPLIT_ARCHS)]
+            + [f"serve-{a}" for a in ALL_ARCHS]
+            + [f"ring-{a}" for a in SPLIT_ARCHS]
             + [f"refuse-{r}" for r in REFUSALS])
 
 
-def config(arch, **over):
-    """The reduced ``arch`` in float32, the flash route (its plain version
-    on the CPU)."""
+def arch_of(name):
+    """``(arch, overrides)`` of an entry of ``ALL_ARCHS``."""
+    return SPLIT_ARCHS.get(name, (name, {}))
+
+
+def config(name, **over):
+    """The reduced arch of ``name`` (``arch_of``) in float32, the flash
+    route (its plain version on the CPU)."""
     from repro_torch.configs import get_config
+    arch, kw = arch_of(name)
     return dataclasses.replace(get_config(arch).reduced(), dtype="float32",
-                               flash_attention=True, **over)
+                               flash_attention=True, **dict(kw, **over))
 
 
 def abstract(cfg):
@@ -91,7 +116,7 @@ def port_inputs(path: str, seed: int = 0) -> None:
     from repro_torch.models.model_factory import Model
     rng = np.random.default_rng(seed)
     out = {"seed_round": np.array(0x5EED1), "seed_step": np.array(0x5EED2)}
-    for a in ARCHS:
+    for a in ALL_ARCHS:
         cfg = config(a)
         p = Model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
         for i, leaf in enumerate(tree.leaves(p)):
@@ -248,10 +273,11 @@ class Runner:
         with self.context(model):
             g, loss = torch.func.vmap(torch.func.grad_and_value(model.loss))(
                 X, batch)
+            same = self.replicated_equal(g, model)
             self.put(f"grads-{arch}/grads", self.gather(g))
             self.arrays[f"grads-{arch}/loss"] = workers.gather_rows(
                 loss).cpu().numpy()
-        return True, "arrays"
+        return same, f"replicated gradients equal over model: {same}"
 
     def hyper(self, wire):
         from repro_torch.core.algorithms import AlgoHyper
@@ -346,7 +372,9 @@ class Runner:
         return (same and same_run,
                 f"restore bitwise {same}; step and generator {same_run}")
 
-    def serve(self, arch):
+    def serve(self, arch, ring=False):
+        """Prefill and ``DECODE`` cached steps; with ``ring``, ``RING_STEPS``
+        steps on a ring of ``RING`` slots instead."""
         from repro_torch.configs.base import InputShape
         from repro_torch import tree
         from repro_torch.train import serve_step as SS
@@ -359,18 +387,28 @@ class Runner:
         if self.mesh is not None:
             P = SS.shard_serving_params(model, P, self.mesh, self.rules)
         toks = torch.from_numpy(self.inp[f"{arch}/serve"]).to(self.device)
-        prefill = SS.make_prefill_step(model, last_only=False, **kw)
-        logits = prefill(P, {"tokens": toks[:, :SERVE_S]})
-        self.arrays[f"serve-{arch}/prefill"] = logits.cpu().numpy()
-        cache = SS.make_cache(model, SERVE_B, InputShape(
-            "d", SERVE_S + DECODE, SERVE_B, "decode"), **kw)
+        case, slots, steps = ((f"ring-{arch}", RING, RING_STEPS) if ring
+                              else (f"serve-{arch}", SERVE_S + DECODE,
+                                    DECODE))
+        if not ring:
+            prefill = SS.make_prefill_step(model, last_only=False, **kw)
+            logits = prefill(P, {"tokens": toks[:, :SERVE_S]})
+            self.arrays[f"{case}/prefill"] = logits.cpu().numpy()
+        dshape = InputShape("d", slots, SERVE_B, "decode")
+        cache = SS.make_cache(model, SERVE_B, dshape, **kw)
+        # the cache a rank holds is the model-axis cut its specs name
+        want = SS.cache_cut(model, dshape, self.rules, self.shape(),
+                            axes=("model",))
+        cut = all(a.shape == w.shape for a, w in zip(tree.leaves(cache),
+                                                       tree.leaves(want)))
         step = SS.make_serve_step(model, **kw)
         outs = []
-        for s in range(DECODE):
+        for s in range(steps):
             lg, cache = step(P, cache, toks[:, s:s + 1])
             outs.append(lg.cpu().numpy())
-        self.arrays[f"serve-{arch}/decode"] = np.stack(outs)
-        return True, (f"cache k {tuple(cache['layers']['k'].shape)}")
+        self.arrays[f"{case}/decode"] = np.stack(outs)
+        return cut, (f"cache k {tuple(cache['layers']['k'].shape)}, the "
+                     f"specs' cut {tuple(want['layers']['k'].shape)}")
 
     def refuse(self, what):
         """Each out-of-scope case raises ``NotImplementedError`` naming
@@ -378,18 +416,11 @@ class Runner:
         from repro_torch.configs.base import InputShape
         from repro_torch.models.model_factory import Model
         from repro_torch.models.sharding import ShardingRules
-        from repro_torch.train import serve_step as SS
         from repro_torch.train.trainer import Trainer, TrainerConfig
         shape = InputShape("lm", S, N * B, "train")
         model, rules = self.model(ARCHS[0]), self.rules
         tc = dict(algo="moniqua", n_workers=N, steps=1)
-        if what == "heads":
-            model = self.model(ARCHS[0], num_heads=3, num_kv_heads=3)
-        elif what == "kv-heads":
-            # KV heads replicated over model (3 over 2), a rank's 3 query
-            # heads reading groups of 2: not whole groups of one KV head
-            model = self.model(ARCHS[1], num_heads=6, num_kv_heads=3)
-        elif what.startswith(("hierarchical-", "family-")):
+        if what.startswith(("hierarchical-", "family-")):
             # the hierarchical rules run the dense and MoE families (FSDP
             # over data); the other families are refused under either
             from repro_torch.configs import get_config
@@ -405,27 +436,25 @@ class Runner:
         elif what == "rule-choco":
             tc["algo"] = "choco"
         try:
-            if what == "serve-heads":
-                model = self.model(ARCHS[0], num_heads=3, num_kv_heads=3)
-                SS.make_prefill_step(model, mesh=self.mesh, rules=rules)(
-                    {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-            else:
-                Trainer(model, TrainerConfig(**tc), shape, mesh=self.mesh,
-                        rules=rules)
+            Trainer(model, TrainerConfig(**tc), shape, mesh=self.mesh,
+                    rules=rules)
         except NotImplementedError as e:
             return "#13e" in str(e), str(e)
         return False, "no NotImplementedError"
 
     def cases(self):
         out = {"ops": self.ops, "step": self.step, "trainer": self.trainer}
-        for a in ARCHS:
+        for a in ALL_ARCHS:
             out[f"grads-{a}"] = lambda a=a: self.grads(a)
             out[f"serve-{a}"] = lambda a=a: self.serve(a)
+        for a in SPLIT_ARCHS:
+            out[f"ring-{a}"] = lambda a=a: self.serve(a, ring=True)
         for w in ROUNDS:
             out[f"round-{w}"] = lambda w=w: self.round(w)
         out[f"round-moniqua8-{MOE_ARCH}"] = lambda: self.round("moniqua8",
                                                               MOE_ARCH)
-        out[f"step-{MOE_ARCH}"] = lambda: self.step(MOE_ARCH)
+        for a in (MOE_ARCH,) + tuple(SPLIT_ARCHS):
+            out[f"step-{a}"] = lambda a=a: self.step(a)
         for r in REFUSALS:
             out[f"refuse-{r}"] = lambda r=r: self.refuse(r)
         return out
@@ -455,7 +484,14 @@ def compare(got: dict, want: dict, case: str, tol: float):
                   and not k.startswith("trainer/ckpt/"))
     if not keys or any(k not in got for k in keys):
         return False, "arrays missing"
-    worst, ok = 0.0, True
+    # a head count the split attends otherwise (context-parallel, or KV
+    # expanded): its step's round may round a code one cell the other way
+    # where the gradients differ in the last bits, counted as the CPU
+    # tests count them (Lemma 2's 2 (1 - w_ii) delta B, under 1e-4 of the
+    # elements)
+    cell = (lemma2_cell() if case.startswith("step-")
+            and case[5:] in SPLIT_ARCHS else 0.0)
+    worst, ok, flips, total = 0.0, True, 0, 0
     for k in keys:
         a, b = np.asarray(got[k], np.float64), np.asarray(want[k],
                                                           np.float64)
@@ -465,8 +501,24 @@ def compare(got: dict, want: dict, case: str, tol: float):
         scale = float(np.abs(b).max()) if b.size else 1.0
         bound = 0.0 if case.startswith("round-") else tol * (scale or 1.0)
         worst = max(worst, gap / (scale or 1.0))
+        if cell and "/x/" in k:
+            flips += int((np.abs(a - b) > bound).sum())
+            total += a.size
+            bound += cell * 1.001
         ok = ok and gap <= bound
-    return ok, f"largest gap {worst:.3e} of the largest entry"
+    ok = ok and flips <= 1e-4 * max(total, 1)
+    return ok, (f"largest gap {worst:.3e} of the largest entry"
+                + (f", {flips} of {total} elements a code cell off"
+                   if cell else ""))
+
+
+def lemma2_cell() -> float:
+    """Lemma 2's bound on what one 8-bit round moves a worker of ring(4)
+    where one code rounds the other way: 2 (1 - w_ii) delta B."""
+    from repro_torch.core import modulo
+    from repro_torch.core.quantizers import delta_for_bits
+    d = delta_for_bits(8, True)
+    return 2 * (1 - 1 / 3) * d * float(modulo.b_theta(THETA, d, "cpu"))
 
 
 # -- the full-width cell on the cards -----------------------------------------
