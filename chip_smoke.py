@@ -4425,6 +4425,29 @@ TP_WRAP_BASE = 2 ** 32 - 2 ** 28
 # phase 26 (c): the corners of each shard view held against the CPU, rows
 # and columns at each end (a whole view is up to 2e8 elements)
 TP_CPU_ROWS, TP_CPU_COLS = 2, 4096
+# phase 26 (d): the eight other update rules through Trainer(mesh=, rules=)
+# in the two ranks, at phase 21's widths cut to RULE_LAYERS layer and
+# RULE_SEQ tokens a worker (a replica rule's state beside the other rank's
+# at 2 layers and 2048 tokens would not fit the card), RULE_STEPS steps,
+# against the same trainer in one process (losses within phase 26 (b)'s
+# rtol); then one isolated step of each rule on the first RULE_PREFIX
+# leaves of the tree (the attention's four weights and the two norms,
+# split and whole), from one process's state one step in
+RULE_RUNS = (("allreduce", {}), ("naive", {}), ("choco", dict(gamma=0.3)),
+             ("deepsqueeze", dict(gamma=0.3)), ("dcd", {}), ("ecd", {}),
+             ("d2", dict(slack=0.75)), ("moniqua_d2", dict(slack=0.75)))
+RULE_LAYERS, RULE_SEQ, RULE_STEPS, RULE_PREFIX = 1, 512, 2, 6
+RULE_CPU_LEAVES = 1            # the leaves of that step held against the CPU
+# the trainers on ring(2): at llama3.2-3b's widths a worker holds 0.89 B
+# parameters at 1 layer (its 128256-row embedding and head); on ring(4)
+# naive ran out of the card's memory (35 GiB a rank, PR 33 run 2), and
+# DCD's ten float32 trees would take ~66 GiB a rank; the isolated steps
+# and (e)'s rounds keep ring(LM_WORKERS)
+RULE_WORKERS = 2
+RULE_LOSS_RTOL = 1e-3
+# phase 26 (e): the masked rounds of Moniqua (ring(4)) and Moniqua-D²
+# (ring(4), slack 0.75) on the whole tree of (d)'s cell, worker 1 absent
+TP_MASK = (1, 0, 1, 1)
 
 
 def tp_encode_phase(dev, card):
@@ -4518,18 +4541,22 @@ def tp_child(rank: int, store_path: str, out_dir: str) -> int:
     and 32 greedy tokens; rank 0 also serves the whole weights in one
     process first and compares the last position's logits.  (b) training:
     phase 21's cell for ``MESH_STEPS`` steps through ``Trainer(model, tc,
-    shape, mesh=, rules=)``.  Writes ``rank<R>.json`` (times, launches,
-    losses, peak memory) and ``rank<R>.pt`` (the final params shard) to
+    shape, mesh=, rules=)``.  (d) the eight other update rules
+    (``tp_rules``), (e) the masked rounds (``tp_masked``).  Writes
+    ``rank<R>.json`` (times, launches, losses, peak memory, the checks of
+    (d) and (e)) and ``rank<R>.pt`` (the final params shard) to
     ``out_dir``."""
     import datetime
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import tree
     from repro_torch.configs.base import InputShape
     from repro_torch.data.pipeline import SyntheticLMPipeline
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model_factory import Model
     from repro_torch.models.sharding import ShardingRules
     from repro_torch.train import serve_step as SS
+    from repro_torch.train import train_step as TS
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4558,7 +4585,12 @@ def tp_child(rank: int, store_path: str, out_dir: str) -> int:
         torch.cuda.empty_cache()
         prefill = SS.make_prefill_step(model, mesh=mesh, rules=rules)
         launches.zero()
-        logits = prefill(P, batch)
+        t0 = time.perf_counter()             # its first call, first-use
+        logits = prefill(P, batch)           # warm-up included
+        tok = logits[:, -1, :model.cfg.vocab_size].argmax(
+            -1, keepdim=True).int()
+        torch.cuda.synchronize()
+        res["first_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
         res["prefill_launches"] = launches.read()
         check(bool(torch.isfinite(logits).all()), "phase 26 (a) logits")
         if ref is not None:
@@ -4566,13 +4598,6 @@ def tp_child(rank: int, store_path: str, out_dir: str) -> int:
                                        / ref.abs().max())
             res["first_token_one_process"] = ref[:, -1].argmax(-1).tolist()
             del ref
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()             # the first token, again
-        logits = prefill(P, batch)
-        tok = logits[:, -1, :model.cfg.vocab_size].argmax(
-            -1, keepdim=True).int()
-        torch.cuda.synchronize()
-        res["ttft_ms"] = 1e3 * (time.perf_counter() - t0)
         cache = SS.make_cache(model, SERVE_BATCH, InputShape(
             "serve_decode", BF16_PROMPT, SERVE_BATCH, "decode"), mesh=mesh,
             rules=rules)
@@ -4615,6 +4640,18 @@ def tp_child(rank: int, store_path: str, out_dir: str) -> int:
         res["bytes_per_step"] = out["bytes_per_step"]
         torch.save({"params": tree_cpu(out["state"]["params"])},
                    os.path.join(out_dir, f"rank{rank}.pt"))
+        del tr, out
+        torch.cuda.empty_cache()
+        dist.barrier()
+        # -- (d) the eight other update rules, (e) masked rounds ---------
+        t0 = time.perf_counter()
+        res["n_leaves"] = len(tree.leaves(TS.abstract_params(Model(
+            lm_config(LM_ARCH, layers=RULE_LAYERS), "cuda"))))
+        res["rules"] = tp_rules(rank, mesh, rules, launches)
+        res["rules_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["masked"] = tp_masked(rank, mesh, rules, launches)
+        res["masked_s"] = time.perf_counter() - t0
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -4628,6 +4665,282 @@ def tree_cpu(t):
     return tree.map(lambda a: a.detach().cpu(), t)
 
 
+def rule_trainer_config(name, kw):
+    from repro_torch.train.trainer import TrainerConfig
+    return TrainerConfig(algo=name, bits=8, topology="ring",
+                         n_workers=RULE_WORKERS, theta=2.0, lr=0.1,
+                         momentum=0.9, weight_decay=5e-4, steps=RULE_STEPS,
+                         log_every=1, seed=0, **kw)
+
+
+def rule_hyper(name, kw, presence=None):
+    """The isolated steps' and masked rounds' hyper-parameters: ring(4)
+    (slack 0.75 for the D² rules), 8 bits stochastic, the per-leaf path
+    (the path a split runs)."""
+    from repro_torch.core.algorithms import AlgoHyper
+    from repro_torch.core.moniqua import MoniquaCodec
+    from repro_torch.core.quantizers import QuantSpec
+    from repro_torch.core.topology import ring
+    topo = ring(LM_WORKERS)
+    if kw.get("slack", 1.0) < 1.0:
+        topo = topo.slack(kw["slack"])
+    return AlgoHyper(topo=topo, codec=MoniquaCodec(QuantSpec(8, True)),
+                     theta=2.0, gamma=kw.get("gamma", 1.0), path="per_leaf",
+                     presence=presence)
+
+
+def stacked_noisy(leaves, dev, seed, scale=0.02):
+    """``leaves`` stacked over ``LM_WORKERS`` workers that differ by seeded
+    noise, in each leaf's dtype."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(a[None].float() + scale * torch.randn(
+        (LM_WORKERS,) + tuple(a.shape), generator=gen, device=dev))
+        .to(a.dtype) for a in leaves]
+
+
+def rule_step_check(rank, name, kw, mesh, rules, cfg) -> dict:
+    """Phase 26 (d)'s isolated step of rule ``name`` on the first
+    ``RULE_PREFIX`` leaves of ``cfg``'s tree: one process's state one step
+    in (the same bits on both ranks), then step 2 on this rank's shards
+    with one process's directions and uniforms cut alike, and with the
+    rank's own draw: ``torch.equal`` to one process's step on the card cut
+    alike; on rank 0 one process's step on the card against the same step
+    on the CPU on the first ``RULE_CPU_LEAVES`` leaves, within
+    ``RULE_ULPS`` (Moniqua-D² bitwise)."""
+    from repro_torch import tree
+    from repro_torch.comm import tensor_parallel as TP
+    from repro_torch.core import algorithms as talg
+    from repro_torch.launch.mesh import mesh_context, mesh_shape_dict
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train import train_step as TS
+    model = Model(cfg, "cuda")
+    dev = model.dev
+    specs = tree.leaves(TS.params_pspecs(model, rules, mesh_shape_dict(mesh),
+                                         stacked=True))[:RULE_PREFIX]
+    dims = TP.axis_dims(specs, "model")
+    r = TP.AxisGroup.of(mesh, "model").rank
+    p = tree.leaves(model.init(model.generator(0)))[:RULE_PREFIX]
+    X0 = stacked_noisy(p, dev, 31)
+    G = [[(0.01 * g.float()).to(g.dtype) for g in stacked_noisy(
+        [torch.zeros_like(a) for a in p], dev, 41 + k, scale=1.0)]
+        for k in range(2)]
+    del p
+    algo, hp = talg.get_algorithm(name), rule_hyper(name, kw)
+    X1, e1 = algo.step(X0, algo.init(X0, hp), G[0], 0.1, 0, 101, hp)
+    U = talg.draw_uniforms(X1, 202)
+    mirrors = algo.mirrors
+
+    def cut(t):
+        return TP.shard_tree(t, dims, r, TP_MODEL)
+
+    def cut_state(x, e):
+        return cut(x), {k: cut(v) if k in mirrors else v
+                        for k, v in e.items()}
+    want = algo.step(X1, e1, G[1], 0.1, 1, 202, hp, uniforms=U)
+    wx, we = cut_state(*want)
+    out = {}
+    with mesh_context(mesh, rules, params=specs):
+        for tag, u in (("handed", cut(U)), ("own", None)):
+            gx, ge = algo.step(*cut_state(X1, e1), cut(G[1]), 0.1, 1, 202,
+                               hp, uniforms=u)
+            out[tag] = all(torch.equal(a, b) for a, b in zip(
+                tree.leaves((gx, ge)), tree.leaves((wx, we))))
+            del gx, ge
+    if rank == 0:
+        # on the CPU the tree's first leaf alone (a prefix keeps Moniqua's
+        # counters): the rules step each leaf by itself
+        def first(t):
+            return tree_cpu(t[:RULE_CPU_LEAVES])
+        cpu = algo.step(first(X1), {k: first(v) if k in mirrors else
+                                    tree_cpu(v) for k, v in e1.items()},
+                        first(G[1]), 0.1, 1, 202, hp, uniforms=first(U))
+        wl = (want[0][:RULE_CPU_LEAVES],
+              {k: v[:RULE_CPU_LEAVES] if k in mirrors else v
+               for k, v in want[1].items()})
+        eps = torch.finfo(torch.float32).eps
+        err, ok = 0.0, True
+        for a, b in zip(tree.leaves(wl), tree.leaves(cpu)):
+            a = a.cpu()
+            d = float((a.float() - b.float()).abs().max()) if a.numel() else 0
+            err = max(err, d)
+            if name == "moniqua_d2":
+                ok = ok and torch.equal(a, b)
+            ok = ok and d <= RULE_ULPS * eps * max(1.0, float(
+                b.float().abs().max()))
+        out["cpu_err"], out["cpu_ok"] = err, ok
+        del cpu
+    del X0, G, X1, e1, U, want, wx, we
+    return out
+
+
+def tp_rules(rank, mesh, rules, launches) -> dict:
+    """Phase 26 (d) in a rank: each of ``RULE_RUNS`` through ``Trainer(
+    model, tc, shape, mesh=, rules=)`` for ``RULE_STEPS`` steps (losses,
+    bytes a step, the extra memory under the split, step time, peak
+    memory and launches), then its isolated step (``rule_step_check``)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train.trainer import Trainer
+    cfg = lm_config(LM_ARCH, layers=RULE_LAYERS)
+    shape = InputShape("lm_train", RULE_SEQ, RULE_WORKERS, "train")
+    out = {}
+    for name, kw in RULE_RUNS:
+        tr = Trainer(Model(cfg, "cuda"), rule_trainer_config(name, kw),
+                     shape, mesh=mesh, rules=rules)
+        torch.cuda.reset_peak_memory_stats()
+        launches.zero()
+        run = tr.run()
+        got = launches.read()
+        with mesh_context(mesh, rules, params=tr.param_specs):
+            mem = tr.algo.extra_memory_bytes(run["state"]["params"], tr.hp)
+        walls = [h["wall"] for h in run["history"]]
+        out[name] = dict(
+            losses=[h["loss"] for h in run["history"]],
+            bytes=run["bytes_per_step"], extra_mem=mem, launches=got,
+            step_ms=1e3 * (walls[-1] - walls[0]) / (len(walls) - 1),
+            peak=torch.cuda.max_memory_allocated())
+        del tr, run
+        out[name].update(rule_step_check(rank, name, kw, mesh, rules, cfg))
+    return out
+
+
+def tp_masked(rank, mesh, rules, launches) -> dict:
+    """Phase 26 (e) in a rank: the masked round (``TP_MASK``) of Moniqua
+    and of Moniqua-D² on this rank's shards of (d)'s whole tree, stacked
+    over ``LM_WORKERS`` noisy workers: each leaf ``torch.equal`` to one
+    process's masked round cut alike (one process's tree drawn once a
+    rank, one rank at a time, and both rules' rounds of it cut to the
+    rank's shards), the absent worker's shards unchanged; the launches a
+    rank."""
+    from repro_torch import tree
+    from repro_torch.comm import tensor_parallel as TP
+    from repro_torch.launch.mesh import mesh_context, mesh_shape_dict
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train import train_step as TS
+    model = Model(lm_config(LM_ARCH, layers=RULE_LAYERS), "cuda")
+    specs = TS.params_pspecs(model, rules, mesh_shape_dict(mesh),
+                             stacked=True)
+    dims = TP.axis_dims(specs, "model")
+    r = TP.AxisGroup.of(mesh, "model").rank
+
+    engines = {name: rule_hyper(name, kw, presence=TP_MASK).engine()
+               for name, kw in (("moniqua", {}),
+                                ("moniqua_d2", dict(slack=0.75)))}
+
+    def one_process():
+        leaves, td = tree.flatten(model.init(model.generator(0)))
+        whole = tree.unflatten(td, stacked_noisy(leaves, model.dev, 51))
+        del leaves
+        wants = {name: TP.shard_tree(eng.mix(
+            whole, theta=2.0, seed=0x5EED4, presence=TP_MASK).x, dims, r,
+            TP_MODEL) for name, eng in engines.items()}
+        return TP.shard_tree(whole, dims, r, TP_MODEL), wants
+    # (d) keeps its allocator's blocks: hand them back before a rank
+    # waits beside another rank's whole tree
+    torch.cuda.empty_cache()
+    shard, wants = in_turns(rank, one_process)
+    absent = [w for w, up in enumerate(TP_MASK) if not up]
+    out = {}
+    for name, eng in engines.items():
+        launches.zero()
+        with mesh_context(mesh, rules, params=specs):
+            got = eng.mix(shard, theta=2.0, seed=0x5EED4,
+                          presence=TP_MASK).x
+        n = launches.read()
+        kept = all(torch.equal(a[w], b[w]) for a, b in zip(
+            tree.leaves(got), tree.leaves(shard)) for w in absent)
+        same = [torch.equal(a, b) for a, b in zip(tree.leaves(got),
+                                                   tree.leaves(wants[name]))]
+        out[name] = dict(equal=all(same), leaves=len(same), kept=kept,
+                         launches=n)
+        del got
+    del shard, wants
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rules_one(res, card) -> dict:
+    """Phase 26 (d) in one process on the card: each rule's trainer as the
+    ranks ran it, held to rank 0's losses (``RULE_LOSS_RTOL``), bytes a
+    step and extra memory (equal); returns the one-process numbers.  The
+    allocator keeps its blocks from one rule to the next rather than hand
+    them back to the card between rules."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models.model_factory import Model
+    from repro_torch.train.trainer import Trainer
+    cfg = lm_config(LM_ARCH, layers=RULE_LAYERS)
+    shape = InputShape("lm_train", RULE_SEQ, RULE_WORKERS, "train")
+    one = {}
+    for name, kw in RULE_RUNS:
+        tr = Trainer(Model(cfg, "cuda"), rule_trainer_config(name, kw),
+                     shape)
+        torch.cuda.reset_peak_memory_stats()
+        run = tr.run()
+        walls = [h["wall"] for h in run["history"]]
+        one[name] = dict(
+            losses=[h["loss"] for h in run["history"]],
+            bytes=run["bytes_per_step"],
+            extra_mem=tr.algo.extra_memory_bytes(run["state"]["params"],
+                                                 tr.hp),
+            step_ms=1e3 * (walls[-1] - walls[0]) / (len(walls) - 1),
+            peak=torch.cuda.max_memory_allocated())
+        del tr, run
+        split = [x["rules"][name] for x in res]
+        o = one[name]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(split[0]["losses"],
+                                                    o["losses"])]
+        check(len(gaps) == RULE_STEPS and max(gaps) <= RULE_LOSS_RTOL
+              and all(map(math.isfinite, split[0]["losses"])),
+              f"phase 26 (d) {name}: losses {split[0]['losses']} vs one "
+              f"process's {o['losses']} (rtol {RULE_LOSS_RTOL})")
+        check(all(x["losses"] == split[0]["losses"] for x in split),
+              f"phase 26 (d) {name}: the ranks' losses differ")
+        check(all(x["bytes"] == o["bytes"] and x["extra_mem"]
+                  == o["extra_mem"] for x in split),
+              f"phase 26 (d) {name}: bytes/step {[x['bytes'] for x in split]}"
+              f" and extra memory {[x['extra_mem'] for x in split]} vs one "
+              f"process's {o['bytes']}, {o['extra_mem']}")
+        check(all(x["handed"] and x["own"] for x in split),
+              f"phase 26 (d) {name}: the isolated step on the shards != one "
+              f"process's step cut alike: "
+              f"{[(x['handed'], x['own']) for x in split]}")
+        check(split[0]["cpu_ok"], f"phase 26 (d) {name}: one process's step "
+              f"on the card vs the CPU {split[0]['cpu_err']:.3g}")
+        enc = split[0]["launches"]["moniqua_encode"]
+        held = ("bitwise" if name == "moniqua_d2"
+                else f"within {RULE_ULPS} ulp")
+        want = RULE_STEPS * res[0]["n_leaves"] if name == "moniqua_d2" else 0
+        check(all(x["launches"]["moniqua_encode"] == want and
+                  x["launches"]["moniqua_decode_reduce"] == want
+                  for x in split),
+              f"phase 26 (d) {name}: launches "
+              f"{[x['launches'] for x in split]}, want {want} encodes and "
+              f"decode-reduces a rank")
+        print(f"phase 26 (d) {name} ({LM_ARCH}, {RULE_LAYERS} layer, ring("
+              f"{RULE_WORKERS}), 8 bits, {kw or 'defaults'}, {RULE_SEQ} "
+              f"tokens a worker, bf16) on 2 ranks over model: losses "
+              f"{[round(v, 5) for v in split[0]['losses']]} vs one "
+              f"process's {[round(v, 5) for v in o['losses']]} (largest "
+              f"relative gap {max(gaps):.3g}, rtol {RULE_LOSS_RTOL}); "
+              f"bytes/step {o['bytes']} and extra memory {o['extra_mem']} "
+              f"bytes a worker, equal; its step on the first {RULE_PREFIX} "
+              f"leaves' shards torch.equal to one process's cut alike "
+              f"(uniforms handed in, and the ranks' own draw); one "
+              f"process's step card vs CPU (its first {RULE_CPU_LEAVES} "
+              f"leaf) max abs "
+              f"{split[0]['cpu_err']:.3g} ({held}); "
+              f"encode / decode-reduce {enc} a rank", flush=True)
+        print(f"time: phase 26 (d) {name}: step "
+              + ", ".join(f"rank {i} {x['step_ms']:.3f} ms peak "
+                          f"{x['peak'] / 2 ** 30:.2f} GiB"
+                          for i, x in enumerate(split))
+              + f"; one process {o['step_ms']:.3f} ms peak "
+              f"{o['peak'] / 2 ** 30:.2f} GiB (host clock, step 1) {card}",
+              flush=True)
+    return one
+
+
 def tp_phase(dev, card, ref25):
     """Phase 26: tensor-parallel weights over the mesh's ``model`` axis on
     the one card: (c) the strided encode (``tp_encode_phase``), then two
@@ -4637,7 +4950,9 @@ def tp_phase(dev, card, ref25):
     ``MESH_STEPS`` x (one bfloat16 ulp of |x| + lr 5e-2 max|d|), or beyond
     that by at most Lemma 2's ``2 (1 - w_ii) delta B`` a step (counted),
     the replicated leaves bitwise equal on both ranks, 12 encodes, 12
-    decode-reduces and 2 bf16 flash launches a step a rank.  Returns the
+    decode-reduces and 2 bf16 flash launches a step a rank; (d) the eight
+    other update rules and (e) the masked rounds on the shards, against
+    one process (``tp_rules_one``, the ranks' checks).  Returns the
     ranks' launches by kernels-line entry."""
     import shutil
     import subprocess
@@ -4688,6 +5003,11 @@ def tp_phase(dev, card, ref25):
     counted = {}
     for r, x in enumerate(res):
         pre, trn = x["prefill_launches"], x["train_launches"]
+        # (d)'s trainers and (e)'s rounds on the shards are paths too
+        for got in ([v["launches"] for v in x["rules"].values()]
+                    + [v["launches"] for v in x["masked"].values()]):
+            for k in Launches.KEYS:
+                counted[k] = counted.get(k, 0) + got[k]
         n_leaves = len(tree.leaves(ref25["params"]))
         check(pre["flash_attention_tc"] == serve_config().num_layers
               and pre["flash_attention_f32tc"] == 0,
@@ -4767,8 +5087,10 @@ def tp_phase(dev, card, ref25):
           flush=True)
     for x in res:
         print(f"time: phase 26 rank {x['rank']}: (a) {SERVE_ARCH} bf16 "
-              f"{SERVE_BATCH} x {BF16_PROMPT} prefill (time to the first "
-              f"token) {x['ttft_ms']:.2f} ms, decode {x['token_ms']:.3f} ms "
+              f"{SERVE_BATCH} x {BF16_PROMPT} first prefill (its first "
+              f"call, warm-up included; not a warm time to the first "
+              f"token) {x['first_prefill_ms']:.2f} ms, decode "
+              f"{x['token_ms']:.3f} ms "
               f"a token (host clock); (b) step {x['step_ms']:.3f} ms (mean "
               f"of steps 1-{MESH_STEPS - 1}) beside phase 25's one-process "
               f"{ref25['step_ms']:.3f} ms; max_memory_allocated "
@@ -4780,6 +5102,32 @@ def tp_phase(dev, card, ref25):
           f"tokens {[t[0] for t in res[0]['tokens']]} (one process "
           f"{res[0]['first_token_one_process']}); {TP_GREEDY} greedy "
           f"tokens equal on both ranks: {res[0]['tokens']}", flush=True)
+    # (e): the masked rounds, held in the ranks
+    n_leaves = res[0]["n_leaves"]
+    for name, m in res[0]["masked"].items():
+        for r, x in enumerate(res):
+            mm = x["masked"][name]
+            check(mm["equal"] and mm["kept"] and mm["leaves"] == n_leaves,
+                  f"phase 26 (e) {name} rank {r}: {mm}")
+            check(mm["launches"]["moniqua_encode"] == n_leaves
+                  and mm["launches"]["moniqua_decode_reduce"]
+                  == 2 * n_leaves, f"phase 26 (e) {name} rank {r}: launches "
+                  f"{mm['launches']}, want {n_leaves} encodes and "
+                  f"{2 * n_leaves} decode-reduces (K = 1, m = 2)")
+        print(f"phase 26 (e): the masked {name} round (presence {TP_MASK}, "
+              f"{LM_ARCH} at {RULE_LAYERS} layer, {n_leaves} leaves, ring("
+              f"{LM_WORKERS}){', slack 0.75' if name == 'moniqua_d2' else ''}"
+              f", 8 bits) on each rank's shards: every leaf torch.equal to "
+              f"one process's masked round cut alike, the absent worker's "
+              f"shards unchanged; {m['launches']['moniqua_encode']} encodes "
+              f"and {m['launches']['moniqua_decode_reduce']} single-weight "
+              f"decode-reduces a rank", flush=True)
+    # (d): one process's trainers, after the ranks have left the card
+    t0 = time.perf_counter()
+    tp_rules_one(res, card)
+    print(f"time: phase 26 (d) took {res[0]['rules_s']:.1f} s of ranks and "
+          f"{time.perf_counter() - t0:.1f} s of one process; (e) "
+          f"{res[0]['masked_s']:.1f} s of ranks {card}", flush=True)
     print(f"phase 26: tensor parallelism passed in "
           f"{time.perf_counter() - t_phase:.1f} s ({t_ranks:.1f} s of "
           f"ranks); launches on its paths {counted} {card}", flush=True)
@@ -4807,6 +5155,8 @@ FSDP_PROMPT, FSDP_GREEDY = 2048, 2
 FSDP_SLOTS = FSDP_PROMPT + FSDP_RANKS
 FSDP_SEQ, FSDP_BATCH = 1024, 4  # (b): one worker, 4 x 1024 tokens a step
 FSDP_ROUND_N = 2               # (c): ring(2) over (b)'s leaves
+# (c): the whole leaves whose one-process rounds run at once, in bytes
+FSDP_ROUND_BUDGET = 4 * 2 ** 30
 FSDP_TIMEOUT = 900             # seconds the four ranks may take together
 # (b): every step's loss against one process's: the split sums its bf16
 # partial matmuls, token losses and gradients over the ranks in another
@@ -4946,10 +5296,11 @@ def fsdp_serve(rank, model, mesh, rules, ref, launches, res, key,
         torch.cuda.synchronize()
         res[f"{key}_ttft_ms"] = 1e3 * (time.perf_counter() - t0)
         res[f"{key}_launches"] = launches.read()
-        cache = SS.make_cache(model, hi - lo, InputShape(
-            "serve_decode", slots, rows_n, "decode"), mesh=mesh,
-            rules=rules)
-        serve = SS.make_serve_step(model, mesh=mesh, rules=rules)
+        dshape = InputShape("serve_decode", slots, rows_n, "decode")
+        cache = SS.make_cache(model, hi - lo, dshape, mesh=mesh,
+                              rules=rules)
+        serve = SS.make_serve_step(model, mesh=mesh, rules=rules,
+                                   shape=dshape)
         res[f"{key}_cache_k"] = list(cache["layers"]["k"].shape)
         res[f"{key}_cache_bytes"] = sum(
             a.numel() * a.element_size() for a in cache["layers"].values())
@@ -4966,9 +5317,11 @@ def fsdp_serve(rank, model, mesh, rules, ref, launches, res, key,
         res[f"{key}_decode_launches"] = launches.read()
     if ring is not None:
         rslots, rsteps = ring
-        rcache = SS.make_cache(model, hi - lo, InputShape(
-            "serve_decode", rslots, rows_n, "decode"), mesh=mesh,
-            rules=rules)
+        rshape = InputShape("serve_decode", rslots, rows_n, "decode")
+        rcache = SS.make_cache(model, hi - lo, rshape, mesh=mesh,
+                               rules=rules)
+        serve = SS.make_serve_step(model, mesh=mesh, rules=rules,
+                                   shape=rshape)
         rtoks = rows["tokens"].to(steps[0].device)
         gaps = []
         for s in range(rsteps):
@@ -5038,7 +5391,8 @@ def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c", group=1,
     process's round of the whole leaf (each rank computes that in turn);
     the split rounds' encode and decode-reduce launches, under ``res``
     keys prefixed ``KEY_`` for another ``key`` than (c); the one-process
-    rounds ``group`` ranks at a time."""
+    rounds ``group`` ranks at a time, or as many more as leaves of
+    ``FSDP_ROUND_BUDGET`` bytes whole in all."""
     from repro_torch import tree
     from repro_torch.comm import fsdp
     from repro_torch.comm import tensor_parallel as TP
@@ -5082,7 +5436,9 @@ def fsdp_rounds(rank, mesh, rules, res, cfg=None, key="c", group=1,
                                 device=model.dev, dtype=dtype)
             return cut(whole), [cut(hp.engine().mix(
                 (whole,), theta=2.0, seed=seed).x[0]) for _, hp in hps]
-        x, wants = in_turns(rank, one_process, group)
+        whole_bytes = FSDP_ROUND_N * math.prod(shape) * dtype.itemsize
+        x, wants = in_turns(rank, one_process, max(
+            group, FSDP_ROUND_BUDGET // whole_bytes))
         for (bits, hp), want in zip(hps, wants):
             e0, d0 = kenc.encode.launches, kdr.decode_reduce.launches
             torch.cuda.synchronize()

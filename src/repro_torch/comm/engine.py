@@ -88,10 +88,10 @@ index)`` pairs its elements have in the whole leaf (the encode's
 ``idx_row_stride``, and for a leaf split on two dims its blocks of rows,
 ``tensor_parallel.split_view``), so the round is the shard of one
 process's round bit for bit, and a replicated leaf comes out the same on
-every rank.  Other
-wires, the bucketed path, presence masks, telemetry and two tiers under a
-split raise ``NotImplementedError`` (``CommEngine.model_split_refusal``,
-ROADMAP #13e).
+every rank; a presence mask gates each shard's rows as one process gates
+the whole leaf's.  Other wires, the bucketed path, telemetry and two
+tiers under a split raise ``NotImplementedError``
+(``CommEngine.model_split_refusal``, ROADMAP #13e).
 
 Randomness: the reference takes a JAX key; the port takes the uint32 hash
 ``seed`` the reference derives from it (``kops._key_to_seed``).
@@ -987,7 +987,7 @@ class CommEngine:
             self._check_wire_state(state)
         splits = TP.leaf_splits(X)
         if splits is not None:
-            self.check_model_split(X, presence)
+            self.check_model_split(X)
         if self.tiered:
             return self._mix_tiered(X, theta, seed, ledger, state, presence)
         presence = _normalize_presence(presence, self.topo.n)
@@ -1043,8 +1043,7 @@ class CommEngine:
         return MixResult(Xm, {}, self._round_health(
             X, theta, seed, None, presence, flat=flat, payload=payload))
 
-    def model_split_refusal(self, X: PyTree, presence=None
-                            ) -> Optional[str]:
+    def model_split_refusal(self, X: PyTree) -> Optional[str]:
         """Why a round on ``X`` (one process's shapes, or the shards under
         a ``model`` split) does not run with the weights split over
         ``model``, or ``None`` (module docstring): the one list of what
@@ -1054,19 +1053,17 @@ class CommEngine:
         if self.tiered or self.stateful or name not in ("moniqua", "full"):
             return (f"the {name} wire"
                     + (" on a two-tier topology" if self.tiered else ""))
-        if _normalize_presence(presence, self.topo.n) is not None:
-            return "a presence mask"
         if self.telemetry:
             return "round telemetry"
         if self.resolved_path(X) == "bucketed":
             return f"the bucketed path (path={self.path!r})"
         return None
 
-    def check_model_split(self, X: PyTree, presence=None) -> None:
+    def check_model_split(self, X: PyTree) -> None:
         """Raise ``NotImplementedError`` naming #13e where
         :meth:`model_split_refusal` gives a reason."""
         from repro_torch.models.sharding import TODO_13E
-        why = self.model_split_refusal(X, presence)
+        why = self.model_split_refusal(X)
         if why is not None:
             raise NotImplementedError(
                 f"{why} with the weights split over 'model' or 'data': "

@@ -79,14 +79,25 @@ def shard_params(params: PyTree, specs: PyTree, splits=()) -> PyTree:
     return params
 
 
-def shard_state(state: PyTree, rank: int, R: int, splits=()) -> PyTree:
+def cut_subtrees(state: PyTree, mirrors=()) -> list:
+    """``(container, key)`` of every subtree of a trainer state held in
+    the params' cut under a split of the weights: ``params``, ``mom`` and
+    the rule's mirrors of the params, the keys ``mirrors`` of its
+    ``extra`` (``Algorithm.mirrors``)."""
+    return ([(state, "params"), (state, "mom")]
+            + [(state["extra"], k) for k in mirrors])
+
+
+def shard_state(state: PyTree, rank: int, R: int, splits=(),
+                mirrors=()) -> PyTree:
     """Block ``rank`` of ``R`` of a whole trainer state: every tensor leaf
     whose leading dim is the worker count ``n`` keeps rows ``[rank n/R,
     (rank + 1) n/R)``; the other leaves are shared, except a
     ``torch.Generator``, copied, so blocks cut in one process draw the same
     seeds as the whole state.  Under ``splits``
     (``tensor_parallel.AxisGroup`` s with the split dims of the stacked
-    params) the leaves of ``params`` and ``mom`` are also cut to each
+    params) the leaves of ``params``, ``mom`` and the rule's mirrors of
+    the params (``mirrors``, :func:`cut_subtrees`) are also cut to each
     group's shard."""
     n = _n_workers(state)
     if n % R:
@@ -104,16 +115,18 @@ def shard_state(state: PyTree, rank: int, R: int, splits=()) -> PyTree:
     out = tree.map(leaf, state)
     for g in splits:
         if g.size > 1:
-            for key in ("params", "mom"):
-                out[key] = g.cut(out[key])
+            for sub, key in cut_subtrees(out, mirrors):
+                sub[key] = g.cut(sub[key])
     return out
 
 
-def gather_state(state: PyTree, on_workers: PyTree) -> PyTree:
+def gather_state(state: PyTree, on_workers: PyTree,
+                 mirrors=()) -> PyTree:
     """The whole trainer state from this rank's block of it: every leaf
     that ``on_workers`` marks is all-gathered over the worker split in
     force, in block order, and under a ``model`` or FSDP ``data`` split
-    every shard of ``params`` and ``mom`` is gathered whole over it (an
+    every shard of ``params``, ``mom`` and the rule's mirrors of the
+    params (``mirrors``, :func:`cut_subtrees`) is gathered whole over it (an
     all-reduce of a zero-filled whole, exact).  A collective: every rank
     calls it.  The identity in one process."""
     from repro_torch.comm import tensor_parallel as TP
@@ -121,10 +134,10 @@ def gather_state(state: PyTree, on_workers: PyTree) -> PyTree:
     out = tree.map(lambda a, w: workers.gather_rows(a) if w else a,
                    state, on_workers)
     for g in TP.groups():
-        for key in ("params", "mom"):
-            dims = TP.leaf_dims(out[key], g.axis)
-            leaves, td = tree.flatten(out[key])
-            out[key] = tree.unflatten(td, [
+        for sub, key in cut_subtrees(out, mirrors):
+            dims = TP.leaf_dims(sub[key], g.axis)
+            leaves, td = tree.flatten(sub[key])
+            sub[key] = tree.unflatten(td, [
                 a if d is None else TP.gather_dim(a, d, g.axis)
                 for a, d in zip(leaves, dims)])
     return out

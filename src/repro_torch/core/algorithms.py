@@ -17,11 +17,20 @@ The rules of the reference's zoo (paper Table 1 and the baselines of Sec. 6):
 
 Randomness: ``seed`` is the step's uint32 seed.  Moniqua's wire hashes it
 (the reference's ``kops._key_to_seed(key)``); the norm-scaled and naive
-quantizers draw their rounding uniforms from a ``torch.Generator`` on the
-tensors' device seeded with it, unless the caller hands in ``uniforms``, a
-tree shaped like ``X`` (the parity tests hand in the reference's
-``jax.random.uniform`` draws).  ``seed=None`` with no ``uniforms`` rounds to
-nearest, as the reference does for ``key=None``.
+quantizers draw their rounding uniforms from it (:func:`draw_uniforms`: a
+counter-based uniform of ``(seed, worker, leaf, element)``), unless the
+caller hands in ``uniforms``, a tree shaped like ``X`` (the parity tests
+hand in the reference's ``jax.random.uniform`` draws).  ``seed=None`` with
+no ``uniforms`` rounds to nearest, as the reference does for ``key=None``.
+
+Under a split of the weights over ``model`` and/or FSDP ``data``
+(``comm/tensor_parallel.py``) every rule runs on this rank's shards and
+gives the cut of one process's step: the draw hashes each element's index
+in its whole leaf, the norm-scaled quantizer's per-worker ``amax`` is a
+max over the split axes (exact), and the biased 1-bit sign's ``mean|v|``
+a sum over them divided by the whole leaf's count (the sum in another
+order than one process's); the gossip is the engine's per-leaf round on
+the shards, and the byte and memory accounting is one process's.
 
 Telemetry (``AlgoHyper.telemetry``): the rules the reference instruments,
 D-PSGD, Moniqua, D² and Moniqua-D², carry the accumulated round-health
@@ -30,17 +39,20 @@ dict of their engine's rounds under ``extra["health"]``
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import tensor_parallel as TP
 from repro_torch.comm import workers
 from repro_torch.comm.engine import CommEngine, FullPrecisionWire, make_wire
 from repro_torch.comm.gossip import as_weight
 from repro_torch.core.modulo import _scalar
 from repro_torch.core.moniqua import MoniquaCodec
+from repro_torch.core.quantizers import _U32, _counter_uniform
 from repro_torch.core import topology
 from repro_torch.core.topology import Topology
 from repro_torch.obs import metrics as obs_metrics
@@ -128,44 +140,133 @@ def _sgd(X: PyTree, g: PyTree, alpha) -> PyTree:
     return tree.map(lambda x, d: (x - alpha * d).to(x.dtype), X, g)
 
 
-def _row_seed(seed: int, row: int) -> int:
-    """A 64-bit generator seed for worker ``row`` of the draw ``seed``
-    (splitmix64 of the pair), so each worker's uniforms come from a
-    generator of its own."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + row + 1) % 2 ** 64
+def _mix64(z: int) -> int:
+    """splitmix64's finalizer."""
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) % 2 ** 64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) % 2 ** 64
     return z ^ (z >> 31)
 
 
+def _stream_seed(seed: int, worker: int, leaf: int) -> int:
+    """The uint32 hash seed of worker ``worker``'s rounding stream of leaf
+    ``leaf`` in the draw ``seed`` (splitmix64 of the triple)."""
+    z = _mix64((int(seed) * 0x9E3779B97F4A7C15 + worker + 1) % 2 ** 64)
+    return _mix64((z + leaf + 1) % 2 ** 64) & _U32
+
+
+# elements hashed at once: bounds the int64 temporaries of a draw
+_DRAW_CHUNK = 1 << 22
+
+
+def _draw_group(group, n: int, seed: int, lo: int, dev) -> list:
+    """Uniforms for the stacked leaves of ``group`` (``(x, count, leaf,
+    splits)`` each: ``count`` elements a worker in the whole leaf,
+    ``splits`` as ``tensor_parallel.leaf_splits`` gives them).  Row ``r``
+    of a leaf is worker ``lo + r``'s; its element in place ``(i, j)`` of
+    the encode's view of the shard (``TP.split_view``) has the index ``e``
+    in the whole leaf that the view's offset and strides give, and draws
+    the counter uniform of ``e`` under ``_stream_seed(seed, lo + r,
+    leaf)`` mixed with ``e >> 32``.  The group's elements lie side by side
+    in the columns of one ``[n, total]`` buffer and are hashed a chunk of
+    columns at a time, every leaf and worker at once (the index arithmetic
+    shared by the workers): a draw is a few dozen launches a chunk,
+    whatever the number of leaves and workers, and touches only the
+    shard's own elements."""
+    geo, seeds, total = [], [], 0
+    for x, _, leaf, sp in group:
+        if x.dim() == 1:                  # one element a worker
+            rows, cols, off, stride, rpb, bstride = 1, 1, 0, 1, None, 0
+        else:
+            view, off, stride, rpb, bstride = TP.split_view(
+                torch.empty(x.shape, device="meta"), sp)
+            rows, cols = view.shape[1:]
+            stride = cols if stride is None else stride
+        # its first column, columns, offset, row stride, rows a block,
+        # block stride
+        geo.append((total, cols, off, stride, rpb or rows, bstride))
+        seeds.append([_stream_seed(seed, lo + r, leaf) for r in range(n)])
+        total += rows * cols
+    firsts = [g[0] for g in geo] + [total]
+    wide = any(count > 2 ** 32 for _, count, _, _ in group)
+    seeds = torch.tensor(seeds, dtype=torch.int64).t().contiguous().to(dev)
+    tab = (torch.tensor(geo, dtype=torch.int64).t().contiguous().to(dev)
+           if len(group) > 1 else None)
+    out = torch.empty((n, total), dtype=torch.float32, device=dev)
+    step = max(1, _DRAW_CHUNK // n)
+    for a in range(0, total, step):
+        b = min(total, a + step)
+        i = bisect.bisect_right(firsts, a) - 1
+        one = b <= firsts[i + 1]
+        if one:                           # in one leaf: its numbers
+            first, cols, off, stride, rpb, bstride = geo[i]
+            q = torch.arange(a - first, b - first, dtype=torch.int64,
+                             device=dev)
+            s = seeds[:, i:i + 1]
+        else:                             # each column its leaf's
+            g = torch.arange(a, b, dtype=torch.int64, device=dev)
+            k = torch.searchsorted(tab[0], g, right=True) - 1
+            first, cols, off, stride, rpb, bstride = (t[k] for t in tab)
+            q = g - first
+            s = seeds[:, k]
+        if one and off == 0 and stride == cols and bstride == 0:
+            e = q                         # a whole leaf's own order
+        else:
+            r = torch.div(q, cols, rounding_mode="floor")
+            blk = torch.div(r, rpb, rounding_mode="floor")
+            e = (off + blk * bstride + (r - blk * rpb) * stride
+                 + (q - r * cols))
+        if wide:                          # indices past 2^32 change the seed
+            s = s ^ (((e >> 32) * 0x9E3779B1) & _U32)
+        out[:, a:b] = _counter_uniform(s, e)
+    if len(group) == 1:
+        return [out.view(group[0][0].shape)]
+    return [out[:, c0:c1].reshape(x.shape) for (x, _, _, _), c0, c1
+            in zip(group, firsts, firsts[1:])]
+
+
 def draw_uniforms(X: PyTree, seed: int) -> PyTree:
     """Uniforms in [0, 1), one float32 per element of each leaf of the
-    stacked ``X``: worker ``i``'s rows of every leaf, in leaf order, from a
-    ``torch.Generator`` on ``X``'s device seeded with ``_row_seed(seed,
-    i)``.  Under a worker split a rank draws its own workers' rows only,
-    the bits one process draws for them."""
-    leaves, td = tree.flatten(X)
-    dev = leaves[0].device
-    out = [torch.empty(l.shape, dtype=torch.float32, device=dev)
-           for l in leaves]
-    b = leaves[0].shape[0]
-    lo = workers.row_base(b)
-    for r in range(b):
-        gen = torch.Generator(device=dev).manual_seed(_row_seed(seed, lo + r))
-        for u in out:
-            u[r].uniform_(0.0, 1.0, generator=gen)
-    return tree.unflatten(td, out)
+    stacked ``X``, on its device: element ``e`` of worker ``i``'s row of
+    leaf ``l`` is a counter-based uniform (the Moniqua wire's murmur3
+    finalizer, ``quantizers._counter_uniform``) of ``(seed, i, l, e)``,
+    ``e`` its index in the whole leaf.  Under a worker split a rank draws
+    its own workers' rows; under a ``model`` or FSDP ``data`` split its
+    shard's elements only: in both, the bits one process draws for
+    them.  Integer arithmetic throughout, so a draw on the card is the
+    CPU's bit for bit."""
+    return tree.unflatten(tree.flatten(X)[1], list(_leaf_draws(X, seed)))
+
+
+def _leaf_draws(X: PyTree, seed: int):
+    """The leaves of :func:`draw_uniforms`, drawn as they are taken: the
+    leaves that fit in one chunk together, a larger leaf alone."""
+    leaves = tree.leaves(X)
+    splits = TP.leaf_splits(X) or ((),) * len(leaves)
+    n = leaves[0].shape[0]
+    lo = workers.row_base(n)
+    counts = [w.numel() // w.shape[0] for w in tree.leaves(TP.whole(X))]
+    group, size = [], 0
+    for i, (x, c, sp) in enumerate(zip(leaves, counts, splits)):
+        if group and size + x.numel() > _DRAW_CHUNK:
+            yield from _draw_group(group, n, seed, lo, x.device)
+            group, size = [], 0
+        group.append((x, c, i, sp))
+        size += x.numel()
+    if group:
+        yield from _draw_group(group, n, seed, lo, group[0][0].device)
 
 
 def _uniform_leaves(X: PyTree, seed: Optional[int],
-                    uniforms: Optional[PyTree]) -> list:
-    """Per-leaf rounding uniforms: the handed-in tree, a draw from ``seed``,
-    or ``None`` per leaf (nearest rounding)."""
-    if uniforms is None and seed is not None:
-        uniforms = draw_uniforms(X, seed)
-    if uniforms is None:
+                    uniforms: Optional[PyTree]):
+    """Per-leaf rounding uniforms: the handed-in tree's leaves, a draw
+    from ``seed`` (each leaf's drawn as the caller takes it, so one leaf's
+    uniforms are alive at a time), or ``None`` per leaf (nearest
+    rounding)."""
+    if uniforms is not None:
+        return tree.leaves(uniforms)
+    if seed is None:
         return [None] * len(tree.leaves(X))
-    return tree.leaves(uniforms)
+    return _leaf_draws(X, seed)
 
 
 def _row_reduce(fn, a: torch.Tensor) -> torch.Tensor:
@@ -174,8 +275,18 @@ def _row_reduce(fn, a: torch.Tensor) -> torch.Tensor:
     return fn(a, dim=dims, keepdim=True) if dims else a
 
 
+def _split_axes(V: PyTree) -> list:
+    """For each leaf of ``V`` (shaped like the params), the split axes in
+    force that cut it (none outside a split)."""
+    n = len(tree.leaves(V))
+    dims = [(g.axis, TP.leaf_dims(V, g.axis)) for g in TP.groups()]
+    return [tuple(a for a, ds in dims if ds[i] is not None)
+            for i in range(n)]
+
+
 def _norm_quantize(v: torch.Tensor, bits: int, u: Optional[torch.Tensor],
-                   unbiased: bool = False) -> torch.Tensor:
+                   unbiased: bool = False, axes=(),
+                   count: int = 0) -> torch.Tensor:
     """Per-worker norm-scaled linear quantizer (Choco/DeepSqueeze/DCD/ECD).
 
     bits >= 2: ``scale_i = max_j |v_ij|`` per worker row; codes cover
@@ -184,10 +295,22 @@ def _norm_quantize(v: torch.Tensor, bits: int, u: Optional[torch.Tensor],
     ``unbiased``: the biased scaled sign ``sign(v) * mean|v|`` that the
     contraction-based methods admit; DCD/ECD need an unbiased quantizer, so
     they round 1-bit codes stochastically (and diverge: Table 2).
+
+    ``v`` a shard of a leaf the split ``axes`` cut (``count`` elements a
+    worker in the whole leaf): the max over the axes of the shard's max,
+    and the sum over them of its sum over ``count``.
     """
     if bits == 1 and not unbiased:
-        return torch.sign(v) * _row_reduce(torch.mean, torch.abs(v))
-    scale = _row_reduce(torch.amax, torch.abs(v)) + 1e-12
+        if not axes:
+            return torch.sign(v) * _row_reduce(torch.mean, torch.abs(v))
+        total = _row_reduce(torch.sum, torch.abs(v))
+        for a in axes:
+            total = TP.reduce_sum(total, a)
+        return torch.sign(v) * (total / _scalar(count, total))
+    amax = _row_reduce(torch.amax, torch.abs(v))
+    for a in axes:
+        amax = TP.max_over(amax, a)
+    scale = amax + 1e-12
     levels = 2 ** bits
     lat = (v / (2.0 * scale) + 0.5) * (levels - 1)
     codes = torch.floor(lat + (0.5 if u is None else u))
@@ -201,8 +324,10 @@ def _nq_tree(V: PyTree, bits: int, seed: Optional[int],
     biased_sign = bits == 1 and not unbiased      # draws no uniforms
     us = ([None] * len(leaves) if biased_sign
           else _uniform_leaves(V, seed, uniforms))
-    return tree.unflatten(td, [_norm_quantize(l, bits, u, unbiased)
-                               for l, u in zip(leaves, us)])
+    counts = [w.numel() // w.shape[0] for w in tree.leaves(TP.whole(V))]
+    return tree.unflatten(td, [
+        _norm_quantize(l, bits, u, unbiased, axes, n)
+        for l, u, axes, n in zip(leaves, us, _split_axes(V), counts)])
 
 
 def _code_bytes(X: PyTree, hp: AlgoHyper) -> int:
@@ -234,6 +359,9 @@ def _f32_copy(X: PyTree) -> PyTree:
 class Algorithm:
     """Base: subclasses override init/step and the two accounting methods."""
     name: str = "base"
+    # the keys of ``init``'s state whose subtrees mirror the params leaf
+    # for leaf, which a split of the weights holds in the params' cut
+    mirrors: Tuple[str, ...] = ()
 
     def init(self, X: PyTree, hp: AlgoHyper) -> PyTree:
         return {}
@@ -252,10 +380,17 @@ class Algorithm:
         paper's accounting (conceptual replicas for the replica schemes)."""
         return 0
 
+    def engines(self, hp: AlgoHyper) -> list:
+        """The engine of every round the rule gossips through (what a
+        split of the weights must run): the full-precision one unless a
+        rule says otherwise."""
+        return [hp.exact_engine()]
+
     @staticmethod
     def _model_bytes(X: PyTree) -> int:
-        """Per-worker full-precision model bytes (d * itemsize)."""
-        leaves = tree.leaves(X)
+        """Per-worker full-precision model bytes (d * itemsize), one
+        process's also under a split of the weights."""
+        leaves = tree.leaves(TP.whole(X))
         return sum(l.numel() * l.element_size() for l in leaves) \
             // leaves[0].shape[0]
 
@@ -277,6 +412,9 @@ class AllReduce(Algorithm):
     def bytes_per_step(self, X, hp):
         return 2 * self._model_bytes(X)  # ring allreduce ~2x model bytes/worker
 
+    def engines(self, hp):
+        return []
+
 
 class DPSGD(Algorithm):
     name = "dpsgd"
@@ -296,6 +434,9 @@ class DPSGD(Algorithm):
 
     def bytes_per_step(self, X, hp):
         return hp.exact_engine().bytes_per_round(X)
+
+    def engines(self, hp):
+        return [hp.exact_engine(telemetry=hp.telemetry)]
 
 
 class NaiveQuant(Algorithm):
@@ -366,12 +507,16 @@ class Moniqua(Algorithm):
     def extra_memory_bytes(self, X, hp):
         # 0 for the moniqua wire (the headline claim); residual + counter
         # for the EF wires
-        return hp.engine().wire_state_bytes(X)
+        return hp.engine().wire_state_bytes(TP.whole(X))
+
+    def engines(self, hp):
+        return [hp.engine()]
 
 
 class ChocoSGD(Algorithm):
     """Koloskova et al. 2019: gossip on quantized estimators x_hat."""
     name = "choco"
+    mirrors = ("x_hat",)
 
     def init(self, X, hp):
         return {"x_hat": _zeros_like(X)}
@@ -399,6 +544,7 @@ class ChocoSGD(Algorithm):
 class DeepSqueeze(Algorithm):
     """Tang et al. 2019: error-compensated compressed gossip."""
     name = "deepsqueeze"
+    mirrors = ("err",)
 
     def init(self, X, hp):
         return {"err": _zeros_like(X)}
@@ -424,6 +570,7 @@ class DeepSqueeze(Algorithm):
 class DCD(Algorithm):
     """DCD-PSGD: replicas x_hat updated with quantized model differences."""
     name = "dcd"
+    mirrors = ("x_hat",)
 
     def init(self, X, hp):
         return {"x_hat": _f32_copy(X)}
@@ -463,6 +610,7 @@ class ECD(DCD):
 class D2(Algorithm):
     """D^2 (Tang et al. 2018): variance-reduced decentralized SGD, Sec. 5."""
     name = "d2"
+    mirrors = ("x_prev", "g_prev")
 
     def init(self, X, hp):
         return _with_health(
@@ -500,6 +648,9 @@ class D2(Algorithm):
     def extra_memory_bytes(self, X, hp):
         return 2 * self._model_bytes(X)  # x_prev + g_prev (inherent to D^2)
 
+    def engines(self, hp):
+        return [hp.exact_engine(telemetry=hp.telemetry)]
+
 
 class MoniquaD2(D2):
     """Moniqua on D^2 (Algorithm 2): the half-step gossips through the
@@ -522,6 +673,9 @@ class MoniquaD2(D2):
 
     def bytes_per_step(self, X, hp):
         return hp.engine().bytes_per_round(X)
+
+    def engines(self, hp):
+        return [hp.engine()]
 
 
 ALGORITHMS: Dict[str, Algorithm] = {a.name: a for a in [

@@ -53,7 +53,11 @@ holds every KV head over its ``W/M`` slots of the ring
 that owns slot ``pos % W``, and each rank attends its slots for every
 query head (the one-token Q all-gathered where the heads are split) with
 the plain masked softmax and its log-sum-exp, merged, then keeps its
-heads for ``wo``.
+heads for ``wo``.  Where ``model`` divides neither the KV heads nor the
+ring, the cache's spec replicates it: every rank holds every KV head over
+the whole ring, writes every token and attends alone.  Which of the three
+layouts a cache has (:func:`cache_layout`) is read from its resolved
+specs (``train.serve_step.cache_pspecs``), never from a rank's slot count.
 
 FSDP (``comm/fsdp.py``, the hierarchical rules' ``data`` axis): a rank
 holds its shard of each weight's ``embed`` dim and gathers the weight
@@ -65,6 +69,8 @@ with ``dim=None``).  Both are one process's products without the split.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -398,12 +404,14 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
     token is not affordable.  ``cross=True``: attend over a pre-filled
     cache and write nothing (whisper's cross-attention; ``pos`` is then the
     encoder length, slots ``>= pos`` masked).  Returns ``(out, cache)``,
-    the same dict.  Under a ``model`` split that divides the KV heads the
-    cache holds this rank's KV heads; where it does not, every KV head over
-    this rank's ``W/M`` slots (:func:`init_attn_cache`, the reference's
-    ``kv_seq`` cache): the rank that owns slot ``pos % W`` writes the new
-    token, every rank attends its slots for every query head, and the
-    shares merge over ``model``.
+    the same dict.  Under a ``model`` split the cache has one of the
+    layouts of :func:`cache_layout`: this rank's KV heads (``"heads"``);
+    every KV head over this rank's ``W/M`` slots (``"seq"``, the
+    reference's ``kv_seq`` cache): the rank that owns slot ``pos % W``
+    writes the new token, every rank attends its slots for every query
+    head, and the shares merge over ``model``; or every KV head over the
+    whole ring on every rank (``"whole"``): every rank writes the token
+    and attends the whole ring for every query head, then keeps its heads.
     """
     hd = cfg.hd
     cp = context_parallel(cfg)
@@ -422,7 +430,8 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
                                      cfg.rope_fraction)
         q = apply_rope(q, cos, sin, rot)
         k = apply_rope(k, cos, sin, rot)
-    seq = kv_seq_cache(cfg)
+    layout = cache_layout(cfg)
+    seq = layout == "seq"
     r = TP.rank("model") if seq else 0
     wl = ck.shape[-3]                             # this rank's slots
     W = cache_ring(cfg, ck)
@@ -445,52 +454,91 @@ def attention_decode(p, cfg, x, cache, pos, *, window=0, cross=False):
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window:
         valid &= slot_pos > pos - window
-    if not seq:
+    if layout == "heads":
         out = _sdpa(q, _gqa_expand(ck, nh), _gqa_expand(cv, nh),
                     valid[None, None, :], scale)
         return _out_proj(out, p["wo"]), cache
     if not cp:
         q = TP.gather_dim(q, -2, "model")         # every query head
-    out, lse = _sdpa_lse(q, _gqa_expand(ck, q.shape[-2]),
-                         _gqa_expand(cv, q.shape[-2]), valid[None, None, :],
-                         scale)
-    out, _ = TP.merge_attention(out, lse.transpose(-1, -2), "model")
+    kk = _gqa_expand(ck, q.shape[-2])
+    vv = _gqa_expand(cv, q.shape[-2])
+    if seq:
+        out, lse = _sdpa_lse(q, kk, vv, valid[None, None, :], scale)
+        out, _ = TP.merge_attention(out, lse.transpose(-1, -2), "model")
+    else:                                         # the whole ring here
+        out = _sdpa(q, kk, vv, valid[None, None, :], scale)
     if not cp:
         out = out.narrow(-2, TP.rank("model") * nh, nh)   # this rank's heads
     return _out_proj(out, p["wo"], whole=cp), cache
 
 
-def kv_seq_cache(cfg) -> bool:
-    """Whether a rank's decode cache is its run of the ring's slots (the
-    reference's ``kv_seq`` cache): under a ``model`` split that does not
-    divide the KV heads."""
+# the decode cache's layout named by its specs (train.serve_step), while a
+# serving step or a cache built for a mesh runs
+_CACHE_LAYOUT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_cache_layout", default=None)
+
+
+@contextlib.contextmanager
+def cache_layout_context(layout):
+    """Inside, the decode caches have ``layout`` (:func:`cache_layout`;
+    ``None``: derived as outside)."""
+    token = _CACHE_LAYOUT.set(layout)
+    try:
+        yield
+    finally:
+        _CACHE_LAYOUT.reset(token)
+
+
+def cache_layout(cfg, length=None) -> str:
+    """A decode cache's layout under the ``model`` split in force:
+    ``"heads"`` (no split, or ``model`` divides the KV heads: this rank's
+    KV heads), else ``"seq"`` (every KV head over this rank's ``1/M`` of
+    the ring: the reference's ``kv_seq`` cache) or ``"whole"`` (every KV
+    head over the whole ring: a ring ``model`` does not divide, which the
+    cache's spec replicates).  The last two as the cache's resolved specs
+    name them (``cache_layout_context``, entered by ``train.serve_step``);
+    without that context, by the specs' rule on a ring of ``length``
+    slots.  A rank's slots do not tell the two apart, so with neither a
+    ``ValueError``: decode such a cache through
+    ``train.serve_step.make_serve_step(..., shape=)``."""
     m = TP.size("model")
-    return m > 1 and cfg.num_kv_heads % m != 0
+    if m == 1 or cfg.num_kv_heads % m == 0:
+        return "heads"
+    layout = _CACHE_LAYOUT.get()
+    if layout is not None:
+        return layout
+    if length is None:
+        raise ValueError(
+            f"{cfg.num_kv_heads} KV heads do not split over model={m}: the "
+            f"decode cache holds a share of the ring or the whole of it, "
+            f"which its specs name; decode through "
+            f"train.serve_step.make_serve_step(..., shape=)")
+    return "whole" if length % m else "seq"
 
 
 def cache_ring(cfg, k: torch.Tensor) -> int:
     """The ring's length W from a rank's K cache ``[..., slots, nkv, hd]``:
-    its slots, times M on the ``kv_seq`` cache."""
-    return k.shape[-3] * (TP.size("model") if kv_seq_cache(cfg) else 1)
+    its slots, times M on the ``kv_seq`` cache (:func:`cache_layout`
+    ``"seq"``)."""
+    return k.shape[-3] * (TP.size("model") if cache_layout(cfg) == "seq"
+                          else 1)
 
 
 def init_attn_cache(batch_dims, cfg, length, dtype, device, stack=()):
-    """Zeroed K/V ``[*stack, *batch_dims, length, nkv, hd]``.  Under a
-    ``model`` split of M: ``nkv / M`` KV heads where M divides the KV
-    heads; else every KV head over ``length / M`` slots, this rank's run of
-    the ring (the reference's ``kv_seq`` cache, which
-    ``train.serve_step.cache_pspecs`` names).  A ring that M does not
-    divide raises ``NotImplementedError`` (#13e): its spec replicates it,
-    and a rank's slots would not tell the two layouts apart."""
+    """Zeroed K/V ``[*stack, *batch_dims, length, nkv, hd]``, under a
+    ``model`` split of M this rank's cut of the :func:`cache_layout` of a
+    ring of ``length`` slots: ``nkv / M`` KV heads (``"heads"``), every KV
+    head over ``length / M`` slots (``"seq"``), or the whole cache
+    (``"whole"``)."""
     nkv = cfg.num_kv_heads
     m = TP.size("model")
-    if kv_seq_cache(cfg):
+    layout = cache_layout(cfg, length)
+    if layout == "seq":
         if length % m:
-            raise NotImplementedError(
-                f"a decode cache of {length} slots does not split over "
-                f"model={m} (nor do its {nkv} KV heads): {SH.TODO_13E}")
+            raise ValueError(f"a kv_seq cache of {length} slots does not "
+                             f"split over model={m}")
         length //= m
-    else:
+    elif layout == "heads":
         nkv //= m
     shape = (*stack, *batch_dims, length, nkv, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

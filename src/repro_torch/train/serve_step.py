@@ -12,10 +12,14 @@ params are this rank's shards over ``model`` (``shard_serving_params``),
 the cache is this rank's cut of what :func:`cache_pspecs` names
 (``make_cache``: its KV heads where ``model`` divides them, else every KV
 head over its ``1/M`` of the ring's slots, the context-parallel ``kv_seq``
-cache), and the logits come back whole over the vocabulary on every
-rank.  The batch is the caller's rows.  Under the hierarchical
-rules the params are also cut over ``data`` (FSDP: each layer gathers its
-weights where it uses them) and ``global_batch`` lies on ``data``: each
+cache, or over the whole ring where ``model`` does not divide it either),
+and the logits come back whole over the vocabulary on every rank.  The
+decode reads which of those layouts the cache has from the same specs
+(:func:`cache_layout`), so a step whose layout the model alone does not
+fix takes the cache's ``InputShape``.  The batch is the caller's rows.
+Under the hierarchical rules the params are also cut over ``data``
+(FSDP: each layer gathers its weights where it uses them) and
+``global_batch`` lies on ``data``: each
 ``data`` rank serves its rows of the global batch (:func:`batch_rows`),
 its cache holds those rows, and its logits are theirs.  What the port does
 not run (``models.sharding.tensor_parallel_refusal``) raises
@@ -33,6 +37,7 @@ from repro_torch import convert
 from repro_torch.configs.base import InputShape
 from repro_torch.launch.mesh import (mesh_context, mesh_shape_dict,
                                      split_groups)
+from repro_torch.models import layers as L
 from repro_torch.models.model_factory import Model
 from repro_torch.models.sharding import (ShardingRules, check_runnable,
                                          resolve_tree, safe_pspec)
@@ -70,12 +75,26 @@ def make_prefill_step(model: Model, *, last_only: bool = True, mesh=None,
 
 
 def make_serve_step(model: Model, *, mesh=None,
-                    rules: Optional[ShardingRules] = None
+                    rules: Optional[ShardingRules] = None,
+                    shape: Optional[InputShape] = None
                     ) -> Callable[..., Tuple[torch.Tensor, PyTree]]:
+    """One cached decode step.  On a mesh whose ``model`` axis does not
+    divide the KV heads, ``shape`` (the cache's ``InputShape``, as
+    :func:`make_cache` took it) tells the ``kv_seq`` cache from the
+    replicated one (:func:`cache_layout`); without it a ``ValueError``."""
     context = _mesh(model, mesh, rules)
+    layout = None
+    if mesh is not None and _ambiguous(model, mesh):
+        if shape is None:
+            raise ValueError(
+                f"{model.cfg.name}'s {model.cfg.num_kv_heads} KV heads do "
+                f"not split over model: the decode cache's layout follows "
+                f"its specs, pass make_serve_step(..., shape=) the cache's "
+                f"InputShape")
+        layout = cache_layout(model, shape, rules, mesh_shape_dict(mesh))
 
     def serve_step(params, cache, token):
-        with context(), torch.no_grad(), \
+        with context(), L.cache_layout_context(layout), torch.no_grad(), \
                 torch.profiler.record_function("serve.decode"):
             return model.decode_step(params, cache, token)
     return serve_step
@@ -84,10 +103,35 @@ def make_serve_step(model: Model, *, mesh=None,
 def make_cache(model: Model, batch: int, shape: InputShape, *, mesh=None,
                rules: Optional[ShardingRules] = None) -> PyTree:
     """``model.init_cache(batch, shape)``, on a mesh this rank's cut of
-    what :func:`cache_pspecs` names (its KV heads, or its share of the
-    slots); ``batch`` is this rank's rows (:func:`batch_rows`)."""
-    with _mesh(model, mesh, rules)():
+    what :func:`cache_pspecs` names (its KV heads, its share of the
+    slots, or the whole ring); ``batch`` is this rank's rows
+    (:func:`batch_rows`)."""
+    layout = (cache_layout(model, shape, rules, mesh_shape_dict(mesh))
+              if mesh is not None and _ambiguous(model, mesh) else None)
+    with _mesh(model, mesh, rules)(), L.cache_layout_context(layout):
         return model.init_cache(batch, shape)
+
+
+def _ambiguous(model: Model, mesh) -> bool:
+    """Whether the cache's layout depends on the ring's length: a
+    ``model`` axis > 1 that does not divide the KV heads."""
+    m = mesh_shape_dict(mesh).get("model", 1)
+    return m > 1 and model.cfg.num_kv_heads % m != 0
+
+
+def cache_layout(model: Model, shape: InputShape, rules: ShardingRules,
+                 mesh_shape) -> str:
+    """``layers.cache_layout``'s name of the layout that
+    :func:`cache_pspecs` gives the K cache: ``"heads"`` where its spec
+    puts ``model`` on the KV heads, ``"seq"`` where on the ring's slots,
+    ``"whole"`` where on neither."""
+    k = cache_pspecs(model, shape, rules, mesh_shape)["layers"]["k"]
+
+    def names(entry):
+        return entry == "model" or (isinstance(entry, tuple)
+                                    and "model" in entry)
+    return ("heads" if names(k[-2]) else "seq" if names(k[-3])
+            else "whole")
 
 
 def serving_pspecs(model: Model, rules: ShardingRules, mesh_shape) -> PyTree:

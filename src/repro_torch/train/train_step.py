@@ -135,11 +135,19 @@ def batch_pspecs(batch: PyTree, rules: ShardingRules, mesh_shape,
 
 def state_pspecs(model, algo: Algorithm, hp: AlgoHyper,
                  rules: ShardingRules, mesh_shape, n_workers: int) -> PyTree:
-    """Specs of :func:`init_state`'s tree: params and momentum as the
-    stacked params; an ``extra`` leaf whose leading dim is ``n_workers``
-    (replicas, error buffers, the WireState residual, the stale carry)
-    on the worker axes, the rest (and ``step``, ``g_inf``, ``gen``)
-    replicated."""
+    """Specs of :func:`init_state`'s tree, the reference's: params and
+    momentum as the stacked params; an ``extra`` leaf whose leading dim is
+    ``n_workers`` (replicas, error buffers, the WireState residual, the
+    stale carry) on the worker axes, the rest (and ``step``, ``g_inf``,
+    ``gen``) replicated.
+
+    Under a split of the weights over ``model`` or FSDP ``data`` the
+    trainer holds every ``extra`` leaf that mirrors a params leaf
+    (``Algorithm.mirrors``: Choco's and DCD's ``x_hat``, DeepSqueeze's
+    ``err``, D²'s ``x_prev`` and ``g_prev``) in that leaf's cut, not
+    whole over those axes as these specs place it: the layout XLA gives
+    the reference's replicas after its first step (their params'), which
+    the port holds from the start."""
     pp = params_pspecs(model, rules, mesh_shape, stacked=True)
     ab = abstract_state(model, algo, hp, n_workers)
 

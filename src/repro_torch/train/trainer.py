@@ -31,13 +31,17 @@ multi_pod=True])``) those families' weights are also split over
 one pod, every rank holding all of them), each rank's state is its cut of
 the one-process init over ``data`` and ``model``, it takes its ``data``
 share of every worker's batch rows, and the gossip is the per-leaf round
-on the shards.  Heads that the ``model`` axis does not divide run
-context-parallel (``models/layers.py``: the attention weights whole on
-every rank, the keys split over ``model``), and KV heads replicated in
+on the shards.  Every update rule runs on the shards, presence masks
+included; a rule's state that mirrors the params (Choco's and DCD's
+``x_hat``, DeepSqueeze's ``err``, D²'s ``x_prev`` and ``g_prev``) is held
+in the params' cut, and gathered and restored with them
+(``Algorithm.mirrors``).  Heads that the ``model`` axis does not divide
+run context-parallel (``models/layers.py``: the attention weights whole
+on every rank, the keys split over ``model``), and KV heads replicated in
 groups a rank cannot read whole are expanded to its query heads.
-Everything else on a ``model`` or FSDP axis > 1 (other families, other
-wires or update rules, the bucketed path, two tiers, the stale overlap,
-presence masks, telemetry) and any
+Everything else on a ``model`` or FSDP axis > 1 (other families, the
+``qsgd`` / ``ef_qsgd`` / ``onebit`` wires, the bucketed path, two tiers,
+the stale overlap, telemetry) and any
 state spec over another mesh axis of size > 1 raise
 ``NotImplementedError`` (ROADMAP #13e) at construction: nothing is
 replicated silently.
@@ -222,27 +226,21 @@ class Trainer:
 
     def _check_tensor_parallel(self) -> None:
         """Refuse, naming #13e, what the slice does not run over a
-        ``model`` or FSDP axis > 1: rules other than Moniqua and D-PSGD and
-        the stale overlap here, the rest as the rule's engine refuses it
-        on one process's tree (``CommEngine.model_split_refusal``)."""
+        ``model`` or FSDP axis > 1: the stale overlap here, the rest as
+        each engine the rule gossips through refuses it on one process's
+        tree (``CommEngine.model_split_refusal``)."""
         from repro_torch.models.sharding import TODO_13E
         tc, hp = self.tc, self.hp
-        why = None
-        if tc.algo not in ("moniqua", "dpsgd"):
-            why = f"the {tc.algo} rule"
-        elif tc.overlap != "none":
-            why = f"the {tc.overlap} overlap"
-        if why is not None:
+        if tc.overlap != "none":
             raise NotImplementedError(
-                f"{why} with the weights split over 'model' or 'data': "
-                f"{TODO_13E}")
+                f"the {tc.overlap} overlap with the weights split over "
+                f"'model' or 'data': {TODO_13E}")
         n = tc.n_workers
         whole = tree.map(lambda a: torch.empty(
             (n,) + tuple(a.shape), dtype=a.dtype, device="meta"),
             TS.abstract_params(self.model))
-        eng = (hp.engine() if tc.algo == "moniqua"
-               else hp.exact_engine(telemetry=hp.telemetry))
-        eng.check_model_split(whole, presence=hp.presence)
+        for eng in self.algo.engines(hp):
+            eng.check_model_split(whole)
 
     def _context(self):
         return (mesh_context(self.mesh, self.rules, params=self.param_specs)
@@ -262,7 +260,8 @@ class Trainer:
         if self.mesh is None:
             return state
         with self._context():
-            return convert.gather_state(state, self.on_workers)
+            return convert.gather_state(state, self.on_workers,
+                                        self.algo.mirrors)
 
     def init_state(self) -> Dict[str, Any]:
         """A fresh state; with a mesh this rank's block of it (the rows of
@@ -307,12 +306,14 @@ class Trainer:
             like, self.on_workers)
         if self.splits:
             with self._context():
-                for key in ("params", "mom"):
-                    host[key] = tree.map(lambda a: torch.empty(
-                        a.shape, dtype=a.dtype), TP.whole(host[key]))
+                for sub, key in convert.cut_subtrees(host,
+                                                     self.algo.mirrors):
+                    sub[key] = tree.map(lambda a: torch.empty(
+                        a.shape, dtype=a.dtype), TP.whole(sub[key]))
         full = ckpt.restore(path + ".state", host)
         block = convert.shard_state(full, self.workers.index,
-                                    self.workers.size, self.splits)
+                                    self.workers.size, self.splits,
+                                    self.algo.mirrors)
         return tree.map(lambda a, l: a.to(l.device)
                         if isinstance(a, torch.Tensor) else a, block, like)
 

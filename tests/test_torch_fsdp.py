@@ -33,6 +33,13 @@ the gathered results against it, with ``tests/test_torch_tensor_parallel
   the cache a rank holds the cut its specs name (checked in the ranks);
 * every out-of-scope case refused at construction, naming #13e.
 
+On ``(pod=2, data=2)`` (``C.RULE_WORLDS``: two workers a pod, FSDP over
+``data``) the eight other update rules and the masked rounds run on the
+shards of reduced qwen2-72b, held as ``tests/test_torch_tensor_parallel
+.py`` holds them (``torch_rule_cases``): bitwise the reference's steps
+and the port's one process's, the trainer within its bounds, a D²
+checkpoint restored bitwise, the masked rounds bitwise.
+
 The head counts of ``C.SPLIT_WORLDS`` run at the same bounds (gradients,
 a train step with its code flips counted, prefill and decode, and 12
 decode steps on a ring of 8 slots, past each rank's and past the ring's
@@ -77,6 +84,7 @@ from repro.optim import sgd as jsgd
 from repro.train import train_step as jts
 
 import torch_fsdp_cases as C
+import torch_rule_cases as R
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "tests", "torch_fsdp_cases.py")
@@ -111,6 +119,8 @@ def _inputs(path):
                                     ).astype(np.float32), p)
         for i, leaf in enumerate(jax.tree.leaves(X)):
             out[f"{a}/X/{i}"] = leaf
+        if a == C.ARCH:
+            out["rule_keys"] = np.asarray(R.reference_inputs(out, a, X))
         toks = rng.integers(0, jm.cfg.vocab_size, (C.N, C.B, C.S + 1)
                             ).astype(np.int32)
         out[f"{a}/tokens"] = toks[..., :-1].copy()
@@ -213,6 +223,9 @@ def _reference(inp, trees, key_step):
                    else hp.engine().mix(jX, theta=C.THETA, key=ROUND_KEY))
             ref[f"round-{wire}-{a}"] = [np.asarray(x)
                                         for x in jax.tree.leaves(res.x)]
+    jm, jX = trees[C.ARCH]
+    ref.update(R.reference(jm, jX, list(jnp.asarray(inp["rule_keys"])),
+                           C.N, C.THETA))
     return ref
 
 
@@ -235,6 +248,10 @@ def results(tmp_path_factory):
     runs = {w: _launch(tmp, w, inputs) for w in WORLDS}
     ref = _reference(inp, trees, key_step)
     one = _one_process_trainer(tmp)
+    # the port's one process on the rule and masked cases
+    rules = C.Runner(0, C.RULE_WORLDS[0], inputs, tmp, "cpu", split=False)
+    rules.run(R.rule_names())
+    ref["one"], ref["one_checks"] = rules.arrays, rules.checks
     return ref, one, {w: _collect(*runs[w]) for w in WORLDS}
 
 
@@ -490,6 +507,58 @@ def test_moe_prefill_and_decode_match_reference(results, world):
                           arrays[f"serve-{a}/decode"]), ref[f"serve-{a}"]):
         assert got.shape == want.shape and got.dtype == np.float32
         assert (np.abs(got - want).max() / np.abs(want).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("world", C.RULE_WORLDS)
+@pytest.mark.parametrize("rule", R.RULES)
+def test_rule_on_shards_is_the_reference_step(results, world, rule):
+    """Two isolated steps on the pods' workers and the ``data`` shards,
+    the reference's uniforms cut alike: bitwise the reference's, gathered
+    (``R.check_against_reference``); the bytes and extra memory the
+    reference's."""
+    ref, _, res = results
+    R.check_against_reference(res[world][0], ref, rule)
+
+
+@pytest.mark.parametrize("world", C.RULE_WORLDS)
+@pytest.mark.parametrize("rule", R.RULES)
+def test_rule_on_shards_is_the_one_process_step(results, world, rule):
+    """The same steps, and with the port's own draw: bitwise the port's
+    one process (AllReduce within ``R.SUM_RTOL``: the pods split the
+    worker dim)."""
+    ref, _, res = results
+    assert ref["one_checks"][f"rule-{rule}"][0], ref["one_checks"][
+        f"rule-{rule}"]
+    R.check_against_one_process(res[world][0], ref["one"], rule,
+                                worker_split=True)
+
+
+@pytest.mark.parametrize("world", C.RULE_WORLDS)
+@pytest.mark.parametrize("rule", R.RULES)
+def test_rule_trainer_matches_one_process(results, world, rule):
+    """Two ``Trainer`` steps under the split against one process's; the
+    state in the params' cut and a D² checkpoint restored bitwise (in the
+    ranks)."""
+    ref, _, res = results
+    arrays, checks = res[world]
+    ok, detail, _ = checks[f"rule-{rule}"]
+    assert ok, detail
+    R.check_trainer(arrays, ref["one"], rule, C.lemma2_cell())
+
+
+@pytest.mark.parametrize("world", C.RULE_WORLDS)
+@pytest.mark.parametrize("wire", R.MASKED_WIRES)
+def test_masked_round_on_shards_is_the_reference_round(results, world, wire):
+    """The Moniqua 8-bit and ``full`` rounds under ``R.PRESENCE`` on the
+    shards: bitwise the reference's masked round and the port's one
+    process's; the absent worker's rows untouched (in the ranks)."""
+    ref, _, res = results
+    arrays, checks = res[world]
+    ok, detail, _ = checks["round-masked"]
+    assert ok, detail
+    got = R.leaves(arrays, f"round-masked/{wire}")
+    R.assert_equal(got, ref[f"round-masked/{wire}"])
+    R.assert_equal(got, R.leaves(ref["one"], f"round-masked/{wire}"))
 
 
 @pytest.mark.parametrize("world,what", [(w, r) for w in WORLDS

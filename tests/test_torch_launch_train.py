@@ -84,7 +84,9 @@ def _cli_ranks(world, flags, timeout=240):
 @pytest.mark.parametrize("flags", [["--mesh", "production"],
                                    ["--mesh", "production", "--multi-pod"],
                                    ["--mesh", "production", "--arch",
-                                    "dbrx-132b"]])
+                                    "dbrx-132b"],
+                                   ["--mesh", "production", "--multi-pod",
+                                    "--algo", "d2"]])
 def test_production_mesh_waits_for_13d(flags):
     """``--mesh production [--multi-pod]``: the reference's mesh, rules
     and shape (the mesh swapped for a 4-rank gloo mesh, ``(data=2,
@@ -92,9 +94,12 @@ def test_production_mesh_waits_for_13d(flags):
     reduced qwen2-72b, and reduced dbrx-132b (the MoE family: its experts
     split on ``d_model`` over ``data`` and on each expert's ``d_ff`` over
     ``model``), under the hierarchical rules for 2 steps, with the
-    reference's bytes/step/worker."""
+    reference's bytes/step/worker; ``--algo d2``, the other update rules
+    on the shards, the same."""
     world = "p2d2" if "--multi-pod" in flags else "d2m2"
     arch = "dbrx-132b" if "dbrx-132b" in flags else "qwen2-72b"
+    algo = flags[flags.index("--algo") + 1] if "--algo" in flags \
+        else "moniqua"
     argv = flags + ARGS
     if arch not in flags:
         argv += ["--arch", arch]
@@ -105,7 +110,7 @@ def test_production_mesh_waits_for_13d(flags):
     assert all(float(v) == float(v) and abs(float(v)) < 1e3
                for _, v in steps)
     got = int(re.search(r"^bytes/step/worker = (\d+)$", out, re.M).group(1))
-    assert got == _reference_bytes(arch, "moniqua", 2, 8) > 0
+    assert got == _reference_bytes(arch, algo, 2, 8) > 0
 
 
 def test_cuda_without_a_card_raises():

@@ -179,7 +179,8 @@ def _rules(cfg, over):
 
 HYPERS = {"moniqua": ("moniqua", {}), "ef_qsgd": ("moniqua",
                                                   {"wire": "ef_qsgd"}),
-          "stale": ("moniqua", {"overlap": "stale"}), "d2": ("d2", {})}
+          "stale": ("moniqua", {"overlap": "stale"}), "d2": ("d2", {}),
+          "choco": ("choco", {})}
 
 
 def _check_specs(arch, mesh_name, published=False, hypers=("moniqua",)):

@@ -40,6 +40,20 @@ results against it:
 * the head counts of ``C.SPLIT_ARCHS``: gradients, serving and a train
   step at the same bounds, the replicated gradients bitwise equal over
   ``model`` (checked in the ranks);
+* 12 decode steps on a ring of 9 slots, which ``model`` = 2 does not
+  divide (``C.RING_WHOLE``: its spec replicates the cache, every KV head
+  over the whole ring on every rank), at the same bound;
+* the eight other update rules (``torch_rule_cases.RULES``) on the
+  shards of reduced llama3.2-3b: two isolated steps with the reference's
+  uniforms handed in, bitwise the reference's steps (the biased 1-bit
+  sign within ``SIGN_ULPS``, AllReduce's mean within ``SUM_RTOL``); with
+  the port's own draw, bitwise the port's one process; two ``Trainer``
+  steps against one process's (losses within 1e-4, the state within
+  1e-4 or a code cell, flips counted); the bytes and extra memory equal;
+  a D² checkpoint restored bitwise (in the ranks);
+* the Moniqua 8-bit and ``full`` rounds under a presence mask on the
+  shards: bitwise the reference's masked rounds and the port's one
+  process's, the absent worker's rows untouched (in the ranks);
 * every out-of-scope case refused at construction, naming #13e.
 """
 import dataclasses
@@ -67,6 +81,7 @@ from repro.models.model_factory import build_model as jbuild
 from repro.optim import sgd as jsgd
 from repro.train import train_step as jts
 
+import torch_rule_cases as R
 import torch_tp_cases as C
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,6 +114,8 @@ def _inputs(path):
                                     ).astype(np.float32), p)
         for i, leaf in enumerate(jax.tree.leaves(X)):
             out[f"{a}/X/{i}"] = leaf
+        if a == C.ARCHS[0]:
+            out["rule_keys"] = np.asarray(R.reference_inputs(out, a, X))
         toks = rng.integers(0, jm.cfg.vocab_size, (C.N, C.B, C.S + 1)
                             ).astype(np.int32)
         out[f"{a}/tokens"] = toks[..., :-1].copy()
@@ -172,7 +189,11 @@ def _reference(inp, trees, key_step):
             jm, P, toks, C.SERVE_S + C.DECODE, C.DECODE))
         if a in C.SPLIT_ARCHS:
             ref[f"ring-{a}"] = _decode_ref(jm, P, toks, C.RING, C.RING_STEPS)
+            ref[f"ring{C.RING_WHOLE}-{a}"] = _decode_ref(
+                jm, P, toks, C.RING_WHOLE, C.RING_STEPS)
     jm, jX = trees[C.ARCHS[0]]
+    ref.update(R.reference(jm, jX, list(jnp.asarray(inp["rule_keys"])),
+                           C.N, C.THETA))
     for wire, spec in list(C.ROUNDS.items()) + [("moniqua8-" + C.MOE_ARCH,
                                                   (8, True))]:
         if wire.endswith(C.MOE_ARCH):
@@ -223,6 +244,11 @@ def results(tmp_path_factory):
     runs = {w: _launch(tmp, w, inputs) for w in WORLDS}
     ref = _reference(inp, trees, key_step)
     one = _one_process_trainer(tmp)
+    # the port's one process on the rule and masked cases
+    rules = C.Runner(0, WORLDS[0], inputs, tmp, "cpu", split=False)
+    rules.run(R.rule_names())
+    ref["one"] = rules.arrays
+    ref["one_checks"] = rules.checks
     return ref, one, {w: _collect(*runs[w]) for w in WORLDS}
 
 
@@ -408,6 +434,76 @@ def test_ring_decode_past_each_ranks_slots_matches_reference(results, world,
     got, want = arrays[f"ring-{arch}/decode"], ref[f"ring-{arch}"]
     assert got.shape == want.shape and got.dtype == np.float32
     assert (np.abs(got - want).max() / np.abs(want).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("arch", list(C.SPLIT_ARCHS))
+def test_ring_the_model_axis_does_not_divide_matches_reference(
+        results, world, arch):
+    """``C.RING_STEPS`` decode steps on a ring of ``C.RING_WHOLE`` = 9
+    slots, which ``model`` = 2 does not divide: the cache's spec replicates
+    it, every KV head over the whole ring on every rank (the cache a rank
+    holds is that cut, checked in the ranks); past the ring's end, the
+    logits within 1e-4 x max|logit| of the reference's."""
+    ref, _, res = results
+    arrays, checks = res[world]
+    case = f"ring{C.RING_WHOLE}-{arch}"
+    ok, detail, _ = checks[case]
+    assert ok, detail
+    got, want = arrays[f"{case}/decode"], ref[case]
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert (np.abs(got - want).max() / np.abs(want).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("rule", R.RULES)
+def test_rule_on_shards_is_the_reference_step(results, world, rule):
+    """Two isolated steps on the shards with the reference's uniforms cut
+    alike: bitwise the reference's, gathered (``R.check_against_reference``),
+    the bytes and extra memory the reference's."""
+    ref, _, res = results
+    R.check_against_reference(res[world][0], ref, rule)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("rule", R.RULES)
+def test_rule_on_shards_is_the_one_process_step(results, world, rule):
+    """The same steps, and with the port's own draw from a seed: bitwise
+    the port's one process (``R.check_against_one_process``)."""
+    ref, _, res = results
+    assert ref["one_checks"][f"rule-{rule}"][0], ref["one_checks"][
+        f"rule-{rule}"]
+    R.check_against_one_process(res[world][0], ref["one"], rule,
+                                worker_split=C.MESHES[world][0] > 1)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("rule", R.RULES)
+def test_rule_trainer_matches_one_process(results, world, rule):
+    """Two ``Trainer`` steps under the split against one process's
+    (``R.check_against_one_process``'s bound on the state, Lemma 2's cell
+    for Moniqua-D²); its state held in the params' cut and, for D², its
+    checkpoint restored bitwise (both in the ranks)."""
+    ref, _, res = results
+    arrays, checks = res[world]
+    ok, detail, _ = checks[f"rule-{rule}"]
+    assert ok, detail
+    R.check_trainer(arrays, ref["one"], rule, C.lemma2_cell())
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("wire", R.MASKED_WIRES)
+def test_masked_round_on_shards_is_the_reference_round(results, world, wire):
+    """The Moniqua 8-bit and ``full`` rounds under ``R.PRESENCE`` on the
+    shards: bitwise the reference's masked round and the port's one
+    process's, gathered."""
+    ref, _, res = results
+    arrays, checks = res[world]
+    ok, detail, _ = checks["round-masked"]
+    assert ok, detail
+    got = R.leaves(arrays, f"round-masked/{wire}")
+    R.assert_equal(got, ref[f"round-masked/{wire}"])
+    R.assert_equal(got, R.leaves(ref["one"], f"round-masked/{wire}"))
 
 
 @pytest.mark.parametrize("world", WORLDS)

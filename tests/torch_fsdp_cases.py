@@ -27,7 +27,9 @@ whole.  ``d2m2`` and ``p2d2`` also run
 reduced dbrx-132b (``MOE_WORLDS``: E 4, top-2, group 64): its gradients,
 its Moniqua 8-bit and 1-bit rounds (the router's rows of 4 codes padded
 to a byte, as one process pads them), a train step and its serving, on
-the expert shards.
+the expert shards.  ``p2d2`` also runs the eight other update rules and
+the masked rounds on reduced qwen2-72b (``RULE_WORLDS``,
+``torch_rule_cases``).
 
 ``python tests/torch_fsdp_cases.py --cli STORE RANK WORLD FLAGS...``: one
 rank of the training CLI on the production mesh with
@@ -63,6 +65,8 @@ import traceback
 import numpy as np
 import torch
 
+import torch_rule_cases as R
+
 ARCH, KV_ARCH, MOE_ARCH = "qwen2-72b", "chatglm3-6b", "dbrx-132b"
 ARCHS = (ARCH, KV_ARCH, MOE_ARCH)
 # reduced qwen2-72b keeps 4 KV heads under 4 query heads: GQA 4:2 by
@@ -92,14 +96,17 @@ WORLDS = {
 ROUNDS = {"moniqua8": (8, True), "moniqua1": (1, False), "full": None}
 # the worlds that also run the MoE family
 MOE_WORLDS = ("d2m2", "p2d2")
+# the world that runs the eight other update rules and the masked rounds
+# (torch_rule_cases) on the world's arch: two workers a pod, FSDP on data
+RULE_WORLDS = ("p2d2",)
 # the families still refused on a split (ROADMAP #13e.4) by their configs
 FAMILY_ARCHS = {"zamba": "zamba2-1.2b", "xlstm": "xlstm-125m",
                 "whisper": "whisper-base", "vlm": "phi-3-vision-4.2b"}
 REFUSALS = {
-    "d2": ("hierarchical-xlstm", "wire-qsgd", "path-bucketed", "rule-choco",
+    "d2": ("hierarchical-xlstm", "wire-qsgd", "path-bucketed", "wire-onebit",
            "overlap-stale"),
     "d2m2": ("hierarchical-whisper", "family-zamba", "telemetry"),
-    "p2d2": ("hierarchical-vlm", "presence"),
+    "p2d2": ("hierarchical-vlm", "tiers-2"),
     "m4": ("family-xlstm",),
 }
 # the NCCL run: one process on a card against the split on four cards,
@@ -125,6 +132,8 @@ def case_names(world):
     if world in SPLIT_WORLDS:
         names += [f"{c}-{SPLIT_WORLDS[world]}" for c in (
             "grads", "step", "serve", "ring")]
+    if world in RULE_WORLDS:
+        names += R.rule_names()
     return names + [f"refuse-{r}" for r in REFUSALS[world]]
 
 
@@ -171,6 +180,8 @@ def port_inputs(path: str, seed: int = 0) -> None:
         out[f"{a}/labels"] = toks[..., 1:].copy()
         out[f"{a}/serve"] = rng.integers(
             0, cfg.vocab_size, (SERVE_B, SERVE_S + DECODE)).astype(np.int32)
+        if a == ARCH:
+            R.port_inputs(out, a, [(N,) + s for s in abstract(cfg)[1]], rng)
     np.savez(path, **out)
 
 
@@ -243,29 +254,35 @@ class Runner:
         return self.M.mesh_context(self.mesh, self.rules,
                                    params=self.specs(model))
 
-    def cut(self, X, specs):
-        """Every leaf of a stacked tree cut to this rank's shards."""
-        from repro_torch import convert
+    def whole(self, model, arch, key="X"):
+        """The stacked inputs tree ``arch/key`` of every worker."""
+        from repro_torch import tree
+        td, shapes = abstract(model.cfg)
+        return tree.unflatten(td, [torch.from_numpy(
+            self.inp[f"{arch}/{key}/{i}"]) for i in range(len(shapes))])
+
+    def cut(self, model, X):
+        """This rank's workers and shards of a whole stacked tree, on its
+        device."""
+        from repro_torch import convert, tree
+        lo, hi = self.rows()
+        X = tree.map(lambda a: a[lo:hi].to(self.device), X)
         if self.mesh is None:
             return X
-        return convert.shard_params(X, specs, self.M.split_groups(
-            self.mesh, self.rules))
+        return convert.shard_params(X, self.specs(model),
+                                    self.M.split_groups(self.mesh,
+                                                        self.rules))
 
     def stacked(self, model, arch=None):
         """This rank's workers, batch rows and shards of the inputs of
         ``arch`` (by default ``model``'s)."""
-        from repro_torch import tree
         arch = arch or model.cfg.name
-        td, shapes = abstract(model.cfg)
         lo, hi = self.rows()
-        X = tree.unflatten(td, [torch.from_numpy(
-            self.inp[f"{arch}/X/{i}"][lo:hi]).to(self.device)
-            for i in range(len(shapes))])
         a, z = self.inner(B)
         batch = {k: torch.from_numpy(
             self.inp[f"{arch}/{k}"][lo:hi, a:z]).to(self.device)
             for k in ("tokens", "labels")}
-        return self.cut(X, self.specs(model)), batch
+        return self.cut(model, self.whole(model, arch)), batch
 
     def gather(self, X):
         """A stacked params-shaped tree whole (inside the context): rows
@@ -421,13 +438,13 @@ class Runner:
         self.arrays[f"{case}/wire_bytes"] = np.asarray(met["wire_bytes"])
         return same, f"unsplit leaves equal over the ranks: {same}"
 
-    def trainer_of(self, ckpt=None):
+    def trainer_of(self, ckpt=None, **over):
         from repro_torch.configs.base import InputShape
         from repro_torch.train.trainer import Trainer, TrainerConfig
-        tc = TrainerConfig(algo="moniqua", topology="ring", n_workers=N,
-                           bits=8, steps=2, log_every=1, seed=3,
-                           checkpoint_path=ckpt,
-                           checkpoint_every=2 if ckpt else 0)
+        tc = TrainerConfig(**dict(dict(
+            algo="moniqua", topology="ring", n_workers=N, bits=8, steps=2,
+            log_every=1, seed=3, checkpoint_path=ckpt,
+            checkpoint_every=2 if ckpt else 0), **over))
         return Trainer(self.model(), tc,
                        InputShape("lm", S, N * B, "train"), mesh=self.mesh,
                        rules=self.rules if self.mesh is not None else None)
@@ -496,7 +513,7 @@ class Runner:
                             axes=("model",))
         cut = all(a.shape[:1] + a.shape[2:] == w.shape[:1] + w.shape[2:]
                   for a, w in zip(tree.leaves(cache), tree.leaves(want)))
-        step = SS.make_serve_step(model, **kw)
+        step = SS.make_serve_step(model, shape=dshape, **kw)
         outs = []
         for s in range(steps):
             lg, cache = step(P, cache, toks[:, s:s + 1])
@@ -530,14 +547,14 @@ class Runner:
             tc["wire"] = "qsgd"
         elif what == "path-bucketed":
             tc["comm_path"] = "bucketed"
-        elif what == "rule-choco":
-            tc["algo"] = "choco"
+        elif what == "wire-onebit":
+            tc["wire"] = "onebit"
         elif what == "overlap-stale":
             tc["overlap"] = "stale"
         elif what == "telemetry":
             tc["telemetry"] = True
-        elif what == "presence":
-            tc["presence"] = (1, 0, 1, 1)
+        elif what == "tiers-2":
+            tc["tiers"] = 2
         try:
             Trainer(model, TrainerConfig(**tc), shape, mesh=self.mesh,
                     rules=self.rules)
@@ -563,6 +580,11 @@ class Runner:
                         f"step-{s}": lambda: self.step(s),
                         f"serve-{s}": lambda: self.serve(s),
                         f"ring-{s}": lambda: self.serve(s, ring=True)})
+        for r in R.RULES:
+            out[f"rule-{r}"] = lambda r=r: R.rule_case(self, r, self.arch, N,
+                                                       THETA)
+        out["round-masked"] = lambda: R.masked_round_case(self, self.arch, N,
+                                                          THETA)
         for r in REFUSALS[self.world]:
             out[f"refuse-{r}"] = lambda r=r: self.refuse(r)
         return out
@@ -586,6 +608,8 @@ def compare(got: dict, want: dict, case: str, tol: float):
     the rounds bitwise, the rest within ``tol`` of each array's largest
     entry; the trainer's checkpointed params are left out (a code may
     round the other way after step 1; the losses and bytes are held)."""
+    if case.startswith("rule-"):
+        return R.compare_rule(got, want, case, tol, True)
     keys = sorted(k for k in want if k.startswith(case + "/")
                   and not k.startswith("trainer/ckpt/"))
     if not keys or any(k not in got for k in keys):

@@ -10,7 +10,10 @@ the round and step seeds, serving tokens;
 ``tests/test_torch_tensor_parallel.py`` draws them from the JAX
 reference's init), runs every case of ``CASES``
 on its block of workers and
-its shards of the weights, gathers each result whole and, on rank 0,
+its shards of the weights (the eight other update rules and the masked
+rounds on reduced llama3.2-3b through ``torch_rule_cases``, with the
+reference's rounding uniforms and rule seeds from the inputs), gathers
+each result whole and, on rank 0,
 writes the arrays to ``OUT + ".npz"`` and the checks made in the ranks
 (``{case: [ok, detail]}``) to ``OUT + ".json"``.  Only the port is
 imported, one CPU thread a process.
@@ -37,6 +40,8 @@ import traceback
 import numpy as np
 import torch
 
+import torch_rule_cases as R
+
 ARCHS = ("llama3.2-3b", "chatglm3-6b", "dbrx-132b")
 MOE_ARCH = ARCHS[2]            # reduced: E 4, top-2, group 64
 N, B, S = 4, 2, 32            # workers, sequences a worker, tokens
@@ -46,6 +51,9 @@ SERVE_B, SERVE_S, DECODE = 2, 24, 4
 # ring of RING slots, past every rank's RING / M slots of a kv_seq cache
 # and past the ring's end (the oldest slots overwritten)
 RING, RING_STEPS = 8, 12
+# a ring that model = 2 does not divide: its spec replicates the cache,
+# every KV head over all of its slots on every rank (the ``ring9-`` cases)
+RING_WHOLE = 9
 MESHES = {2: (1, 2), 4: (2, 2)}
 ROUNDS = {"moniqua8": (8, True), "moniqua1": (1, False), "full": None}
 # head counts that model = 2 does not split cleanly, each run as an arch of
@@ -60,7 +68,7 @@ SPLIT_ARCHS = {"llama3.2-3b@h3": ("llama3.2-3b",
                                      dict(num_heads=6, num_kv_heads=3))}
 ALL_ARCHS = ARCHS + tuple(SPLIT_ARCHS)
 REFUSALS = ("hierarchical-whisper", "family-vlm", "wire-qsgd",
-            "path-bucketed", "rule-choco")
+            "path-bucketed", "telemetry")
 # the families still refused on a split (ROADMAP #13e.4) by their configs
 FAMILY_ARCHS = {"whisper": "whisper-base", "vlm": "phi-3-vision-4.2b"}
 # the full-width cell of the NCCL run (chip_smoke.py phase 21's)
@@ -83,6 +91,8 @@ def case_names():
             + [f"step-{a}" for a in (MOE_ARCH,) + tuple(SPLIT_ARCHS)]
             + [f"serve-{a}" for a in ALL_ARCHS]
             + [f"ring-{a}" for a in SPLIT_ARCHS]
+            + [f"ring{RING_WHOLE}-{a}" for a in SPLIT_ARCHS]
+            + R.rule_names()
             + [f"refuse-{r}" for r in REFUSALS])
 
 
@@ -129,6 +139,8 @@ def port_inputs(path: str, seed: int = 0) -> None:
         out[f"{a}/labels"] = toks[..., 1:].copy()
         out[f"{a}/serve"] = rng.integers(
             0, cfg.vocab_size, (SERVE_B, SERVE_S + DECODE)).astype(np.int32)
+        if a == ARCHS[0]:
+            R.port_inputs(out, a, [(N,) + s for s in abstract(cfg)[1]], rng)
     np.savez(path, **out)
 
 
@@ -180,18 +192,28 @@ class Runner:
         return self.M.mesh_context(self.mesh, self.rules,
                                    params=self.specs(model))
 
-    def stacked(self, arch, model):
-        """This rank's rows and shards of the stacked inputs."""
+    def whole(self, model, arch, key="X"):
+        """The stacked inputs tree ``arch/key`` of every worker."""
+        from repro_torch import tree
+        td, shapes = abstract(model.cfg)
+        return tree.unflatten(td, [torch.from_numpy(
+            self.inp[f"{arch}/{key}/{i}"]) for i in range(len(shapes))])
+
+    def cut(self, model, X):
+        """This rank's rows and shards of a whole stacked tree, on its
+        device."""
         from repro_torch import tree
         from repro_torch.comm import tensor_parallel as TP
-        td, shapes = abstract(model.cfg)
         lo, hi = self.rows()
-        X = tree.unflatten(td, [torch.from_numpy(
-            self.inp[f"{arch}/X/{i}"][lo:hi]).to(self.device)
-            for i in range(len(shapes))])
+        X = tree.map(lambda a: a[lo:hi].to(self.device), X)
         _, r = self.coords()
-        X = TP.shard_tree(X, TP.axis_dims(self.specs(model), "model"), r,
-                          self.model_size)
+        return TP.shard_tree(X, TP.axis_dims(self.specs(model), "model"),
+                             r, self.model_size)
+
+    def stacked(self, arch, model):
+        """This rank's rows and shards of the stacked inputs."""
+        lo, hi = self.rows()
+        X = self.cut(model, self.whole(model, arch))
         batch = {k: torch.from_numpy(self.inp[f"{arch}/{k}"][lo:hi]).to(
             self.device) for k in ("tokens", "labels")}
         return X, batch
@@ -334,13 +356,13 @@ class Runner:
         self.arrays[f"{case}/g_inf"] = np.asarray(float(met["g_inf"]))
         return same, f"replicated leaves equal over model: {same}"
 
-    def trainer_of(self, ckpt=None):
+    def trainer_of(self, ckpt=None, **over):
         from repro_torch.configs.base import InputShape
         from repro_torch.train.trainer import Trainer, TrainerConfig
-        tc = TrainerConfig(algo="moniqua", topology="ring", n_workers=N,
-                           bits=8, steps=2, log_every=1, seed=3,
-                           checkpoint_path=ckpt,
-                           checkpoint_every=2 if ckpt else 0)
+        tc = TrainerConfig(**dict(dict(
+            algo="moniqua", topology="ring", n_workers=N, bits=8, steps=2,
+            log_every=1, seed=3, checkpoint_path=ckpt,
+            checkpoint_every=2 if ckpt else 0), **over))
         return Trainer(self.model(ARCHS[0]), tc,
                        InputShape("lm", S, N * B, "train"), mesh=self.mesh,
                        rules=self.rules if self.mesh is not None else None)
@@ -374,7 +396,8 @@ class Runner:
 
     def serve(self, arch, ring=False):
         """Prefill and ``DECODE`` cached steps; with ``ring``, ``RING_STEPS``
-        steps on a ring of ``RING`` slots instead."""
+        steps on a ring of ``ring`` slots instead (a ``ring-`` case at
+        ``RING``, a ``ring9-`` case at ``RING_WHOLE``)."""
         from repro_torch.configs.base import InputShape
         from repro_torch import tree
         from repro_torch.train import serve_step as SS
@@ -387,7 +410,8 @@ class Runner:
         if self.mesh is not None:
             P = SS.shard_serving_params(model, P, self.mesh, self.rules)
         toks = torch.from_numpy(self.inp[f"{arch}/serve"]).to(self.device)
-        case, slots, steps = ((f"ring-{arch}", RING, RING_STEPS) if ring
+        tag = "ring" if ring == RING else f"ring{RING_WHOLE}"
+        case, slots, steps = ((f"{tag}-{arch}", ring, RING_STEPS) if ring
                               else (f"serve-{arch}", SERVE_S + DECODE,
                                     DECODE))
         if not ring:
@@ -401,7 +425,7 @@ class Runner:
                             axes=("model",))
         cut = all(a.shape == w.shape for a, w in zip(tree.leaves(cache),
                                                        tree.leaves(want)))
-        step = SS.make_serve_step(model, **kw)
+        step = SS.make_serve_step(model, shape=dshape, **kw)
         outs = []
         for s in range(steps):
             lg, cache = step(P, cache, toks[:, s:s + 1])
@@ -433,8 +457,8 @@ class Runner:
             tc["wire"] = "qsgd"
         elif what == "path-bucketed":
             tc["comm_path"] = "bucketed"
-        elif what == "rule-choco":
-            tc["algo"] = "choco"
+        elif what == "telemetry":
+            tc["telemetry"] = True
         try:
             Trainer(model, TrainerConfig(**tc), shape, mesh=self.mesh,
                     rules=rules)
@@ -448,7 +472,14 @@ class Runner:
             out[f"grads-{a}"] = lambda a=a: self.grads(a)
             out[f"serve-{a}"] = lambda a=a: self.serve(a)
         for a in SPLIT_ARCHS:
-            out[f"ring-{a}"] = lambda a=a: self.serve(a, ring=True)
+            out[f"ring-{a}"] = lambda a=a: self.serve(a, ring=RING)
+            out[f"ring{RING_WHOLE}-{a}"] = lambda a=a: self.serve(
+                a, ring=RING_WHOLE)
+        for r in R.RULES:
+            out[f"rule-{r}"] = lambda r=r: R.rule_case(self, r, ARCHS[0], N,
+                                                       THETA)
+        out["round-masked"] = lambda: R.masked_round_case(self, ARCHS[0], N,
+                                                          THETA)
         for w in ROUNDS:
             out[f"round-{w}"] = lambda w=w: self.round(w)
         out[f"round-moniqua8-{MOE_ARCH}"] = lambda: self.round("moniqua8",
@@ -480,6 +511,8 @@ def compare(got: dict, want: dict, case: str, tol: float):
     entry.  The trainer's checkpointed params are left out: after its
     first step a code may round the other way on one side (the JAX test
     counts those); its losses and bytes are held."""
+    if case.startswith("rule-"):
+        return R.compare_rule(got, want, case, tol, MESHES[4][0] > 1)
     keys = sorted(k for k in want if k.startswith(case + "/")
                   and not k.startswith("trainer/ckpt/"))
     if not keys or any(k not in got for k in keys):
